@@ -1,0 +1,25 @@
+"""PyTorch + CUDA port of the Homunculus serving stack for NVIDIA Hopper.
+
+A second package beside the JAX reference (``repro``).  It imports
+``torch``, ``numpy`` and the standard library only — never ``jax``,
+``repro`` or ``homunculus`` — and mirrors the reference's layout so each
+module has a named counterpart:
+
+  ``flowstate/``   per-flow register file + ``StatefulPipeline``
+  ``core/``        stage IR and the CUDA lowering (``cuda_backend``)
+  ``kernels/``     hand-written CUDA C++ kernels (``csrc/``) beside their
+                   plain PyTorch versions (``ref.py``)
+  ``serve/``       ``PacketServeEngine``
+  ``data/``        seeded packet streams (numpy only)
+  ``convert.py``   carries stage lists and register state across from the
+                   reference package without importing it
+
+Device rule: every entry point takes ``device`` (default ``"cuda"``) and
+raises when CUDA is asked for and no GPU exists.  A kernel op launches its
+CUDA kernel for CUDA tensors and runs its plain version for CPU tensors;
+there is no other switch and no fallback.
+"""
+
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,92 @@
+"""Carry stage lists and register state across from the reference
+package without importing it.
+
+``stages_from_reference`` reads each reference stage's ``kind`` string
+and its dataclass fields (numpy arrays, ints, tuples) and builds the
+port's stage; nothing here imports ``repro`` or ``jax``, so the port can
+serve pipelines the reference compiler generated.  ``state_from_numpy`` /
+``state_to_numpy`` move a register file across as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import stageir
+from repro_torch.device import resolve_device
+from repro_torch.flowstate.registers import FlowState, FlowStateSpec
+
+
+def spec_from_reference(spec) -> FlowStateSpec:
+    return FlowStateSpec(
+        n_slots=int(spec.n_slots), n_counters=int(spec.n_counters),
+        n_ewma=int(spec.n_ewma),
+        hist_sizes=tuple(int(h) for h in spec.hist_sizes),
+        ewma_alpha=float(spec.ewma_alpha))
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def _ints(t) -> tuple:
+    return tuple(int(c) for c in t)
+
+
+_CONVERT = {
+    "feature_select": lambda s: stageir.FeatureSelect(np.asarray(s.idx)),
+    "dense": lambda s: stageir.Dense(_f32(s.w), _f32(s.b), s.act),
+    "fused_mlp": lambda s: stageir.FusedMLP(
+        [_f32(w) for w in s.weights], [_f32(b) for b in s.biases]),
+    "fused_classify": lambda s: stageir.FusedClassify(
+        [_f32(w) for w in s.weights], [_f32(b) for b in s.biases]),
+    "centroid_distance": lambda s: stageir.CentroidDistance(
+        _f32(s.centroids)),
+    "quantize": lambda s: stageir.Quantize(_f32(s.edges)),
+    "lut_gather": lambda s: stageir.LUTGather(_f32(s.tables)),
+    "reduce": lambda s: stageir.Reduce(str(s.op)),
+    "label_map": lambda s: stageir.LabelMap(np.asarray(s.table, np.int32)),
+    "flow_key": lambda s: stageir.FlowKey(_ints(s.key_cols),
+                                          int(s.n_slots)),
+    "register_update": lambda s: stageir.RegisterUpdate(
+        spec_from_reference(s.spec), _ints(s.counter_cols),
+        _ints(s.ewma_cols), _ints(s.hist_cols),
+        tuple(np.asarray(e) for e in s.hist_edges)),
+    "window_stats": lambda s: stageir.WindowStats(
+        spec_from_reference(s.spec), str(s.mode)),
+    # the action table is a later slice: keep its spec's fields as a dict
+    "mitigate": lambda s: stageir.Mitigate(dataclasses.asdict(s.spec)),
+}
+
+
+def stages_from_reference(stages) -> list:
+    """Reference stage list -> the port's stages, parameters as numpy."""
+    out = []
+    for s in stages:
+        kind = getattr(s, "kind", None)
+        if kind not in _CONVERT:
+            raise NotImplementedError(f"stage kind {kind!r} not yet ported")
+        out.append(_CONVERT[kind](s))
+    return out
+
+
+def state_from_numpy(keys, regs, spec: FlowStateSpec,
+                     device="cuda") -> FlowState:
+    """[S] int32 keys + [S, W] f32 rows -> a ``FlowState`` on ``device``."""
+    dev = resolve_device(device)
+    keys = torch.as_tensor(np.asarray(keys, np.int32), device=dev)
+    regs = torch.as_tensor(np.asarray(regs, np.float32), device=dev)
+    if tuple(keys.shape) != (spec.n_slots,) \
+            or tuple(regs.shape) != (spec.n_slots, spec.width):
+        raise ValueError(f"state shapes {tuple(keys.shape)}, "
+                         f"{tuple(regs.shape)} do not match {spec}")
+    return FlowState(spec, keys, regs)
+
+
+def state_to_numpy(state: FlowState) -> tuple[np.ndarray, np.ndarray]:
+    """-> (keys [S] int32, regs [S, W] f32) on the host."""
+    return (state.keys.cpu().numpy().astype(np.int32),
+            state.regs.cpu().numpy().astype(np.float32))

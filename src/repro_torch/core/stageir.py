@@ -1,0 +1,376 @@
+"""Stage IR (counterpart of ``repro.core.stageir``): the typed stage list
+a trained pipeline lowers into, with PyTorch ``apply`` forms.
+
+Ported so far: the stateless stages (FeatureSelect, Dense, FusedMLP,
+FusedClassify, CentroidDistance, Quantize, LUTGather, Reduce, LabelMap)
+and the stateful vocabulary of the flow path (FlowKey, RegisterUpdate,
+WindowStats).  ``Mitigate`` is recognised so a pipeline carrying it is
+refused by name; its action table is a later slice, as are TreeTraverse,
+``compile_stages`` and the multi-table grammar.
+
+Stages keep their parameters as numpy arrays (what ``convert`` carries
+across from the reference); ``apply`` moves them to the input's device
+once and reuses that copy.  ``FusedClassify.apply`` calls the CUDA kernel
+op ``kernels.fused_mlp.fused_mlp_classify``; every other ``apply`` is
+plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.flow_update.ref import _M32, _mul32
+from repro_torch.kernels.fused_mlp.ref import mlp_ref
+
+
+def _param(stage, name: str, value, device, dtype):
+    """``value`` as a tensor on ``device``, converted once per device."""
+    cache = stage.__dict__.setdefault("_params", {})
+    key = (name, str(device), dtype)
+    t = cache.get(key)
+    if t is None:
+        t = cache[key] = torch.as_tensor(np.asarray(value), dtype=dtype,
+                                         device=device)
+    return t
+
+
+def _params(stage, name: str, values, device):
+    return [_param(stage, f"{name}{i}", v, device, torch.float32)
+            for i, v in enumerate(values)]
+
+
+class Stage:
+    """One typed pipeline op; ``apply`` maps a [B, F] tensor forward."""
+
+    kind: str = "stage"
+    stateful = False
+
+    def apply(self, h: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+@dataclasses.dataclass(repr=False)
+class FeatureSelect(Stage):
+    idx: np.ndarray                      # feature indices to keep
+
+    kind = "feature_select"
+
+    def apply(self, h):
+        return h[:, _param(self, "idx", self.idx, h.device, torch.int64)]
+
+
+@dataclasses.dataclass(repr=False)
+class Dense(Stage):
+    w: np.ndarray                        # [n_in, n_out]
+    b: np.ndarray                        # [n_out]
+    act: str | None = None               # None | "relu"
+
+    kind = "dense"
+
+    def apply(self, h):
+        out = h @ _param(self, "w", self.w, h.device, torch.float32) \
+            + _param(self, "b", self.b, h.device, torch.float32)
+        return torch.relu(out) if self.act == "relu" else out
+
+
+@dataclasses.dataclass(repr=False)
+class FusedMLP(Stage):
+    """Whole ReLU-MLP -> logits.  The logits kernel (the reference's
+    ``fused_mlp`` ``_kernel``) is not ported yet: this is the plain form."""
+
+    weights: list
+    biases: list
+
+    kind = "fused_mlp"
+
+    def apply(self, h):
+        return mlp_ref(h, _params(self, "w", self.weights, h.device),
+                       _params(self, "b", self.biases, h.device))
+
+
+@dataclasses.dataclass(repr=False)
+class FusedClassify(Stage):
+    """FusedMLP + argmax in one kernel: class ids out, no logits.
+    Produced by ``fuse_pipeline_stages``."""
+
+    weights: list
+    biases: list
+
+    kind = "fused_classify"
+
+    def apply(self, h):
+        from repro_torch.kernels.fused_mlp import fused_mlp_classify_packed
+
+        return fused_mlp_classify_packed(h, self.packed(h.device))
+
+    def packed(self, device):
+        """The weights packed for the kernels, once per device."""
+        from repro_torch.kernels.fused_mlp import pack_params
+
+        cache = self.__dict__.setdefault("_packed", {})
+        key = str(device)
+        if key not in cache:
+            cache[key] = pack_params(self.weights, self.biases,
+                                     device=device)
+        return cache[key]
+
+
+@dataclasses.dataclass(repr=False)
+class CentroidDistance(Stage):
+    centroids: np.ndarray                # [K, F']
+
+    kind = "centroid_distance"
+
+    def apply(self, h):
+        cent = _param(self, "c", self.centroids, h.device, torch.float32)
+        return torch.sum((h[:, None, :] - cent[None]) ** 2, -1)
+
+
+@dataclasses.dataclass(repr=False)
+class Quantize(Stage):
+    edges: np.ndarray                    # [F, BINS-1] sorted edges
+
+    kind = "quantize"
+
+    def apply(self, h):
+        edges = _param(self, "e", self.edges, h.device, torch.float32)
+        return torch.searchsorted(edges, h.T.contiguous(), right=False).T
+
+
+@dataclasses.dataclass(repr=False)
+class LUTGather(Stage):
+    tables: np.ndarray                   # [F, BINS, C] per-feature partials
+
+    kind = "lut_gather"
+
+    def apply(self, bins):
+        tables = _param(self, "t", self.tables, bins.device, torch.float32)
+        f = torch.arange(tables.shape[0], device=bins.device)
+        return tables[f[None, :], bins].sum(1)
+
+
+@dataclasses.dataclass(repr=False)
+class Reduce(Stage):
+    op: str                              # argmax | argmin
+
+    kind = "reduce"
+
+    def apply(self, scores):
+        fn = torch.argmax if self.op == "argmax" else torch.argmin
+        return fn(scores, dim=-1).to(torch.int32)
+
+
+@dataclasses.dataclass(repr=False)
+class LabelMap(Stage):
+    table: np.ndarray                    # [K] id -> class
+
+    kind = "label_map"
+
+    def apply(self, ids):
+        return _param(self, "t", self.table, ids.device,
+                      torch.int32)[ids.long()]
+
+
+# ------------------------------------------------------ stateful vocabulary
+
+
+@dataclasses.dataclass(repr=False)
+class FlowKey(Stage):
+    """Mix packet header columns into a non-negative int32 flow key:
+    columns rounded half-to-even, cast to int32 then uint32, FNV-folded;
+    the sign bit is cleared (the register file reserves -1 for empty)."""
+
+    key_cols: tuple
+    n_slots: int
+
+    kind = "flow_key"
+    stateful = True
+
+    def apply(self, h):
+        raise TypeError("FlowKey is stateful; serve it through "
+                        "repro_torch.flowstate.StatefulPipeline")
+
+    def apply_keys(self, h: torch.Tensor) -> torch.Tensor:
+        """[B, F] packet rows -> [B] int32 flow keys (uint32 arithmetic in
+        int64 with ``& 0xFFFFFFFF``)."""
+        key = torch.zeros(h.shape[0], dtype=torch.int64, device=h.device)
+        for c in self.key_cols:
+            v = torch.round(h[:, c]).to(torch.int32).to(torch.int64) & _M32
+            key = _mul32(key, 16777619) ^ v
+        return (key & 0x7FFFFFFF).to(torch.int32)
+
+
+@dataclasses.dataclass(repr=False)
+class RegisterUpdate(Stage):
+    """Per-flow register update.  Per packet: counter 0 += 1; counter 1+j
+    += column ``counter_cols[j]``; EWMA j blends ``ewma_cols[j]``;
+    histogram j bumps bucket ``searchsorted(hist_edges[j], col)``.
+    ``prepare`` derives the update vectors; the stateful update itself is
+    ``kernels.flow_update`` (or the fused launch)."""
+
+    spec: object                         # flowstate.registers.FlowStateSpec
+    counter_cols: tuple = ()
+    ewma_cols: tuple = ()
+    hist_cols: tuple = ()
+    hist_edges: tuple = ()
+
+    kind = "register_update"
+    stateful = True
+
+    def __post_init__(self):
+        s = self.spec
+        if s.n_counters != 1 + len(self.counter_cols):
+            raise ValueError(
+                f"spec.n_counters={s.n_counters} != 1 (pkt count) + "
+                f"{len(self.counter_cols)} counter_cols")
+        if s.n_ewma != len(self.ewma_cols):
+            raise ValueError("spec.n_ewma != len(ewma_cols)")
+        if len(self.hist_cols) != len(self.hist_edges):
+            raise ValueError("hist_cols and hist_edges must pair up")
+        sizes = tuple(len(np.asarray(e)) + 1 for e in self.hist_edges)
+        if tuple(s.hist_sizes) != sizes:
+            raise ValueError(
+                f"spec.hist_sizes={tuple(s.hist_sizes)} != bins implied by "
+                f"hist_edges {sizes}")
+
+    def apply(self, h):
+        raise TypeError("RegisterUpdate is stateful; serve it through "
+                        "repro_torch.flowstate.StatefulPipeline")
+
+    def prepare(self, h: torch.Tensor):
+        """[B, F] packet rows -> (upd [B, C+E] f32, bins [B, H] int32
+        absolute register columns)."""
+        B = h.shape[0]
+        cols = [torch.ones((B, 1), dtype=torch.float32, device=h.device)]
+        for c in tuple(self.counter_cols) + tuple(self.ewma_cols):
+            cols.append(h[:, c:c + 1])
+        upd = torch.cat(cols, 1).to(torch.float32)
+        if not self.hist_cols:
+            return upd, torch.full((B, 1), -1, dtype=torch.int32,
+                                   device=h.device)
+        offs = self.spec.hist_offsets
+        bins = [
+            (torch.searchsorted(
+                _param(self, f"e{j}", e, h.device, torch.float32),
+                h[:, c].contiguous(), right=False).to(torch.int32)
+             + offs[j])[:, None]
+            for j, (c, e) in enumerate(zip(self.hist_cols, self.hist_edges))
+        ]
+        return upd, torch.cat(bins, 1)
+
+
+@dataclasses.dataclass(repr=False)
+class WindowStats(Stage):
+    """Registers -> windowed statistics: ``"all"`` = counters ++ EWMAs ++
+    histograms / packet count; ``"hist"`` = normalised histograms only."""
+
+    spec: object
+    mode: str = "all"
+
+    kind = "window_stats"
+
+    def __post_init__(self):
+        if self.mode not in ("all", "hist"):
+            raise KeyError(f"WindowStats mode must be all|hist: {self.mode}")
+
+    @property
+    def n_out(self) -> int:
+        s = self.spec
+        return sum(s.hist_sizes) if self.mode == "hist" else s.width
+
+    def apply(self, feats):
+        s = self.spec
+        head = s.n_counters + s.n_ewma
+        denom = torch.clamp(feats[:, :1], min=1.0)   # counter 0 = count
+        hist = feats[:, head:] / denom
+        if self.mode == "hist":
+            return hist
+        return torch.cat([feats[:, :head], hist], 1)
+
+
+@dataclasses.dataclass(repr=False)
+class Mitigate(Stage):
+    """Per-flow drop / rate-limit action table fed by the verdicts.  Only
+    recognised so far: the action table is ported in a later slice."""
+
+    spec: object
+
+    kind = "mitigate"
+    stateful = True
+
+    def apply(self, h):
+        raise TypeError("Mitigate is stateful and not yet ported")
+
+
+def is_stateful(stage: Stage) -> bool:
+    return bool(getattr(stage, "stateful", False))
+
+
+def split_mitigation(stages: list) -> tuple[list, Mitigate | None]:
+    """Split off the trailing ``Mitigate`` stage -> (rest, mitigate|None);
+    any other placement raises."""
+    mits = [i for i, s in enumerate(stages) if isinstance(s, Mitigate)]
+    if not mits:
+        return list(stages), None
+    if len(mits) > 1 or mits[0] != len(stages) - 1:
+        raise ValueError(
+            "Mitigate consumes verdicts and must be the single LAST "
+            f"stage; got it at positions {mits} of {len(stages)} stages")
+    return list(stages[:-1]), stages[-1]
+
+
+def split_stateful(stages: list) -> tuple[list, list]:
+    """A stateful pipeline -> ([FlowKey, RegisterUpdate], suffix); raises
+    on any other arrangement or a stateful stage in the suffix."""
+    if len(stages) < 2 or not isinstance(stages[0], FlowKey) \
+            or not isinstance(stages[1], RegisterUpdate):
+        raise ValueError(
+            "stateful pipelines must start with [FlowKey, RegisterUpdate]; "
+            f"got {[s.kind for s in stages[:2]]}")
+    suffix = list(stages[2:])
+    bad = [s.kind for s in suffix if is_stateful(s)]
+    if bad:
+        raise ValueError(f"stateful stages {bad} outside the prefix")
+    return list(stages[:2]), suffix
+
+
+def apply_stages(stages: list, x: torch.Tensor) -> torch.Tensor:
+    h = x
+    for s in stages:
+        h = s.apply(h)
+    return h
+
+
+def fuse_pipeline_stages(stages: list) -> list:
+    """Peephole: FusedMLP -> Reduce(argmax) becomes FusedClassify."""
+    out: list = []
+    i = 0
+    while i < len(stages):
+        s = stages[i]
+        nxt = stages[i + 1] if i + 1 < len(stages) else None
+        if (isinstance(s, FusedMLP) and isinstance(nxt, Reduce)
+                and nxt.op == "argmax"):
+            out.append(FusedClassify(s.weights, s.biases))
+            i += 2
+            continue
+        out.append(s)
+        i += 1
+    return out
+
+
+def unfuse_pipeline_stages(stages: list) -> list:
+    """Inverse peephole: FusedClassify -> FusedMLP, Reduce(argmax) — the
+    plain form the ``interpret`` backend walks (no kernel runs)."""
+    out: list = []
+    for s in stages:
+        if isinstance(s, FusedClassify):
+            out += [FusedMLP(s.weights, s.biases), Reduce("argmax")]
+        else:
+            out.append(s)
+    return out

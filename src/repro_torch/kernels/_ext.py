@@ -1,0 +1,63 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+All ``.cu`` sources go through ONE ``torch.utils.cpp_extension.load``
+call at first use.  The ``.cu`` files expose plain C launchers and never
+include PyTorch's headers (nvcc compiles them in seconds); only the small
+``kernels/csrc/binding.cpp`` includes ``torch/extension.h``.  The build
+lands in ``build/torch_kernels/`` at the repository root.
+
+No ``--use_fast_math``: the WindowStats readout divide must stay the IEEE
+divide so the readout rows match the reference bit for bit.
+
+A failed build raises.  Nothing here hands over to a plain version.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+_REPO = _PKG.parents[2]
+BUILD_DIR = _REPO / "build" / "torch_kernels"
+
+SOURCES = (
+    _PKG / "csrc" / "binding.cpp",
+    _PKG / "flow_update" / "csrc" / "flow_update.cu",
+    _PKG / "fused_mlp" / "csrc" / "fused_mlp.cu",
+    _PKG / "fused_flow" / "csrc" / "fused_flow.cu",
+)
+CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
+
+# launches per kernel wrapper, counted where each wrapper launches its
+# kernel and nowhere else (chip_smoke.py reads them around the main path)
+LAUNCHES = {"fused_flow_serve": 0, "flow_update": 0, "fused_mlp_classify": 0}
+
+_EXT = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def extension():
+    """The loaded extension module, built on first call."""
+    global _EXT
+    if _EXT is None:
+        from torch.utils.cpp_extension import load
+
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        _EXT = load(
+            name="repro_torch_kernels",
+            sources=[str(s) for s in SOURCES],
+            build_directory=str(BUILD_DIR),
+            extra_include_paths=[str(_PKG / "csrc")],
+            extra_cuda_cflags=list(CUDA_FLAGS),
+            verbose=False,
+        )
+    return _EXT

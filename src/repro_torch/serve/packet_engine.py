@@ -1,0 +1,288 @@
+"""Micro-batching packet-serving engine for stateful pipelines
+(counterpart of ``repro.serve.packet_engine.PacketServeEngine``).
+
+Incoming packets are cut into batches of a FIXED shape ``max_batch``;
+ragged tails are padded with ``valid=0`` rows, which never touch the
+register file, and their verdicts are sliced off.  Verdicts come back in
+arrival order at any ``depth``.
+
+Overlap: up to ``depth`` batches stay in flight.  Each batch is staged in
+one of ``depth+1`` pinned host buffers, copied to the card and dispatched
+on the current stream without waiting; its verdicts are copied back into
+a pinned buffer behind a CUDA event, and only ``flush()``/stream
+consumption waits on that event.  Successive batches chain through the
+register state on one stream, so overlap never reorders updates.  A
+staging buffer is refilled only after the batch that used it was
+fetched, so an in-flight copy never reads a buffer being written.
+
+``ServeStats`` separates host dispatch time (``dispatch_s``) from
+per-batch latency (dispatch -> verdicts on the host) and counts
+``wall_s`` as the active serving span, overlapping windows merged.
+
+Hot swap, telemetry and the stateless ``CompiledDag`` path are later
+slices.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class ServeStats:
+    packets: int = 0
+    batches: int = 0
+    pad_packets: int = 0           # zero rows added to fill fixed shapes
+    backend_counts: dict = dataclasses.field(default_factory=dict)
+    wall_s: float = 0.0            # active serving span (overlap merged)
+    dispatch_s: float = 0.0        # host time staging + launching batches
+    backend: str = "interpret"     # engine the pipeline actually runs on
+    depth: int = 1                 # in-flight cap
+    # trailing window of per-batch latencies (dispatch -> verdicts on host)
+    batch_lat_s: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=ServeStats.LAT_WINDOW)
+    )
+
+    LAT_WINDOW = 4096
+
+    @property
+    def pkt_per_s(self) -> float:
+        if self.batches == 0:
+            return 0.0
+        return self.packets / max(self.wall_s, 1e-9)
+
+    def _lat_ms(self, q: float) -> float:
+        if not self.batch_lat_s:
+            return 0.0
+        return float(np.percentile(np.asarray(self.batch_lat_s), q)) * 1e3
+
+    @property
+    def lat_p50_ms(self) -> float:
+        return self._lat_ms(50)
+
+    @property
+    def lat_p95_ms(self) -> float:
+        return self._lat_ms(95)
+
+    @property
+    def lat_p99_ms(self) -> float:
+        return self._lat_ms(99)
+
+    @property
+    def backend_batches(self) -> dict:
+        """Batch count per serving engine."""
+        return dict(self.backend_counts)
+
+    def count_batch(self, backend: str, n: int, pad: int = 0) -> None:
+        self.batches += 1
+        self.packets += n
+        self.pad_packets += pad
+        self.backend_counts[backend] = \
+            self.backend_counts.get(backend, 0) + 1
+
+    def as_dict(self) -> dict:
+        return {
+            "packets": self.packets,
+            "batches": self.batches,
+            "pad_packets": self.pad_packets,
+            "wall_s": self.wall_s,
+            "dispatch_s": self.dispatch_s,
+            "pkt_per_s": self.pkt_per_s,
+            "lat_p50_ms": self.lat_p50_ms,
+            "lat_p95_ms": self.lat_p95_ms,
+            "lat_p99_ms": self.lat_p99_ms,
+            "backend": self.backend,
+            "backend_batches": self.backend_batches,
+            "depth": self.depth,
+        }
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched batch whose verdicts are not fetched yet."""
+
+    n: int                         # real (non-padding) rows
+    out: torch.Tensor              # host tensor the verdicts land in
+    t0: float                      # dispatch start
+    event: Any                     # CUDA event after the copy, or None
+    ready: float | None            # completion time when known at dispatch
+
+
+class PacketServeEngine:
+    """Micro-batching front end over one ``StatefulPipeline``.
+
+    ``backend`` (``"interpret"`` | ``"cuda"``) recompiles the pipeline for
+    that engine, keeping its ``fuse`` flag; ``device`` (default
+    ``"cuda"``) is where it serves — a pipeline built for another device
+    is recompiled for this one.  ``state`` resumes an existing register
+    file (on the card the engine then updates its tensors in place); None
+    starts empty.  ``depth`` batches stay in flight."""
+
+    def __init__(self, pipeline, *, feature_dim: int, max_batch: int = 256,
+                 backend: str | None = None, state=None, depth: int = 2,
+                 device="cuda"):
+        if not hasattr(pipeline, "init_state"):
+            raise TypeError("the port serves stateful pipelines only; the "
+                            "stateless CompiledDag path is a later slice")
+        dev = resolve_device(device)
+        if backend is not None or pipeline.device != dev:
+            pipeline = pipeline.with_backend(
+                backend or pipeline.requested_backend, device=dev)
+        self.pipeline = pipeline
+        self.device = dev
+        self.backend = pipeline.backend
+        self.feature_dim = int(feature_dim)
+        self.max_batch = int(max_batch)
+        self.depth = max(1, int(depth))
+        self.state = state if state is not None else pipeline.init_state()
+        self._queue: collections.deque[np.ndarray] = collections.deque()
+        self._pending = 0
+        self._inflight: collections.deque[_InFlight] = collections.deque()
+        # depth+1 staging slots: the one being filled is never one an
+        # in-flight batch may still be copying from
+        pinned = dev.type == "cuda"
+
+        def ring(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, pin_memory=pinned)
+                    for _ in range(self.depth + 1)]
+
+        self._staging = ring((self.max_batch, self.feature_dim),
+                             torch.float32)
+        self._valid_staging = ring((self.max_batch,), torch.int32)
+        self._out_staging = ring((self.max_batch,), torch.int32)
+        self._staging_i = 0
+        self._mark: float | None = None
+        self.stats_ = ServeStats(backend=self.backend, depth=self.depth)
+        self._warm_up()
+
+    def _warm_up(self) -> None:
+        """Build the kernels and run one all-padding batch, so serving
+        time excludes the build; the register file is unchanged."""
+        zeros = torch.zeros((self.max_batch, self.feature_dim))
+        self.state, _ = self.pipeline(
+            self.state, zeros, torch.zeros(self.max_batch, dtype=torch.int32))
+
+    # ------------------------------------------------------------ intake
+
+    def submit(self, packets: np.ndarray) -> None:
+        """Enqueue a [n, F] chunk (copied: callers may reuse buffers)."""
+        pkts = np.array(packets, np.float32)
+        if pkts.ndim == 1:
+            pkts = pkts[None, :]
+        if pkts.shape[1] != self.feature_dim:
+            raise ValueError(
+                f"expected {self.feature_dim} features, got {pkts.shape[1]}")
+        self._queue.append(pkts)
+        self._pending += len(pkts)
+
+    @property
+    def pending(self) -> int:
+        return self._pending
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._inflight)
+
+    # ----------------------------------------------------------- serving
+
+    def _take(self, n: int) -> np.ndarray:
+        """Pop exactly n rows off the queue head (views where possible;
+        a small residual of a large chunk is copied so the parent can go)."""
+        taken, got = [], 0
+        while got < n:
+            head = self._queue[0]
+            need = n - got
+            if len(head) <= need:
+                taken.append(self._queue.popleft())
+                got += len(head)
+            else:
+                taken.append(head[:need])
+                rest = head[need:]
+                if len(rest) * 4 < len(head):
+                    rest = rest.copy()
+                self._queue[0] = rest
+                got = n
+        self._pending -= n
+        return taken[0] if len(taken) == 1 else np.concatenate(taken, 0)
+
+    def _dispatch_batch(self, rows: np.ndarray) -> int:
+        n = len(rows)
+        pad = self.max_batch - n
+        i = self._staging_i
+        self._staging_i = (i + 1) % len(self._staging)
+        buf, valid = self._staging[i], self._valid_staging[i]
+        b, v = buf.numpy(), valid.numpy()
+        b[:n] = rows
+        b[n:] = 0.0
+        v[:n] = 1
+        v[n:] = 0
+        t0 = time.perf_counter()
+        if not self._inflight:
+            self._mark = t0
+        self.state, out = self.pipeline.dispatch(self.state, buf, valid)
+        if self.device.type == "cuda":
+            host = self._out_staging[i]
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            flight = _InFlight(n, host, t0, event, None)
+        else:
+            flight = _InFlight(n, out, t0, None, time.perf_counter())
+        self.stats_.dispatch_s += time.perf_counter() - t0
+        self.stats_.count_batch(self.backend, n, pad)
+        self._inflight.append(flight)
+        return n
+
+    def _fetch_one(self) -> np.ndarray:
+        """Materialise the oldest in-flight batch (FIFO: arrival order)."""
+        f = self._inflight.popleft()
+        if f.event is not None:
+            f.event.synchronize()
+        out = f.out.numpy()[:f.n].astype(np.int32, copy=True)
+        end = f.ready if f.ready is not None else time.perf_counter()
+        self.stats_.batch_lat_s.append(end - f.t0)
+        if self._mark is not None:
+            self.stats_.wall_s += max(0.0, end - self._mark)
+            self._mark = max(self._mark, end) if self._inflight else None
+        return out
+
+    def flush(self) -> np.ndarray:
+        """Serve everything pending; verdicts in arrival order."""
+        outs = []
+        while self._pending:
+            while len(self._inflight) >= self.depth:
+                outs.append(self._fetch_one())
+            self._dispatch_batch(
+                self._take(min(self.max_batch, self._pending)))
+        while self._inflight:
+            outs.append(self._fetch_one())
+        if not outs:
+            return np.zeros((0,), np.int32)
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, 0)
+
+    def serve_stream(self, chunks: Iterable[np.ndarray]
+                     ) -> Iterator[np.ndarray]:
+        """Yield verdicts per full batch as the stream arrives; the tail
+        is flushed at the end.  With ``depth>1`` the next batch is
+        dispatched before the previous result is consumed."""
+        for chunk in chunks:
+            self.submit(chunk)
+            while self._pending >= self.max_batch:
+                while len(self._inflight) >= self.depth:
+                    yield self._fetch_one()
+                self._dispatch_batch(self._take(self.max_batch))
+        if self._pending or self._inflight:
+            tail = self.flush()
+            if len(tail):
+                yield tail
+
+    def stats(self) -> dict:
+        return self.stats_.as_dict()
