@@ -4,28 +4,54 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (into
-``build/torch_kernels/``), then drives the flow-ddos stateful serving
-path on the card and checks it, printing one JSON line per phase:
+``build/torch_kernels/``), then drives the stateful serving paths on the
+card and checks them, printing one JSON line per phase:
 
   1. device and build: ``nvidia-smi`` name / power limit, build seconds;
-  2. kernels: K1 ``fused_flow_serve``, K2 ``flow_update`` and K3
-     ``fused_mlp_classify`` against their plain PyTorch versions on the
-     card, on the seeded collision patterns of ``repro_torch.testing`` at
-     B=512 with 2,048 slots and in each of K1's readout modes ("all",
-     "hist", "raw"; state exact, verdicts under the margin rule), and
-     each kernel's time per launch over 50 back-to-back launches (CUDA
-     events) and its device time (torch.profiler) on a flow-ddos batch,
-     beside its plain version and its bound;
-  3. the path at flow-ddos's full size (2,048 slots, W=28, MLP
-     [28, 16, 8, 2] with seeded weights, a 16,000-packet ddos_burst
-     stream, seed 1): ``PacketServeEngine(backend="cuda", depth=2)`` at
-     max_batch 256 and 512, fused and split, held against
-     ``backend="interpret"`` and the plain whole-stream walk on the card;
-     pkt/s and p50/p99 batch latency per configuration.  Launch counts
-     are set to 0 just before and read just after the cuda runs;
-  4. the largest table the envelope admits (65,536 slots), max_batch
-     512, fused, same checks;
-  5. where the time goes on the fused path: device busy time (profiler)
+  2. kernels: K1 ``fused_flow_serve``, K2 ``flow_update``, K3
+     ``fused_mlp_classify`` and K4 ``mat_lut_classify`` against their
+     plain PyTorch versions on the card.  ``kernels_check``: the seeded
+     collision patterns of ``repro_torch.testing`` at B=512 with 2,048
+     slots in each of K1's readout modes ("all", "hist", "raw"; state
+     exact, verdicts under the margin rule).  ``kernels_check_suffix``:
+     K1's "mat" suffix (argmax and argmin), its "centroid" suffix with
+     duplicated centroids, its mitigation phase in "drop" and
+     "rate_limit" modes with 2,048 action slots (the flow table's
+     segmentation) and 4,096 (its own) on patterns that collide in both
+     tables, and K4 on ragged batches; state, action tables and MAT
+     verdicts exact, centroid and MLP verdicts under the margin rule.
+     ``kernels_time``: each kernel's time per launch over 50
+     back-to-back launches (CUDA events) and its device time
+     (torch.profiler, the kernel's exact instance, null unless it saw one
+     event per call) on a batch of the stream, beside its plain version
+     and its bound, K1 in each mode.  ``split_action_table``: the split
+     path's action table (plain PyTorch on the card) against the
+     sequential walk, exact, with CUDA's sync debug mode set to raise;
+  3. the paths, each driven with the launch counts set to 0 just before
+     and read just after, and held against ``backend="interpret"`` (the
+     plain walk, which launches nothing):
+     - ``path_flow_ddos``: 2,048 slots, W=28, MLP [28, 16, 8, 2] with
+       seeded weights, a 16,000-packet ddos_burst stream (seed 1),
+       ``PacketServeEngine(backend="cuda", depth=2)`` at max_batch 256
+       and 512, fused (K1) and split (K2 + K3), also against the plain
+       whole-stream walk; ``path_max_slots``: 65,536 slots, B=512;
+     - ``path_mat_fused`` / ``path_mitigate_fused``
+       (benchmarks/flow_throughput.py:58-80): the same prefix with the
+       MAT suffix (edges [28, 7], tables [28, 8, 4] from default_rng(7),
+       LabelMap [0, 1, 1, 0]), without and with Mitigate(2,048 slots,
+       threshold 6): fused (K1) and split (K2 + K4, the action table in
+       plain PyTorch on the card, "mixed"); final state, action table
+       and verdicts exact; MITIGATED verdicts must occur;
+     - ``attack_defense`` (benchmarks/attack_defense.py:47-61,135-170):
+       syn_flood, udp_flood and coordinated_ddos at 12,000 packets,
+       4,096 action slots, threshold 8, B=512, fused (and syn_flood
+       split) against interpret: identical verdicts and tables, zero
+       leaked packets in drop mode;
+       then a rate_limit run that hot-swaps to an identical pipeline
+       mid-stream while flows are limited: the verdict stream unchanged
+       and exactly one swap;
+     pkt/s and p50/p99 batch latency per configuration;
+  4. where the time goes on the fused paths: device busy time (profiler)
      against the serving wall time, launches per batch, top host ops.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -53,6 +79,12 @@ F32_FLOP_PER_S = 67e12
 B_KERNEL, S_KERNEL = 512, 2048
 N_PACKETS, STREAM_SEED, MLP_WIDTHS = 16_000, 1, (28, 16, 8, 2)
 TIMED_LAUNCHES = 50
+# mat-fused / mitigate-fused (benchmarks/flow_throughput.py:58-80)
+MIT_SLOTS, MIT_THRESHOLD = 2048, 6
+# attack/defense (benchmarks/attack_defense.py:47-61)
+AD_PACKETS, AD_MIT_SLOTS, AD_THRESHOLD, AD_BATCH = 12_000, 4096, 8, 512
+AD_SCENARIOS = ("syn_flood", "udp_flood", "coordinated_ddos")
+AD_TRAIN_SEED, AD_KEEP_EVERY = 0, 4
 
 
 class CheckFailed(Exception):
@@ -89,6 +121,44 @@ def flow_ddos_stages(n_slots: int):
     return [fk, ru, ws, stageir.FusedMLP(w, b), stageir.Reduce("argmax")]
 
 
+def mat_fused_stages(n_slots: int, mitigated: bool):
+    """The mat-fused pipeline, with Mitigate for mitigate-fused."""
+    from repro_torch.core import stageir
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import MitigationSpec
+    from repro_torch.testing import mat_stages
+
+    (fk, ru, ws), _ = traffic.flow_feature_stages(n_slots=n_slots)
+    stages = [fk, ru, ws] + mat_stages(ws.n_out)
+    if mitigated:
+        stages.append(stageir.Mitigate(MitigationSpec(
+            n_slots=MIT_SLOTS, threshold=MIT_THRESHOLD)))
+    return stages
+
+
+def attack_defense_stages(scenario: str, mode: str = "drop"):
+    """The attack/defense pipeline: the flow-ddos prefix, the seeded MLP
+    [28, 16, 8, 2] with the input standardisation of the scenario's
+    training stream (seed 0) folded in, and Mitigate(4,096 slots,
+    threshold 8).  The reference trains the MLP (``train_dnn``, not
+    ported); the weights here are random."""
+    from repro_torch.core import stageir
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import MitigationSpec
+    from repro_torch.testing import random_mlp, readout_moments
+
+    (fk, ru, ws), _ = traffic.flow_feature_stages(n_slots=S_KERNEL)
+    train = traffic.make_stream(scenario, n_packets=AD_PACKETS,
+                                seed=AD_TRAIN_SEED)
+    mu, sd = readout_moments([fk, ru, ws], train.packets)
+    w, b = random_mlp(MLP_WIDTHS, seed=0)
+    detector = traffic.fold_input_standardization(
+        [stageir.FusedMLP(w, b), stageir.Reduce("argmax")], mu, sd)
+    return [fk, ru, ws] + detector + [stageir.Mitigate(MitigationSpec(
+        n_slots=AD_MIT_SLOTS, mode=mode, threshold=AD_THRESHOLD,
+        keep_every=AD_KEEP_EVERY))]
+
+
 def time_ms(fn, n: int) -> float:
     """Time per call of ``fn()``: CUDA events around n back-to-back calls
     after a warm-up call."""
@@ -107,11 +177,19 @@ def time_ms(fn, n: int) -> float:
 
 
 def kernel_device_ms(calls: dict, n: int = 20) -> dict:
-    """Device time per call of each named CUDA kernel, from one
-    torch.profiler session: ``calls`` maps a kernel name to the function
-    that launches it.  A kernel the profiler saw no device time for maps
-    to None."""
+    """Device time per call of each CUDA kernel, from one torch.profiler
+    run: ``calls`` maps a kernel's exact name — a template by its
+    instance, as the profiler demangles it (``fused_flow_kernel<1,
+    true>``) — to a function that launches it once.  -> {name: {"ms",
+    "events", "keys"}}: "events" counts the profiler's kernel events of
+    exactly that name, "ms" is their device time per call and None
+    unless there were n of them, and "keys" lists, when they were not,
+    every kernel key that holds the name's stem, to show what the
+    profiler saw instead."""
+    import re
+
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -119,12 +197,34 @@ def kernel_device_ms(calls: dict, n: int = 20) -> dict:
             for _ in range(n):
                 fn()
         torch.cuda.synchronize()
-    avg = prof.key_averages()
+    avg = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
     out = {}
     for kernel in calls:
-        us = sum(getattr(e, "device_time_total", 0.0) for e in avg
-                 if kernel in e.key)
-        out[kernel] = us / n / 1e3 if us else None
+        exact = re.compile(r"(^|[\s:])" + re.escape(kernel) + r"\(")
+        hits = [e for e in avg if exact.search(e.key)]
+        events = sum(e.count for e in hits)
+        us = sum(e.self_device_time_total for e in hits)
+        stem = kernel.split("<")[0]
+        out[kernel] = {
+            "ms": us / n / 1e3 if events == n else None, "events": events,
+            "keys": [] if events == n else
+            [f"{e.key[:120]} x{e.count}" for e in avg if stem in e.key]}
+    return out
+
+
+# K1's template instance, as the profiler names it: the suffix kind's
+# index in SUFFIX_KINDS and whether the mitigation phase is compiled in
+K1_INSTANCE = "fused_flow_kernel<{kind}, {mit}>"
+
+
+def kernel_fields(seen: dict) -> dict:
+    """``kernel_device_ms``'s reading of one kernel -> the timing
+    entry's "kernel_ms" and, for a count that is not the call count,
+    what the profiler saw."""
+    out = {"kernel_ms": seen["ms"], "kernel_events": seen["events"]}
+    if seen["keys"]:
+        out["kernel_keys"] = seen["keys"]
     return out
 
 
@@ -215,6 +315,7 @@ def kernel_phase(dev):
     emit({"phase": "kernels_check", "cases": len(cases), "B": B_KERNEL,
           "n_slots": S_KERNEL, "widths": [spec.width, wide.width],
           "modes": sorted({c[1] for c in cases}), "max_abs_err": err})
+    err.update(suffix_kernel_phase(dev))
     kw = dict(n_counters=spec.n_counters, n_ewma=spec.n_ewma,
               alpha=spec.ewma_alpha)
     return err, timing(dev, stages, table_plan(spec, "all"),
@@ -278,6 +379,139 @@ def check_kernels(dev, spec, mode: str, mlp, pattern: str, ragged: bool,
     }
 
 
+def suffix_kernel_phase(dev):
+    """K1's "mat" and "centroid" suffixes and its mitigation phase, and
+    K4, against their plain versions on the card.  Each K1 case applies
+    two batches of a pattern (the second ragged) to the flow-ddos table,
+    the first leaving a table the second partly continues and partly
+    evicts; keys, rows, action keys and rows must be bit-exact, MAT and
+    mitigated verdicts exact, centroid verdicts under the margin rule.
+    -> max abs error per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flow_update as fu
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import mat_lut as ml
+    from repro_torch.testing import (
+        flow_batch,
+        mat_stages,
+        random_mlp,
+        verdict_mismatches,
+    )
+
+    spec = flow_ddos_stages(S_KERNEL)[1].spec
+    W = spec.width
+    tp = table_plan(spec, "all")
+    mat_st = mat_stages(W)
+    mats = {m: ml.pack_mat(mat_st[0].edges, mat_st[1].tables,
+                           mat_st[3].table, use_min=m, device=dev)
+            for m in (False, True)}
+    rng = np.random.default_rng(11)
+    cent = (rng.random((4, 6)) * np.asarray([40, 1, 1, 1, 1, 1])
+            ).astype(np.float32)
+    cent[2] = cent[0]                        # duplicated: exact ties
+    fidx = (0, 2, 4, 5, 9, 12)
+    cents = ff.pack_centroids(cent, [0, 1, 0, 1], fidx, use_min=True,
+                              device=dev)
+    mlp = fm.pack_params(*random_mlp((W, 16, 8, 2), seed=0), device=dev)
+    suffixes = {
+        "mat": (ff.SuffixPlan("mat", 4), mats[False]),
+        "mat_min": (ff.SuffixPlan("mat", 4), mats[True]),
+        "centroid": (ff.SuffixPlan("centroid", 4), cents),
+        "mlp": (ff.SuffixPlan("mlp", 2), mlp),
+    }
+    cases = ([(k, None, None, p) for k in ("mat", "mat_min", "centroid")
+              for p in ("slot_runs", "one_hot_flow", "same_slot")]
+             + [(k, sm, mode, p) for k in ("mat", "centroid")
+                for sm in (S_KERNEL, 2 * S_KERNEL)
+                for mode in ("drop", "rate_limit")
+                for p in ("slot_runs", "one_hot_flow")]
+             + [("mlp", 2 * S_KERNEL, mode, "slot_runs")
+                for mode in ("drop", "rate_limit")])
+    err = {"fused_flow_serve": 0.0, "mat_lut_classify": 0.0}
+    dropped = 0
+    for i, (kind, sm, mode, pattern) in enumerate(cases):
+        sp, params = suffixes[kind]
+        mit = None
+        if sm is not None:
+            mit = (torch.full((sm,), -1, dtype=torch.int32, device=dev),
+                   torch.zeros((sm, 2), device=dev),
+                   ff.MitigationSpec(n_slots=sm, mode=mode, threshold=3,
+                                     keep_every=3))
+        keys = torch.full((spec.n_slots,), -1, dtype=torch.int32,
+                          device=dev)
+        regs = torch.zeros((spec.n_slots, W), device=dev)
+        name = f"{kind} {pattern} mit={sm} {mode}"
+        for step in range(2):
+            b = {k: torch.as_tensor(v, device=dev) for k, v in flow_batch(
+                spec, pattern, B_KERNEL, seed=200 + 2 * i + step,
+                ragged=step == 1, key_slots=max(spec.n_slots, sm or 0)
+            ).items()}
+            ops = (keys, regs, b["pkt_keys"], b["upd"], b["bins"],
+                   b["valid"])
+            ref = ff.fused_flow_serve_ref(*ops, tp, sp, params, mit)
+            got = ff.fused_flow_serve(
+                keys.clone(), regs.clone(), *ops[2:], tp, sp, params,
+                None if mit is None else (mit[0].clone(), mit[1].clone(),
+                                          mit[2]))
+            torch.cuda.synchronize()
+            for r, g in zip(ref[:-1], got[:-1]):
+                bits = (lambda x: x.view(torch.int32)) \
+                    if r.dtype == torch.float32 else (lambda x: x)
+                check(torch.equal(bits(r), bits(g)),
+                      f"K1 state differs on {name}")
+                err["fused_flow_serve"] = max(err["fused_flow_serve"],
+                                              max_abs(r, g))
+            if kind == "centroid" or kind == "mlp":
+                # verdicts under the margin rule: the plain scores
+                _, _, feats = fu.flow_update_ref(
+                    *ops, n_counters=spec.n_counters, n_ewma=spec.n_ewma,
+                    alpha=spec.ewma_alpha)
+                z = ff.suffix_readout(feats, tp)
+                sc = ff.suffix_scores(z, params, sp).cpu().numpy()
+                lm = (params.lmap.cpu().numpy() if kind == "centroid"
+                      else None)
+                ok = got[-1].cpu().numpy()
+                if mit is not None:          # margin rows would show here
+                    check(np.array_equal(ok, ref[-1].cpu().numpy()),
+                          f"K1 mitigated verdicts differ on {name}")
+                else:
+                    bad, _ = verdict_mismatches(
+                        ok, sc, use_min=kind == "centroid", label_map=lm)
+                    check(bad == 0, f"K1 verdicts differ on {name}")
+            else:
+                check(torch.equal(ref[-1], got[-1]),
+                      f"K1 verdicts differ on {name}")
+            if mit is not None:
+                dropped += int((got[-1] == -1).sum())
+                mit = (ref[2], ref[3], mit[2])
+            keys, regs = ref[0], ref[1]
+    check(dropped > 0, "no mitigation case dropped a packet")
+    # K4 on ragged batches, rows that hit edge values exactly
+    edges = mat_st[0].edges
+    for B in (1, 37, 517, 4096):
+        x = (rng.random((B, W)) * 2).astype(np.float32)
+        x[:, 0] = rng.integers(0, 10, B)
+        hit = rng.random((B, W)) < 0.2
+        x[hit] = edges[np.nonzero(hit)[1], rng.integers(0, 7, hit.sum())]
+        xt = torch.as_tensor(x, device=dev)
+        for mat in mats.values():
+            got = ml.mat_classify(xt, mat)
+            want = ml.mat_classify_ref(xt, mat.edges, mat.tables, mat.lmap,
+                                       use_min=mat.use_min)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K4 differs at B={B}")
+            err["mat_lut_classify"] = max(err["mat_lut_classify"],
+                                          max_abs(got, want))
+    emit({"phase": "kernels_check_suffix", "cases": len(cases),
+          "k4_batches": [1, 37, 517, 4096], "B": B_KERNEL,
+          "n_slots": S_KERNEL, "mit_slots": [S_KERNEL, 2 * S_KERNEL],
+          "dropped": dropped, "max_abs_err": err})
+    return err
+
+
 def timing(dev, stages, tp, sp, mlp, kw):
     """Each kernel's wrapper and its plain version on one flow-ddos batch
     (the stream's packets 4096..4607 against the table the first 4096
@@ -291,6 +525,7 @@ def timing(dev, stages, tp, sp, mlp, kw):
     from repro_torch.kernels import flow_update as fu
     from repro_torch.kernels import fused_flow as ff
     from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import mat_lut as ml
 
     fk, ru = stages[:2]
     spec = ru.spec
@@ -338,32 +573,224 @@ def timing(dev, stages, tp, sp, mlp, kw):
                                             mlp)
     k2 = lambda: fu.flow_update_launch(*table, *ops[2:], seg, **kw)
     k3 = lambda: fm.fused_mlp_classify_launch(z, mlp)
-    dev_ms = kernel_device_ms({"fused_flow_kernel": k1,
-                               "flow_update_kernel": k2,
+    k1_name = K1_INSTANCE.format(kind=0, mit="false")
+    dev_ms = kernel_device_ms({k1_name: k1, "flow_update_kernel": k2,
                                "fused_mlp_kernel": k3})
     out = {}
     out["fused_flow_serve"] = dict(
         ms=time_ms(k1, TIMED_LAUNCHES),
-        kernel_ms=dev_ms["fused_flow_kernel"],
+        **kernel_fields(dev_ms[k1_name]),
         plain_ms=time_ms(lambda: ff.fused_flow_serve_ref(*ops, tp, sp, mlp),
                          3),
         bound=bound(rows + batch + params + B * 4,
                     upd_flops + live * (mlp_flops + W)), **shapes)
     out["flow_update"] = dict(
         ms=time_ms(k2, TIMED_LAUNCHES),
-        kernel_ms=dev_ms["flow_update_kernel"],
+        **kernel_fields(dev_ms["flow_update_kernel"]),
         plain_ms=time_ms(lambda: fu.flow_update_ref(*ops, **kw), 3),
         bound=bound(rows + batch + B * W * 4, upd_flops), **shapes)
     out["fused_mlp_classify"] = dict(
         ms=time_ms(k3, TIMED_LAUNCHES),
-        kernel_ms=dev_ms["fused_mlp_kernel"],
+        **kernel_fields(dev_ms["fused_mlp_kernel"]),
         plain_ms=time_ms(lambda: fm.mlp_classify_ref(z, ws, bs),
                          TIMED_LAUNCHES),
         bound=bound(B * z.shape[1] * 4 + params + B * 4, B * mlp_flops),
         B=B, widths=list(mlp.widths))
+    out["fused_flow_serve"]["modes"] = suffix_timing(
+        dev, stages, ops, seg, tp, z, rows, batch, upd_flops, live, n_seg)
+    mat = out["fused_flow_serve"]["modes"].pop("_mat")
+    F, E = mat.edges.shape
+    C = mat.num_classes
+    mat_bytes = 4 * (mat.edges.numel() + mat.tables.numel()
+                     + mat.lmap.numel())
+    k4 = lambda: ml.mat_classify_launch(z, mat)
+    out["mat_lut_classify"] = dict(
+        ms=time_ms(k4, TIMED_LAUNCHES),
+        **kernel_fields(kernel_device_ms({"mat_lut_kernel": k4}
+                                        )["mat_lut_kernel"]),
+        plain_ms=time_ms(lambda: ml.mat_classify_ref(
+            z, mat.edges, mat.tables, mat.lmap), TIMED_LAUNCHES),
+        bound=bound(B * F * 4 + mat_bytes + B * 4, B * F * (E + C)),
+        B=B, features=F, edges=E, classes=C)
     emit({"phase": "kernels_time", **{
         k: {kk: vv for kk, vv in v.items()} for k, v in out.items()}})
     return out
+
+
+def suffix_timing(dev, stages, ops, seg, tp, z, rows, batch, upd_flops,
+                  live, n_seg):
+    """K1's other modes on the timing batch, each beside its plain version
+    and its bound: "mat" (the mat-fused suffix), "centroid" (4
+    centroids over 6 selected features), "mat+mitigation" (2,048 action
+    slots: the flow segmentation is reused) and "mlp+mitigation" (4,096
+    slots: the action table's own segmentation, made once before the
+    timed launches like the flow segmentation).  The action tables are
+    the ones the stream's first 4,096 packets leave.  -> {mode:
+    numbers}, plus "_mat": the packed MAT for K4's timing."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import mat_lut as ml
+    from repro_torch.kernels.flow_update.ops import segment_batch
+    from repro_torch.kernels.flow_update.ref import hash_slot
+    from repro_torch.testing import mat_stages
+
+    B, W = z.shape[0], tp.width
+    mst = mat_stages(W)
+    mat = ml.pack_mat(mst[0].edges, mst[1].tables, mst[3].table, device=dev)
+    rng = np.random.default_rng(11)
+    cent = (rng.random((4, 6)) * np.asarray([40, 1, 1, 1, 1, 1])
+            ).astype(np.float32)
+    cents = ff.pack_centroids(cent, [0, 1, 0, 1], (0, 2, 4, 5, 9, 12),
+                              use_min=True, device=dev)
+    mlp = fm.pack_params(stages[3].weights, stages[3].biases, device=dev)
+    F, E = mat.edges.shape
+    mat_ops = live * (F * (E + mat.num_classes) + W)
+    mat_bytes = 4 * (mat.edges.numel() + mat.tables.numel()
+                     + mat.lmap.numel())
+    mlp_bytes = 4 * (mlp.w_flat.numel() + mlp.b_flat.numel())
+    mlp_ops = live * (2 * sum(a * b for a, b in zip(mlp.widths[:-1],
+                                                    mlp.widths[1:])) + W)
+    pk, valid = ops[2], ops[5]
+    out = {}
+
+    def mit_state(sm, sp, params, plan):
+        """The action table after the stream's first 4,096 packets."""
+        from repro_torch.data import traffic
+
+        fk, ru = stages[:2]
+        pkts = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
+                                   seed=STREAM_SEED).packets
+        st = (torch.full((S_KERNEL,), -1, dtype=torch.int32, device=dev),
+              torch.zeros((S_KERNEL, W), device=dev),
+              torch.full((sm,), -1, dtype=torch.int32, device=dev),
+              torch.zeros((sm, 2), device=dev))
+        for s in range(0, 4096, B_KERNEL):
+            x = torch.as_tensor(pkts[s:s + B_KERNEL], device=dev)
+            upd, bins = ru.prepare(x)
+            st = ff.fused_flow_serve(
+                st[0], st[1], fk.apply_keys(x), upd, bins,
+                torch.ones(B_KERNEL, dtype=torch.int32, device=dev), tp, sp,
+                params, mit=(st[2], st[3], plan))[:4]
+        return st[2], st[3]
+
+    for mode, sp, params, sm, pbytes, pops in (
+            ("mat", ff.SuffixPlan("mat", 4), mat, None, mat_bytes, mat_ops),
+            ("centroid", ff.SuffixPlan("centroid", 4), cents, None,
+             4 * (cents.cent.numel() + cents.fidx.numel()
+                  + cents.lmap.numel()), live * (3 * 4 * 6 + W)),
+            ("mat+mitigation", ff.SuffixPlan("mat", 4), mat, MIT_SLOTS,
+             mat_bytes, mat_ops),
+            ("mlp+mitigation", ff.SuffixPlan("mlp", 2), mlp, AD_MIT_SLOTS,
+             mlp_bytes, mlp_ops)):
+        table = ops[0].clone(), ops[1].clone()
+        mit = mseg = None
+        extra_b, extra_o, shape = 0, 0, {}
+        if sm is not None:
+            plan = ff.MitigationSpec(
+                n_slots=sm, threshold=MIT_THRESHOLD if sm == MIT_SLOTS
+                else AD_THRESHOLD, keep_every=AD_KEEP_EVERY)
+            mk, mr = mit_state(sm, sp, params, plan)
+            mit = (mk, mr, plan)
+            mseg = ff.mitigation_segments(pk, valid, seg, S_KERNEL, sm)
+            n_mseg = int((mseg.seg_len > 0).sum())
+            # touched action rows and keys read and written once; the
+            # segment tables when they are the action table's own
+            extra_b = 2 * n_mseg * 3 * 4 + (
+                0 if sm == S_KERNEL else live * 4 + B * 4 + n_mseg * 8)
+            extra_o = 6 * live
+            shape = {"mit_slots": sm, "mit_segments": n_mseg,
+                     "max_mit_chain": int(mseg.seg_len.max())}
+
+        def k1(_t=table, _sp=sp, _p=params, _m=mit, _ms=mseg):
+            return ff.fused_flow_serve_launch(*_t, *ops[2:], seg, tp, _sp,
+                                              _p, _m, _ms)
+
+        def plain(_sp=sp, _p=params, _m=mit):
+            return ff.fused_flow_serve_ref(*ops, tp, _sp, _p, _m)
+
+        instance = K1_INSTANCE.format(kind=ff.SUFFIX_KINDS.index(sp.kind),
+                                      mit="false" if sm is None else "true")
+        out[mode] = dict(
+            ms=time_ms(k1, TIMED_LAUNCHES),
+            **kernel_fields(kernel_device_ms({instance: k1})[instance]),
+            plain_ms=time_ms(plain, 3),
+            bound=bound(rows + batch + pbytes + B * 4 + extra_b,
+                        upd_flops + pops + extra_o), **shape)
+    out["_mat"] = mat
+    return out
+
+
+def split_action_table_phase(dev):
+    """The split path's action table, ``mitigate_update_segmented`` (plain
+    PyTorch on the card), eager and as the split path serves it (the
+    function ``cuda_backend.lower_mitigation`` returns: a CUDA graph
+    replayed per batch), against the sequential walk on the card at the
+    mitigate-fused (2,048 slots, threshold 6) and attack/defense (4,096,
+    threshold 8) settings in both modes: collision patterns of
+    ``repro_torch.testing`` keyed over the action table, 80 % attack
+    verdicts, three chained 512-packet batches (the second ragged) from
+    an empty table; keys, rows and verdicts exact.  Every eager call
+    runs under ``torch.cuda.set_sync_debug_mode("error")``, so a host
+    sync in it fails the phase.  Times all three per batch (CUDA
+    events)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cuda_backend, stageir
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.testing import flow_batch
+
+    spec = flow_ddos_stages(S_KERNEL)[1].spec
+    rows, dropped = [], 0
+    for i, (sm, thr, mode, pattern) in enumerate(
+            (sm, thr, mode, pattern)
+            for sm, thr in ((MIT_SLOTS, MIT_THRESHOLD),
+                            (AD_MIT_SLOTS, AD_THRESHOLD))
+            for mode in ("drop", "rate_limit")
+            for pattern in ("slot_runs", "one_hot_flow")):
+        mit = ff.MitigationSpec(n_slots=sm, mode=mode, threshold=thr,
+                                keep_every=AD_KEEP_EVERY)
+        graphed, _ = cuda_backend.lower_mitigation(stageir.Mitigate(mit))
+        sk = wk = gk = torch.full((sm,), -1, dtype=torch.int32, device=dev)
+        sr = wr = gr = torch.zeros((sm, 2), device=dev)
+        rng = np.random.default_rng(300 + i)
+        for step in range(3):
+            b = flow_batch(spec, pattern, B_KERNEL, seed=300 + 3 * i + step,
+                           ragged=step == 1, key_slots=sm)
+            args = [torch.as_tensor(a, device=dev) for a in (
+                b["pkt_keys"], (rng.random(B_KERNEL) < 0.8).astype(np.int32),
+                b["valid"])]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                sk, sr, sv = ff.mitigate_update_segmented(sk, sr, *args,
+                                                          spec=mit)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            gk, gr, gv = graphed(gk, gr, *args)
+            wk, wr, wv = ff.mitigate_update(wk, wr, *args, spec=mit)
+            name = f"split action table {sm} {mode} {pattern} step {step}"
+            for k, r, v, form in ((sk, sr, sv, "eager"),
+                                  (gk, gr, gv, "graphed")):
+                check(torch.equal(k, wk) and torch.equal(
+                    r.view(torch.int32), wr.view(torch.int32)),
+                    f"{name}: {form} table differs from the walk")
+                check(torch.equal(v, wv), f"{name}: {form} verdicts differ")
+            dropped += int((sv == ff.MITIGATED).sum())
+        rows.append({
+            "mit_slots": sm, "mode": mode, "pattern": pattern,
+            "graphed_ms": time_ms(lambda: graphed(gk, gr, *args),
+                                  TIMED_LAUNCHES),
+            "eager_ms": time_ms(lambda: ff.mitigate_update_segmented(
+                sk, sr, *args, spec=mit), TIMED_LAUNCHES),
+            "walk_ms": time_ms(lambda: ff.mitigate_update(
+                wk, wr, *args, spec=mit), 10)})
+    check(dropped > 0, "split action table: no packet was mitigated")
+    emit({"phase": "split_action_table", "B": B_KERNEL,
+          "dropped_pkts": dropped, "rows": rows})
 
 
 # ---------------------------------------------------------- phases 3, 4
@@ -445,7 +872,7 @@ def path_phase(dev, name: str, n_slots: int, batches, fuses, n_packets,
     torch.cuda.synchronize()
     # one K1 launch per fused batch; one K2 + one K3 per split batch
     check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
-                       "fused_mlp_classify": n_split},
+                       "fused_mlp_classify": n_split, "mat_lut_classify": 0},
           f"{name}: launches {launches} != batches "
           f"(fused {n_fused}, split {n_split})")
     emit({"phase": name, "n_slots": n_slots, "n_packets": n_packets,
@@ -454,8 +881,212 @@ def path_phase(dev, name: str, n_slots: int, batches, fuses, n_packets,
     return launches
 
 
-def profile_phase(dev, n_slots: int = 2048, max_batch: int = 512):
-    """Where the time goes on the fused path: the device's busy time (sum
+def state_arrays(state):
+    """The state's tables as host arrays (floats as their int32 bits)."""
+    import numpy as np
+
+    out = [state.keys.cpu().numpy(), state.regs.cpu().numpy().view(np.int32)]
+    if hasattr(state, "mit_keys"):
+        out += [state.mit_keys.cpu().numpy(),
+                state.mit_regs.cpu().numpy().view(np.int32)]
+    return out
+
+
+def serve_stages(stages, backend, fuse, max_batch, stream, dev,
+                 swap_at=None):
+    """One engine over the whole stream -> (verdicts, engine).  With
+    ``swap_at`` the stream is submitted chunk by chunk, flushing each,
+    and at chunk ``swap_at`` the engine hot-swaps to a new, identical
+    pipeline (the swap-under-rate-limit run of attack_defense.py)."""
+    import numpy as np
+
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import StatefulPipeline
+    from repro_torch.serve.packet_engine import PacketServeEngine
+
+    pipe = StatefulPipeline(stages, backend=backend, fuse=fuse,
+                            device=dev.type)
+    eng = PacketServeEngine(pipe, feature_dim=len(traffic.COLUMNS),
+                            max_batch=max_batch, depth=2, device=dev.type)
+    if swap_at is None:
+        return np.concatenate(list(eng.serve_stream(
+            stream.chunks(max_batch)))), eng
+    got = []
+    for i, c in enumerate(stream.chunks(max_batch)):
+        if i == swap_at:
+            check(eng.state.mitigated_flows > 0,
+                  "the swap must land while flows are being rate-limited")
+            eng.swap(StatefulPipeline(stages, backend=backend, fuse=fuse,
+                                      device=dev.type))
+        eng.submit(c)
+        got.append(eng.flush())
+    return np.concatenate(got), eng
+
+
+def row_of(eng) -> dict:
+    st = eng.stats()
+    return {k: st[k] for k in ("backend", "pkt_per_s", "lat_p50_ms",
+                               "lat_p99_ms", "dispatch_s", "wall_s",
+                               "batches", "mitigated")}
+
+
+def mat_path_phase(dev, name: str, mitigated: bool, batches=(256, 512),
+                   repeats: int = 3):
+    """path_mat_fused / path_mitigate_fused: the stream on
+    backend="cuda", fused (K1) and split (K2 + K4, the action table in
+    plain PyTorch on the card), held bit for bit against
+    backend="interpret"."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import traffic
+    from repro_torch.kernels import _ext
+
+    stages = mat_fused_stages(S_KERNEL, mitigated)
+    stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
+                                 seed=STREAM_SEED)
+    _ext.reset_launches()
+    iv, ieng = serve_stages(stages, "interpret", True, max(batches), stream,
+                            dev)
+    check(sum(_ext.LAUNCHES.values()) == 0,
+          f"{name}: the interpret backend launched a kernel")
+    want_state = state_arrays(ieng.state)
+    rows = [dict(row_of(ieng), max_batch=max(batches))]
+    base = "cuda" if dev.type == "cuda" else "cpu-ref"
+    split_name = "mixed" if mitigated else base
+    _ext.reset_launches()
+    n_fused = n_split = 0
+    for max_batch in batches:
+        for fuse in (True, False):
+            runs = []
+            for _ in range(repeats):
+                v, eng = serve_stages(stages, "cuda", fuse, max_batch,
+                                      stream, dev)
+                check(np.array_equal(v, iv),
+                      f"{name}: {eng.backend} verdicts differ from interpret")
+                check(all(np.array_equal(a, b) for a, b in zip(
+                    state_arrays(eng.state), want_state)),
+                    f"{name}: {eng.backend} tables differ from interpret")
+                check(eng.backend == (f"{base}-fused-flow" if fuse
+                                      else split_name),
+                      f"{name}: backend {eng.backend}")
+                runs.append(row_of(eng))
+                n = runs[-1]["batches"] + 1        # + the warm-up batch
+                n_fused, n_split = ((n_fused + n, n_split) if fuse
+                                    else (n_fused, n_split + n))
+            med = sorted(runs, key=lambda r: r["pkt_per_s"])[len(runs) // 2]
+            rows.append(dict(med, max_batch=max_batch, depth=2,
+                             pkt_per_s_runs=sorted(r["pkt_per_s"]
+                                                   for r in runs)))
+    launches = dict(_ext.LAUNCHES)
+    torch.cuda.synchronize()
+    check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
+                       "fused_mlp_classify": 0, "mat_lut_classify": n_split},
+          f"{name}: launches {launches} != batches "
+          f"(fused {n_fused}, split {n_split})")
+    report = traffic.reaction_report(stream, iv)
+    dropped = int((iv == -1).sum())
+    if mitigated:
+        check(dropped > 0, f"{name}: no packet was mitigated")
+    emit({"phase": name, "n_slots": S_KERNEL, "n_packets": N_PACKETS,
+          "mit_slots": MIT_SLOTS if mitigated else None, "rows": rows,
+          "launches": launches, "batches": {"fused": n_fused,
+                                            "split": n_split},
+          "mitigated_pkts": dropped,
+          "reaction": {k: report[k] for k in (
+              "attack_flows", "detection_rate", "mitigated_flows",
+              "mitigation_lag_median", "leaked_pkts_total",
+              "benign_mitigated_flow_rate")}})
+    return launches
+
+
+def attack_defense_phase(dev):
+    """The three flood scenarios, drop mode, fused (K1) against
+    interpret: identical verdicts and tables, MITIGATED verdicts, zero
+    leaked packets.  syn_flood also runs split (K2 + K3 and the action
+    table's plain device form, "mixed") against the same interpret run.
+    Then the swap-under-rate-limit run on syn_flood.  Each run's
+    launches are counted from 0 and held to the batches it served: one
+    K1 per fused batch, one K2 and one K3 per split batch, plus the
+    engine's warm-up batch and the swap's."""
+    import numpy as np
+
+    from repro_torch.data import traffic
+    from repro_torch.kernels import _ext
+
+    base = "cuda" if dev.type == "cuda" else "cpu-ref"
+    rows, launches = [], {k: 0 for k in _ext.LAUNCHES}
+
+    def counted(stages, fuse, stream, extra=1, **kw):
+        """One served run, its launches held to its batches."""
+        _ext.reset_launches()
+        v, eng = serve_stages(stages, "cuda", fuse, AD_BATCH, stream, dev,
+                              **kw)
+        got = dict(_ext.LAUNCHES)
+        n = eng.stats()["batches"] + extra
+        want = {k: 0 for k in got}
+        want.update({"fused_flow_serve": n} if fuse else
+                    {"flow_update": n, "fused_mlp_classify": n})
+        check(got == want, f"attack_defense: launches {got} != {want}")
+        for k, c in got.items():
+            launches[k] += c
+        return v, eng
+
+    for scenario in AD_SCENARIOS:
+        stages = attack_defense_stages(scenario)
+        stream = traffic.make_stream(scenario, n_packets=AD_PACKETS,
+                                     seed=STREAM_SEED)
+        _ext.reset_launches()
+        iv, ieng = serve_stages(stages, "interpret", True, AD_BATCH, stream,
+                                dev)
+        check(sum(_ext.LAUNCHES.values()) == 0,
+              f"{scenario}: the interpret backend launched a kernel")
+        for fuse in (True, False) if scenario == "syn_flood" else (True,):
+            v, eng = counted(stages, fuse, stream)
+            want = f"{base}-fused-flow" if fuse else "mixed"
+            check(eng.backend == want,
+                  f"{scenario}: backend {eng.backend} != {want}")
+            check(np.array_equal(v, iv),
+                  f"{scenario}: {want} verdicts differ from interpret")
+            check(all(np.array_equal(a, b) for a, b in zip(
+                state_arrays(eng.state), state_arrays(ieng.state))),
+                f"{scenario}: {want} tables differ from interpret")
+            rep = traffic.reaction_report(stream, v)
+            check(int((v == -1).sum()) > 0, f"{scenario}: nothing mitigated")
+            check(rep["leaked_pkts_total"] == 0,
+                  f"{scenario}: {rep['leaked_pkts_total']} packets leaked")
+            rows.append(dict(row_of(eng), scenario=scenario,
+                             interpret_pkt_per_s=ieng.stats()["pkt_per_s"],
+                             **{k: rep[k] for k in (
+                                 "attack_flows", "detection_rate",
+                                 "mitigated_flows", "mitigation_lag_median",
+                                 "mitigation_lag_p95", "leaked_pkts_total",
+                                 "benign_mitigated_flow_rate")}))
+    # swap while flows are rate-limited: same verdicts, exactly one swap
+    stages = attack_defense_stages("syn_flood", mode="rate_limit")
+    stream = traffic.make_stream("syn_flood", n_packets=AD_PACKETS,
+                                 seed=STREAM_SEED)
+    ref, _ = counted(stages, True, stream)
+    n_chunks = -(-AD_PACKETS // AD_BATCH)
+    v, eng = counted(stages, True, stream, extra=2, swap_at=n_chunks // 2)
+    check(np.array_equal(v, ref), "the hot swap perturbed the mitigation "
+          "stream")
+    check(eng.stats()["swaps"] == 1, "expected exactly one swap")
+    swap = {"dropped_pkts": int((v == -1).sum()),
+            "mitigated_flows": eng.state.mitigated_flows,
+            "swaps": eng.stats()["swaps"],
+            "swap_lat_ms": eng.stats()["swap_lat_ms"],
+            "swap_pkt_offsets": eng.stats()["swap_pkt_offsets"]}
+    emit({"phase": "attack_defense", "n_packets": AD_PACKETS,
+          "mit_slots": AD_MIT_SLOTS, "threshold": AD_THRESHOLD,
+          "max_batch": AD_BATCH, "rows": rows,
+          "swap_under_rate_limit": swap, "launches": launches,
+          "nvidia_smi": nvidia_smi()})
+    return launches
+
+
+def profile_phase(dev, name: str, stages, max_batch: int = 512):
+    """Where the time goes on a fused path: the device's busy time (sum
     of kernel and copy durations, from torch.profiler) against the
     unprofiled serving wall time, CUDA launches per batch, and the host
     operations that take the most CPU time."""
@@ -467,7 +1098,6 @@ def profile_phase(dev, n_slots: int = 2048, max_batch: int = 512):
     from repro_torch.flowstate import StatefulPipeline
     from repro_torch.serve.packet_engine import PacketServeEngine
 
-    stages = flow_ddos_stages(n_slots)
     stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
                                  seed=STREAM_SEED)
     pipe = StatefulPipeline(stages, backend="cuda", device=dev.type)
@@ -492,7 +1122,7 @@ def profile_phase(dev, n_slots: int = 2048, max_batch: int = 512):
     host = sorted((e for e in avg if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
     batches = profiled["batches"] + 1            # + the warm-up batch
-    emit({"phase": "profile", "n_slots": n_slots, "max_batch": max_batch,
+    emit({"phase": "profile", "path": name, "max_batch": max_batch,
           "backend": plain["backend"], "wall_s": plain["wall_s"],
           "dispatch_s": plain["dispatch_s"],
           "pkt_per_s": plain["pkt_per_s"],
@@ -514,6 +1144,8 @@ KERNELS = (
      "src/repro/kernels/flow_update/kernel.py:235"),
     ("fused_mlp_classify", "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp.cu",
      "src/repro/kernels/fused_mlp/kernel.py:71"),
+    ("mat_lut_classify", "src/repro_torch/kernels/mat_lut/csrc/mat_lut.cu",
+     "src/repro/kernels/mat_lut/kernel.py:41"),
 )
 
 
@@ -544,26 +1176,58 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     try:
         err, times = kernel_phase(dev)
-        main_launches = path_phase(dev, "path_flow_ddos", 2048, (256, 512),
-                                   (True, False), N_PACKETS)
-        for k in ("fused_flow_serve", "flow_update", "fused_mlp_classify"):
-            check(main_launches[k] > 0, f"{k} never launched on the path")
+        split_action_table_phase(dev)
+        by_path = {
+            "path_flow_ddos": path_phase(dev, "path_flow_ddos", S_KERNEL,
+                                         (256, 512), (True, False),
+                                         N_PACKETS, repeats=3),
+            "path_mat_fused": mat_path_phase(dev, "path_mat_fused", False),
+            "path_mitigate_fused": mat_path_phase(
+                dev, "path_mitigate_fused", True),
+            "attack_defense": attack_defense_phase(dev),
+        }
+        launches = {k: sum(p[k] for p in by_path.values())
+                    for k, _, _ in KERNELS}
+        for path, want in (("path_flow_ddos", ("fused_flow_serve",
+                                               "flow_update",
+                                               "fused_mlp_classify")),
+                           ("path_mat_fused", ("fused_flow_serve",
+                                               "flow_update",
+                                               "mat_lut_classify")),
+                           ("path_mitigate_fused", ("fused_flow_serve",
+                                                    "flow_update",
+                                                    "mat_lut_classify")),
+                           ("attack_defense", ("fused_flow_serve",
+                                               "flow_update",
+                                               "fused_mlp_classify"))):
+            for k in want:
+                check(by_path[path][k] > 0, f"{k} never launched on {path}")
         path_phase(dev, "path_max_slots", 1 << 16, (512,), (True,),
                    N_PACKETS, repeats=3)
-        profile_phase(dev)
+        profile_phase(dev, "flow-ddos", flow_ddos_stages(S_KERNEL))
+        profile_phase(dev, "mitigate-fused",
+                      mat_fused_stages(S_KERNEL, True))
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, source, replaces in KERNELS:
         tm = times[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_launches[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
             "bound_by": tm["bound"][1], "library_ms": None,
-        })
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
+        }
+        if name == "fused_flow_serve":
+            entry["modes"] = {
+                mode: {"ms": m["ms"], "kernel_ms": m["kernel_ms"],
+                       "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
+                       "bound_by": m["bound"][1]}
+                for mode, m in tm["modes"].items()}
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,18 +5,21 @@ package without importing it.
 and its dataclass fields (numpy arrays, ints, tuples) and builds the
 port's stage; nothing here imports ``repro`` or ``jax``, so the port can
 serve pipelines the reference compiler generated.  ``state_from_numpy`` /
-``state_to_numpy`` move a register file across as numpy arrays.
+``state_to_numpy`` move a register file across as numpy arrays, and
+``mitigation_from_numpy`` / ``mitigation_to_numpy`` the action table.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core import stageir
 from repro_torch.device import resolve_device
+from repro_torch.flowstate.mitigation import (
+    MitigatedFlowState,
+    MitigationSpec,
+)
 from repro_torch.flowstate.registers import FlowState, FlowStateSpec
 
 
@@ -26,6 +29,13 @@ def spec_from_reference(spec) -> FlowStateSpec:
         n_ewma=int(spec.n_ewma),
         hist_sizes=tuple(int(h) for h in spec.hist_sizes),
         ewma_alpha=float(spec.ewma_alpha))
+
+
+def mitigation_spec_from_reference(spec) -> MitigationSpec:
+    return MitigationSpec(
+        n_slots=int(spec.n_slots), mode=str(spec.mode),
+        threshold=int(spec.threshold), keep_every=int(spec.keep_every),
+        attack_class=int(spec.attack_class))
 
 
 def _f32(a) -> np.ndarray:
@@ -57,8 +67,8 @@ _CONVERT = {
         tuple(np.asarray(e) for e in s.hist_edges)),
     "window_stats": lambda s: stageir.WindowStats(
         spec_from_reference(s.spec), str(s.mode)),
-    # the action table is a later slice: keep its spec's fields as a dict
-    "mitigate": lambda s: stageir.Mitigate(dataclasses.asdict(s.spec)),
+    "mitigate": lambda s: stageir.Mitigate(
+        mitigation_spec_from_reference(s.spec)),
 }
 
 
@@ -90,3 +100,26 @@ def state_to_numpy(state: FlowState) -> tuple[np.ndarray, np.ndarray]:
     """-> (keys [S] int32, regs [S, W] f32) on the host."""
     return (state.keys.cpu().numpy().astype(np.int32),
             state.regs.cpu().numpy().astype(np.float32))
+
+
+def mitigation_from_numpy(state: FlowState, mit_keys, mit_regs,
+                          mit_spec: MitigationSpec) -> MitigatedFlowState:
+    """A register file + [Sm] int32 action keys + [Sm, 2] f32 [hits,
+    since] rows -> a ``MitigatedFlowState`` on the register file's
+    device."""
+    dev = state.keys.device
+    mk = torch.as_tensor(np.asarray(mit_keys, np.int32), device=dev)
+    mr = torch.as_tensor(np.asarray(mit_regs, np.float32), device=dev)
+    if tuple(mk.shape) != (mit_spec.n_slots,) \
+            or tuple(mr.shape) != (mit_spec.n_slots, mit_spec.width):
+        raise ValueError(f"action table shapes {tuple(mk.shape)}, "
+                         f"{tuple(mr.shape)} do not match {mit_spec}")
+    return MitigatedFlowState(state.spec, state.keys, state.regs, mit_spec,
+                              mk, mr)
+
+
+def mitigation_to_numpy(state: MitigatedFlowState
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """-> (mit_keys [Sm] int32, mit_regs [Sm, 2] f32) on the host."""
+    return (state.mit_keys.cpu().numpy().astype(np.int32),
+            state.mit_regs.cpu().numpy().astype(np.float32))

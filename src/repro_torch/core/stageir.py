@@ -4,9 +4,8 @@ a trained pipeline lowers into, with PyTorch ``apply`` forms.
 Ported so far: the stateless stages (FeatureSelect, Dense, FusedMLP,
 FusedClassify, CentroidDistance, Quantize, LUTGather, Reduce, LabelMap)
 and the stateful vocabulary of the flow path (FlowKey, RegisterUpdate,
-WindowStats).  ``Mitigate`` is recognised so a pipeline carrying it is
-refused by name; its action table is a later slice, as are TreeTraverse,
-``compile_stages`` and the multi-table grammar.
+WindowStats, Mitigate).  TreeTraverse, ``compile_stages`` and the
+multi-table grammar are later slices.
 
 Stages keep their parameters as numpy arrays (what ``convert`` carries
 across from the reference); ``apply`` moves them to the input's device
@@ -296,16 +295,29 @@ class WindowStats(Stage):
 
 @dataclasses.dataclass(repr=False)
 class Mitigate(Stage):
-    """Per-flow drop / rate-limit action table fed by the verdicts.  Only
-    recognised so far: the action table is ported in a later slice."""
+    """Verdicts -> actions: the per-flow drop / rate-limit action table
+    (``flowstate.mitigation``).  A flow with ``spec.threshold`` attack
+    verdicts is marked and its later packets come back as ``MITIGATED``
+    (or are rate-limited).  Stateful and order dependent: it must be the
+    LAST stage of a stateful pipeline (``split_mitigation``), served by
+    ``repro_torch.flowstate.StatefulPipeline``."""
 
-    spec: object
+    spec: object                         # flowstate.mitigation.MitigationSpec
 
     kind = "mitigate"
     stateful = True
 
     def apply(self, h):
-        raise TypeError("Mitigate is stateful and not yet ported")
+        raise TypeError("Mitigate is stateful; serve it through "
+                        "repro_torch.flowstate.StatefulPipeline")
+
+    def meta(self) -> dict:
+        s = self.spec
+        return {"n_slots": s.n_slots, "mode": s.mode,
+                "threshold": s.threshold,
+                # stored key + [hits, since] per slot
+                "params": s.n_slots * (s.width + 1),
+                "sram_bytes": s.sram_bytes}
 
 
 def is_stateful(stage: Stage) -> bool:

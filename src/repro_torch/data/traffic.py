@@ -12,9 +12,10 @@ Packet record (float32 row, ``COLUMNS`` order):
 
 ``make_stream`` is deterministic in (scenario, seed, sizes) and gives the
 same packets as the reference for the same arguments.
-``flow_feature_stages`` builds the port's stateful prefix and
+``flow_feature_stages`` builds the port's stateful prefix,
 ``fold_input_standardization`` folds an input standardisation into the
-port's first dense layer.
+port's first dense layer, and ``reaction_report`` measures detection and
+mitigation per attack flow from a verdict stream.
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ COL_FLOW, COL_LEN, COL_IPT, COL_PORT = range(4)
 SCENARIOS = ("benign", "ddos_burst", "port_scan", "elephant_mice",
              "concept_drift", "syn_flood", "udp_flood", "icmp_flood",
              "slow_scan", "coordinated_ddos")
+
+# verdict of a packet the action table dropped (the port's
+# ``flowstate.mitigation.MITIGATED``; mirrored so this module stays
+# numpy only)
+_MITIGATED = -1
 
 # concept_drift: fraction of the span where phase B (the shifted attack
 # signature) begins — phase A attacks live strictly before it
@@ -327,3 +333,61 @@ def fold_input_standardization(stages, mu: np.ndarray, sd: np.ndarray):
     if not done:
         raise ValueError("no dense layer to fold the standardization into")
     return out
+
+
+def reaction_report(stream: PacketStream, verdicts: np.ndarray) -> dict:
+    """Per attack flow: packets until the first positive verdict (1-based,
+    the paper's packets-until-detection), and the benign false-positive
+    flow rate.  When the verdicts carry ``_MITIGATED`` (-1) from a
+    ``Mitigate`` stage it also measures what the data plane enforced:
+    ``mitigation_lag_*`` is the packet count from a flow's first detection
+    to its first drop, and ``leaked_pkts_total`` counts attack packets
+    that pass after their flow's first drop."""
+    verdicts = np.asarray(verdicts)
+    react, undetected, fp_flows, benign_flows = [], 0, 0, 0
+    lags, mitigated, leaked, benign_mitigated = [], 0, 0, 0
+    for fid, label in stream.flow_labels.items():
+        mask = stream.flow_ids == fid
+        if not mask.any():
+            continue
+        v = verdicts[mask]
+        hits = np.nonzero(v == 1)[0]
+        mits = np.nonzero(v == _MITIGATED)[0]
+        if label == 1:
+            if len(hits):
+                react.append(int(hits[0]) + 1)
+            else:
+                undetected += 1
+            if len(mits):
+                mitigated += 1
+                first_mit = int(mits[0])
+                if len(hits):
+                    lags.append(first_mit - int(hits[0]))
+                leaked += int(np.sum(v[first_mit:] != _MITIGATED))
+        else:
+            benign_flows += 1
+            fp_flows += bool(len(hits))
+            benign_mitigated += bool(len(mits))
+    react_arr = np.asarray(react, np.float64)
+    lag_arr = np.asarray(lags, np.float64)
+    n_attack = len(react) + undetected
+    # 0.0 (not NaN) when nothing was detected or no attack flow exists
+    return {
+        "attack_flows": n_attack,
+        "detected_flows": len(react),
+        "detection_rate": (len(react) / n_attack) if n_attack else 0.0,
+        "reaction_pkts_median": (float(np.median(react_arr))
+                                 if len(react) else 0.0),
+        "reaction_pkts_p95": (float(np.percentile(react_arr, 95))
+                              if len(react) else 0.0),
+        "benign_fp_flow_rate": (fp_flows / benign_flows) if benign_flows
+        else 0.0,
+        "mitigated_flows": mitigated,
+        "mitigation_lag_median": (float(np.median(lag_arr))
+                                  if len(lags) else 0.0),
+        "mitigation_lag_p95": (float(np.percentile(lag_arr, 95))
+                               if len(lags) else 0.0),
+        "leaked_pkts_total": leaked,
+        "benign_mitigated_flow_rate": (benign_mitigated / benign_flows)
+        if benign_flows else 0.0,
+    }

@@ -7,7 +7,7 @@ whose key differs from the stored key evicts the resident flow: the row
 resets to zero and the new flow claims the slot (last writer wins).
 Keys ``-1`` mark empty slots.
 
-``migrate_state`` (the hot-swap re-key path) is not ported yet.
+``migrate_state`` is the hot-swap re-key path for a changed spec.
 """
 
 from __future__ import annotations
@@ -102,3 +102,37 @@ def hash_slot_np(keys: np.ndarray, n_slots: int) -> np.ndarray:
         h = np.asarray(keys).astype(np.uint32) * np.uint32(2654435761)
     h = h ^ (h >> np.uint32(16))
     return (h & np.uint32(n_slots - 1)).astype(np.int32)
+
+
+def migrate_state(state: FlowState, new_spec: FlowStateSpec) -> FlowState:
+    """Re-key a register file for a hot swap that changes the spec (a
+    same-spec swap keeps the live tensors).  Occupied rows re-hash into
+    the new table walking slots in ascending order, so two old flows on
+    one new slot resolve last-writer-wins, as live eviction would.
+    Columns carry section by section: the shared prefix of counters, of
+    EWMAs and of each histogram; what the new spec adds starts at zero,
+    what it drops is discarded.  A host-side control-plane scan, not a
+    per-packet path.  -> a ``FlowState`` on the input's device."""
+    old = state.spec
+    dev = state.keys.device
+    keys = state.keys.cpu().numpy()
+    regs = state.regs.cpu().numpy()
+    out_k = np.full((new_spec.n_slots,), -1, np.int32)
+    out_r = np.zeros((new_spec.n_slots, new_spec.width), np.float32)
+    pairs = [(j, j) for j in range(min(old.n_counters, new_spec.n_counters))]
+    pairs += [(old.n_counters + j, new_spec.n_counters + j)
+              for j in range(min(old.n_ewma, new_spec.n_ewma))]
+    for h, (o_off, n_off) in enumerate(zip(old.hist_offsets,
+                                           new_spec.hist_offsets)):
+        pairs += [(o_off + j, n_off + j) for j in
+                  range(min(old.hist_sizes[h], new_spec.hist_sizes[h]))]
+    o_cols = np.array([p[0] for p in pairs], np.int64)
+    n_cols = np.array([p[1] for p in pairs], np.int64)
+    occupied = np.flatnonzero(keys >= 0)       # ascending slot order
+    for i, s in zip(occupied, hash_slot_np(keys[occupied],
+                                           new_spec.n_slots)):
+        out_k[s] = keys[i]
+        out_r[s] = 0.0
+        out_r[s, n_cols] = regs[i, o_cols]
+    return FlowState(new_spec, torch.as_tensor(out_k, device=dev),
+                     torch.as_tensor(out_r, device=dev))

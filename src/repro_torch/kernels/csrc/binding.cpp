@@ -93,25 +93,109 @@ void fused_mlp_classify(at::Tensor x, at::Tensor w_flat, at::Tensor b_flat,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+MatDims mat_dims(const at::Tensor& edges, const at::Tensor& tables,
+                 const at::Tensor& lmap, bool use_min) {
+  MatDims m;
+  m.F = (int)edges.size(0);
+  m.E = (int)edges.size(1);
+  m.C = (int)tables.size(2);
+  m.use_min = use_min ? 1 : 0;
+  TORCH_CHECK(tables.size(0) == m.F && tables.size(1) == m.E + 1,
+              "MAT tables do not fit the edges");
+  TORCH_CHECK(m.F >= 1 && m.F <= RT_MAT_MAX_FEATURES, "MAT features");
+  TORCH_CHECK(m.C >= 1 && m.C <= 32 * RT_CLS_PER_LANE, "MAT classes");
+  TORCH_CHECK(lmap.numel() >= m.C, "label map shorter than the classes");
+  return m;
+}
+
+void mat_lut_classify(at::Tensor x, at::Tensor edges, at::Tensor tables,
+                      at::Tensor lmap, at::Tensor out, bool use_min) {
+  c10::cuda::CUDAGuard guard(x.device());
+  MatDims m = mat_dims(edges, tables, lmap, use_min);
+  TORCH_CHECK(x.size(1) == m.F, "x width != MAT features");
+  C10_CUDA_CHECK(launch_mat_lut_classify(
+      x.data_ptr<float>(), (int)x.size(0), m, edges.data_ptr<float>(),
+      tables.data_ptr<float>(), lmap.data_ptr<int>(), out.data_ptr<int>(),
+      stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// kind 0 (MLP): params = [w_flat, b_flat], dims = the layer widths;
+// kind 1 (MAT): params = [edges, tables, lmap], dims = [use_min];
+// kind 2 (centroid): params = [cent, fidx, lmap], dims = [use_min]
+// (fidx empty: no FeatureSelect).  mit: empty, or [mit_keys, mit_regs,
+// order, seg_first, seg_len, seg_slot] with mit_policy = [threshold,
+// keep_every, attack_class, drop].
 void fused_flow_serve(at::Tensor keys, at::Tensor regs, at::Tensor pkt_keys,
                       at::Tensor upd, at::Tensor bins, at::Tensor valid,
                       at::Tensor order, at::Tensor seg_first,
-                      at::Tensor seg_len, at::Tensor seg_slot,
-                      at::Tensor w_flat, at::Tensor b_flat,
-                      std::vector<int64_t> widths, at::Tensor verdicts,
+                      at::Tensor seg_len, at::Tensor seg_slot, int64_t kind,
+                      std::vector<at::Tensor> params,
+                      std::vector<int64_t> dims, at::Tensor verdicts,
                       int64_t n_counters, int64_t n_ewma, double alpha,
-                      int64_t mode) {
+                      int64_t mode, std::vector<at::Tensor> mit,
+                      std::vector<double> mit_policy) {
   c10::cuda::CUDAGuard guard(regs.device());
   FlowArgs a = flow_args(keys, regs, pkt_keys, upd, bins, valid, order,
                          seg_first, seg_len, seg_slot, n_counters, n_ewma,
                          alpha);
-  MlpDims d = mlp_dims(widths);
-  TORCH_CHECK(w_flat.numel() == d.n_w && b_flat.numel() == d.n_b,
-              "packed MLP does not match its widths");
   TORCH_CHECK(mode >= 0 && mode <= 2, "readout mode must be 0, 1 or 2");
-  C10_CUDA_CHECK(launch_fused_flow_serve(
-      a, d, w_flat.data_ptr<float>(), b_flat.data_ptr<float>(),
-      verdicts.data_ptr<int>(), (int)mode, stream_of(regs)));
+  SuffixArgs s{};
+  s.kind = (int)kind;
+  if (kind == 0) {
+    TORCH_CHECK(params.size() == 2, "MLP suffix takes w_flat, b_flat");
+    s.mlp = mlp_dims(dims);
+    TORCH_CHECK(params[0].numel() == s.mlp.n_w &&
+                    params[1].numel() == s.mlp.n_b,
+                "packed MLP does not match its widths");
+    s.p0 = params[0].data_ptr<float>();
+    s.p1 = params[1].data_ptr<float>();
+  } else if (kind == 1) {
+    TORCH_CHECK(params.size() == 3 && dims.size() == 1,
+                "MAT suffix takes edges, tables, lmap and use_min");
+    s.mat = mat_dims(params[0], params[1], params[2], dims[0] != 0);
+    s.p0 = params[0].data_ptr<float>();
+    s.p1 = params[1].data_ptr<float>();
+    s.lmap = params[2].data_ptr<int>();
+  } else if (kind == 2) {
+    TORCH_CHECK(params.size() == 3 && dims.size() == 1,
+                "centroid suffix takes cent, fidx, lmap and use_min");
+    const at::Tensor& cent = params[0];
+    s.cent.K = (int)cent.size(0);
+    s.cent.D = (int)cent.size(1);
+    s.cent.n_sel = (int)params[1].numel();
+    s.cent.use_min = dims[0] != 0 ? 1 : 0;
+    TORCH_CHECK(s.cent.K >= 1 && s.cent.K <= 32 * RT_CLS_PER_LANE,
+                "centroid count");
+    TORCH_CHECK(s.cent.n_sel == 0 || s.cent.n_sel == s.cent.D,
+                "feature index does not match the centroid width");
+    TORCH_CHECK(params[2].numel() >= s.cent.K,
+                "label map shorter than the centroids");
+    s.p0 = cent.data_ptr<float>();
+    s.fidx = s.cent.n_sel ? params[1].data_ptr<int>() : nullptr;
+    s.lmap = params[2].data_ptr<int>();
+  } else {
+    TORCH_CHECK(false, "suffix kind must be 0, 1 or 2");
+  }
+  MitArgs m{};
+  const MitArgs* mp = nullptr;
+  if (!mit.empty()) {
+    TORCH_CHECK(mit.size() == 6 && mit_policy.size() == 4,
+                "mitigation takes 6 tensors and 4 policy values");
+    m.keys = mit[0].data_ptr<int>();
+    m.regs = mit[1].data_ptr<float>();
+    m.order = mit[2].data_ptr<int>();
+    m.seg_first = mit[3].data_ptr<int>();
+    m.seg_len = mit[4].data_ptr<int>();
+    m.seg_slot = mit[5].data_ptr<int>();
+    m.threshold = (float)mit_policy[0];
+    m.keep_every = (float)mit_policy[1];
+    m.attack_class = (int)mit_policy[2];
+    m.drop = mit_policy[3] != 0.0 ? 1 : 0;
+    mp = &m;
+  }
+  C10_CUDA_CHECK(launch_fused_flow_serve(a, s, verdicts.data_ptr<int>(),
+                                         (int)mode, mp, stream_of(regs)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -121,5 +205,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flow_update", &flow_update, "K2: flow-register update");
   m.def("fused_mlp_classify", &fused_mlp_classify, "K3: MLP + argmax");
   m.def("fused_flow_serve", &fused_flow_serve,
-        "K1: register update + readout + MLP + argmax");
+        "K1: register update + readout + classifier [+ mitigation]");
+  m.def("mat_lut_classify", &mat_lut_classify,
+        "K4: MAT quantize + LUT sum + arg-reduce + LabelMap");
 }

@@ -8,6 +8,9 @@
 #define RT_COLS 8              // register columns per lane: W <= 256
 #define RT_MAX_LAYERS 16       // MLP layers the kernels take
 #define RT_MAX_MLP_WIDTH 256   // widest MLP layer the kernels take
+#define RT_CLS_PER_LANE 4      // MAT classes / centroids per lane: <= 128
+#define RT_MAT_MAX_FEATURES 64 // MAT features (K4's per-warp row buffer)
+#define RT_MITIGATED (-1)      // verdict of a packet the action table drops
 
 // One flow table and one slot-segmented batch.  ``keys``/``regs`` are
 // updated in place; only the batch's slots are read and written.
@@ -35,13 +38,57 @@ struct MlpDims {
   int n_b;                // bias floats
 };
 
+// A MAT classifier (Quantize -> LUTGather -> Reduce -> LabelMap): edges
+// [F, E] sorted rows, tables [F, E + 1, C], label map [L] int (L >= C).
+struct MatDims {
+  int F, E, C, use_min;
+};
+
+// A centroid classifier ([FeatureSelect] -> CentroidDistance -> Reduce ->
+// LabelMap): centroids [K, D]; ``n_sel`` = D with a feature index [D]
+// into the readout row, 0 without one; label map [L] int (L >= K).
+struct CentDims {
+  int K, D, n_sel, use_min;
+};
+
+// K1's classifier: ``kind`` 0 = MLP (w, b), 1 = MAT (edges, tables,
+// lmap), 2 = centroid (cent, fidx, lmap).
+struct SuffixArgs {
+  int kind;
+  MlpDims mlp;
+  MatDims mat;
+  CentDims cent;
+  const float* p0;        // MLP weights | MAT edges | centroids
+  const float* p1;        // MLP biases | MAT tables
+  const int* fidx;        // centroid feature index (n_sel entries)
+  const int* lmap;        // MAT / centroid label map
+};
+
+// K1's folded action table and its own slot segmentation (the flow
+// table's when both have the same slot count).  Updated in place.
+struct MitArgs {
+  int* keys;              // [Sm] stored keys, -1 = empty
+  float* regs;            // [Sm, 2] [hits, since]
+  const int* order;       // [B] arrival index of sorted position
+  const int* seg_first;   // [B] per segment: first sorted position
+  const int* seg_len;     // [B] per segment: packets (0 = no segment)
+  const int* seg_slot;    // [B] per segment: action slot
+  float threshold, keep_every;
+  int attack_class, drop; // drop: 1 = "drop", 0 = "rate_limit"
+};
+
 cudaError_t launch_flow_update(const FlowArgs& a, float* feats,
                                cudaStream_t stream);
 cudaError_t launch_fused_mlp_classify(const float* x, int B,
                                       const MlpDims& d, const float* w,
                                       const float* b, int* out,
                                       cudaStream_t stream);
-cudaError_t launch_fused_flow_serve(const FlowArgs& a, const MlpDims& d,
-                                    const float* w, const float* b,
-                                    int* verdicts, int mode,
+cudaError_t launch_mat_lut_classify(const float* x, int B, const MatDims& m,
+                                    const float* edges, const float* tables,
+                                    const int* lmap, int* out,
                                     cudaStream_t stream);
+// ``mit`` null: no action table (a plain launch); else one cooperative
+// launch with a grid-wide barrier before the mitigation phase.
+cudaError_t launch_fused_flow_serve(const FlowArgs& a, const SuffixArgs& s,
+                                    int* verdicts, int mode,
+                                    const MitArgs* mit, cudaStream_t stream);

@@ -18,15 +18,28 @@ fetched, so an in-flight copy never reads a buffer being written.
 ``ServeStats`` separates host dispatch time (``dispatch_s``) from
 per-batch latency (dispatch -> verdicts on the host) and counts
 ``wall_s`` as the active serving span, overlapping windows merged.
+``mitigated`` counts the ``MITIGATED`` verdicts of a pipeline with an
+action table.
 
-Hot swap, telemetry and the stateless ``CompiledDag`` path are later
-slices.
+Hot swap (``swap``): the new pipeline is built and warmed on the
+caller's thread, parked, and installed at the next dispatch-ring
+boundary (the top of a dispatch, or the end of a flush), so in-flight
+batches finish on the old pipeline and no batch is dropped or
+reordered.  The live state carries over through the new pipeline's
+``adopt_state``: bit-identically for the same specs, re-keyed through
+``migrate_state``/``migrate_mitigation`` for changed ones; adding a
+``Mitigate`` starts an empty action table, dropping one drops it.
+``stats()`` records each swap's latency (request to install) and the
+packet offset of its boundary.
+
+Telemetry and the stateless ``CompiledDag`` path are later slices.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Any, Iterable, Iterator
 
@@ -34,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.flowstate.mitigation import MITIGATED
 
 
 @dataclasses.dataclass
@@ -46,6 +60,12 @@ class ServeStats:
     dispatch_s: float = 0.0        # host time staging + launching batches
     backend: str = "interpret"     # engine the pipeline actually runs on
     depth: int = 1                 # in-flight cap
+    mitigated: int = 0             # MITIGATED verdicts returned
+    # hot swaps: latency (request -> install) and the packet offset of
+    # each boundary (packets before it served by the old pipeline)
+    swaps: int = 0
+    swap_lat_s: list = dataclasses.field(default_factory=list)
+    swap_pkt_offsets: list = dataclasses.field(default_factory=list)
     # trailing window of per-batch latencies (dispatch -> verdicts on host)
     batch_lat_s: collections.deque = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=ServeStats.LAT_WINDOW)
@@ -88,6 +108,11 @@ class ServeStats:
         self.backend_counts[backend] = \
             self.backend_counts.get(backend, 0) + 1
 
+    def record_swap(self, lat_s: float) -> None:
+        self.swaps += 1
+        self.swap_lat_s.append(float(lat_s))
+        self.swap_pkt_offsets.append(int(self.packets))
+
     def as_dict(self) -> dict:
         return {
             "packets": self.packets,
@@ -102,6 +127,10 @@ class ServeStats:
             "backend": self.backend,
             "backend_batches": self.backend_batches,
             "depth": self.depth,
+            "mitigated": self.mitigated,
+            "swaps": self.swaps,
+            "swap_lat_ms": [s * 1e3 for s in self.swap_lat_s],
+            "swap_pkt_offsets": list(self.swap_pkt_offsets),
         }
 
 
@@ -114,6 +143,7 @@ class _InFlight:
     t0: float                      # dispatch start
     event: Any                     # CUDA event after the copy, or None
     ready: float | None            # completion time when known at dispatch
+    mitigated: bool = False        # served by a pipeline with Mitigate
 
 
 class PacketServeEngine:
@@ -160,6 +190,8 @@ class PacketServeEngine:
         self._out_staging = ring((self.max_batch,), torch.int32)
         self._staging_i = 0
         self._mark: float | None = None
+        self._swap_lock = threading.Lock()
+        self._pending_swap: tuple | None = None
         self.stats_ = ServeStats(backend=self.backend, depth=self.depth)
         self._warm_up()
 
@@ -214,6 +246,7 @@ class PacketServeEngine:
         return taken[0] if len(taken) == 1 else np.concatenate(taken, 0)
 
     def _dispatch_batch(self, rows: np.ndarray) -> int:
+        self._maybe_install_swap()            # dispatch-ring boundary
         n = len(rows)
         pad = self.max_batch - n
         i = self._staging_i
@@ -236,6 +269,7 @@ class PacketServeEngine:
             flight = _InFlight(n, host, t0, event, None)
         else:
             flight = _InFlight(n, out, t0, None, time.perf_counter())
+        flight.mitigated = self.pipeline.mitigation is not None
         self.stats_.dispatch_s += time.perf_counter() - t0
         self.stats_.count_batch(self.backend, n, pad)
         self._inflight.append(flight)
@@ -247,6 +281,8 @@ class PacketServeEngine:
         if f.event is not None:
             f.event.synchronize()
         out = f.out.numpy()[:f.n].astype(np.int32, copy=True)
+        if f.mitigated:
+            self.stats_.mitigated += int((out == MITIGATED).sum())
         end = f.ready if f.ready is not None else time.perf_counter()
         self.stats_.batch_lat_s.append(end - f.t0)
         if self._mark is not None:
@@ -264,6 +300,9 @@ class PacketServeEngine:
                 self._take(min(self.max_batch, self._pending)))
         while self._inflight:
             outs.append(self._fetch_one())
+        # the drained ring is a boundary: a parked swap never outlives a
+        # flush, even when no more traffic arrives
+        self._maybe_install_swap()
         if not outs:
             return np.zeros((0,), np.int32)
         return outs[0] if len(outs) == 1 else np.concatenate(outs, 0)
@@ -283,6 +322,59 @@ class PacketServeEngine:
             tail = self.flush()
             if len(tail):
                 yield tail
+
+    # ---------------------------------------------------------- hot swap
+
+    def swap(self, pipeline, *, backend: str | None = None) -> None:
+        """Install ``pipeline`` at the next dispatch-ring boundary.  It is
+        recompiled for this engine's device (and for ``backend`` when
+        given) and warmed here, on the caller's thread; the serving path
+        only adopts it.  Swapping to a pipeline without per-flow state
+        raises: that is a different engine, not a new model."""
+        t_req = time.perf_counter()
+        if not hasattr(pipeline, "init_state"):
+            raise ValueError("hot swap cannot change statefulness: engine "
+                             "is stateful, new pipeline is stateless")
+        if backend is not None or pipeline.device != self.device:
+            pipeline = pipeline.with_backend(
+                backend or pipeline.requested_backend, device=self.device)
+        self._prepare_swap(pipeline)
+        with self._swap_lock:
+            self._pending_swap = (pipeline, t_req)
+
+    @property
+    def swap_pending(self) -> bool:
+        return self._pending_swap is not None
+
+    def _prepare_swap(self, pipeline) -> None:
+        """Build the kernels and run one all-padding batch on a throwaway
+        state, so the install itself never builds anything."""
+        zeros = torch.zeros((self.max_batch, self.feature_dim))
+        pipeline(pipeline.init_state(), zeros,
+                 torch.zeros(self.max_batch, dtype=torch.int32))
+
+    def _maybe_install_swap(self) -> None:
+        if self._pending_swap is None:        # the common case, lock-free
+            return
+        with self._swap_lock:
+            pending, self._pending_swap = self._pending_swap, None
+        if pending is None:
+            return
+        pipeline, t_req = pending
+        self._install_swap(pipeline)
+        self.stats_.record_swap(time.perf_counter() - t_req)
+
+    def _install_swap(self, pipeline) -> None:
+        self._carry_state(pipeline)
+        self.pipeline = pipeline
+        self.backend = pipeline.backend
+        self.stats_.backend = self.backend
+
+    def _carry_state(self, pipeline) -> None:
+        """The live state into the new pipeline's shape: the same specs
+        keep the tensors bit-identically, changed specs re-key (see
+        ``StatefulPipeline.adopt_state``)."""
+        self.state = pipeline.adopt_state(self.state)
 
     def stats(self) -> dict:
         return self.stats_.as_dict()

@@ -10,6 +10,15 @@ Patterns (``PATTERNS``):
   ``same_slot``     distinct keys that all hash to one slot: an eviction
                     chain (keys picked with equal ``hash_slot``)
   ``mixed``         a few keys, heavy collisions
+  ``slot_runs``     runs of repeated keys (1-12 packets each) drawn from
+                    six distinct keys that all hash to one slot: eviction
+                    chains in which flows also repeat, so action-table
+                    rows cross their threshold mid-chain and are evicted
+
+The colliding patterns collide over ``key_slots`` slots (default: the
+flow table's); keys that share a slot in the larger of two power-of-two
+tables share one in the smaller too, so passing the larger slot count
+makes them collide in the flow table and the action table alike.
 
 ``ragged=True`` marks the last quarter of a batch and a few holes as
 padding (``valid == 0``).  Every batch also carries a few ``-0.0`` EWMA
@@ -23,7 +32,8 @@ import torch
 
 from repro_torch.flowstate.registers import FlowStateSpec, hash_slot_np
 
-PATTERNS = ("one_hot_flow", "all_distinct", "same_slot", "mixed")
+PATTERNS = ("one_hot_flow", "all_distinct", "same_slot", "mixed",
+            "slot_runs")
 
 # verdicts may differ only on rows whose top-two logit margin is within
 # this (the MLP's f32 summation order differs between engines)
@@ -50,13 +60,20 @@ def pattern_keys(rng, pattern: str, n: int, n_slots: int) -> np.ndarray:
         return same_slot_keys(n, n_slots)
     if pattern == "mixed":
         return rng.integers(0, 9, n).astype(np.int32)
+    if pattern == "slot_runs":
+        pool = same_slot_keys(6, n_slots)
+        runs = [np.full(rng.integers(1, 13), rng.choice(pool))
+                for _ in range(n)]
+        return np.concatenate(runs)[:n].astype(np.int32)
     raise KeyError(f"pattern must be one of {PATTERNS}")
 
 
 def flow_batch(spec: FlowStateSpec, pattern: str, B: int, seed: int, *,
-               ragged: bool = False) -> dict:
+               ragged: bool = False, key_slots: int | None = None) -> dict:
     """Seeded operands for one register update, as numpy: pkt_keys [B]
-    int32, upd [B, C+E] f32, bins [B, H] int32, valid [B] int32."""
+    int32, upd [B, C+E] f32, bins [B, H] int32, valid [B] int32.  Keys of
+    the colliding patterns collide over ``key_slots`` slots (default
+    ``spec.n_slots``)."""
     rng = np.random.default_rng(seed)
     C, E = spec.n_counters, spec.n_ewma
     upd = np.empty((B, C + E), np.float32)
@@ -76,7 +93,8 @@ def flow_batch(spec: FlowStateSpec, pattern: str, B: int, seed: int, *,
     if ragged:
         valid[3 * B // 4:] = 0
         valid[rng.integers(0, 3 * B // 4, 5)] = 0
-    return {"pkt_keys": pattern_keys(rng, pattern, B, spec.n_slots),
+    slots = spec.n_slots if key_slots is None else key_slots
+    return {"pkt_keys": pattern_keys(rng, pattern, B, slots),
             "upd": upd, "bins": bins, "valid": valid}
 
 
@@ -87,6 +105,30 @@ def random_mlp(widths, seed: int):
           for a, b in zip(widths[:-1], widths[1:])]
     bs = [(0.1 * rng.normal(size=b)).astype(np.float32) for b in widths[1:]]
     return ws, bs
+
+
+def readout_moments(prefix, packets: np.ndarray, device="cpu"):
+    """Mean and standard deviation (+1e-6) of the readout rows that
+    ``prefix`` ([FlowKey, RegisterUpdate, WindowStats]) gives a packet
+    stream, walked once from an empty table -> (mu, sd) f32 numpy.  The
+    attack/defense detector folds them into its first layer
+    (``traffic.fold_input_standardization``), as the reference's
+    ``build_pipeline`` folds its training set's moments."""
+    from repro_torch.flowstate.registers import init_state
+    from repro_torch.kernels.flow_update import flow_update_ref
+
+    fk, ru, ws = prefix
+    spec = ru.spec
+    st = init_state(spec, device)
+    x = torch.as_tensor(packets, device=device)
+    upd, bins = ru.prepare(x)
+    valid = torch.ones(x.shape[0], dtype=torch.int32, device=device)
+    _, _, feats = flow_update_ref(st.keys, st.regs, fk.apply_keys(x), upd,
+                                  bins, valid, n_counters=spec.n_counters,
+                                  n_ewma=spec.n_ewma, alpha=spec.ewma_alpha)
+    z = ws.apply(feats).cpu().numpy().astype(np.float64)
+    return (z.mean(0).astype(np.float32),
+            (z.std(0) + 1e-6).astype(np.float32))
 
 
 def plain_stream(stages, packets: np.ndarray, max_batch: int, device):
@@ -120,13 +162,34 @@ def plain_stream(stages, packets: np.ndarray, max_batch: int, device):
 
 
 def verdict_mismatches(verdicts: np.ndarray, ref_logits: np.ndarray,
-                       margin: float = MARGIN) -> tuple[int, int]:
-    """-> (rows whose verdict differs from the reference argmax although
-    the top-two margin exceeds ``margin``, rows within the margin)."""
-    ref = np.argmax(ref_logits, 1)
-    top = np.sort(ref_logits, 1)
-    gap = (top[:, -1] - top[:, -2] if ref_logits.shape[1] > 1
+                       margin: float = MARGIN, *, use_min: bool = False,
+                       label_map=None) -> tuple[int, int]:
+    """-> (rows whose verdict differs from the reference arg-reduce
+    (argmin with ``use_min``, then ``label_map``) although the top-two
+    margin exceeds ``margin``, rows within the margin)."""
+    scores = -np.asarray(ref_logits) if use_min else np.asarray(ref_logits)
+    ref = np.argmax(scores, 1)
+    if label_map is not None:
+        ref = np.asarray(label_map)[ref]
+    top = np.sort(scores, 1)
+    gap = (top[:, -1] - top[:, -2] if scores.shape[1] > 1
            else np.full(len(ref), np.inf))
     close = gap <= margin
     bad = (np.asarray(verdicts) != ref) & ~close
     return int(bad.sum()), int(close.sum())
+
+
+def mat_stages(n_in: int, seed: int = 7, *, use_min: bool = False):
+    """The mat-fused classifier of ``benchmarks/flow_throughput.py:58-80``
+    as port stages: edges [n_in, 7] (feature 0's edges 1..7, for the raw
+    packet count), tables [n_in, 8, 4] from ``default_rng(seed)`` and the
+    LabelMap [0, 1, 1, 0]."""
+    from repro_torch.core import stageir
+
+    rng = np.random.default_rng(seed)
+    edges = np.sort(rng.random((n_in, 7)).astype(np.float32), axis=1)
+    edges[0] = np.arange(1.0, 8.0, dtype=np.float32)
+    tables = rng.random((n_in, 8, 4)).astype(np.float32)
+    return [stageir.Quantize(edges), stageir.LUTGather(tables),
+            stageir.Reduce("argmin" if use_min else "argmax"),
+            stageir.LabelMap(np.asarray([0, 1, 1, 0], np.int32))]

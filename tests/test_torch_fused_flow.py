@@ -16,7 +16,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import stageir as jstageir  # noqa: E402
 from repro.data import traffic as jtraffic  # noqa: E402
+from repro.core import pallas_backend as jpb  # noqa: E402
+from repro.flowstate import FlowStateSpec as JSpec  # noqa: E402
 from repro.flowstate import MitigationSpec  # noqa: E402
+from repro.flowstate import StatefulPipeline as JPipeline  # noqa: E402
 from repro.kernels import fused_flow as jff  # noqa: E402
 from repro.kernels import fused_mlp as jfm  # noqa: E402
 
@@ -140,15 +143,19 @@ def _reference_stages(suffix_kind):
     if suffix_kind == "logits":
         w, b = random_mlp((n_in, 16, 2), seed=1)
         return [fk, ru, ws, jstageir.FusedMLP(w, b)]
-    if suffix_kind == "mat":
-        edges = np.sort(rng.random((n_in, 7)).astype(np.float32), axis=1)
+    if suffix_kind in ("mat", "mat_wide"):
+        bins = 8 if suffix_kind == "mat" else 1100
+        edges = np.sort(rng.random((n_in, bins - 1)).astype(np.float32),
+                        axis=1)
         return [fk, ru, ws, jstageir.Quantize(edges),
-                jstageir.LUTGather(rng.random((n_in, 8, 4)).astype(np.float32)),
+                jstageir.LUTGather(rng.random((n_in, bins, 4))
+                                   .astype(np.float32)),
                 jstageir.Reduce("argmax"),
                 jstageir.LabelMap(np.asarray([0, 1, 1, 0], np.int32))]
-    if suffix_kind == "centroid":
+    if suffix_kind in ("centroid", "centroid_wide"):
+        k = 3 if suffix_kind == "centroid" else 200
         return [fk, ru, ws,
-                jstageir.CentroidDistance(rng.random((3, n_in)).astype(np.float32)),
+                jstageir.CentroidDistance(rng.random((k, n_in)).astype(np.float32)),
                 jstageir.Reduce("argmin")]
     if suffix_kind == "mitigate":
         return _reference_stages("mlp") + [
@@ -157,11 +164,13 @@ def _reference_stages(suffix_kind):
 
 
 @pytest.mark.parametrize("kind,reason", [
-    ("mat", "mat suffix not yet ported"),
-    ("centroid", "centroid suffix not yet ported"),
+    ("mat_wide", "bins > 1024"),
     ("logits", "argmax"),
 ])
 def test_cuda_backend_declines_by_name(kind, reason):
+    """What the port cannot lower declines with its reason on both paths
+    (a MAT beyond the kernels' bins, a logits-only MLP); the plain walk
+    still serves what it can apply."""
     stages = convert.stages_from_reference(_reference_stages(kind))
     prefix, suffix = stages[:2], stages[2:]
     assert reason in cuda_backend.fused_flow_decline_reason(prefix, suffix)
@@ -169,26 +178,140 @@ def test_cuda_backend_declines_by_name(kind, reason):
     for fuse in (True, False):
         with pytest.raises(ValueError, match=reason):
             StatefulPipeline(stages, backend="cuda", fuse=fuse, device="cpu")
-    # the plain stage walk serves what it can apply
     if kind != "logits":
         pipe = StatefulPipeline(stages, backend="interpret", device="cpu")
         assert pipe.backend == "interpret"
 
 
+@pytest.mark.parametrize("kind", ["mat", "centroid", "mitigate"])
+def test_cuda_backend_serves_mat_centroid_and_mitigation(kind):
+    """No decline for a MAT suffix, a centroid suffix or a single-table
+    Mitigate: one K1 launch fused; split as the JAX package splits it
+    (K2 + K4 "cpu-ref"; the centroid suffix and the action table in
+    their plain walks, "mixed")."""
+    stages = convert.stages_from_reference(_reference_stages(kind))
+    rest, mit = stageir.split_mitigation(stages)
+    assert cuda_backend.fused_flow_decline_reason(rest[:2], rest[2:],
+                                                  mit) is None
+    fused = StatefulPipeline(stages, backend="cuda", device="cpu")
+    split = StatefulPipeline(stages, backend="cuda", fuse=False,
+                             device="cpu")
+    jsplit = JPipeline(_reference_stages(kind), backend="pallas", fuse=False)
+    assert fused.backend == "cpu-ref-fused-flow"
+    assert split.backend == {"mat": "cpu-ref"}.get(kind, "mixed")
+    assert jsplit.backend == {"mat": "pallas"}.get(kind, "mixed")
+    x = jtraffic.make_stream("ddos_burst", n_packets=300, seed=2).packets
+    _, vf = fused(fused.init_state(), x)
+    _, vs = split(split.init_state(), x)
+    np.testing.assert_array_equal(vf, vs)
+
+
+def test_centroid_outside_the_envelope():
+    """Past 128 centroids K1 declines by name; the split path walks the
+    centroid suffix in plain PyTorch, as the JAX package walks it in jnp
+    (there is no stateless centroid kernel in either package)."""
+    stages = convert.stages_from_reference(_reference_stages("centroid_wide"))
+    reason = cuda_backend.fused_flow_decline_reason(stages[:2], stages[2:])
+    assert "200 centroids" in reason and "not yet ported" not in reason
+    with pytest.raises(ValueError, match="200 centroids"):
+        StatefulPipeline(stages, backend="cuda", device="cpu")
+    split = StatefulPipeline(stages, backend="cuda", fuse=False, device="cpu")
+    assert split.backend == "mixed" and split.classifier_backend == "interpret"
+
+
 def test_mitigation_and_multi_table_raise_not_implemented():
+    """Multi-table pipelines still raise NotImplementedError and decline
+    by name; a single-table ``Mitigate`` now lowers (it used to raise
+    here too)."""
     stages = convert.stages_from_reference(_reference_stages("mitigate"))
     for backend in ("cuda", "interpret"):
-        with pytest.raises(NotImplementedError, match="Mitigate"):
-            StatefulPipeline(stages, backend=backend, device="cpu")
+        pipe = StatefulPipeline(stages, backend=backend, device="cpu")
+        assert pipe.n_state_arrays == 4
     two = stages[:2] + stages[:-1]
     with pytest.raises(NotImplementedError, match="multi-table"):
         StatefulPipeline(two, backend="cuda", device="cpu")
     prefix, suffix = stages[:2], stages[2:-1]
     assert cuda_backend.fused_flow_decline_reason(
-        prefix, suffix, mitigation=stages[-1]) == "mitigation not yet ported"
+        prefix, suffix, mitigation=stages[-1]) is None
     assert cuda_backend.fused_flow_decline_reason(
         [tuple(prefix), tuple(prefix)], suffix) \
         == "multi-table plans not yet ported"
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_fused_centroid_suffix_matches_pallas(pattern):
+    """K1's "centroid" plain version against the Pallas kernel in
+    interpret mode (a folded FeatureSelect, argmin, a LabelMap): state
+    bit for bit, distances within rtol=atol=1e-5 of the JAX stage walk,
+    verdicts under the margin rule (margin rows counted)."""
+    rng = np.random.default_rng(9)
+    cent = rng.random((5, 6)).astype(np.float32) * 3
+    fidx = (0, 2, 4, 5, 9, 12)
+    sfx = ("centroid", fidx, cent, np.asarray([1, 0, 1, 2, 0], np.int32),
+           True)
+    jsp, jarr = jpb._pack_suffix(sfx, 8, True)
+    tc = tff.pack_centroids(cent, sfx[3], fidx, use_min=True)
+    jk, jr = jnp.full((N_SLOTS,), -1, jnp.int32), jnp.zeros((N_SLOTS, W))
+    tk, tr = _t(np.asarray(jk)), _t(np.asarray(jr))
+    jtp = jff.TablePlan(2, 2, 2, 0.125, W, "all")
+    ttp = tff.TablePlan(2, 2, 2, 0.125, W, "all")
+    for step in range(2):
+        b = flow_batch(SPEC, pattern, B, seed=step + 21, ragged=step == 1)
+        _, _, feats = tfu.flow_update_ref(
+            tk, tr, _t(b["pkt_keys"]), _t(b["upd"]), _t(b["bins"]),
+            _t(b["valid"]), n_counters=2, n_ewma=2, alpha=0.125)
+        z = tff.suffix_readout(feats, ttp)
+        dist = tff.centroid_scores_ref(z, tc).numpy()
+        jdist = np.asarray(jstageir.CentroidDistance(cent).apply(
+            jnp.asarray(z.numpy()[:, list(fidx)])))
+        np.testing.assert_allclose(dist, jdist, rtol=1e-5, atol=1e-5)
+        jk, jr, jv = jff.fused_flow_serve(
+            [(jk, jr, b["pkt_keys"], b["upd"], b["bins"])], b["valid"],
+            (jtp,), jsp, jarr)
+        tk, tr, tv = tff.fused_flow_serve(
+            tk, tr, _t(b["pkt_keys"]), _t(b["upd"]), _t(b["bins"]),
+            _t(b["valid"]), ttp, tff.SuffixPlan("centroid", 5), tc)
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tr.numpy().view(np.int32),
+                                      np.asarray(jr).view(np.int32))
+        lm = np.asarray(sfx[3])
+        for v in (tv.numpy(), np.asarray(jv)):
+            bad, close = verdict_mismatches(v, jdist, use_min=True,
+                                            label_map=lm)
+            assert bad == 0 and close <= B // 100
+
+
+def test_fused_centroid_ties_break_to_lowest_index():
+    """Duplicated centroids: every packet nearest the pair is an exact
+    distance tie; the masked argmin picks the lowest index in both
+    packages (label 9 never wins).  Port of
+    tests/test_fused_flow.py::test_fused_centroid_ties_break_to_lowest_index."""
+    spec = JSpec(n_slots=64, n_counters=1, n_ewma=1, hist_sizes=(4,),
+                 ewma_alpha=0.25)
+    fk = jstageir.FlowKey((0,), 64)
+    ru = jstageir.RegisterUpdate(spec, ewma_cols=(1,), hist_cols=(1,),
+                                 hist_edges=(np.asarray([0.25, 0.5, 0.75]),))
+    cent = np.asarray([[0.5, 0.25], [4.0, 4.0], [0.5, 0.25]], np.float32)
+    jstages = [fk, ru, jstageir.WindowStats(spec, mode="all"),
+               jstageir.FeatureSelect((0, 2)),
+               jstageir.CentroidDistance(cent), jstageir.Reduce("argmin"),
+               jstageir.LabelMap(np.asarray([5, 7, 9], np.int32))]
+    jp = JPipeline(jstages, backend="pallas")
+    assert jp.backend == "pallas-fused-flow"
+    tp = StatefulPipeline(convert.stages_from_reference(jstages),
+                          backend="cuda", device="cpu")
+    assert tp.backend == "cpu-ref-fused-flow"
+    rng = np.random.default_rng(0)
+    js_, ts_ = jp.init_state(), tp.init_state()
+    for chunk in range(3):
+        X = np.zeros((96, 2), np.float32)
+        X[:, 0] = rng.integers(0, 9, 96)
+        X[:, 1] = (rng.integers(0, 5, 96) * 0.25).astype(np.float32)
+        js_, jv = jp(js_, X)
+        ts_, tv = tp(ts_, X)
+        np.testing.assert_array_equal(tv, jv, err_msg=f"chunk {chunk}")
+        assert set(np.unique(tv)) <= {5, 7}
+    np.testing.assert_array_equal(ts_.regs.numpy(), np.asarray(js_.regs))
 
 
 def test_backend_names_are_honest():

@@ -27,6 +27,7 @@ from repro_torch.flowstate import StatefulPipeline  # noqa: E402
 from repro_torch.serve.packet_engine import PacketServeEngine  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
     plain_stream,
+    readout_moments,
     random_mlp,
     verdict_mismatches,
 )
@@ -118,8 +119,9 @@ def test_submit_flush_equals_stream_and_resumes_state(case):
 
 
 def test_engine_backend_rebind_keeps_fuse_and_refuses(case):
-    """``backend=`` recompiles keeping ``fuse``; a MAT suffix or a
-    ``Mitigate`` stage gets a clear error from ``backend="cuda"``."""
+    """``backend=`` recompiles keeping ``fuse``; a MAT suffix and a
+    ``Mitigate`` stage now serve on ``backend="cuda"``, while a MAT past
+    the kernels' envelope gets a clear error."""
     tp = StatefulPipeline(case["tstages"], backend="interpret", fuse=False,
                           device="cpu")
     eng = PacketServeEngine(tp, feature_dim=4, max_batch=64,
@@ -130,17 +132,90 @@ def test_engine_backend_rebind_keeps_fuse_and_refuses(case):
     jstages = case["jstages"]
     (fk, ru, ws) = jstages[:3]
     rng = np.random.default_rng(0)
-    mat = convert.stages_from_reference([
-        fk, ru, ws,
-        jstageir.Quantize(np.sort(rng.random((ws.n_out, 7)), 1)
-                          .astype(np.float32)),
-        jstageir.LUTGather(rng.random((ws.n_out, 8, 2)).astype(np.float32)),
-        jstageir.Reduce("argmax")])
-    mat_pipe = StatefulPipeline(mat, backend="interpret", device="cpu")
-    with pytest.raises(ValueError, match="mat suffix not yet ported"):
-        PacketServeEngine(mat_pipe, feature_dim=4, backend="cuda",
-                          device="cpu")
+
+    def mat(bins):
+        return convert.stages_from_reference([
+            fk, ru, ws,
+            jstageir.Quantize(np.sort(rng.random((ws.n_out, bins - 1)), 1)
+                              .astype(np.float32)),
+            jstageir.LUTGather(rng.random((ws.n_out, bins, 2))
+                               .astype(np.float32)),
+            jstageir.Reduce("argmax")])
+
+    mat_pipe = StatefulPipeline(mat(8), backend="interpret", device="cpu")
+    assert PacketServeEngine(mat_pipe, feature_dim=4, backend="cuda",
+                             device="cpu").backend == "cpu-ref-fused-flow"
+    wide = StatefulPipeline(mat(1100), backend="interpret", device="cpu")
+    with pytest.raises(ValueError, match="bins > 1024"):
+        PacketServeEngine(wide, feature_dim=4, backend="cuda", device="cpu")
     mitigated = case["tstages"] + [convert.stages_from_reference(
         [jstageir.Mitigate(MitigationSpec(n_slots=N_SLOTS, threshold=3))])[0]]
-    with pytest.raises(NotImplementedError, match="Mitigate"):
-        StatefulPipeline(mitigated, backend="cuda", device="cpu")
+    assert StatefulPipeline(mitigated, backend="cuda", device="cpu"
+                            ).backend == "cpu-ref-fused-flow"
+
+
+# ------------------------------------------ slice 2: the three pipelines
+
+
+def _mat_suffix(n_in, use_min=False):
+    rng = np.random.default_rng(7)
+    edges = np.sort(rng.random((n_in, 7)).astype(np.float32), axis=1)
+    edges[0] = np.arange(1.0, 8.0, dtype=np.float32)
+    tables = rng.random((n_in, 8, 4)).astype(np.float32)
+    return [jstageir.Quantize(edges), jstageir.LUTGather(tables),
+            jstageir.Reduce("argmin" if use_min else "argmax"),
+            jstageir.LabelMap(np.asarray([0, 1, 1, 0], np.int32))]
+
+
+def _three_pipelines(case):
+    """mat-fused, mitigate-fused (benchmarks/flow_throughput.py:58-80)
+    and the attack/defense shape (benchmarks/attack_defense.py:47-61,
+    seeded MLP), at this file's small table."""
+    base = case["jstages"][:3]
+    mat = base + _mat_suffix(base[2].n_out)
+    train = jtraffic.make_stream("ddos_burst", n_packets=N_PACKETS, seed=0)
+    mu, sd = readout_moments(case["tstages"][:3], train.packets)
+    detector = jtraffic.fold_input_standardization(case["jstages"][3:], mu,
+                                                   sd)
+    return {
+        "mat-fused": mat,
+        "mitigate-fused": mat + [jstageir.Mitigate(
+            MitigationSpec(n_slots=N_SLOTS, threshold=6))],
+        "attack-defense": base + detector + [jstageir.Mitigate(
+            MitigationSpec(n_slots=2 * N_SLOTS, threshold=8))],
+    }
+
+
+@pytest.mark.parametrize("name", ["mat-fused", "mitigate-fused",
+                                  "attack-defense"])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_slice_pipelines_match_reference_engine(case, name, fuse):
+    """Each pipeline through the JAX engine (``backend="pallas"``) and
+    the port's (``backend="cuda"`` on the CPU), depth 2, a ragged tail:
+    the verdict stream (MITIGATED included) and every table equal bit for
+    bit (the MLP rows of the random detector hold no margin rows, checked
+    in ``test_torch_mitigation``), and the backend names match."""
+    jstages = _three_pipelines(case)[name]
+    jp = JPipeline(jstages, backend="pallas", fuse=fuse)
+    jeng = JEngine(jp, feature_dim=4, max_batch=MAX_BATCH, depth=2,
+                   telemetry=False)
+    jv = np.concatenate(list(jeng.serve_stream(case["stream"].chunks(CHUNK))))
+    tp = StatefulPipeline(convert.stages_from_reference(jstages),
+                          backend="cuda", fuse=fuse, device="cpu")
+    teng = PacketServeEngine(tp, feature_dim=4, max_batch=MAX_BATCH,
+                             depth=2, device="cpu")
+    tv = np.concatenate(list(teng.serve_stream(case["stream"].chunks(CHUNK))))
+    np.testing.assert_array_equal(tv, jv)
+    keys, regs = convert.state_to_numpy(teng.state)
+    np.testing.assert_array_equal(keys, np.asarray(jeng.state.keys))
+    np.testing.assert_array_equal(regs.view(np.int32),
+                                  np.asarray(jeng.state.regs).view(np.int32))
+    want = jp.backend.replace("pallas", "cpu-ref")
+    assert teng.stats()["backend"] == want
+    if name != "mat-fused":
+        mk, mr = convert.mitigation_to_numpy(teng.state)
+        np.testing.assert_array_equal(mk, np.asarray(jeng.state.mit_keys))
+        np.testing.assert_array_equal(mr, np.asarray(jeng.state.mit_regs))
+        assert teng.stats()["mitigated"] == int((tv == -1).sum()) > 0
+        r = traffic.reaction_report(case["stream"], tv)
+        assert r == jtraffic.reaction_report(case["stream"], jv)
