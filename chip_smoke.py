@@ -4,16 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (into
-``build/torch_kernels/``), then drives the stateful serving paths on the
-card and checks them, printing one JSON line per phase:
+``build/torch_kernels/``), then drives the stateful serving paths and
+the stateless DAG path on the card and checks them, printing one JSON
+line per phase:
 
   1. device and build: ``nvidia-smi`` name / power limit, build seconds;
   2. kernels: K1 ``fused_flow_serve``, K2 ``flow_update``, K3
-     ``fused_mlp_classify`` and K4 ``mat_lut_classify`` against their
-     plain PyTorch versions on the card.  ``kernels_check``: the seeded
-     collision patterns of ``repro_torch.testing`` at B=512 with 2,048
-     slots in each of K1's readout modes ("all", "hist", "raw"; state
-     exact, verdicts under the margin rule).  ``kernels_check_suffix``:
+     ``fused_mlp_classify``, K4 ``mat_lut_classify``, K5 ``fused_mlp``
+     and K6 ``fused_dag`` against their plain PyTorch versions on the
+     card.  ``kernels_check``: the seeded collision patterns of
+     ``repro_torch.testing`` at B=512 with 2,048 slots in each of K1's
+     readout modes ("all", "hist", "raw"; state exact, verdicts under the
+     margin rule), and K1 and K3 at the full-width classifier [28, 128 x
+     10, 2].  ``kernels_check_dag``: K5 (logits within 1e-4 * (1 +
+     |plain|)) and K6 (plans seq, or, and, a nested DAG with a repeated
+     model, a folded FeatureSelect, full width; the fold exact given the
+     per-model verdicts, verdicts under the margin rule) at B = 1, 37,
+     1,024 and 8,192 rows of the AD test set.  ``kernels_check_suffix``:
      K1's "mat" suffix (argmax and argmin), its "centroid" suffix with
      duplicated centroids, its mitigation phase in "drop" and
      "rate_limit" modes with 2,048 action slots (the flow table's
@@ -24,7 +31,9 @@ card and checks them, printing one JSON line per phase:
      back-to-back launches (CUDA events) and its device time
      (torch.profiler, the kernel's exact instance, null unless it saw one
      event per call) on a batch of the stream, beside its plain version
-     and its bound, K1 in each mode.  ``split_action_table``: the split
+     and its bound, K1 in each mode (the full-width MLP included);
+     ``kernels_time_dag``: K5, K6 and K3 on 1,024 AD rows at the AD widths
+     and at full width.  ``split_action_table``: the split
      path's action table (plain PyTorch on the card) against the
      sequential walk, exact, with CUDA's sync debug mode set to raise;
   3. the paths, each driven with the launch counts set to 0 just before
@@ -50,9 +59,23 @@ card and checks them, printing one JSON line per phase:
        then a rate_limit run that hot-swaps to an identical pipeline
        mid-stream while flows are limited: the verdict stream unchanged
        and exactly one swap;
+     - ``path_dag`` (``benchmarks/dag_throughput.py``, paper Table 3): the
+       AD test set (``make_ad_dataset(features=7, n_train=4096,
+       n_test=8192)``, chunks of 997, 3 passes) through the stateless
+       engine at max_batch 128, 256, 1,024 and 4,096: ``ad > tc`` fused
+       (one K6 launch per batch), per model (K3 per model), walked
+       (``backend="interpret", fuse=False``: K5 per MLP leaf), ``ad >
+       (tc | cl)`` with a centroid leaf ("mixed") and ``ad_full > tc``
+       (K6 at full width), each against the plain walk on CPU tensors
+       under the margin rule, every dispatch raising nothing under
+       ``set_sync_debug_mode("error")`` (a logits program on K5 and a
+       swap from it to a DAG included), then a hot swap between two
+       DAGs mid-stream.  The models are seeded with He scaling (the
+       trainer is not ported);
      pkt/s and p50/p99 batch latency per configuration;
-  4. where the time goes on the fused paths: device busy time (profiler)
-     against the serving wall time, launches per batch, top host ops.
+  4. where the time goes on the fused stateful paths and the fused DAG:
+     device busy time (profiler) against the serving wall time, launches
+     per batch, top host ops.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check,
@@ -77,6 +100,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 B_KERNEL, S_KERNEL = 512, 2048
+FULL_HIDDEN = (128,) * 10          # the design space's deepest DNN
 N_PACKETS, STREAM_SEED, MLP_WIDTHS = 16_000, 1, (28, 16, 8, 2)
 TIMED_LAUNCHES = 50
 # mat-fused / mitigate-fused (benchmarks/flow_throughput.py:58-80)
@@ -216,6 +240,9 @@ def kernel_device_ms(calls: dict, n: int = 20) -> dict:
 # K1's template instance, as the profiler names it: the suffix kind's
 # index in SUFFIX_KINDS and whether the mitigation phase is compiled in
 K1_INSTANCE = "fused_flow_kernel<{kind}, {mit}>"
+# K3 and K5 are one template, by whether it writes logits
+K3_INSTANCE, K5_INSTANCE = "fused_mlp_kernel<false>", "fused_mlp_kernel<true>"
+K6_NAME = "fused_dag_kernel"
 
 
 def kernel_fields(seen: dict) -> dict:
@@ -278,7 +305,7 @@ def kernel_phase(dev):
     from repro_torch.flowstate.registers import FlowStateSpec
     from repro_torch.kernels import fused_flow as ff
     from repro_torch.kernels import fused_mlp as fm
-    from repro_torch.testing import PATTERNS, random_mlp
+    from repro_torch.testing import PATTERNS, he_mlp, random_mlp
 
     stages = flow_ddos_stages(S_KERNEL)
     spec = stages[1].spec
@@ -294,6 +321,10 @@ def kernel_phase(dev):
     hist_mlp = seeded_mlp(spec, "hist", (16, 8), 2, 4)
     raw_mlp = seeded_mlp(spec, "raw", (16, 8), 2, 5)
     wide_hist_mlp = seeded_mlp(wide, "hist", (64,), 4, 6)
+    # the design space's deepest DNN at the flow-ddos readout: 611 KB of
+    # parameters, read from device memory instead of shared memory
+    full_mlp = fm.pack_params(*he_mlp((spec.width,) + FULL_HIDDEN + (2,),
+                                      seed=0), device=dev)
     err = {"flow_update": 0.0, "fused_flow_serve": 0.0,
            "fused_mlp_classify": 0.0}
     cases = ([(spec, "all", mlp, p, False) for p in PATTERNS]
@@ -307,7 +338,9 @@ def kernel_phase(dev):
              + [(wide, "all", wide_mlp, p, r) for p, r in (
                  ("mixed", True), ("one_hot_flow", False),
                  ("same_slot", False))]
-             + [(wide, "hist", wide_hist_mlp, "mixed", True)])
+             + [(wide, "hist", wide_hist_mlp, "mixed", True)]
+             + [(spec, "all", full_mlp, p, r) for p, r in (
+                 ("mixed", True), ("same_slot", False))])
     for i, (sp_, mode, mlp_, pattern, ragged) in enumerate(cases):
         for k, e in check_kernels(dev, sp_, mode, mlp_, pattern, ragged,
                                   seed=100 + i).items():
@@ -575,7 +608,7 @@ def timing(dev, stages, tp, sp, mlp, kw):
     k3 = lambda: fm.fused_mlp_classify_launch(z, mlp)
     k1_name = K1_INSTANCE.format(kind=0, mit="false")
     dev_ms = kernel_device_ms({k1_name: k1, "flow_update_kernel": k2,
-                               "fused_mlp_kernel": k3})
+                               K3_INSTANCE: k3})
     out = {}
     out["fused_flow_serve"] = dict(
         ms=time_ms(k1, TIMED_LAUNCHES),
@@ -591,7 +624,7 @@ def timing(dev, stages, tp, sp, mlp, kw):
         bound=bound(rows + batch + B * W * 4, upd_flops), **shapes)
     out["fused_mlp_classify"] = dict(
         ms=time_ms(k3, TIMED_LAUNCHES),
-        **kernel_fields(dev_ms["fused_mlp_kernel"]),
+        **kernel_fields(dev_ms[K3_INSTANCE]),
         plain_ms=time_ms(lambda: fm.mlp_classify_ref(z, ws, bs),
                          TIMED_LAUNCHES),
         bound=bound(B * z.shape[1] * 4 + params + B * 4, B * mlp_flops),
@@ -634,8 +667,7 @@ def suffix_timing(dev, stages, ops, seg, tp, z, rows, batch, upd_flops,
     from repro_torch.kernels import fused_mlp as fm
     from repro_torch.kernels import mat_lut as ml
     from repro_torch.kernels.flow_update.ops import segment_batch
-    from repro_torch.kernels.flow_update.ref import hash_slot
-    from repro_torch.testing import mat_stages
+    from repro_torch.testing import he_mlp, mat_stages
 
     B, W = z.shape[0], tp.width
     mst = mat_stages(W)
@@ -653,6 +685,11 @@ def suffix_timing(dev, stages, ops, seg, tp, z, rows, batch, upd_flops,
     mlp_bytes = 4 * (mlp.w_flat.numel() + mlp.b_flat.numel())
     mlp_ops = live * (2 * sum(a * b for a, b in zip(mlp.widths[:-1],
                                                     mlp.widths[1:])) + W)
+    full = fm.pack_params(*he_mlp((W,) + FULL_HIDDEN + (2,), seed=0),
+                          device=dev)
+    full_bytes = 4 * (full.w_flat.numel() + full.b_flat.numel())
+    full_ops = live * (2 * sum(a * b for a, b in zip(full.widths[:-1],
+                                                     full.widths[1:])) + W)
     pk, valid = ops[2], ops[5]
     out = {}
 
@@ -684,7 +721,9 @@ def suffix_timing(dev, stages, ops, seg, tp, z, rows, batch, upd_flops,
             ("mat+mitigation", ff.SuffixPlan("mat", 4), mat, MIT_SLOTS,
              mat_bytes, mat_ops),
             ("mlp+mitigation", ff.SuffixPlan("mlp", 2), mlp, AD_MIT_SLOTS,
-             mlp_bytes, mlp_ops)):
+             mlp_bytes, mlp_ops),
+            ("mlp_full", ff.SuffixPlan("mlp", 2), full, None, full_bytes,
+             full_ops)):
         table = ops[0].clone(), ops[1].clone()
         mit = mseg = None
         extra_b, extra_o, shape = 0, 0, {}
@@ -872,7 +911,8 @@ def path_phase(dev, name: str, n_slots: int, batches, fuses, n_packets,
     torch.cuda.synchronize()
     # one K1 launch per fused batch; one K2 + one K3 per split batch
     check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
-                       "fused_mlp_classify": n_split, "mat_lut_classify": 0},
+                       "fused_mlp_classify": n_split, "mat_lut_classify": 0,
+                       "fused_mlp": 0, "fused_dag": 0},
           f"{name}: launches {launches} != batches "
           f"(fused {n_fused}, split {n_split})")
     emit({"phase": name, "n_slots": n_slots, "n_packets": n_packets,
@@ -981,7 +1021,8 @@ def mat_path_phase(dev, name: str, mitigated: bool, batches=(256, 512),
     launches = dict(_ext.LAUNCHES)
     torch.cuda.synchronize()
     check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
-                       "fused_mlp_classify": 0, "mat_lut_classify": n_split},
+                       "fused_mlp_classify": 0, "mat_lut_classify": n_split,
+                       "fused_mlp": 0, "fused_dag": 0},
           f"{name}: launches {launches} != batches "
           f"(fused {n_fused}, split {n_split})")
     report = traffic.reaction_report(stream, iv)
@@ -1085,28 +1126,24 @@ def attack_defense_phase(dev):
     return launches
 
 
-def profile_phase(dev, name: str, stages, max_batch: int = 512):
-    """Where the time goes on a fused path: the device's busy time (sum
-    of kernel and copy durations, from torch.profiler) against the
+def profile_phase(dev, name: str, pipe, chunks, feature_dim: int,
+                  max_batch: int = 512):
+    """Where the time goes on a path: the device's busy time (sum of
+    kernel and copy durations, from torch.profiler) against the
     unprofiled serving wall time, CUDA launches per batch, and the host
-    operations that take the most CPU time."""
+    operations that take the most CPU time.  ``chunks()`` gives the
+    stream's chunks."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data import traffic
-    from repro_torch.flowstate import StatefulPipeline
     from repro_torch.serve.packet_engine import PacketServeEngine
 
-    stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
-                                 seed=STREAM_SEED)
-    pipe = StatefulPipeline(stages, backend="cuda", device=dev.type)
-
     def run():
-        eng = PacketServeEngine(pipe, feature_dim=len(traffic.COLUMNS),
+        eng = PacketServeEngine(pipe, feature_dim=feature_dim,
                                 max_batch=max_batch, depth=2,
                                 device=dev.type)
-        for _ in eng.serve_stream(stream.chunks(max_batch)):
+        for _ in eng.serve_stream(chunks()):
             pass
         torch.cuda.synchronize()
         return eng.stats()
@@ -1135,6 +1172,370 @@ def profile_phase(dev, name: str, stages, max_batch: int = 512):
                        for e in host]})
 
 
+# ------------------------------------------------ stateless DAG (slice 3)
+
+AD_N_TRAIN, AD_N_TEST, AD_FEATURES = 4096, 8192, 7
+DAG_CHUNK, DAG_PASSES, DAG_BATCHES = 997, 3, (128, 256, 1024, 4096)
+DAG_TIME_B = 1024
+
+
+def ad_test_set():
+    """The AD test set (``benchmarks/dag_throughput.py:62``), f32."""
+    import numpy as np
+
+    from repro_torch.data import netdata
+
+    return netdata.make_ad_dataset(features=AD_FEATURES, n_train=AD_N_TRAIN,
+                                   n_test=AD_N_TEST).test_x.astype(np.float32)
+
+
+def dag_models(dev):
+    """The AD DAG's seeded pipelines (``testing.ad_pipelines``) on ``dev``
+    and on the CPU (the plain reference), plus a leaf "fs" that selects
+    features [1, 3, 6] before a Dense [3, 2] + argmax (the fold into K6's
+    first layer)."""
+    import numpy as np
+
+    from repro_torch.core import stageir
+    from repro_torch.testing import ad_pipelines, he_mlp
+
+    w, b = he_mlp((3, 2), seed=9)
+    fs = [stageir.FeatureSelect(np.asarray([1, 3, 6], np.int32)),
+          stageir.Dense(w[0], b[0]), stageir.Reduce("argmax")]
+    out = []
+    for d in (dev, "cpu"):
+        pipes = ad_pipelines(d)
+        pipes["fs"] = stageir.StagePipeline(fs, device=d)
+        out.append(pipes)
+    return out
+
+
+def dag_nodes() -> dict:
+    """The DAGs of the smoke: Seq, Par (or / and), the nested one with a
+    repeated model, the FeatureSelect fold, the mixed one (a centroid
+    leaf) and the full-width one."""
+    from repro_torch.core.alchemy import Model
+
+    ad, tc, cl, full, fs = (Model(n) for n in ("ad", "tc", "cl", "ad_full",
+                                                "fs"))
+    return {"ad>tc": ad > tc, "ad|tc": ad | tc, "ad>(tc|ad)": ad > (tc | ad),
+            "ad>fs": ad > fs, "ad>(tc|cl)": ad > (tc | cl),
+            "ad_full>tc": full > tc}
+
+
+def dag_leaf_verdicts(dag, x):
+    """Each model of a packed DAG through K3 -> [verdicts]."""
+    from repro_torch.kernels import fused_mlp as fm
+
+    return [fm.fused_mlp_classify_launch(x, fm.pack_params(w, b))
+            for w, b in dag.models()]
+
+
+def kernels_check_dag(dev):
+    """K5 and K6 against their plain versions on the card, at B = 1, 37,
+    1024 and 8192 rows of the AD test set: K5's logits within 1e-4 * (1 +
+    |plain|) at the AD widths, the SVM and full width; K6 on every plan
+    (seq, or, and, the nested DAG with a repeated model, a folded
+    FeatureSelect, full width) — its fold exact given the per-model K3
+    verdicts, its verdicts under the margin rule against the plain
+    ``fused_dag`` on CPU tensors (a row is excluded when any leaf's
+    top-two margin is within 1e-4).  -> max abs error per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cuda_backend
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.testing import (
+        AD_FULL_WIDTHS,
+        AD_WIDTHS,
+        he_mlp,
+        leaf_margin_rows,
+    )
+
+    X = ad_test_set()
+    pipes, cpu_pipes = dag_models(dev)
+    err = {"fused_mlp": 0.0, "fused_dag": 0.0}
+    sizes = (1, 37, 1024, 8192)
+    mlps = {"ad": he_mlp(AD_WIDTHS, 0), "svm": he_mlp((7, 2), 1),
+            "ad_full": he_mlp(AD_FULL_WIDTHS, 2)}
+    for name, (w, b) in mlps.items():
+        p = fm.pack_params(w, b, device=dev)
+        for B in sizes:
+            x = torch.as_tensor(X[:B], device=dev)
+            got = fm.fused_mlp_launch(x, p)
+            want = fm.mlp_ref(x, *p.layers())
+            torch.cuda.synchronize()
+            check(bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all()),
+                  f"K5 logits differ on {name} at B={B}")
+            err["fused_mlp"] = max(err["fused_mlp"], max_abs(got, want))
+    plans = []
+    for text, node in dag_nodes().items():
+        combines = ("or", "and") if text == "ad|tc" else ("or",)
+        for combine in combines:
+            if text == "ad>(tc|cl)":
+                check(cuda_backend.dag_decline_reason(
+                    node, pipes, combine=combine) is not None,
+                    "a centroid leaf must not fuse")
+                continue
+            plan, folded, reason = cuda_backend._prepare_dag(
+                node, pipes, combine, True)
+            check(reason is None, f"{text}: {reason}")
+            dag = fm.pack_dag(folded, plan, device=dev)
+            cpu_dag = fm.pack_dag(folded, plan)
+            plans.append(f"{text}/{combine}")
+            if text == "ad>(tc|ad)":
+                check(dag.n_models == 2, "the repeated model staged twice")
+            for B in sizes:
+                x = torch.as_tensor(X[:B], device=dev)
+                got = fm.fused_dag_launch(x, dag)
+                folded_v = fm.eval_dag_program(dag.program,
+                                               dag_leaf_verdicts(dag, x))
+                plain = fm.fused_dag(x.cpu(), cpu_dag).numpy()
+                torch.cuda.synchronize()
+                check(torch.equal(got, folded_v),
+                      f"K6 fold differs on {text} at B={B}")
+                close = leaf_margin_rows(
+                    [cpu_pipes[m.name] for m in node.leaves()], X[:B])
+                bad = int(((got.cpu().numpy() != plain) & ~close).sum())
+                check(bad == 0, f"K6: {bad} verdicts differ on {text} "
+                      f"at B={B}")
+                err["fused_dag"] = max(err["fused_dag"], float(np.abs(
+                    got.cpu().numpy() - plain)[~close].max(initial=0)))
+    emit({"phase": "kernels_check_dag", "batches": list(sizes),
+          "k5_models": {k: [int(w[0].shape[0])] + [int(a.shape[1])
+                                                    for a in w]
+                        for k, (w, _) in mlps.items()},
+          "k6_plans": plans, "max_abs_err": err})
+    return err
+
+
+def dag_timing(dev):
+    """K5 and K6 (and K3 at full width) on a B = 1024 slice of the AD
+    test set, at the AD widths and at full width: wrapper ms over 50
+    calls (CUDA events), device ms (profiler, exact instance), the bound
+    and the plain version's ms.  -> {kernel: {config: numbers}}."""
+    import torch
+
+    from repro_torch.core import cuda_backend
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.testing import AD_FULL_WIDTHS, AD_WIDTHS, he_mlp
+
+    X = ad_test_set()
+    x = torch.as_tensor(X[:DAG_TIME_B], device=dev)
+    B = DAG_TIME_B
+    pipes, _ = dag_models(dev)
+    nodes = dag_nodes()
+
+    def mlp_work(widths):
+        nparams = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+        return 4 * nparams, 2 * sum(a * b for a, b in zip(widths[:-1],
+                                                          widths[1:]))
+
+    out = {"fused_mlp": {}, "fused_dag": {}, "fused_mlp_classify": {}}
+    for name, widths, seed in (("ad", AD_WIDTHS, 0),
+                               ("ad_full", AD_FULL_WIDTHS, 2)):
+        p = fm.pack_params(*he_mlp(widths, seed), device=dev)
+        pbytes, flops = mlp_work(widths)
+        ws, bs = p.layers()
+        k5 = lambda _p=p: fm.fused_mlp_launch(x, _p)
+        k3 = lambda _p=p: fm.fused_mlp_classify_launch(x, _p)
+        seen = kernel_device_ms({K5_INSTANCE: k5, K3_INSTANCE: k3})
+        out["fused_mlp"][name] = dict(
+            ms=time_ms(k5, TIMED_LAUNCHES), **kernel_fields(seen[K5_INSTANCE]),
+            plain_ms=time_ms(lambda: fm.mlp_ref(x, ws, bs), TIMED_LAUNCHES),
+            bound=bound(B * widths[0] * 4 + pbytes + B * widths[-1] * 4,
+                        B * flops), B=B, widths=list(widths))
+        if name == "ad_full":
+            out["fused_mlp_classify"][name] = dict(
+                ms=time_ms(k3, TIMED_LAUNCHES),
+                **kernel_fields(seen[K3_INSTANCE]),
+                plain_ms=time_ms(lambda: fm.mlp_classify_ref(x, ws, bs),
+                                 TIMED_LAUNCHES),
+                bound=bound(B * widths[0] * 4 + pbytes + B * 4, B * flops),
+                B=B, widths=list(widths))
+    for text in ("ad>tc", "ad_full>tc"):
+        plan, folded, _ = cuda_backend._prepare_dag(nodes[text], pipes, "or",
+                                                    True)
+        dag = fm.pack_dag(folded, plan, device=dev)
+        models = [([w.to(dev) for w in ws], [b.to(dev) for b in bs])
+                  for ws, bs in dag.models()]
+        pbytes = 4 * (dag.w_flat.numel() + dag.b_flat.numel())
+        flops = sum(mlp_work(w)[1] + w[-1] for w in dag.widths)
+        k6 = lambda _d=dag: fm.fused_dag_launch(x, _d)
+        out["fused_dag"][text] = dict(
+            ms=time_ms(k6, TIMED_LAUNCHES),
+            **kernel_fields(kernel_device_ms({K6_NAME: k6})[K6_NAME]),
+            plain_ms=time_ms(lambda: fm.fused_dag_ref(x, models, dag.program),
+                             TIMED_LAUNCHES),
+            bound=bound(B * dag.n_feat * 4 + pbytes + B * 4,
+                        B * flops), B=B, widths=[list(w) for w in dag.widths])
+    emit({"phase": "kernels_time_dag", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
+def path_dag_phase(dev):
+    """The AD test set (8,192 rows, chunks of 997, 3 passes) through
+    ``PacketServeEngine(depth=2)`` at max_batch 128, 256, 1024 and 4096:
+    (a) ``ad > tc`` fused (one K6 launch per batch), (b) the same with
+    ``fuse_dag=False`` (one K3 per model per batch), (c) the same on
+    ``backend="interpret", fuse=False`` (the stage walk, whose FusedMLP
+    stage runs K5 as the JAX package's runs its Pallas kernel), (d) ``ad >
+    (tc | cl)`` with a centroid leaf ("mixed": K3 per MLP model, the
+    centroid walked) and (e) ``ad_full > tc`` fused.  Each against the
+    plain walk on CPU tensors (which launches nothing) under the margin
+    rule, launches held to batches.  The dispatches raise nothing under
+    ``set_sync_debug_mode("error")``, nor do those of a logits program
+    (``ad``'s FusedMLP alone on K5) and of a swap from it to (a).  Then a
+    hot swap from (a) to (e) mid-stream."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import chaining, stageir
+    from repro_torch.kernels import _ext
+    from repro_torch.serve.packet_engine import PacketServeEngine
+    from repro_torch.testing import leaf_margin_rows
+
+    X = ad_test_set()
+    pipes, cpu_pipes = dag_models(dev)
+    nodes = dag_nodes()
+    base = "cuda" if dev.type == "cuda" else "cpu-ref"
+    configs = {
+        "a": ("ad>tc", dict(backend="cuda"), f"{base}-fused-dag",
+              {"fused_dag": 1}),
+        "b": ("ad>tc", dict(backend="cuda", fuse_dag=False), base,
+              {"fused_mlp_classify": 2}),
+        "c": ("ad>tc", dict(backend="interpret", fuse=False), "interpret",
+              {"fused_mlp": 1}),
+        "d": ("ad>(tc|cl)", dict(backend="cuda"), "mixed",
+              {"fused_mlp_classify": 2}),
+        "e": ("ad_full>tc", dict(backend="cuda"), f"{base}-fused-dag",
+              {"fused_dag": 1}),
+    }
+    chunks = [X[i:i + DAG_CHUNK] for i in range(0, len(X), DAG_CHUNK)]
+    _ext.reset_launches()
+    ad_v = cpu_pipes["ad"](X)
+    check(sum(_ext.LAUNCHES.values()) == 0, "the plain reference launched")
+    check(0 < int((ad_v > 0).sum()) < len(X),
+          "the Seq gate must flag some rows and pass others")
+    rows, by_cfg, launches = [], {}, {k: 0 for k in _ext.LAUNCHES}
+    for key, (text, kw, want_backend, per_batch) in configs.items():
+        node = nodes[text]
+        _ext.reset_launches()
+        ref = chaining.run_dag(node, cpu_pipes, X)
+        check(sum(_ext.LAUNCHES.values()) == 0,
+              f"({key}) the plain reference launched a kernel")
+        close = leaf_margin_rows([cpu_pipes[m.name] for m in node.leaves()],
+                                 X)
+        dag = chaining.compile_dag(node, pipes, device=dev.type, **kw)
+        check(dag.backend == want_backend,
+              f"({key}) backend {dag.backend} != {want_backend}")
+        _ext.reset_launches()
+        n_batches = 0
+        for max_batch in DAG_BATCHES:
+            runs = []
+            for _ in range(DAG_PASSES):
+                eng = PacketServeEngine(dag, feature_dim=AD_FEATURES,
+                                        max_batch=max_batch, depth=2,
+                                        device=dev.type)
+                v = np.concatenate(list(eng.serve_stream(chunks)))
+                bad = int(((v != ref) & ~close).sum())
+                check(bad == 0, f"({key}) B={max_batch}: {bad} verdicts "
+                      "differ from the plain walk")
+                st = eng.stats()
+                n_batches += st["batches"] + 1     # + the warm-up batch
+                runs.append(st)
+            med = sorted(runs, key=lambda r: r["pkt_per_s"])[len(runs) // 2]
+            rows.append({"config": key, "dag": text, **kw,
+                         "backend": med["backend"], "max_batch": max_batch,
+                         "depth": 2, "pkt_per_s": med["pkt_per_s"],
+                         "pkt_per_s_runs": sorted(r["pkt_per_s"]
+                                                  for r in runs),
+                         "lat_p50_ms": med["lat_p50_ms"],
+                         "lat_p99_ms": med["lat_p99_ms"],
+                         "dispatch_s": med["dispatch_s"],
+                         "wall_s": med["wall_s"], "batches": med["batches"],
+                         "margin_rows": int(close.sum())})
+        got = dict(_ext.LAUNCHES)
+        want = {k: per_batch.get(k, 0) * n_batches for k in got}
+        check(got == want, f"({key}) launches {got} != {want}")
+        for k, n in got.items():
+            launches[k] += n
+        by_cfg[key] = dag
+    # the stateless dispatch makes no host sync
+    def sync_checked(eng, rows):
+        eng.submit(rows)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            while eng.pending:
+                eng._dispatch_batch(eng._take(min(1024, eng.pending)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return eng.flush()
+
+    for key, dag in by_cfg.items():
+        eng = PacketServeEngine(dag, feature_dim=AD_FEATURES,
+                                max_batch=1024, depth=2, device=dev.type)
+        v = sync_checked(eng, X[:2048])
+        check(np.array_equal(v, dag(X[:2048])),
+              f"({key}) verdicts of the sync-checked dispatch differ")
+    # a logits program (K5, [B, 2] f32 out), then a swap to (a)'s int32
+    # verdicts: each staged in a ring sized at warm-up or at the swap
+    logits_stages = cpu_pipes["ad"].stages[:1]
+    logits = stageir.compile_stages(logits_stages, backend="cuda",
+                                    device=dev.type)
+    check(logits.backend == base, f"logits backend {logits.backend}")
+    eng = PacketServeEngine(logits, feature_dim=AD_FEATURES,
+                            max_batch=1024, depth=2, device=dev.type)
+    v = sync_checked(eng, X[:2048])
+    ref = stageir.StagePipeline(logits_stages, device="cpu")(X[:2048])
+    check(v.shape == ref.shape == (len(ref), 2) and v.dtype == np.float32,
+          f"logits served as {v.shape} {v.dtype}")
+    check(bool((np.abs(v - ref) <= 1e-4 * (1 + np.abs(ref))).all()),
+          "logits of the sync-checked dispatch differ from the plain walk")
+    eng.swap(by_cfg["a"])
+    v = sync_checked(eng, X[2048:4096])
+    check(np.array_equal(v, by_cfg["a"](X[2048:4096])),
+          "verdicts after the logits -> DAG swap differ")
+    swap = dag_swap(dev, by_cfg["a"], by_cfg["e"], X)
+    emit({"phase": "path_dag", "n_packets": len(X), "chunk": DAG_CHUNK,
+          "passes": DAG_PASSES, "rows": rows, "launches": launches,
+          "sync_debug": "error, no raise", "swap": swap,
+          "gate_flagged": int((ad_v > 0).sum()),
+          "nvidia_smi": nvidia_smi()})
+    return launches
+
+
+def dag_swap(dev, old, new, X):
+    """A stateless hot swap mid-stream, from ``old`` to ``new``: verdicts
+    before the boundary are ``old``'s, after it ``new``'s, one swap."""
+    import numpy as np
+
+    from repro_torch.serve.packet_engine import PacketServeEngine
+
+    eng = PacketServeEngine(old, feature_dim=AD_FEATURES, max_batch=1024,
+                            depth=2, device=dev.type)
+    chunks = [X[i:i + DAG_CHUNK] for i in range(0, len(X), DAG_CHUNK)]
+    half = len(chunks) // 2
+    got = []
+    for i, c in enumerate(chunks):
+        if i == half:
+            eng.swap(new)
+        eng.submit(c)
+        got.append(eng.flush())
+    cut = sum(len(c) for c in chunks[:half])
+    v = np.concatenate(got)
+    check(np.array_equal(v[:cut], old(X[:cut])),
+          "verdicts before the swap differ from the old DAG's")
+    check(np.array_equal(v[cut:], new(X[cut:])),
+          "verdicts after the swap differ from the new DAG's")
+    st = eng.stats()
+    check(st["swaps"] == 1 and st["swap_pkt_offsets"] == [cut],
+          f"expected one swap at packet {cut}: {st['swap_pkt_offsets']}")
+    return {"swaps": st["swaps"], "swap_lat_ms": st["swap_lat_ms"],
+            "swap_pkt_offsets": st["swap_pkt_offsets"],
+            "backend_batches": st["backend_batches"]}
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -1146,7 +1547,16 @@ KERNELS = (
      "src/repro/kernels/fused_mlp/kernel.py:71"),
     ("mat_lut_classify", "src/repro_torch/kernels/mat_lut/csrc/mat_lut.cu",
      "src/repro/kernels/mat_lut/kernel.py:41"),
+    ("fused_mlp", "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp.cu",
+     "src/repro/kernels/fused_mlp/kernel.py:59"),
+    ("fused_dag", "src/repro_torch/kernels/fused_mlp/csrc/fused_dag.cu",
+     "src/repro/kernels/fused_mlp/kernel.py:158"),
 )
+# the timing row of each kernel in the kernels line (K5, K6: the AD
+# widths; the full-width rows ride along under "full_width")
+MAIN_CONFIG = {"fused_mlp": "ad", "fused_dag": "ad>tc"}
+FULL_CONFIG = {"fused_mlp": "ad_full", "fused_dag": "ad_full>tc",
+               "fused_mlp_classify": "ad_full"}
 
 
 def main() -> int:
@@ -1165,6 +1575,10 @@ def main() -> int:
         print(f"chip_smoke: the port is missing: {e!r}", file=sys.stderr)
         return 2
 
+    from repro_torch.core import chaining
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import StatefulPipeline
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1176,6 +1590,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     try:
         err, times = kernel_phase(dev)
+        err.update(kernels_check_dag(dev))
+        dag_times = dag_timing(dev)
         split_action_table_phase(dev)
         by_path = {
             "path_flow_ddos": path_phase(dev, "path_flow_ddos", S_KERNEL,
@@ -1185,6 +1601,7 @@ def main() -> int:
             "path_mitigate_fused": mat_path_phase(
                 dev, "path_mitigate_fused", True),
             "attack_defense": attack_defense_phase(dev),
+            "path_dag": path_dag_phase(dev),
         }
         launches = {k: sum(p[k] for p in by_path.values())
                     for k, _, _ in KERNELS}
@@ -1199,28 +1616,47 @@ def main() -> int:
                                                     "mat_lut_classify")),
                            ("attack_defense", ("fused_flow_serve",
                                                "flow_update",
-                                               "fused_mlp_classify"))):
+                                               "fused_mlp_classify")),
+                           ("path_dag", ("fused_dag", "fused_mlp_classify",
+                                         "fused_mlp"))):
             for k in want:
                 check(by_path[path][k] > 0, f"{k} never launched on {path}")
         path_phase(dev, "path_max_slots", 1 << 16, (512,), (True,),
                    N_PACKETS, repeats=3)
-        profile_phase(dev, "flow-ddos", flow_ddos_stages(S_KERNEL))
-        profile_phase(dev, "mitigate-fused",
-                      mat_fused_stages(S_KERNEL, True))
+        stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
+                                     seed=STREAM_SEED)
+        for name, stages in (
+                ("flow-ddos", flow_ddos_stages(S_KERNEL)),
+                ("mitigate-fused", mat_fused_stages(S_KERNEL, True))):
+            profile_phase(dev, name, StatefulPipeline(
+                stages, backend="cuda", device=dev.type),
+                lambda: stream.chunks(512), len(traffic.COLUMNS))
+        X = ad_test_set()
+        profile_phase(dev, "dag ad>tc (fused)", chaining.compile_dag(
+            dag_nodes()["ad>tc"], dag_models(dev)[0], backend="cuda",
+            device=dev.type), lambda: (X[i:i + DAG_CHUNK] for i in range(
+                0, len(X), DAG_CHUNK)), AD_FEATURES)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, source, replaces in KERNELS:
-        tm = times[name]
+        tm = (dag_times[name][MAIN_CONFIG[name]] if name in MAIN_CONFIG
+              else times[name])
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": tm["ms"],
-            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
+            "kernel_ms": tm["kernel_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
             "bound_by": tm["bound"][1], "library_ms": None,
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
         }
+        if name in FULL_CONFIG:
+            full = dag_times[name][FULL_CONFIG[name]]
+            entry["full_width"] = {
+                "widths": full["widths"], "ms": full["ms"],
+                "kernel_ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
+                "bound_ms": full["bound"][0], "bound_by": full["bound"][1]}
         if name == "fused_flow_serve":
             entry["modes"] = {
                 mode: {"ms": m["ms"], "kernel_ms": m["kernel_ms"],

@@ -6,13 +6,16 @@ A second package beside the JAX reference (``repro``).  It imports
 module has a named counterpart:
 
   ``flowstate/``   per-flow register file + ``StatefulPipeline``
-  ``core/``        stage IR and the CUDA lowering (``cuda_backend``)
+  ``core/``        stage IR and ``compile_stages``, the CUDA lowering
+                   (``cuda_backend``), the DAG vocabulary (``alchemy``)
+                   and ``chaining.compile_dag``
   ``kernels/``     hand-written CUDA C++ kernels (``csrc/``) beside their
                    plain PyTorch versions (``ref.py``)
   ``serve/``       ``PacketServeEngine``
-  ``data/``        seeded packet streams (numpy only)
-  ``convert.py``   carries stage lists and register state across from the
-                   reference package without importing it
+  ``data/``        seeded packet streams and datasets (numpy only)
+  ``convert.py``   carries stage lists, register state, DAGs and named
+                   pipelines across from the reference package without
+                   importing it
 
 Device rule: every entry point takes ``device`` (default ``"cuda"``) and
 raises when CUDA is asked for and no GPU exists.  A kernel op launches its

@@ -7,6 +7,8 @@ port's stage; nothing here imports ``repro`` or ``jax``, so the port can
 serve pipelines the reference compiler generated.  ``state_from_numpy`` /
 ``state_to_numpy`` move a register file across as numpy arrays, and
 ``mitigation_from_numpy`` / ``mitigation_to_numpy`` the action table.
+``dag_from_reference`` and ``pipelines_from_reference`` carry a model
+DAG and the pipelines it names.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import stageir
+from repro_torch.core import alchemy, stageir
 from repro_torch.device import resolve_device
 from repro_torch.flowstate.mitigation import (
     MitigatedFlowState,
@@ -57,6 +59,11 @@ _CONVERT = {
         _f32(s.centroids)),
     "quantize": lambda s: stageir.Quantize(_f32(s.edges)),
     "lut_gather": lambda s: stageir.LUTGather(_f32(s.tables)),
+    "tree_traverse": lambda s: stageir.TreeTraverse(
+        np.asarray(s.feat, np.int32), _f32(s.thr),
+        np.asarray(s.left, np.int32), np.asarray(s.right, np.int32),
+        np.asarray(s.leaf_class, np.int32), np.asarray(s.is_leaf, bool),
+        int(s.depth)),
     "reduce": lambda s: stageir.Reduce(str(s.op)),
     "label_map": lambda s: stageir.LabelMap(np.asarray(s.table, np.int32)),
     "flow_key": lambda s: stageir.FlowKey(_ints(s.key_cols),
@@ -80,6 +87,34 @@ def stages_from_reference(stages) -> list:
         if kind not in _CONVERT:
             raise NotImplementedError(f"stage kind {kind!r} not yet ported")
         out.append(_CONVERT[kind](s))
+    return out
+
+
+def dag_from_reference(node):
+    """A reference ``Model``/``Seq``/``Par`` DAG (read by class name) ->
+    the port's ``core.alchemy`` nodes, models by name."""
+    kind = type(node).__name__
+    if kind == "Model":
+        return alchemy.Model(node.name)
+    if kind in ("Seq", "Par"):
+        cls = alchemy.Seq if kind == "Seq" else alchemy.Par
+        return cls([dag_from_reference(c) for c in node.children])
+    raise TypeError(f"not a DAG node: {kind}")
+
+
+def pipelines_from_reference(result, *, device="cuda") -> dict:
+    """``{name: reference pipeline with .stages}`` (or entries with a
+    ``.pipeline``) -> ``{name: stageir.StagePipeline}``.  One reference
+    pipeline maps to one port object, so a pipeline named twice stays one
+    model where the DAG lowering deduplicates by identity."""
+    out, seen = {}, {}
+    for name in result:
+        entry = result[name]
+        pipe = entry.pipeline if hasattr(entry, "pipeline") else entry
+        if id(pipe) not in seen:
+            seen[id(pipe)] = stageir.StagePipeline(
+                stages_from_reference(pipe.stages), device=device)
+        out[name] = seen[id(pipe)]
     return out
 
 

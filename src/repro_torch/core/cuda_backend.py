@@ -1,5 +1,5 @@
-"""CUDA lowering: stage pipelines -> the port's kernel launches
-(counterpart of ``repro.core.pallas_backend``).
+"""CUDA lowering: stage pipelines and model DAGs -> the port's kernel
+launches (counterpart of ``repro.core.pallas_backend``).
 
 Pattern matches on the stage list decide which launch serves:
 
@@ -9,9 +9,14 @@ Pattern matches on the stage list decide which launch serves:
   ``FlowKey RegisterUpdate``
       -> ``lower_stateful``: K2 (kernels/flow_update), the split path;
   ``[WindowStats | FeatureSelect]* <MLP classify>``
-      -> ``lower_stages_cuda``: K3 (kernels/fused_mlp), the split suffix;
+      -> ``lower_stages_cuda``: K3 (kernels/fused_mlp);
+  ``[WindowStats | FeatureSelect]* <MLP>`` (logits, stateless only)
+      -> ``lower_stages_cuda``: K5 (kernels/fused_mlp);
   ``[WindowStats | FeatureSelect]* <MAT>``
-      -> ``lower_stages_cuda``: K4 (kernels/mat_lut), the split suffix;
+      -> ``lower_stages_cuda``: K4 (kernels/mat_lut);
+  a Seq/Par DAG whose every leaf is ``[FeatureSelect]* <MLP classify>``
+      -> ``lower_dag_cuda``: ONE K6 launch (kernels/fused_mlp/fused_dag)
+         for the whole DAG, models deduplicated by pipeline identity;
   ``Mitigate`` on the split path
       -> ``lower_mitigation``: the plain ``mitigate_update_segmented``
          on the device tensors, replayed as a CUDA graph on the card.
@@ -23,12 +28,16 @@ classifier (``[FeatureSelect] CentroidDistance Reduce [LabelMap]``).
 
 Nothing here falls back to a plain version where the JAX package has a
 kernel.  A pipeline the port cannot serve gets a decline reason
-(``fused_flow_decline_reason``, ``stages_decline_reason``) and the
-caller raises with it.  Two parts have no kernel in the JAX package
-either, and run their plain versions here as they run their jnp forms
-there, reported ``"interpret"`` as the JAX package reports them: the
-split path's action table (``lower_mitigation``) and a split centroid
-suffix (``suffix_in_plain_walk``).
+(``fused_flow_decline_reason``, ``stages_decline_reason``,
+``dag_decline_reason``) and the caller raises with it, or, for a DAG the
+JAX package would fuse, serves it by per-model launches as the JAX
+package does past its VMEM budget.  Where the JAX package has no kernel
+either, the port runs the plain versions as the JAX package runs its jnp
+forms, reported ``"interpret"`` as the JAX package reports them: the
+split path's action table (``lower_mitigation``), a split centroid
+suffix (``suffix_in_plain_walk``) and a stateless pipeline outside the
+JAX package's kernel envelope (``stages_in_plain_walk``: centroid and
+tree classifiers, MLPs wider than ``stageir.PALLAS_LANE``).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.core.stageir import (
+    PALLAS_LANE,
     CentroidDistance,
     Dense,
     FeatureSelect,
@@ -50,10 +60,16 @@ from repro_torch.core.stageir import (
     Reduce,
     RegisterUpdate,
     WindowStats,
+    mlp_widths,
 )
 from repro_torch.kernels.flow_update.ops import MAX_SLOTS, envelope_reason
 from repro_torch.kernels.fused_mlp.ops import mlp_envelope_reason
-from repro_torch.kernels.mat_lut.ops import mat_envelope_reason
+from repro_torch.kernels.mat_lut.ops import (
+    MAX_BINS,
+    MAX_CLASSES,
+    MAX_FEATURES,
+    mat_envelope_reason,
+)
 
 _PRELUDE = (FeatureSelect, WindowStats)
 
@@ -121,10 +137,6 @@ def _match_centroid(stages):
             body[1].op == "argmin")
 
 
-def _mlp_widths(weights) -> list[int]:
-    return [int(weights[0].shape[0])] + [int(w.shape[1]) for w in weights]
-
-
 def _classifier(body, n_in: int | None):
     """Match a classifier suffix -> (descriptor, None) or (None, reason).
     The descriptor is ``("mlp", weights, biases)``, ``("mat", edges,
@@ -136,9 +148,9 @@ def _classifier(body, n_in: int | None):
     if mlp is not None:
         weights, biases, classify = mlp
         if not classify:
-            return None, ("classifier lacks an argmax reduce (the logits "
-                          "kernel is not yet ported)")
-        widths = _mlp_widths(weights)
+            return None, ("classifier lacks an argmax reduce (the "
+                          "pipeline must give verdicts)")
+        widths = mlp_widths(weights)
         if n_in is not None and widths[0] != n_in:
             return None, "classifier input width mismatch"
         reason = mlp_envelope_reason(widths)
@@ -199,9 +211,19 @@ def _pack_classifier(desc, device):
 # ----------------------------------------------------- stateless suffix
 
 
-def stages_decline_reason(stages) -> str | None:
-    """Why ``lower_stages_cuda`` cannot serve ``stages``, or None."""
+def _logits_mlp(body):
+    """-> (weights, biases) for an MLP without an argmax, else None."""
+    mlp = _match_mlp(body)
+    return None if mlp is None or mlp[2] else mlp[:2]
+
+
+def stages_decline_reason(stages, *, verdicts: bool = False) -> str | None:
+    """Why ``lower_stages_cuda`` cannot serve ``stages``, or None.
+    ``verdicts`` refuses a logits MLP (a stateful suffix needs verdicts)."""
     _, body = _split_prelude(stages)
+    logits = _logits_mlp(body)
+    if logits is not None and not verdicts:
+        return mlp_envelope_reason(mlp_widths(logits[0]))
     desc, reason = _classifier(body, None)
     if reason is None and desc[0] == "centroid":
         return ("a centroid suffix has no stateless kernel (the JAX "
@@ -216,20 +238,49 @@ def suffix_in_plain_walk(stages) -> bool:
     return _match_centroid(_split_prelude(stages)[1]) is not None
 
 
-def lower_stages_cuda(stages, device) -> Callable | None:
-    """``[WindowStats | FeatureSelect]* <MLP classify | MAT>`` -> ``fn(x
-    [B, F]) -> verdicts [B] int32`` running the prelude in plain PyTorch
-    and the classifier as one K3 or K4 launch; None when
-    ``stages_decline_reason``."""
-    from repro_torch.kernels.fused_mlp import fused_mlp_classify_packed
+def stages_in_plain_walk(stages) -> bool:
+    """True for a stateless pipeline the JAX package walks in jnp instead
+    of lowering it onto a Pallas kernel (``pallas_backend.
+    pallas_eligible``): anything but an MLP with every width up to
+    ``PALLAS_LANE`` or a MAT within the reference's kernel envelope after
+    a ``[WindowStats | FeatureSelect]`` prelude."""
+    _, body = _split_prelude(stages)
+    mlp = _match_mlp(body)
+    if mlp is not None:
+        return max(mlp_widths(mlp[0])) > PALLAS_LANE
+    mat = _match_mat(body)
+    if mat is not None:
+        _, tables, lmap, _ = mat
+        F, bins, C = tables.shape
+        n_labels = C if lmap is None else len(lmap)
+        return not (F <= MAX_FEATURES and bins <= MAX_BINS
+                    and C <= MAX_CLASSES and n_labels <= MAX_CLASSES)
+    return True
+
+
+def lower_stages_cuda(stages, device, *, verdicts: bool = False
+                      ) -> Callable | None:
+    """``[WindowStats | FeatureSelect]* <MLP | MAT>`` -> ``fn(x [B, F])``
+    running the prelude in plain PyTorch and the model as one K3 (MLP
+    classify), K5 (MLP logits, unless ``verdicts``) or K4 (MAT) launch;
+    None when ``stages_decline_reason``."""
+    from repro_torch.kernels.fused_mlp import (
+        fused_mlp_classify_packed,
+        fused_mlp_packed,
+        pack_params,
+    )
     from repro_torch.kernels.mat_lut import mat_classify
 
-    if stages_decline_reason(stages) is not None:
+    if stages_decline_reason(stages, verdicts=verdicts) is not None:
         return None
     pre, body = _split_prelude(stages)
-    desc, _ = _classifier(body, None)
-    _, params = _pack_classifier(desc, device)
-    op = fused_mlp_classify_packed if desc[0] == "mlp" else mat_classify
+    logits = None if verdicts else _logits_mlp(body)
+    if logits is not None:
+        op, params = fused_mlp_packed, pack_params(*logits, device=device)
+    else:
+        desc, _ = _classifier(body, None)
+        _, params = _pack_classifier(desc, device)
+        op = fused_mlp_classify_packed if desc[0] == "mlp" else mat_classify
 
     def classify_fn(x, _pre=tuple(pre), _op=op, _params=params):
         for s in _pre:
@@ -237,6 +288,178 @@ def lower_stages_cuda(stages, device) -> Callable | None:
         return _op(x.contiguous(), _params)
 
     return classify_fn
+
+
+# ------------------------------------------------------ cross-model DAGs
+#
+# A Seq/Par DAG whose every leaf is an MLP classifier lowers onto ONE K6
+# launch (kernels/fused_mlp fused_dag): every distinct model's weights
+# staged once per block, Seq gating and Par or/and merges folded on the
+# int32 verdicts in the kernel.  These mirror
+# ``repro/core/pallas_backend.py:239-445``; the DAG nodes are the port's
+# ``core.alchemy`` Model/Seq/Par.
+
+
+def _fold_feature_select(pre, w0: np.ndarray, n_feat: int):
+    """Fold a FeatureSelect-only prelude into the first-layer weights, by
+    the JAX package's rule: ``x[:, idx] @ W0 == x @ S @ W0`` for the 0/1
+    selection S, exact when the composite index is strictly increasing
+    (the embedded rows keep their summation order, the others add exact
+    zeros).  -> the [n_feat, h] first layer, or None for any other
+    prelude or an index beyond the DAG's input width."""
+    if not all(isinstance(s, FeatureSelect) for s in pre):
+        return None
+    idx = np.asarray(pre[0].idx, np.int64)
+    for s in pre[1:]:
+        idx = idx[np.asarray(s.idx, np.int64)]
+    if idx.size != w0.shape[0] or np.any(np.diff(idx) <= 0):
+        return None
+    if idx.size and (int(idx[0]) < 0 or int(idx[-1]) >= n_feat):
+        return None
+    folded = np.zeros((n_feat, w0.shape[1]), np.float32)
+    folded[idx] = np.asarray(w0, np.float32)
+    return folded
+
+
+def _match_dag_leaf(stages):
+    """Post-peephole leaf stage list -> (prelude, weights, biases) for a
+    classifier K6 takes (an MLP ending in an argmax, within the JAX
+    package's kernel widths), else None."""
+    pre, body = _split_prelude(stages)
+    if any(not isinstance(s, FeatureSelect) for s in pre):
+        return None
+    mlp = _match_mlp(body)
+    if mlp is None or not mlp[2]:        # gating needs int32 verdicts
+        return None
+    if max(mlp_widths(mlp[0])) > PALLAS_LANE:
+        return None
+    return pre, list(mlp[0]), list(mlp[1])
+
+
+def pipeline_of(result, name: str):
+    """Accept {name: pipeline} or {name: entry with .pipeline}."""
+    entry = result[name]
+    return entry.pipeline if hasattr(entry, "pipeline") else entry
+
+
+def _plan_dag(node, result, combine: str, fuse: bool):
+    """Walk the DAG -> (plan, models, None), or (None, None, reason)
+    where the DAG leaves K6's pattern.  ``models`` is the list of
+    (prelude, weights, biases) deduplicated by pipeline identity (a
+    pipeline named twice is one model), ``plan`` the nested structure
+    ``kernels.fused_mlp.eval_dag_plan`` folds."""
+    from repro_torch.core import stageir
+    from repro_torch.core.alchemy import Model, Par, Seq
+
+    models: list = []
+    index_of: dict[int, int] = {}        # id(pipeline) -> model slot
+    reasons: list = []
+
+    def walk(n):
+        if isinstance(n, Model):
+            pipe = pipeline_of(result, n.name)
+            if id(pipe) not in index_of:
+                stages = pipe.stages
+                if fuse:
+                    stages = stageir.fuse_pipeline_stages(stages)
+                leaf = _match_dag_leaf(stages)
+                if leaf is None:
+                    reasons.append(f"leaf {n.name!r} is not an MLP "
+                                   f"classifier of widths <= {PALLAS_LANE}")
+                    return None
+                index_of[id(pipe)] = len(models)
+                models.append(leaf)
+            return ("model", index_of[id(pipe)])
+        if isinstance(n, (Seq, Par)):
+            kind = "seq"
+            if isinstance(n, Par):
+                if combine not in ("or", "and"):
+                    reasons.append(f"combine {combine!r} has no verdict "
+                                   "merge")
+                    return None
+                kind = combine
+            parts = [walk(c) for c in n.children]
+            if any(p is None for p in parts):
+                return None
+            return (kind, tuple(parts))
+        reasons.append(f"not a DAG node: {type(n).__name__}")
+        return None
+
+    plan = walk(node)
+    if plan is None:
+        return None, None, reasons[0]
+    return plan, models, None
+
+
+def _dag_input_dim(models: list) -> int | None:
+    """The DAG input width, read off the leaves without a prelude (every
+    model of a DAG reads the same packet rows); None when every leaf hides
+    it behind a FeatureSelect."""
+    dims = [int(np.shape(w[0])[0]) for pre, w, b in models if not pre]
+    return max(dims) if dims else None
+
+
+def _prepare_dag(node, result, combine: str, fuse: bool):
+    """-> (plan, [(weights, biases)] with each FeatureSelect folded, None)
+    or (None, None, reason)."""
+    from repro_torch.kernels.fused_mlp import dag_envelope_reason
+
+    if len(getattr(node, "leaves", lambda: [None])()) < 2:
+        return None, None, "a bare model is not a DAG"
+    plan, models, reason = _plan_dag(node, result, combine, fuse)
+    if reason is not None:
+        return None, None, reason
+    n_feat = _dag_input_dim(models)
+    if n_feat is None:
+        return None, None, ("every leaf hides the input width behind a "
+                            "FeatureSelect")
+    folded = []
+    for pre, weights, biases in models:
+        w0 = np.asarray(weights[0], np.float32)
+        if pre:
+            w0 = _fold_feature_select(pre, w0, n_feat)
+            if w0 is None:
+                return None, None, ("a FeatureSelect prelude does not fold "
+                                    "(its index is not strictly increasing "
+                                    "within the input width)")
+        elif w0.shape[0] != n_feat:
+            return None, None, "the leaves disagree on the input width"
+        ws = [w0] + [np.asarray(w, np.float32) for w in weights[1:]]
+        if max(mlp_widths(ws)) > PALLAS_LANE:
+            return None, None, f"a width exceeds {PALLAS_LANE}"
+        folded.append((ws, [np.asarray(b, np.float32) for b in biases]))
+    reason = dag_envelope_reason([mlp_widths(ws) for ws, _ in folded], plan)
+    if reason is not None:
+        return None, None, reason
+    return plan, folded, None
+
+
+def dag_decline_reason(node, result, *, combine: str = "or",
+                       fuse: bool = True) -> str | None:
+    """Why ``lower_dag_cuda`` does not fuse this DAG into one K6 launch,
+    or None.  Shape checks only."""
+    return _prepare_dag(node, result, combine, fuse)[2]
+
+
+def dag_eligible(node, result, *, combine: str = "or",
+                 fuse: bool = True) -> bool:
+    """Would ``lower_dag_cuda`` fuse this whole DAG into one launch?"""
+    return dag_decline_reason(node, result, combine=combine,
+                              fuse=fuse) is None
+
+
+def lower_dag_cuda(node, result, device, *, combine: str = "or",
+                   fuse: bool = True) -> Callable | None:
+    """The whole Seq/Par DAG -> ``fn(x [B, F]) -> verdicts [B] int32``:
+    ONE K6 launch on CUDA tensors (its plain version on CPU tensors), the
+    models packed once here; None when ``dag_decline_reason``."""
+    from repro_torch.kernels.fused_mlp import fused_dag, pack_dag
+
+    plan, folded, reason = _prepare_dag(node, result, combine, fuse)
+    if reason is not None:
+        return None
+    dag = pack_dag(folded, plan, device=device)
+    return lambda x, _dag=dag: fused_dag(x.contiguous(), _dag)
 
 
 # ------------------------------------------------------ stateful prefixes

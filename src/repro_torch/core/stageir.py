@@ -1,28 +1,38 @@
 """Stage IR (counterpart of ``repro.core.stageir``): the typed stage list
 a trained pipeline lowers into, with PyTorch ``apply`` forms.
 
-Ported so far: the stateless stages (FeatureSelect, Dense, FusedMLP,
-FusedClassify, CentroidDistance, Quantize, LUTGather, Reduce, LabelMap)
-and the stateful vocabulary of the flow path (FlowKey, RegisterUpdate,
-WindowStats, Mitigate).  TreeTraverse, ``compile_stages`` and the
-multi-table grammar are later slices.
+Ported: the stateless stages (FeatureSelect, Dense, FusedMLP,
+FusedClassify, CentroidDistance, Quantize, LUTGather, TreeTraverse,
+Reduce, LabelMap), the stateful vocabulary of the flow path (FlowKey,
+RegisterUpdate, WindowStats, Mitigate) and ``compile_stages`` with its
+backend reporting.  The multi-table grammar is a later slice.
 
 Stages keep their parameters as numpy arrays (what ``convert`` carries
 across from the reference); ``apply`` moves them to the input's device
-once and reuses that copy.  ``FusedClassify.apply`` calls the CUDA kernel
-op ``kernels.fused_mlp.fused_mlp_classify``; every other ``apply`` is
-plain PyTorch.
+once and reuses that copy.  As in the JAX package, ``FusedMLP.apply`` and
+``FusedClassify.apply`` run the MLP kernel ops (K5 logits, K3 classify,
+``kernels.fused_mlp``) for a model within the JAX package's kernel
+envelope (every width at most ``PALLAS_LANE``), even inside a plain stage
+walk; ``apply_plain`` is their plain PyTorch form.  Every other ``apply``
+is plain PyTorch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flow_update.ref import _M32, _mul32
-from repro_torch.kernels.fused_mlp.ref import mlp_ref
+from repro_torch.kernels.fused_mlp.ref import mlp_classify_ref, mlp_ref
+
+# The JAX package's MLP kernels take every width up to its 128-lane tile
+# (``repro/kernels/fused_mlp/ops.py:_prepare``); wider models it walks in
+# jnp, and so does the port's stage walk.
+PALLAS_LANE = 128
 
 
 def _param(stage, name: str, value, device, dtype):
@@ -49,6 +59,10 @@ class Stage:
 
     def apply(self, h: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def apply_plain(self, h: torch.Tensor) -> torch.Tensor:
+        """``apply`` in plain PyTorch only (no kernel op)."""
+        return self.apply(h)
 
     def __repr__(self):
         return f"{type(self).__name__}()"
@@ -78,35 +92,18 @@ class Dense(Stage):
         return torch.relu(out) if self.act == "relu" else out
 
 
-@dataclasses.dataclass(repr=False)
-class FusedMLP(Stage):
-    """Whole ReLU-MLP -> logits.  The logits kernel (the reference's
-    ``fused_mlp`` ``_kernel``) is not ported yet: this is the plain form."""
+def mlp_widths(weights) -> list[int]:
+    """[d_0, d_1, ..., d_L] of an MLP's weight list."""
+    return [int(np.shape(weights[0])[0])] + [int(np.shape(w)[1])
+                                             for w in weights]
+
+
+class _MLPStage(Stage):
+    """Shared by FusedMLP and FusedClassify: the packed weights, once per
+    device, and whether the JAX package runs a kernel for this model."""
 
     weights: list
     biases: list
-
-    kind = "fused_mlp"
-
-    def apply(self, h):
-        return mlp_ref(h, _params(self, "w", self.weights, h.device),
-                       _params(self, "b", self.biases, h.device))
-
-
-@dataclasses.dataclass(repr=False)
-class FusedClassify(Stage):
-    """FusedMLP + argmax in one kernel: class ids out, no logits.
-    Produced by ``fuse_pipeline_stages``."""
-
-    weights: list
-    biases: list
-
-    kind = "fused_classify"
-
-    def apply(self, h):
-        from repro_torch.kernels.fused_mlp import fused_mlp_classify_packed
-
-        return fused_mlp_classify_packed(h, self.packed(h.device))
 
     def packed(self, device):
         """The weights packed for the kernels, once per device."""
@@ -118,6 +115,55 @@ class FusedClassify(Stage):
             cache[key] = pack_params(self.weights, self.biases,
                                      device=device)
         return cache[key]
+
+    def in_kernel_envelope(self) -> bool:
+        return max(mlp_widths(self.weights)) <= PALLAS_LANE
+
+    def _layers(self, device):
+        return (_params(self, "w", self.weights, device),
+                _params(self, "b", self.biases, device))
+
+
+@dataclasses.dataclass(repr=False)
+class FusedMLP(_MLPStage):
+    """Whole ReLU-MLP -> logits: kernel K5 (``kernels.fused_mlp.
+    fused_mlp``) for a CUDA tensor within the envelope."""
+
+    weights: list
+    biases: list
+
+    kind = "fused_mlp"
+
+    def apply(self, h):
+        from repro_torch.kernels.fused_mlp import fused_mlp_packed
+
+        if not self.in_kernel_envelope():
+            return self.apply_plain(h)
+        return fused_mlp_packed(h, self.packed(h.device))
+
+    def apply_plain(self, h):
+        return mlp_ref(h, *self._layers(h.device))
+
+
+@dataclasses.dataclass(repr=False)
+class FusedClassify(_MLPStage):
+    """FusedMLP + argmax in one kernel (K3): class ids out, no logits.
+    Produced by ``fuse_pipeline_stages``."""
+
+    weights: list
+    biases: list
+
+    kind = "fused_classify"
+
+    def apply(self, h):
+        from repro_torch.kernels.fused_mlp import fused_mlp_classify_packed
+
+        if not self.in_kernel_envelope():
+            return self.apply_plain(h)
+        return fused_mlp_classify_packed(h, self.packed(h.device))
+
+    def apply_plain(self, h):
+        return mlp_classify_ref(h, *self._layers(h.device))
 
 
 @dataclasses.dataclass(repr=False)
@@ -152,6 +198,37 @@ class LUTGather(Stage):
         tables = _param(self, "t", self.tables, bins.device, torch.float32)
         f = torch.arange(tables.shape[0], device=bins.device)
         return tables[f[None, :], bins].sum(1)
+
+
+@dataclasses.dataclass(repr=False)
+class TreeTraverse(Stage):
+    """Level-synchronous CART walk: ``depth + 1`` rounds of gather and
+    compare (one MAT per tree level), exact."""
+
+    feat: np.ndarray                     # [n_nodes] split feature (0 at leaf)
+    thr: np.ndarray                      # [n_nodes] f32 threshold
+    left: np.ndarray                     # [n_nodes] child ids (self at leaf)
+    right: np.ndarray
+    leaf_class: np.ndarray               # [n_nodes] class at leaf (0 inner)
+    is_leaf: np.ndarray                  # [n_nodes] bool
+    depth: int
+
+    kind = "tree_traverse"
+
+    def apply(self, h):
+        dev = h.device
+        feat = _param(self, "feat", self.feat, dev, torch.int64)
+        thr = _param(self, "thr", self.thr, dev, torch.float32)
+        left = _param(self, "left", self.left, dev, torch.int64)
+        right = _param(self, "right", self.right, dev, torch.int64)
+        leaf_class = _param(self, "leaf", self.leaf_class, dev, torch.int32)
+        is_leaf = _param(self, "is_leaf", self.is_leaf, dev, torch.bool)
+        nid = torch.zeros(h.shape[0], dtype=torch.int64, device=dev)
+        for _ in range(self.depth + 1):
+            x_f = torch.gather(h, 1, feat[nid][:, None])[:, 0]
+            child = torch.where(x_f <= thr[nid], left[nid], right[nid])
+            nid = torch.where(is_leaf[nid], nid, child)
+        return leaf_class[nid]
 
 
 @dataclasses.dataclass(repr=False)
@@ -352,10 +429,13 @@ def split_stateful(stages: list) -> tuple[list, list]:
     return list(stages[:2]), suffix
 
 
-def apply_stages(stages: list, x: torch.Tensor) -> torch.Tensor:
+def apply_stages(stages: list, x: torch.Tensor, *, plain: bool = False
+                 ) -> torch.Tensor:
+    """Walk the stage list; ``plain`` takes every stage's plain PyTorch
+    form (no kernel op)."""
     h = x
     for s in stages:
-        h = s.apply(h)
+        h = s.apply_plain(h) if plain else s.apply(h)
     return h
 
 
@@ -386,3 +466,116 @@ def unfuse_pipeline_stages(stages: list) -> list:
         else:
             out.append(s)
     return out
+
+
+# ---------------------------------------------------------------- execution
+
+EXEC_BACKENDS = ("interpret", "cuda")
+
+# Engines a compiled artifact may REPORT serving on (what actually runs):
+# the requestable engines; the whole-DAG K6 launch (``chaining.
+# compile_dag``, "cuda-fused-dag"); the single-launch stateful pipeline
+# (``flowstate.StatefulPipeline``, "cuda-fused-flow"); their plain forms
+# on CPU tensors ("cpu-ref", "cpu-ref-fused-dag", "cpu-ref-fused-flow");
+# and "mixed" for DAGs and stateful pipelines whose parts run on
+# different engines.
+REPORT_BACKENDS = ("interpret", "cuda", "cuda-fused-dag", "cuda-fused-flow",
+                   "cpu-ref", "cpu-ref-fused-dag", "cpu-ref-fused-flow",
+                   "mixed")
+
+
+def kernel_backend(device: torch.device) -> str:
+    """What a kernel lowering reports on ``device``: "cuda" on the card,
+    "cpu-ref" where the ops run their plain versions."""
+    return "cuda" if device.type == "cuda" else "cpu-ref"
+
+
+class CompiledStages:
+    """A stateless stage pipeline compiled for one engine and device
+    (counterpart of ``repro.core.stageir.CompiledStages``): ``fn(x [B, F])
+    -> verdicts or logits``.  ``backend`` is what actually serves,
+    ``requested_backend`` what was asked, ``stages`` and ``fuse`` what it
+    was compiled from."""
+
+    def __init__(self, fn: Callable, backend: str, requested: str, stages,
+                 fuse: bool, device: torch.device):
+        self.fn = fn
+        self.backend = backend
+        self.requested_backend = requested
+        self.stages = list(stages)
+        self.fuse = fuse
+        self.device = device
+
+    def dispatch(self, x) -> torch.Tensor:
+        """Launch on the pipeline's device without waiting for the result."""
+        x = torch.as_tensor(x, dtype=torch.float32).to(self.device,
+                                                       non_blocking=True)
+        return self.fn(x)
+
+    def __call__(self, x) -> torch.Tensor:
+        return self.dispatch(x)
+
+    def __repr__(self):
+        return f"CompiledStages(backend={self.backend!r})"
+
+
+def compile_stages(stages: list, *, fuse: bool = True,
+                   backend: str = "interpret", device="cuda"
+                   ) -> CompiledStages:
+    """Compile a stateless stage list for one engine (counterpart of
+    ``repro.core.stageir.compile_stages``).
+
+    * ``"interpret"``: walk the stage list (each ``Stage.apply``; like the
+      JAX package's walk, the MLP stages run their kernel ops);
+    * ``"cuda"``: lower the pipeline onto ONE kernel launch
+      (``core.cuda_backend.lower_stages_cuda``: K3, K4 or K5) where the
+      JAX package lowers it onto a Pallas kernel.  Where the JAX package
+      walks it in jnp instead (a centroid or tree classifier, an MLP wider
+      than ``PALLAS_LANE``), the port walks it too and reports
+      ``"interpret"``.  A pipeline the JAX package lowers but the port's
+      kernels cannot take raises with the reason: no quiet fallback."""
+    from repro_torch.core import cuda_backend
+
+    if backend not in EXEC_BACKENDS:
+        raise KeyError(f"backend must be one of {EXEC_BACKENDS}")
+    state_kinds = [s.kind for s in stages if is_stateful(s)]
+    if state_kinds:
+        raise ValueError(
+            f"stateful stages {state_kinds} cannot be compiled statelessly; "
+            "use repro_torch.flowstate.StatefulPipeline")
+    dev = resolve_device(device)
+    run_list = fuse_pipeline_stages(stages) if fuse else list(stages)
+    if backend == "cuda" and not cuda_backend.stages_in_plain_walk(run_list):
+        fn = cuda_backend.lower_stages_cuda(run_list, dev)
+        if fn is None:
+            raise ValueError("backend='cuda' cannot serve this pipeline: "
+                             + cuda_backend.stages_decline_reason(run_list))
+        return CompiledStages(fn, kernel_backend(dev), backend, stages,
+                              fuse, dev)
+    return CompiledStages(lambda x, _s=tuple(run_list): apply_stages(_s, x),
+                          "interpret", backend, stages, fuse, dev)
+
+
+class StagePipeline:
+    """A stateless stage list served as a pipeline: the part of the JAX
+    package's ``codegen.Pipeline`` that chaining and serving read.
+    ``stages`` is the list, and a call walks it (``compile_stages`` with
+    the ``"interpret"`` backend) on ``device`` -> numpy.  The kernels
+    serve it through ``compile_stages``, ``chaining.compile_dag`` or
+    ``PacketServeEngine(backend=...)``."""
+
+    def __init__(self, stages, *, device="cuda"):
+        self.stages = list(stages)
+        self._compiled = compile_stages(self.stages, device=device)
+        self.backend = self._compiled.backend
+        self.device = self._compiled.device
+
+    def dispatch(self, x) -> torch.Tensor:
+        return self._compiled.dispatch(x)
+
+    def __call__(self, x) -> np.ndarray:
+        return self.dispatch(x).cpu().numpy()
+
+    def __repr__(self):
+        return (f"StagePipeline({[s.kind for s in self.stages]}, "
+                f"backend={self.backend!r})")

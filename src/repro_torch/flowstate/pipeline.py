@@ -30,6 +30,12 @@ Backends, reported by ``backend`` as what actually serves:
                                   ``"interpret"``, and the whole
                                   ``"mixed"``, as the JAX package reports
                                   it;
+  ``fuse=True`` is the default, but ``fuse=False`` is the faster choice
+  once the MLP is too large for shared memory (K1 walks each slot chain
+  one step at a time and runs the MLP at every step, its weights read
+  through L2): on an H100 the design space's deepest classifier costs
+  K1 about 40 times what K2 + K3 take per batch (PERF.md, the kernel
+  table's rows 1e and 3a);
   ``backend="interpret"``         the plain stage walk: sequential
                                   register update + each stage's plain
                                   ``apply`` + the plain action-table walk
@@ -62,9 +68,8 @@ from repro_torch.flowstate.registers import (
     migrate_state,
 )
 
-EXEC_BACKENDS = ("interpret", "cuda")
-REPORT_BACKENDS = ("interpret", "cuda", "cuda-fused-flow", "cpu-ref",
-                   "cpu-ref-fused-flow", "mixed")
+EXEC_BACKENDS = stageir.EXEC_BACKENDS
+REPORT_BACKENDS = stageir.REPORT_BACKENDS
 
 
 class StatefulPipeline:
@@ -90,7 +95,7 @@ class StatefulPipeline:
         self.mitigation = mit.spec if mit is not None else None
         self.fallback_reason: str | None = None
         self.fused = backend == "cuda" and self.fuse
-        base = "cuda" if self.device.type == "cuda" else "cpu-ref"
+        base = stageir.kernel_backend(self.device)
 
         if self.fused:
             step = cuda_backend.lower_stateful_fused(prefix, suffix,
@@ -110,12 +115,13 @@ class StatefulPipeline:
                     classify = self._plain_suffix(suffix)
                     self.classifier_backend = "interpret"
                 else:
-                    classify = cuda_backend.lower_stages_cuda(suffix,
-                                                              self.device)
+                    classify = cuda_backend.lower_stages_cuda(
+                        suffix, self.device, verdicts=True)
                     if classify is None:
                         raise ValueError(
                             "backend='cuda' cannot serve this suffix: "
-                            + cuda_backend.stages_decline_reason(suffix))
+                            + cuda_backend.stages_decline_reason(
+                                suffix, verdicts=True))
                     self.classifier_backend = base
             else:
                 flow = cuda_backend.lower_stateful(prefix, "interpret")
@@ -147,8 +153,8 @@ class StatefulPipeline:
 
     @staticmethod
     def _plain_suffix(suffix):
-        plain = tuple(stageir.unfuse_pipeline_stages(suffix))
-        return lambda feats, _s=plain: stageir.apply_stages(_s, feats)
+        return lambda feats, _s=tuple(suffix): stageir.apply_stages(
+            _s, feats, plain=True)
 
     @property
     def n_state_arrays(self) -> int:

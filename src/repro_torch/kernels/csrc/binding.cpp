@@ -93,6 +93,75 @@ void fused_mlp_classify(at::Tensor x, at::Tensor w_flat, at::Tensor b_flat,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void fused_mlp(at::Tensor x, at::Tensor w_flat, at::Tensor b_flat,
+               std::vector<int64_t> widths, at::Tensor out) {
+  c10::cuda::CUDAGuard guard(x.device());
+  MlpDims d = mlp_dims(widths);
+  TORCH_CHECK(w_flat.numel() == d.n_w && b_flat.numel() == d.n_b,
+              "packed MLP does not match its widths");
+  TORCH_CHECK(out.size(0) == x.size(0) && out.size(1) == d.widths[d.n_layers],
+              "logits must be [B, C]");
+  C10_CUDA_CHECK(launch_fused_mlp(
+      x.data_ptr<float>(), (int)x.size(0), d, w_flat.data_ptr<float>(),
+      b_flat.data_ptr<float>(), out.data_ptr<float>(), stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// widths: every model's layer widths back to back, n_layers[i] + 1 each;
+// program: the plan's (op, arg) pairs back to back.
+void fused_dag(at::Tensor x, at::Tensor w_flat, at::Tensor b_flat,
+               std::vector<int64_t> n_layers, std::vector<int64_t> widths,
+               std::vector<int64_t> program, at::Tensor out) {
+  c10::cuda::CUDAGuard guard(x.device());
+  const int n_models = (int)n_layers.size();
+  TORCH_CHECK(n_models >= 1 && n_models <= RT_DAG_MAX_MODELS,
+              "a fused DAG takes 1..", RT_DAG_MAX_MODELS, " models");
+  TORCH_CHECK(program.size() % 2 == 0 &&
+                  (int64_t)program.size() <= 2 * RT_DAG_MAX_OPS,
+              "a DAG plan takes at most ", RT_DAG_MAX_OPS, " instructions");
+  DagArgs g{};
+  g.n_models = n_models;
+  g.n_ops = (int)program.size() / 2;
+  g.n_feat = (int)x.size(1);
+  size_t at = 0;
+  int64_t w_off = 0, b_off = 0;
+  for (int i = 0; i < n_models; ++i) {
+    TORCH_CHECK(at + n_layers[i] + 1 <= widths.size(), "DAG widths");
+    std::vector<int64_t> wi(widths.begin() + at,
+                            widths.begin() + at + n_layers[i] + 1);
+    at += n_layers[i] + 1;
+    g.m[i] = mlp_dims(wi);
+    TORCH_CHECK(g.m[i].widths[0] == g.n_feat,
+                "every DAG model reads the whole input row");
+    g.w_off[i] = (int)w_off;
+    g.b_off[i] = (int)b_off;
+    w_off += g.m[i].n_w;
+    b_off += g.m[i].n_b;
+  }
+  TORCH_CHECK(at == widths.size() && w_off == w_flat.numel() &&
+                  b_off == b_flat.numel(),
+              "packed DAG does not match its widths");
+  int depth = 0;
+  for (int k = 0; k < g.n_ops; ++k) {
+    g.op[k] = (int)program[2 * k];
+    g.arg[k] = (int)program[2 * k + 1];
+    if (g.op[k] == DAG_MODEL) {
+      TORCH_CHECK(g.arg[k] >= 0 && g.arg[k] < n_models, "DAG model index");
+      ++depth;
+    } else {
+      TORCH_CHECK(g.op[k] >= DAG_SEQ && g.op[k] <= DAG_AND && g.arg[k] >= 1 &&
+                      g.arg[k] <= depth,
+                  "malformed DAG plan");
+      depth -= g.arg[k] - 1;
+    }
+  }
+  TORCH_CHECK(depth == 1, "a DAG plan must leave one verdict");
+  C10_CUDA_CHECK(launch_fused_dag(
+      x.data_ptr<float>(), (int)x.size(0), g, w_flat.data_ptr<float>(),
+      b_flat.data_ptr<float>(), out.data_ptr<int>(), stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 MatDims mat_dims(const at::Tensor& edges, const at::Tensor& tables,
                  const at::Tensor& lmap, bool use_min) {
   MatDims m;
@@ -204,6 +273,8 @@ void fused_flow_serve(at::Tensor keys, at::Tensor regs, at::Tensor pkt_keys,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flow_update", &flow_update, "K2: flow-register update");
   m.def("fused_mlp_classify", &fused_mlp_classify, "K3: MLP + argmax");
+  m.def("fused_mlp", &fused_mlp, "K5: MLP -> logits");
+  m.def("fused_dag", &fused_dag, "K6: Seq/Par DAG of MLP classifiers");
   m.def("fused_flow_serve", &fused_flow_serve,
         "K1: register update + readout + classifier [+ mitigation]");
   m.def("mat_lut_classify", &mat_lut_classify,

@@ -11,6 +11,8 @@
 #define RT_CLS_PER_LANE 4      // MAT classes / centroids per lane: <= 128
 #define RT_MAT_MAX_FEATURES 64 // MAT features (K4's per-warp row buffer)
 #define RT_MITIGATED (-1)      // verdict of a packet the action table drops
+#define RT_DAG_MAX_MODELS 8    // distinct models in one fused DAG (K6)
+#define RT_DAG_MAX_OPS 32      // instructions of a DAG plan (K6)
 
 // One flow table and one slot-segmented batch.  ``keys``/``regs`` are
 // updated in place; only the batch's slots are read and written.
@@ -36,6 +38,25 @@ struct MlpDims {
   int widths[RT_MAX_LAYERS + 1];
   int n_w;                // weight floats
   int n_b;                // bias floats
+};
+
+// A Seq/Par DAG of MLP classifiers (K6).  Model i's weights and biases
+// start at w_off[i] / b_off[i] of the packed arrays; smem_off[i] >= 0
+// stages them at that float offset of the block's shared memory, -1 reads
+// them from device memory.  The plan is a postfix program of n_ops
+// (op, arg) pairs: DAG_MODEL i pushes model i's verdict; DAG_SEQ n,
+// DAG_OR n and DAG_AND n pop n verdicts and push their fold.
+enum { DAG_MODEL = 0, DAG_SEQ = 1, DAG_OR = 2, DAG_AND = 3 };
+
+struct DagArgs {
+  int n_models, n_ops, n_feat;
+  MlpDims m[RT_DAG_MAX_MODELS];
+  int w_off[RT_DAG_MAX_MODELS];
+  int b_off[RT_DAG_MAX_MODELS];
+  int smem_off[RT_DAG_MAX_MODELS];
+  int smem_floats;        // staged parameters in all
+  int op[RT_DAG_MAX_OPS];
+  int arg[RT_DAG_MAX_OPS];
 };
 
 // A MAT classifier (Quantize -> LUTGather -> Reduce -> LabelMap): edges
@@ -83,6 +104,12 @@ cudaError_t launch_fused_mlp_classify(const float* x, int B,
                                       const MlpDims& d, const float* w,
                                       const float* b, int* out,
                                       cudaStream_t stream);
+cudaError_t launch_fused_mlp(const float* x, int B, const MlpDims& d,
+                             const float* w, const float* b, float* out,
+                             cudaStream_t stream);
+cudaError_t launch_fused_dag(const float* x, int B, const DagArgs& g,
+                             const float* w, const float* b, int* out,
+                             cudaStream_t stream);
 cudaError_t launch_mat_lut_classify(const float* x, int B, const MatDims& m,
                                     const float* edges, const float* tables,
                                     const int* lmap, int* out,

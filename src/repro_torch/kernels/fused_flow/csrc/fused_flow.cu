@@ -9,7 +9,8 @@
 // (_mitigation_phase :250-332).
 //
 // Bound: bytes, as K2 plus the classifier parameters (staged once per
-// block into shared memory) and the touched action rows, minus the [B, W]
+// block into shared memory; an MLP too large for it is read from device
+// memory through L2, mlp_argmax.cuh) and the touched action rows, minus the [B, W]
 // feature rows, which never leave the warp: each packet's post-update row
 // is read out, classified and reduced to an int32 verdict written
 // straight to the packet's arrival index (no inverse-permutation
@@ -53,27 +54,38 @@ namespace {
 
 enum { KIND_MLP = 0, KIND_MAT = 1, KIND_CENTROID = 2 };
 
-// Shared-memory floats of the staged classifier parameters.
+// Is the MLP staged in shared memory (it fits beside the warps' rows)?
+__host__ __device__ inline bool mlp_staged(const SuffixArgs& s) {
+  return mlp_fits_smem(s.mlp, RT_MLP_HBUF_FLOATS);
+}
+
+// Shared-memory floats of the staged classifier parameters: none for an
+// MLP too large to stage, which is read from device memory instead.
 __host__ __device__ inline size_t suffix_floats(const SuffixArgs& s) {
-  if (s.kind == KIND_MLP) return (size_t)s.mlp.n_w + s.mlp.n_b;
+  if (s.kind == KIND_MLP)
+    return mlp_staged(s) ? (size_t)s.mlp.n_w + s.mlp.n_b : 0;
   if (s.kind == KIND_MAT) return mat_smem_floats(s.mat);
   return cent_smem_floats(s.cent);
 }
 
+// Stage the classifier -> where the MLP's weights are read from.
 template <int KIND>
-__device__ __forceinline__ void suffix_load(float* smem,
-                                            const SuffixArgs& s) {
-  if constexpr (KIND == KIND_MLP) mlp_load(smem, s.p0, s.p1, s.mlp);
+__device__ __forceinline__ MlpParams suffix_load(float* smem,
+                                                 const SuffixArgs& s) {
+  if constexpr (KIND == KIND_MLP)
+    return mlp_stage(smem, s.p0, s.p1, s.mlp, mlp_staged(s));
   if constexpr (KIND == KIND_MAT) mat_load(smem, s.p0, s.p1, s.mat);
   if constexpr (KIND == KIND_CENTROID) cent_load(smem, s.p0, s.cent);
+  return MlpParams{nullptr, nullptr};
 }
 
 // hbuf: this warp's 2 * RT_MAX_MLP_WIDTH floats, readout row first.
 template <int KIND>
 __device__ __forceinline__ int classify(float* hbuf, const float* smem,
-                                        const SuffixArgs& s, int lane) {
+                                        MlpParams mp, const SuffixArgs& s,
+                                        int lane) {
   if constexpr (KIND == KIND_MLP) {
-    return mlp_argmax(hbuf, smem, s.mlp, lane);
+    return mlp_argmax(hbuf, mp, s.mlp, lane);
   } else if constexpr (KIND == KIND_MAT) {
     return mat_classify(hbuf, smem, s.lmap, s.mat, lane);
   } else {
@@ -85,6 +97,7 @@ template <int KIND>
 struct EmitVerdict {
   float* hbuf;
   const float* smem;
+  MlpParams mp;
   const SuffixArgs* s;
   int* verdicts;
   int W, head, mode;
@@ -108,7 +121,7 @@ struct EmitVerdict {
         }
       }
     }
-    const int cls = classify<KIND>(hbuf, smem, *s, lane);
+    const int cls = classify<KIND>(hbuf, smem, mp, *s, lane);
     if (lane == 0) verdicts[p] = cls;
   }
 };
@@ -117,17 +130,18 @@ template <int KIND, bool MIT>
 __global__ void fused_flow_kernel(FlowArgs a, SuffixArgs s, int* verdicts,
                                   int mode, MitArgs m) {
   extern __shared__ float smem[];
-  suffix_load<KIND>(smem, s);
+  const MlpParams mp = suffix_load<KIND>(smem, s);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* hbuf = smem + suffix_floats(s) + warp * 2 * RT_MAX_MLP_WIDTH;
-  EmitVerdict<KIND> emit{hbuf, smem, &s, verdicts, a.W, a.C + a.E, mode};
+  EmitVerdict<KIND> emit{hbuf, smem, mp, &s, verdicts, a.W, a.C + a.E,
+                         mode};
   for (int k = blockIdx.x * RT_WARPS + warp; k < a.B;
        k += gridDim.x * RT_WARPS) {
     if (a.valid[k] == 0) {                   // padding: zero readout row
       for (int i = lane; i < a.W; i += 32) hbuf[i] = 0.f;
-      const int cls = classify<KIND>(hbuf, smem, s, lane);
+      const int cls = classify<KIND>(hbuf, smem, mp, s, lane);
       if (lane == 0) verdicts[k] = cls;
     }
     flow_chain(a, k, lane, emit);
@@ -173,8 +187,7 @@ cudaError_t launch_kind(const FlowArgs& a, const SuffixArgs& s,
                         cudaStream_t stream) {
   auto kernel = fused_flow_kernel<KIND, MIT>;
   const size_t smem =
-      sizeof(float) *
-      (suffix_floats(s) + (size_t)RT_WARPS * 2 * RT_MAX_MLP_WIDTH);
+      sizeof(float) * (suffix_floats(s) + RT_MLP_HBUF_FLOATS);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

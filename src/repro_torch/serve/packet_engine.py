@@ -1,17 +1,22 @@
-"""Micro-batching packet-serving engine for stateful pipelines
-(counterpart of ``repro.serve.packet_engine.PacketServeEngine``).
+"""Micro-batching packet-serving engine (counterpart of
+``repro.serve.packet_engine.PacketServeEngine``) over one compiled
+program: a stateful ``flowstate.StatefulPipeline``, a
+``chaining.CompiledDag``, a ``stageir.CompiledStages`` or anything with a
+stateless ``.stages`` list (compiled by ``compile_stages``).
 
 Incoming packets are cut into batches of a FIXED shape ``max_batch``;
-ragged tails are padded with ``valid=0`` rows, which never touch the
-register file, and their verdicts are sliced off.  Verdicts come back in
-arrival order at any ``depth``.
+ragged tails are padded with zero rows and their verdicts are sliced
+off.  A stateful pipeline also gets them as ``valid=0`` rows, which never
+touch the register file.  Verdicts come back in arrival order at any
+``depth``.
 
 Overlap: up to ``depth`` batches stay in flight.  Each batch is staged in
 one of ``depth+1`` pinned host buffers, copied to the card and dispatched
 on the current stream without waiting; its verdicts are copied back into
 a pinned buffer behind a CUDA event, and only ``flush()``/stream
 consumption waits on that event.  Successive batches chain through the
-register state on one stream, so overlap never reorders updates.  A
+register state on one stream, so overlap never reorders updates.  The
+stateless dispatch makes no host sync either.  A
 staging buffer is refilled only after the batch that used it was
 fetched, so an in-flight copy never reads a buffer being written.
 
@@ -28,11 +33,12 @@ batches finish on the old pipeline and no batch is dropped or
 reordered.  The live state carries over through the new pipeline's
 ``adopt_state``: bit-identically for the same specs, re-keyed through
 ``migrate_state``/``migrate_mitigation`` for changed ones; adding a
-``Mitigate`` starts an empty action table, dropping one drops it.
-``stats()`` records each swap's latency (request to install) and the
-packet offset of its boundary.
+``Mitigate`` starts an empty action table, dropping one drops it.  A
+stateless engine swaps between stateless programs; a swap that changes
+statefulness raises.  ``stats()`` records each swap's latency (request
+to install) and the packet offset of its boundary.
 
-Telemetry and the stateless ``CompiledDag`` path are later slices.
+Telemetry is a later slice.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
+from repro_torch.core import stageir
 from repro_torch.device import resolve_device
 from repro_torch.flowstate.mitigation import MITIGATED
 
@@ -146,61 +153,101 @@ class _InFlight:
     mitigated: bool = False        # served by a pipeline with Mitigate
 
 
+def _stateless(pipeline, backend: str | None, device: torch.device):
+    """A stateless program compiled for ``backend`` (None: as it was
+    asked) on ``device``, as it is when neither differs: a ``CompiledDag``
+    recompiles itself; a ``CompiledStages`` or anything else with
+    ``.stages`` goes through ``compile_stages``."""
+    if hasattr(pipeline, "with_backend"):             # chaining.CompiledDag
+        if backend is None and pipeline.device == device:
+            return pipeline
+        return pipeline.with_backend(backend or pipeline.requested_backend,
+                                     device=device)
+    if isinstance(pipeline, stageir.CompiledStages) and backend is None \
+            and pipeline.device == device:
+        return pipeline
+    if not hasattr(pipeline, "stages"):
+        raise TypeError("the port serves a StatefulPipeline, a CompiledDag, "
+                        "a CompiledStages or a pipeline with .stages; got "
+                        f"{type(pipeline).__name__}")
+    return stageir.compile_stages(
+        pipeline.stages, fuse=getattr(pipeline, "fuse", True),
+        backend=backend or getattr(pipeline, "requested_backend",
+                                   "interpret"), device=device)
+
+
 class PacketServeEngine:
-    """Micro-batching front end over one ``StatefulPipeline``.
+    """Micro-batching front end over one compiled program.
 
     ``backend`` (``"interpret"`` | ``"cuda"``) recompiles the pipeline for
-    that engine, keeping its ``fuse`` flag; ``device`` (default
-    ``"cuda"``) is where it serves — a pipeline built for another device
-    is recompiled for this one.  ``state`` resumes an existing register
-    file (on the card the engine then updates its tensors in place); None
-    starts empty.  ``depth`` batches stay in flight."""
+    that engine (a ``StatefulPipeline`` keeps its ``fuse`` flag);
+    ``device`` (default ``"cuda"``) is where it serves — a pipeline built
+    for another device is recompiled for this one.  ``state`` resumes an
+    existing register file of a stateful pipeline (on the card the engine
+    then updates its tensors in place); None starts empty.  ``depth``
+    batches stay in flight."""
 
     def __init__(self, pipeline, *, feature_dim: int, max_batch: int = 256,
                  backend: str | None = None, state=None, depth: int = 2,
                  device="cuda"):
-        if not hasattr(pipeline, "init_state"):
-            raise TypeError("the port serves stateful pipelines only; the "
-                            "stateless CompiledDag path is a later slice")
         dev = resolve_device(device)
-        if backend is not None or pipeline.device != dev:
-            pipeline = pipeline.with_backend(
-                backend or pipeline.requested_backend, device=dev)
-        self.pipeline = pipeline
+        self._stateful = hasattr(pipeline, "init_state")
         self.device = dev
-        self.backend = pipeline.backend
+        self.pipeline = self._compiled(pipeline, backend)
+        self.backend = self.pipeline.backend
         self.feature_dim = int(feature_dim)
         self.max_batch = int(max_batch)
         self.depth = max(1, int(depth))
-        self.state = state if state is not None else pipeline.init_state()
+        self.state = None
+        if self._stateful:
+            self.state = state if state is not None \
+                else self.pipeline.init_state()
         self._queue: collections.deque[np.ndarray] = collections.deque()
         self._pending = 0
         self._inflight: collections.deque[_InFlight] = collections.deque()
         # depth+1 staging slots: the one being filled is never one an
         # in-flight batch may still be copying from
-        pinned = dev.type == "cuda"
-
-        def ring(shape, dtype):
-            return [torch.zeros(shape, dtype=dtype, pin_memory=pinned)
-                    for _ in range(self.depth + 1)]
-
-        self._staging = ring((self.max_batch, self.feature_dim),
-                             torch.float32)
-        self._valid_staging = ring((self.max_batch,), torch.int32)
-        self._out_staging = ring((self.max_batch,), torch.int32)
+        self._staging = self._ring((self.max_batch, self.feature_dim),
+                                   torch.float32)
+        self._valid_staging = self._ring((self.max_batch,), torch.int32)
         self._staging_i = 0
         self._mark: float | None = None
         self._swap_lock = threading.Lock()
         self._pending_swap: tuple | None = None
         self.stats_ = ServeStats(backend=self.backend, depth=self.depth)
-        self._warm_up()
+        self._out_staging = self._warm_up(self.pipeline, self.state)
 
-    def _warm_up(self) -> None:
-        """Build the kernels and run one all-padding batch, so serving
-        time excludes the build; the register file is unchanged."""
+    def _ring(self, shape, dtype) -> list:
+        """depth+1 host buffers, pinned when serving on the card."""
+        pinned = self.device.type == "cuda"
+        return [torch.zeros(shape, dtype=dtype, pin_memory=pinned)
+                for _ in range(self.depth + 1)]
+
+    def _compiled(self, pipeline, backend):
+        """``pipeline`` compiled for this engine's device (and ``backend``
+        when given)."""
+        if not self._stateful:
+            return _stateless(pipeline, backend, self.device)
+        if backend is not None or pipeline.device != self.device:
+            return pipeline.with_backend(
+                backend or pipeline.requested_backend, device=self.device)
+        return pipeline
+
+    def _warm_up(self, pipeline, state) -> list:
+        """Build ``pipeline``'s kernels and run one all-padding batch on
+        ``state`` (None for a stateless program; a register file is left
+        unchanged), waited for, so serving time excludes the build ->
+        the ring its verdicts are staged in, of their shape and dtype
+        ([max_batch] int32 verdicts, or logits / concat verdicts), so the
+        dispatch never allocates."""
         zeros = torch.zeros((self.max_batch, self.feature_dim))
-        self.state, _ = self.pipeline(
-            self.state, zeros, torch.zeros(self.max_batch, dtype=torch.int32))
+        if state is None:
+            out = pipeline.dispatch(zeros)
+        else:
+            _, out = pipeline.dispatch(
+                state, zeros, torch.zeros(self.max_batch, dtype=torch.int32))
+        out = out.cpu()
+        return self._ring(tuple(out.shape), out.dtype)
 
     # ------------------------------------------------------------ intake
 
@@ -260,7 +307,10 @@ class PacketServeEngine:
         t0 = time.perf_counter()
         if not self._inflight:
             self._mark = t0
-        self.state, out = self.pipeline.dispatch(self.state, buf, valid)
+        if self._stateful:
+            self.state, out = self.pipeline.dispatch(self.state, buf, valid)
+        else:
+            out = self.pipeline.dispatch(buf)
         if self.device.type == "cuda":
             host = self._out_staging[i]
             host.copy_(out, non_blocking=True)
@@ -269,7 +319,8 @@ class PacketServeEngine:
             flight = _InFlight(n, host, t0, event, None)
         else:
             flight = _InFlight(n, out, t0, None, time.perf_counter())
-        flight.mitigated = self.pipeline.mitigation is not None
+        flight.mitigated = getattr(self.pipeline, "mitigation",
+                                   None) is not None
         self.stats_.dispatch_s += time.perf_counter() - t0
         self.stats_.count_batch(self.backend, n, pad)
         self._inflight.append(flight)
@@ -280,7 +331,7 @@ class PacketServeEngine:
         f = self._inflight.popleft()
         if f.event is not None:
             f.event.synchronize()
-        out = f.out.numpy()[:f.n].astype(np.int32, copy=True)
+        out = f.out.numpy()[:f.n].copy()
         if f.mitigated:
             self.stats_.mitigated += int((out == MITIGATED).sum())
         end = f.ready if f.ready is not None else time.perf_counter()
@@ -329,29 +380,28 @@ class PacketServeEngine:
         """Install ``pipeline`` at the next dispatch-ring boundary.  It is
         recompiled for this engine's device (and for ``backend`` when
         given) and warmed here, on the caller's thread; the serving path
-        only adopts it.  Swapping to a pipeline without per-flow state
-        raises: that is a different engine, not a new model."""
+        only adopts it.  A swap that changes statefulness raises: that is
+        a different engine, not a new model."""
         t_req = time.perf_counter()
-        if not hasattr(pipeline, "init_state"):
+        if hasattr(pipeline, "init_state") != self._stateful:
+            old, new = (("stateful", "stateless") if self._stateful
+                        else ("stateless", "stateful"))
             raise ValueError("hot swap cannot change statefulness: engine "
-                             "is stateful, new pipeline is stateless")
-        if backend is not None or pipeline.device != self.device:
-            pipeline = pipeline.with_backend(
-                backend or pipeline.requested_backend, device=self.device)
-        self._prepare_swap(pipeline)
+                             f"is {old}, new pipeline is {new}")
+        pipeline = self._compiled(pipeline, backend)
+        ring = self._prepare_swap(pipeline)
         with self._swap_lock:
-            self._pending_swap = (pipeline, t_req)
+            self._pending_swap = (pipeline, ring, t_req)
 
     @property
     def swap_pending(self) -> bool:
         return self._pending_swap is not None
 
-    def _prepare_swap(self, pipeline) -> None:
-        """Build the kernels and run one all-padding batch on a throwaway
-        state, so the install itself never builds anything."""
-        zeros = torch.zeros((self.max_batch, self.feature_dim))
-        pipeline(pipeline.init_state(), zeros,
-                 torch.zeros(self.max_batch, dtype=torch.int32))
+    def _prepare_swap(self, pipeline) -> list:
+        """Warm ``pipeline`` on a throwaway state -> its verdict ring, so
+        the install itself never builds or allocates anything."""
+        return self._warm_up(pipeline, pipeline.init_state()
+                             if self._stateful else None)
 
     def _maybe_install_swap(self) -> None:
         if self._pending_swap is None:        # the common case, lock-free
@@ -360,12 +410,15 @@ class PacketServeEngine:
             pending, self._pending_swap = self._pending_swap, None
         if pending is None:
             return
-        pipeline, t_req = pending
-        self._install_swap(pipeline)
+        pipeline, ring, t_req = pending
+        self._install_swap(pipeline, ring)
         self.stats_.record_swap(time.perf_counter() - t_req)
 
-    def _install_swap(self, pipeline) -> None:
-        self._carry_state(pipeline)
+    def _install_swap(self, pipeline, ring) -> None:
+        if self._stateful:
+            self._carry_state(pipeline)
+        # in-flight batches hold their own slots of the old ring
+        self._out_staging = ring
         self.pipeline = pipeline
         self.backend = pipeline.backend
         self.stats_.backend = self.backend

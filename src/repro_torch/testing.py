@@ -107,6 +107,67 @@ def random_mlp(widths, seed: int):
     return ws, bs
 
 
+def he_mlp(widths, seed: int):
+    """Seeded f32 (weights, biases) numpy lists for a ReLU MLP with He
+    scaling (std sqrt(2 / fan_in)) and biases 0.1 * N(0, 1): activations
+    keep their scale through deep stacks, so a [7, 128 x 10, 2] model
+    still separates its classes."""
+    rng = np.random.default_rng(seed)
+    ws = [(rng.normal(size=(a, b)) * np.sqrt(2.0 / a)).astype(np.float32)
+          for a, b in zip(widths[:-1], widths[1:])]
+    bs = [(0.1 * rng.normal(size=b)).astype(np.float32) for b in widths[1:]]
+    return ws, bs
+
+
+AD_WIDTHS = (7, 16, 8, 2)
+AD_FULL_WIDTHS = (7,) + (128,) * 10 + (2,)
+
+
+def ad_pipelines(device, seed: int = 0) -> dict:
+    """The stateless models of the AD DAG (7 features, as
+    ``netdata.make_ad_dataset(features=7)``), seeded, as
+    ``stageir.StagePipeline`` s on ``device`` (interpret): "ad" a DNN
+    ``AD_WIDTHS`` + argmax, "tc" an SVM (Dense [7, 2] + argmax), "cl" a
+    k=4 centroid classifier + LabelMap [0, 1, 0, 1], "ad_full" the
+    deepest DNN the design space emits, ``AD_FULL_WIDTHS`` + argmax."""
+    from repro_torch.core import stageir
+
+    rng = np.random.default_rng(seed + 100)
+    svm_w, svm_b = he_mlp((7, 2), seed + 1)
+    pipes = {
+        "ad": [stageir.FusedMLP(*he_mlp(AD_WIDTHS, seed)),
+               stageir.Reduce("argmax")],
+        "tc": [stageir.Dense(svm_w[0], svm_b[0]), stageir.Reduce("argmax")],
+        "cl": [stageir.CentroidDistance(
+                   rng.normal(size=(4, 7)).astype(np.float32)),
+               stageir.Reduce("argmin"),
+               stageir.LabelMap(np.asarray([0, 1, 0, 1], np.int32))],
+        "ad_full": [stageir.FusedMLP(*he_mlp(AD_FULL_WIDTHS, seed + 2)),
+                    stageir.Reduce("argmax")],
+    }
+    return {k: stageir.StagePipeline(v, device=device)
+            for k, v in pipes.items()}
+
+
+def leaf_margin_rows(pipelines, X, margin: float = MARGIN) -> np.ndarray:
+    """Rows on which any MLP or Dense classifier among ``pipelines`` has
+    its top-two logits within ``margin`` (plain f32 logits on the CPU).
+    A Seq gate carries one leaf's flip downstream, so DAG parity excludes
+    every such row."""
+    from repro_torch.core import stageir
+
+    x = torch.as_tensor(np.asarray(X, np.float32))
+    close = np.zeros(len(x), bool)
+    for p in pipelines:
+        st = stageir.unfuse_pipeline_stages(p.stages)
+        if len(st) >= 2 and isinstance(st[-1], stageir.Reduce) \
+                and isinstance(st[-2], (stageir.FusedMLP, stageir.Dense)):
+            lg = stageir.apply_stages(st[:-1], x, plain=True).numpy()
+            top = np.sort(lg, 1)
+            close |= (top[:, -1] - top[:, -2]) <= margin
+    return close
+
+
 def readout_moments(prefix, packets: np.ndarray, device="cpu"):
     """Mean and standard deviation (+1e-6) of the readout rows that
     ``prefix`` ([FlowKey, RegisterUpdate, WindowStats]) gives a packet

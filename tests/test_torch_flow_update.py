@@ -163,6 +163,13 @@ def test_launch_wrapper_refuses_cpu_tensors_and_oversized_tables():
 
 
 def test_stages_from_reference_rejects_unported_kinds():
+    # every stage kind of the reference converts now (TreeTraverse last);
+    # a kind the port does not know is still refused by name
     tree = jstageir.TreeTraverse.from_nodes([{"leaf": 0}], depth=1)
-    with pytest.raises(NotImplementedError, match="tree_traverse"):
-        convert.stages_from_reference([tree])
+    assert convert.stages_from_reference([tree])[0].kind == "tree_traverse"
+
+    class Unknown(jstageir.Stage):
+        kind = "binarized_dense"
+
+    with pytest.raises(NotImplementedError, match="binarized_dense"):
+        convert.stages_from_reference([Unknown()])

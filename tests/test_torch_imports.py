@@ -24,6 +24,8 @@ bad = sorted(k for k in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
+        "repro_torch.data.netdata"} <= set(names), names
 """
 
 
@@ -38,6 +40,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
 def test_cuda_entry_points_raise_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU rule cannot be shown")
+    from repro_torch.core import chaining, stageir
+    from repro_torch.core.alchemy import Model
     from repro_torch.data import traffic
     from repro_torch.flowstate import StatefulPipeline
     from repro_torch.flowstate.registers import init_state
@@ -50,6 +54,8 @@ def test_cuda_entry_points_raise_without_a_gpu():
         lambda: init_state(stages[1].spec),
         lambda: PacketServeEngine(
             StatefulPipeline(list(stages), device="cpu"), feature_dim=4),
+        lambda: stageir.compile_stages([stageir.Reduce("argmax")]),
+        lambda: chaining.compile_dag(Model("a") > Model("b"), {}),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             make()

@@ -219,3 +219,185 @@ def test_slice_pipelines_match_reference_engine(case, name, fuse):
         assert teng.stats()["mitigated"] == int((tv == -1).sum()) > 0
         r = traffic.reaction_report(case["stream"], tv)
         assert r == jtraffic.reaction_report(case["stream"], jv)
+
+
+# ----------------------------------- slice 3: stateless serving and DAGs
+
+D_FEAT, D_BATCH, D_PACKETS, D_CHUNK = 7, 128, 1000, 97
+
+
+def _jpseudo(stages):
+    class _P:                            # minimal reference pipeline
+        def __init__(self, s):
+            self.stages = s
+
+        def __call__(self, x):
+            import jax.numpy as jnp
+
+            return np.asarray(jstageir.apply_stages(
+                self.stages, jnp.asarray(x, jnp.float32)))
+
+    return _P(stages)
+
+
+@pytest.fixture(scope="module")
+def dag_case():
+    """The AD DAG's seeded models (``testing.ad_pipelines``' weights) as
+    reference pipelines and their port counterparts, and a packet batch
+    on the AD test set's scale."""
+    from repro.core.alchemy import Model as JModel
+
+    from repro_torch.testing import AD_WIDTHS, he_mlp
+
+    svm_w, svm_b = he_mlp((D_FEAT, 2), 1)
+    cent = np.random.default_rng(100).normal(size=(4, D_FEAT)).astype(
+        np.float32)
+    jp = {"ad": _jpseudo([jstageir.FusedMLP(*he_mlp(AD_WIDTHS, 0)),
+                          jstageir.Reduce("argmax")]),
+          "tc": _jpseudo([jstageir.Dense(svm_w[0], svm_b[0]),
+                          jstageir.Reduce("argmax")]),
+          "cl": _jpseudo([jstageir.CentroidDistance(cent),
+                          jstageir.Reduce("argmin"),
+                          jstageir.LabelMap(np.asarray([0, 1, 0, 1],
+                                                       np.int32))])}
+    from repro.data import netdata
+
+    X = netdata.make_ad_dataset(features=7, n_train=256,
+                                n_test=D_PACKETS).test_x
+    m = {k: JModel({"name": k, "data_loader": lambda: None,
+                    "algorithm": None}) for k in jp}
+    return {"jp": jp, "tp": convert.pipelines_from_reference(jp,
+                                                             device="cpu"),
+            "X": X.astype(np.float32), "jm": m}
+
+
+def _tnode(dc, text):
+    jm = dc["jm"]
+    jnode = {"ad>tc": jm["ad"] > jm["tc"],
+             "ad>(tc|cl)": jm["ad"] > (jm["tc"] | jm["cl"])}[text]
+    return jnode, convert.dag_from_reference(jnode)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("what", ["fused-dag", "per-model", "mixed",
+                                  "stages"])
+def test_stateless_engine_keeps_arrival_order(dag_case, depth, what):
+    """Ragged chunks through the stateless engine at depth 1-3: verdicts
+    in arrival order, equal to the whole batch through the same program
+    and, under the margin rule, to the JAX engine's; pads sliced off."""
+    from repro.core import chaining as jchaining
+    from repro.serve.packet_engine import PacketServeEngine as JEng
+
+    from repro_torch.core import chaining
+    from repro_torch.testing import leaf_margin_rows
+
+    X = dag_case["X"]
+    if what == "stages":
+        prog = dag_case["tp"]["ad"]
+        jprog = dag_case["jp"]["ad"]
+        want_backend, leaves = "cpu-ref", [dag_case["tp"]["ad"]]
+        kw = {"backend": "cuda"}
+    else:
+        text = "ad>(tc|cl)" if what == "mixed" else "ad>tc"
+        jnode, tnode = _tnode(dag_case, text)
+        prog = chaining.compile_dag(tnode, dag_case["tp"], backend="cuda",
+                                    fuse_dag=what != "per-model",
+                                    device="cpu")
+        jprog = jchaining.compile_dag(jnode, dag_case["jp"],
+                                      backend="pallas",
+                                      fuse_dag=what != "per-model")
+        want_backend = {"fused-dag": "cpu-ref-fused-dag",
+                        "per-model": "cpu-ref", "mixed": "mixed"}[what]
+        leaves = [dag_case["tp"][m.name] for m in tnode.leaves()]
+        kw = {}
+    eng = PacketServeEngine(prog, feature_dim=D_FEAT, max_batch=D_BATCH,
+                            depth=depth, device="cpu", **kw)
+    chunks = [X[i:i + D_CHUNK] for i in range(0, len(X), D_CHUNK)]
+    got = np.concatenate(list(eng.serve_stream(chunks)))
+    whole = prog(X)
+    np.testing.assert_array_equal(got, whole)
+    jeng = JEng(jprog, feature_dim=D_FEAT, max_batch=D_BATCH, depth=depth,
+                telemetry=False, **({"backend": "pallas"} if kw else {}))
+    jv = np.concatenate(list(jeng.serve_stream(chunks)))
+    close = leaf_margin_rows(leaves, X)
+    assert int(((got != jv) & ~close).sum()) == 0
+    st = eng.stats()
+    assert st["backend"] == want_backend and eng.backend == want_backend
+    assert st["packets"] == D_PACKETS and st["batches"] == -(-D_PACKETS //
+                                                             D_BATCH)
+    assert st["pad_packets"] == D_BATCH - D_PACKETS % D_BATCH
+    assert got.dtype == np.int32 and got.shape == (D_PACKETS,)
+
+
+def test_stateless_engine_rejects_wrong_width_and_serves_logits(dag_case):
+    from repro_torch.core import stageir
+
+    eng = PacketServeEngine(dag_case["tp"]["ad"], feature_dim=D_FEAT,
+                            max_batch=64, device="cpu")
+    with pytest.raises(ValueError, match="features"):
+        eng.submit(np.zeros((3, D_FEAT + 1), np.float32))
+    logits = stageir.StagePipeline(dag_case["tp"]["ad"].stages[:1],
+                                   device="cpu")
+    eng = PacketServeEngine(logits, feature_dim=D_FEAT, max_batch=64,
+                            backend="cuda", device="cpu")
+    eng.submit(dag_case["X"][:150])
+    out = eng.flush()
+    assert out.shape == (150, 2) and out.dtype == np.float32
+    np.testing.assert_array_equal(
+        out, logits(torch.as_tensor(dag_case["X"][:150])))
+    # the verdict ring is sized at warm-up and again at a swap, so the
+    # dispatch never allocates one
+    assert {(tuple(t.shape), t.dtype) for t in eng._out_staging} \
+        == {((64, 2), torch.float32)}
+    eng.swap(dag_case["tp"]["ad"])
+    eng.submit(dag_case["X"][:70])
+    np.testing.assert_array_equal(eng.flush(),
+                                  dag_case["tp"]["ad"](dag_case["X"][:70]))
+    assert {(tuple(t.shape), t.dtype) for t in eng._out_staging} \
+        == {((64,), torch.int32)}
+    with pytest.raises(TypeError, match="stages"):
+        PacketServeEngine(lambda x: x, feature_dim=D_FEAT, device="cpu")
+
+
+def test_stateless_swap_at_the_ring_boundary(dag_case):
+    """A swap between stateless programs (a DAG to one model's
+    pipeline) lands at the ring boundary: verdicts before it are the old
+    program's, after it the new one's, and the swap is recorded once."""
+    from repro_torch.core import chaining
+
+    X = dag_case["X"]
+    _, ab = _tnode(dag_case, "ad>tc")
+    old = chaining.compile_dag(ab, dag_case["tp"], backend="cuda",
+                               device="cpu")
+    new = dag_case["tp"]["tc"]
+    eng = PacketServeEngine(old, feature_dim=D_FEAT, max_batch=D_BATCH,
+                            depth=2, device="cpu")
+    eng.submit(X[:400])
+    first = eng.flush()
+    eng.swap(new, backend="cuda")
+    assert eng.swap_pending
+    eng.submit(X[400:])
+    second = eng.flush()
+    np.testing.assert_array_equal(first, old(X[:400]))
+    np.testing.assert_array_equal(second, new(X[400:]))
+    assert not np.array_equal(old(X[400:]), second)
+    st = eng.stats()
+    assert st["swaps"] == 1 and st["swap_pkt_offsets"] == [400]
+    assert st["backend"] == "cpu-ref"
+    assert st["backend_batches"] == {"cpu-ref-fused-dag": 4, "cpu-ref": 5}
+
+
+def test_swap_refuses_a_change_of_statefulness(case, dag_case):
+    from repro_torch.core import chaining
+
+    _, ab = _tnode(dag_case, "ad>tc")
+    dag = chaining.compile_dag(ab, dag_case["tp"], device="cpu")
+    stateful = StatefulPipeline(case["tstages"], backend="cuda",
+                                device="cpu")
+    eng = PacketServeEngine(dag, feature_dim=D_FEAT, device="cpu")
+    with pytest.raises(ValueError, match="engine is stateless"):
+        eng.swap(stateful)
+    seng = PacketServeEngine(stateful, feature_dim=4, device="cpu")
+    with pytest.raises(ValueError, match="engine is stateful"):
+        seng.swap(dag)
+    assert not eng.swap_pending and not seng.swap_pending

@@ -54,6 +54,15 @@ def _stage(kind):
     if kind == "label_map":
         return js.LabelMap(np.array([2, 0, 1, 1, 0, 2], np.int32)), \
             "ids", True
+    if kind == "tree_traverse":
+        nodes = [{"feat": 2, "thr": 0.0, "left": 1, "right": 2},
+                 {"feat": 0, "thr": -0.5, "left": 3, "right": 4},
+                 {"leaf": 2},
+                 {"leaf": 1},
+                 {"feat": 5, "thr": 0.25, "left": 5, "right": 6},
+                 {"leaf": 0},
+                 {"leaf": 3}]
+        return js.TreeTraverse.from_nodes(nodes, depth=3), "x", True
     if kind in ("window_all", "window_hist"):
         spec = JSpec(n_slots=8, n_counters=2, n_ewma=1, hist_sizes=(2, 1))
         return js.WindowStats(spec, mode=kind.split("_")[1]), "feats", True
@@ -64,6 +73,8 @@ def _input(which):
     if which == "x":
         x = RNG.normal(size=(B, F)).astype(np.float32)
         x[:4] = x[4:8]                           # repeated rows: ties
+        x[8:12, 2] = 0.0                         # on a tree threshold
+        x[12:16, 0] = -0.5
         return x
     if which == "bins":
         return RNG.integers(0, 10, (B, F)).astype(np.int32)
@@ -76,7 +87,7 @@ def _input(which):
 
 KINDS = ["feature_select", "dense", "dense_linear", "fused_mlp",
          "centroid_distance", "quantize", "lut_gather", "argmax", "argmin",
-         "label_map", "window_all", "window_hist"]
+         "label_map", "window_all", "window_hist", "tree_traverse"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -124,3 +135,41 @@ def test_split_grammar_matches_reference():
     for stage in (tfk, tru, mit):
         with pytest.raises(TypeError):
             stage.apply(torch.zeros(2, 1))
+
+
+def test_compile_stages_reports_and_rejects_stateful():
+    """``compile_stages``: the stage list it compiled, the backend that
+    serves (the JAX package's rule: a kernel for an MLP or MAT, the walk
+    for a centroid or tree classifier), and a stateful stage refused as
+    the JAX package refuses it."""
+    jw = [RNG.normal(size=(F, 4)).astype(np.float32),
+          RNG.normal(size=(4, 3)).astype(np.float32)]
+    jb = [np.zeros(4, np.float32), np.zeros(3, np.float32)]
+    jstages = [js.FusedMLP(jw, jb), js.Reduce("argmax")]
+    tstages = convert.stages_from_reference(jstages)
+    x = _input("x")
+    for backend, jbackend in (("interpret", "interpret"), ("cuda", "pallas")):
+        comp = ts.compile_stages(tstages, backend=backend, device="cpu")
+        jcomp = js.compile_stages(jstages, backend=jbackend)
+        assert comp.backend == jcomp.backend.replace("pallas", "cpu-ref")
+        assert comp.requested_backend == backend
+        assert [s.kind for s in comp.stages] == ["fused_mlp", "reduce"]
+        np.testing.assert_array_equal(comp(x).numpy(),
+                                      np.asarray(jcomp(jnp.asarray(x))))
+    cen = convert.stages_from_reference([_stage("centroid_distance")[0],
+                                         js.Reduce("argmin")])
+    assert ts.compile_stages(cen, backend="cuda",
+                             device="cpu").backend == "interpret"
+    tree = convert.stages_from_reference([_stage("tree_traverse")[0]])
+    assert ts.compile_stages(tree, backend="cuda",
+                             device="cpu").backend == "interpret"
+    spec = JSpec(n_slots=8, n_counters=1)
+    stateful = convert.stages_from_reference(
+        [js.FlowKey((0,), 8), js.RegisterUpdate(spec), js.Reduce("argmax")])
+    with pytest.raises(ValueError, match="stateful"):
+        ts.compile_stages(stateful, device="cpu")
+    with pytest.raises(ValueError, match="stateful"):
+        js.compile_stages([js.FlowKey((0,), 8), js.RegisterUpdate(spec)])
+    with pytest.raises(KeyError):
+        ts.compile_stages(tstages, backend="pallas", device="cpu")
+    assert set(REPORT_BACKENDS) >= {"cuda-fused-dag", "cpu-ref-fused-dag"}
