@@ -73,14 +73,39 @@ line per phase:
        DAGs mid-stream.  The models are seeded with He scaling (the
        trainer is not ported);
      pkt/s and p50/p99 batch latency per configuration;
-  4. where the time goes on the fused stateful paths and the fused DAG:
-     device busy time (profiler) against the serving wall time, launches
-     per batch, top host ops.
+     - ``path_two_table`` (slice 4): the two-table configuration (the
+       flow-ddos table and a per-destination-port aggregate, 2,048 slots
+       each, W = 28 and 19, one 47-wide classifier;
+       ``testing.two_table_stages``), ddos_burst and port_scan at 16,000
+       packets, the MLP [47, 16, 8, 2] and the mitigated MAT, B = 256
+       and 512, fused (one K1 multi-table launch per batch) and split
+       (K2 per table + K3 or K4, the action table graphed), each against
+       ``backend="interpret"`` on CPU tensors, the dispatch silent under
+       ``set_sync_debug_mode("error")``; then hot swaps flow-ddos ->
+       two-table and back (the detection tables start fresh) and once
+       more mitigated (the action table carries bit for bit);
+     - ``telemetry``: the flow-ddos fused path at B = 512 with telemetry
+       off and on, rounds interleaved (off, on, ...): the best
+       adjacent-pair on/off pkt/s ratio must reach 0.97, the verdicts
+       are bit-identical, the packet counter equals the packets served
+       and the mitigated counter the MITIGATED verdicts of
+       path_mitigate_fused;
+  4. where the time goes on the fused stateful paths (the two-table one
+     included) and the fused DAG: device busy time (profiler) against
+     the serving wall time, launches per batch, top host ops.
+
+Slice 4 also adds ``kernels_check_multi`` (K1's multi-table mode against
+its plain version: every suffix with and without the action table, B =
+1, 37 and 512, ragged, collision patterns, the full-width classifier and
+five tables; tables exact, MAT and mitigated verdicts exact, MLP and
+centroid verdicts under the margin rule) and ``kernels_time_multi`` (its
+time per suffix beside its plain version and bound).
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
-as the last line ``{"ok": true, "device": {...}}``.  Any failed check,
-a missing GPU or a missing ``src/repro_torch`` exits non-zero without
-the ``ok`` line.  Imports nothing of JAX.
+as the last line ``{"ok": true, "device": {...}}``.  Any failed check
+exits 1; a missing GPU, torch or ``src/repro_torch`` exits 2 and prints
+why on both output streams; neither prints the ``ok`` line.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -206,10 +231,12 @@ def kernel_device_ms(calls: dict, n: int = 20) -> dict:
     instance, as the profiler demangles it (``fused_flow_kernel<1,
     true>``) — to a function that launches it once.  -> {name: {"ms",
     "events", "keys"}}: "events" counts the profiler's kernel events of
-    exactly that name, "ms" is their device time per call and None
-    unless there were n of them, and "keys" lists, when they were not,
-    every kernel key that holds the name's stem, to show what the
-    profiler saw instead."""
+    exactly that name, "ms" is their mean device time (None without an
+    event), and "keys" lists, when there were not n events, every kernel
+    key that holds the name's stem, to show what the profiler saw.  (The
+    profiler has recorded 19 of 20 multi-table launches in one process,
+    20 of 20 in another: the mean of the events it saw is the kernel's
+    time either way.)"""
     import re
 
     import torch
@@ -231,7 +258,7 @@ def kernel_device_ms(calls: dict, n: int = 20) -> dict:
         us = sum(e.self_device_time_total for e in hits)
         stem = kernel.split("<")[0]
         out[kernel] = {
-            "ms": us / n / 1e3 if events == n else None, "events": events,
+            "ms": us / events / 1e3 if events else None, "events": events,
             "keys": [] if events == n else
             [f"{e.key[:120]} x{e.count}" for e in avg if stem in e.key]}
     return out
@@ -240,6 +267,8 @@ def kernel_device_ms(calls: dict, n: int = 20) -> dict:
 # K1's template instance, as the profiler names it: the suffix kind's
 # index in SUFFIX_KINDS and whether the mitigation phase is compiled in
 K1_INSTANCE = "fused_flow_kernel<{kind}, {mit}>"
+# K1's multi-table mode, by the suffix kind's index
+K1_MULTI_INSTANCE = "fused_flow_multi_kernel<{kind}>"
 # K3 and K5 are one template, by whether it writes logits
 K3_INSTANCE, K5_INSTANCE = "fused_mlp_kernel<false>", "fused_mlp_kernel<true>"
 K6_NAME = "fused_dag_kernel"
@@ -921,17 +950,6 @@ def path_phase(dev, name: str, n_slots: int, batches, fuses, n_packets,
     return launches
 
 
-def state_arrays(state):
-    """The state's tables as host arrays (floats as their int32 bits)."""
-    import numpy as np
-
-    out = [state.keys.cpu().numpy(), state.regs.cpu().numpy().view(np.int32)]
-    if hasattr(state, "mit_keys"):
-        out += [state.mit_keys.cpu().numpy(),
-                state.mit_regs.cpu().numpy().view(np.int32)]
-    return out
-
-
 def serve_stages(stages, backend, fuse, max_batch, stream, dev,
                  swap_at=None):
     """One engine over the whole stream -> (verdicts, engine).  With
@@ -971,11 +989,12 @@ def row_of(eng) -> dict:
 
 
 def mat_path_phase(dev, name: str, mitigated: bool, batches=(256, 512),
-                   repeats: int = 3):
+                   repeats: int = 3, counts=None):
     """path_mat_fused / path_mitigate_fused: the stream on
     backend="cuda", fused (K1) and split (K2 + K4, the action table in
     plain PyTorch on the card), held bit for bit against
-    backend="interpret"."""
+    backend="interpret".  ``counts`` collects each engine's telemetry
+    counter of mitigated packets beside its MITIGATED verdicts."""
     import numpy as np
     import torch
 
@@ -1011,6 +1030,10 @@ def mat_path_phase(dev, name: str, mitigated: bool, batches=(256, 512),
                                       else split_name),
                       f"{name}: backend {eng.backend}")
                 runs.append(row_of(eng))
+                if mitigated and counts is not None:
+                    snap = eng.telemetry().snapshot()
+                    counts.append((snap["serve_mitigated_packets_total"][
+                        "values"][0]["value"], int((v == -1).sum())))
                 n = runs[-1]["batches"] + 1        # + the warm-up batch
                 n_fused, n_split = ((n_fused + n, n_split) if fuse
                                     else (n_fused, n_split + n))
@@ -1536,6 +1559,709 @@ def dag_swap(dev, old, new, X):
             "backend_batches": st["backend_batches"]}
 
 
+# ----------------------------------- multi-table and telemetry (slice 4)
+
+MULTI_SUFFIXES = ("mlp", "mat", "centroid")
+MULTI_BATCHES = (1, 37, 512)
+TWO_TABLE_SCENARIOS = ("ddos_burst", "port_scan")
+TEL_ROUNDS = 6                     # as benchmarks/telemetry_overhead.py
+TEL_PASSES = 5                     # stream passes per round: ~80,000 packets
+TEL_GATE = 0.97                    # the reference's budget
+
+
+def two_table(suffix="mlp", mitigated=False, n_slots=S_KERNEL,
+              hidden=(16, 8)):
+    """The two-table configuration (``testing.two_table_stages``): the
+    flow-ddos table (W = 28) and a per-destination-port aggregate (W =
+    19) feeding one 47-wide classifier; with ``mitigated`` the mat-fused
+    action table, Mitigate(2,048 slots, threshold 6)."""
+    from repro_torch.core import stageir
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import MitigationSpec
+    from repro_torch.flowstate.registers import FlowStateSpec
+    from repro_torch.testing import two_table_stages
+
+    mit = (MitigationSpec(n_slots=MIT_SLOTS, threshold=MIT_THRESHOLD)
+           if mitigated else None)
+    return two_table_stages(stageir, traffic, FlowStateSpec,
+                            n_slots=n_slots, port_slots=n_slots,
+                            suffix=suffix, mitigation=mit, hidden=hidden)
+
+
+def multi_lowered(stages, dev):
+    """A two-table stage list -> (TablePlans, SuffixPlan, packed
+    classifier, MitigationSpec | None), as the fused lowering packs
+    them."""
+    from repro_torch.core import cuda_backend, stageir
+
+    rest, mit = stageir.split_mitigation(stages)
+    groups, suffix = stageir.split_stateful_multi(rest)
+    desc, reason = cuda_backend._plan_fused(groups, suffix, mit)
+    check(reason is None, f"the two-table pipeline declines: {reason}")
+    groups, modes, cls, mit_spec = desc
+    sp, params = cuda_backend._pack_classifier(cls, dev)
+    return cuda_backend._table_plans(groups, modes), sp, params, mit_spec
+
+
+def multi_batch(dev, stages, pattern, B, seed, ragged):
+    """Per-table operands of one batch: table 0 keyed by ``pattern`` of
+    ``repro_torch.testing``, table 1 by "mixed" (a few keys, deep
+    chains), the valid mask shared."""
+    import torch
+
+    from repro_torch.core import stageir
+    from repro_torch.testing import flow_batch
+
+    groups, _ = stageir.split_stateful_multi(
+        stageir.split_mitigation(stages)[0])
+    ops = []
+    for t, (_, ru, _) in enumerate(groups):
+        b = flow_batch(ru.spec, pattern if t == 0 else "mixed", B,
+                       seed=seed + t, ragged=ragged,
+                       key_slots=max(ru.spec.n_slots, 2 * S_KERNEL))
+        ops.append([torch.as_tensor(b[k], device=dev)
+                    for k in ("pkt_keys", "upd", "bins")])
+        if t == 0:
+            valid = torch.as_tensor(b["valid"], device=dev)
+    return ops, valid
+
+
+def multi_scores(tables, valid, tps, sp, params):
+    """The plain scores of the classifier on the batch's readout rows."""
+    import torch
+
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels.flow_update import flow_update_ref
+
+    zs = []
+    for (k, r, pk, u, b), tp in zip(tables, tps):
+        _, _, f = flow_update_ref(k, r, pk, u, b, valid,
+                                  n_counters=tp.n_counters,
+                                  n_ewma=tp.n_ewma, alpha=tp.alpha)
+        zs.append(ff.suffix_readout(f, tp))
+    return ff.suffix_scores(torch.cat(zs, 1), params, sp)
+
+
+def kernels_check_multi(dev):
+    """K1's multi-table mode against its plain version on the card, on
+    the two-table configuration (2,048 slots per table): every suffix,
+    with and without the action table (2,048 slots: table 0's
+    segmentation; 4,096: its own), at B = 1, 37 and 512, ragged where
+    B > 8, on the collision patterns of ``repro_torch.testing``; then the
+    full-width classifier [47, 128 x 10, 2], five tables, and per-table
+    readout modes ("all", "hist", raw) under the MLP and the MAT.  Two
+    chained batches per case, the second from the tables the first
+    left.  Tables and action tables bit-exact; MAT
+    and mitigated verdicts exact; MLP and centroid verdicts under the
+    margin rule.  -> max abs error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import stageir
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.testing import he_mlp, mat_stages, verdict_mismatches
+
+    cases = [(sfx, mit, B, pattern)
+             for sfx in MULTI_SUFFIXES for mit in (None, MIT_SLOTS,
+                                                   2 * MIT_SLOTS)
+             for B, pattern in zip(MULTI_BATCHES, ("slot_runs", "same_slot",
+                                                   "one_hot_flow"))]
+    cases += [("mlp_full", None, 512, "mixed"), ("five", None, 512,
+                                                  "slot_runs")]
+    # per-table readout modes: a readout narrower than its table ("hist"),
+    # a table read out raw (no WindowStats), at column offsets 0 and 24/28
+    cases += [(f"modes {a}/{b} {sfx}", sm, 512, pattern)
+              for (a, b), sfx, sm, pattern in (
+                  (("all", "hist"), "mlp", None, "slot_runs"),
+                  (("hist", "raw"), "mlp", MIT_SLOTS, "same_slot"),
+                  (("raw", "hist"), "mat", None, "one_hot_flow"),
+                  (("hist", "all"), "mat", 2 * MIT_SLOTS, "mixed"))]
+    err, dropped, margin_rows = 0.0, 0, 0
+    for i, (sfx, sm, B, pattern) in enumerate(cases):
+        stages = two_table(sfx if sfx in MULTI_SUFFIXES else "mlp")
+        if sfx == "five" or sfx.startswith("modes"):
+            rest, _ = stageir.split_mitigation(stages)
+            groups, _ = stageir.split_stateful_multi(rest)
+            if sfx == "five":
+                groups = (groups * 3)[:5]
+            else:
+                modes = sfx.split()[1].split("/")
+                groups = [(fk, ru) if mode == "raw" else
+                          (fk, ru, stageir.WindowStats(ru.spec, mode))
+                          for (fk, ru, _), mode in zip(groups, modes)]
+            n_in = sum(g[2].n_out if len(g) == 3 else g[1].spec.width
+                       for g in groups)
+            cls = ([stageir.FusedMLP(*he_mlp((n_in, 16, 2), seed=4)),
+                    stageir.Reduce("argmax")] if not sfx.endswith("mat")
+                   else mat_stages(n_in))
+            stages = [s for g in groups for s in g] + cls
+        tps, sp, params, _ = multi_lowered(stages, dev)
+        if sfx.startswith("modes"):
+            check([tp.mode for tp in tps] == sfx.split()[1].split("/"),
+                  f"{sfx}: lowered readout modes {[tp.mode for tp in tps]}")
+        if sfx == "mlp_full":
+            params = fm.pack_params(*he_mlp((params.widths[0],)
+                                            + FULL_HIDDEN + (2,), seed=0),
+                                    device=dev)
+        mit = None
+        if sm is not None:
+            mit = (torch.full((sm,), -1, dtype=torch.int32, device=dev),
+                   torch.zeros((sm, 2), device=dev),
+                   ff.MitigationSpec(n_slots=sm, threshold=3,
+                                     mode="drop" if i % 2 else "rate_limit",
+                                     keep_every=3))
+        state = [(torch.full((S_KERNEL,), -1, dtype=torch.int32,
+                             device=dev),
+                  torch.zeros((S_KERNEL, tp.width), device=dev))
+                 for tp in tps]
+        name = f"multi {sfx} mit={sm} B={B} {pattern}"
+        for step in range(2):
+            ops, valid = multi_batch(dev, stages, pattern, B,
+                                     seed=500 + 2 * i + step,
+                                     ragged=step == 1 and B > 8)
+            tables = [(k, r, *o) for (k, r), o in zip(state, ops)]
+            ref = ff.fused_flow_serve_multi_ref(tables, valid, tps, sp,
+                                                params, mit)
+            got = ff.fused_flow_serve_multi(
+                [(k.clone(), r.clone(), *o) for (k, r), o in
+                 zip(state, ops)], valid, tps, sp, params,
+                None if mit is None else (mit[0].clone(), mit[1].clone(),
+                                          mit[2]))
+            torch.cuda.synchronize()
+            for r, g in zip(ref[:-1], got[:-1]):
+                bits = (lambda x: x.view(torch.int32)) \
+                    if r.dtype == torch.float32 else (lambda x: x)
+                check(torch.equal(bits(r), bits(g)),
+                      f"K1 multi-table state differs on {name}")
+                err = max(err, max_abs(r, g))
+            live = valid.bool()
+            if sp.kind == "mat" or mit is not None:
+                check(torch.equal(ref[-1][live], got[-1][live]),
+                      f"K1 multi-table verdicts differ on {name}")
+            else:
+                sc = multi_scores(tables, valid, tps, sp, params)
+                lm = (params.lmap.cpu().numpy() if sp.kind == "centroid"
+                      else None)
+                bad, close = verdict_mismatches(
+                    got[-1][live].cpu().numpy(), sc[live].cpu().numpy(),
+                    use_min=sp.kind == "centroid", label_map=lm)
+                check(bad == 0, f"K1 multi-table verdicts differ on {name}")
+                margin_rows += close
+            n = len(tps)
+            state = [(ref[2 * t], ref[2 * t + 1]) for t in range(n)]
+            if mit is not None:
+                dropped += int((got[-1][live] == ff.MITIGATED).sum())
+                mit = (ref[2 * n], ref[2 * n + 1], mit[2])
+    check(dropped > 0, "no multi-table mitigation case dropped a packet")
+    emit({"phase": "kernels_check_multi", "cases": len(cases),
+          "batches": list(MULTI_BATCHES), "n_slots": S_KERNEL,
+          "readout_widths": [28, 19], "n_in": 47,
+          "readout_modes": [c[0] for c in cases if c[0].startswith("modes")],
+          "mit_slots": [MIT_SLOTS, 2 * MIT_SLOTS], "dropped": dropped,
+          "margin_rows": margin_rows, "max_abs_err": err})
+    return {"fused_flow_serve_multi": err}
+
+
+def multi_timing(dev):
+    """K1's multi-table mode on one two-table batch (the ddos_burst
+    stream's packets 4096..4607 against the tables its first 4,096
+    packets leave), each suffix and the mitigated MAT: the wrapper
+    (CUDA events, 50 back-to-back launches updating one copy of the
+    tables in place with the same batch), the kernel's device time
+    (profiler), the plain version and the bound: each table's touched
+    rows and keys read and written once and its live packet operands,
+    the classifier's parameters, the verdicts, and the touched action
+    rows.  The scratch z [B, 47] is left out: the function needs no
+    readout rows in device memory, so z is this design's own cost."""
+    import torch
+
+    from repro_torch.core import cuda_backend, stageir
+    from repro_torch.data import traffic
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels.flow_update.ops import prepare_operands
+
+    pk = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
+                             seed=STREAM_SEED).packets
+    lo = 4096
+    out = {}
+    for mode, sfx, mitigated in (("mlp", "mlp", False), ("mat", "mat", False),
+                                 ("centroid", "centroid", False),
+                                 ("mat+mitigation", "mat", True)):
+        stages = two_table(sfx, mitigated)
+        tps, sp, params, mspec = multi_lowered(stages, dev)
+        rest, mit_stage = stageir.split_mitigation(stages)
+        pipe_groups, suffix = stageir.split_stateful_multi(rest)
+        # the tables the first 4,096 packets leave, served fused
+        step = cuda_backend.lower_stateful_fused(pipe_groups, suffix, dev,
+                                                 mit_stage)
+        state = []
+        for _, ru, _ in pipe_groups:
+            state += [torch.full((ru.spec.n_slots,), -1, dtype=torch.int32,
+                                 device=dev),
+                      torch.zeros((ru.spec.n_slots, ru.spec.width),
+                                  device=dev)]
+        if mspec is not None:
+            state += [torch.full((mspec.n_slots,), -1, dtype=torch.int32,
+                                 device=dev),
+                      torch.zeros((mspec.n_slots, 2), device=dev)]
+        ones = torch.ones(B_KERNEL, dtype=torch.int32, device=dev)
+        for s in range(0, lo, B_KERNEL):
+            x = torch.as_tensor(pk[s:s + B_KERNEL], device=dev)
+            state = list(step(*state, x, ones)[:-1])
+        x = torch.as_tensor(pk[lo:lo + B_KERNEL], device=dev)
+        tables, segs = [], []
+        for t, (fk, ru, _) in enumerate(pipe_groups):
+            upd, bins = ru.prepare(x)
+            *o, seg = prepare_operands(state[2 * t], state[2 * t + 1],
+                                       fk.apply_keys(x), upd, bins, ones)
+            tables.append(tuple(o[:5]))
+            segs.append(seg)
+        n = len(tables)
+        mit = mseg = None
+        B = B_KERNEL
+        live = B
+        byts = ops_n = 0
+        chains = []
+        for (k, r, pkk, u, b), tp, seg in zip(tables, tps, segs):
+            W, U, H = r.shape[1], u.shape[1], b.shape[1]
+            n_seg = int((seg.seg_len > 0).sum())
+            chains.append(int(seg.seg_len.max()))
+            byts += 2 * n_seg * (W + 1) * 4 + live * (4 + U * 4 + H * 4 + 4) \
+                + B * 4 + n_seg * 4 * 2
+            ops_n += live * (W * (1 + H) + 3 * tp.n_ewma)
+        n_in = sum(tp.n_out for tp in tps)
+        byts += B * 4 + B * 4               # valid, verdicts (z: not needed)
+        if sp.kind == "mlp":
+            byts += 4 * (params.w_flat.numel() + params.b_flat.numel())
+            ops_n += live * 2 * sum(a * c for a, c in zip(
+                params.widths[:-1], params.widths[1:]))
+        elif sp.kind == "mat":
+            F, E = params.edges.shape
+            byts += 4 * (params.edges.numel() + params.tables.numel()
+                         + params.lmap.numel())
+            ops_n += live * F * (E + params.num_classes)
+        else:
+            byts += 4 * (params.cent.numel() + params.fidx.numel()
+                         + params.lmap.numel())
+            ops_n += live * 3 * params.cent.numel()
+        shape = {"B": B, "n_slots": S_KERNEL, "widths": [tp.width
+                                                          for tp in tps],
+                 "n_in": n_in, "max_chain": chains}
+        if mspec is not None:
+            mit = (state[2 * n], state[2 * n + 1], mspec)
+            mseg = ff.mitigation_segments(tables[0][2], ones, segs[0],
+                                          S_KERNEL, mspec.n_slots)
+            n_mseg = int((mseg.seg_len > 0).sum())
+            byts += 2 * n_mseg * 3 * 4
+            ops_n += 6 * live
+            shape.update(mit_slots=mspec.n_slots, mit_segments=n_mseg)
+        copy = [(k.clone(), r.clone(), pkk, u, b)
+                for k, r, pkk, u, b in tables]
+        mcopy = None if mit is None else (mit[0].clone(), mit[1].clone(),
+                                          mspec)
+
+        def k1(_c=copy, _v=ones, _s=segs, _t=tps, _sp=sp, _p=params,
+               _m=mcopy, _ms=mseg):
+            return ff.fused_flow_serve_multi_launch(_c, _v, _s, _t, _sp, _p,
+                                                    _m, _ms)
+
+        def plain(_c=tables, _t=tps, _sp=sp, _p=params, _m=mit):
+            return ff.fused_flow_serve_multi_ref(_c, ones, _t, _sp, _p, _m)
+
+        instance = K1_MULTI_INSTANCE.format(
+            kind=ff.SUFFIX_KINDS.index(sp.kind))
+        out[mode] = dict(
+            ms=time_ms(k1, TIMED_LAUNCHES),
+            **kernel_fields(kernel_device_ms({instance: k1})[instance]),
+            plain_ms=time_ms(plain, 3), bound=bound(byts, ops_n), **shape)
+    emit({"phase": "kernels_time_multi", "modes": out})
+    return out
+
+
+def state_arrays(state):
+    """Every table of a state (one table or several, the action table
+    included) as host arrays, floats as their int32 bits."""
+    import numpy as np
+
+    kl = getattr(state, "keys_list", (state.keys,))
+    rl = getattr(state, "regs_list", (state.regs,))
+    out = []
+    for k, r in zip(kl, rl):
+        out += [k.cpu().numpy(), r.cpu().numpy().view(np.int32)]
+    if getattr(state, "mit_spec", None) is not None:
+        out += [state.mit_keys.cpu().numpy(),
+                state.mit_regs.cpu().numpy().view(np.int32)]
+    return out
+
+
+def same_state(a, b) -> bool:
+    import numpy as np
+
+    x, y = state_arrays(a), state_arrays(b)
+    return len(x) == len(y) and all(np.array_equal(p, q)
+                                    for p, q in zip(x, y))
+
+
+def serve_engine(stages, backend, fuse, max_batch, dev, **kw):
+    """A depth-2 engine over ``StatefulPipeline(stages)`` on ``dev``."""
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import StatefulPipeline
+    from repro_torch.serve.packet_engine import PacketServeEngine
+
+    pipe = StatefulPipeline(stages, backend=backend, fuse=fuse,
+                            device=dev.type)
+    return PacketServeEngine(pipe, feature_dim=len(traffic.COLUMNS),
+                             max_batch=max_batch, depth=2, device=dev.type,
+                             **kw)
+
+
+def sync_checked_serve(eng, packets, step: int):
+    """Serve ``packets``, each window of up to ``depth`` dispatches under
+    ``set_sync_debug_mode("error")`` (a host sync in the dispatch
+    raises) and the fetches, which wait on the card, outside it."""
+    import numpy as np
+    import torch
+
+    eng.submit(packets)
+    out = []
+    while eng.pending:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            while eng.pending and eng.in_flight < eng.depth:
+                eng._dispatch_batch(eng._take(min(step, eng.pending)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        while eng.in_flight:
+            out.append(eng._fetch_one())
+    out.append(eng.flush())
+    return np.concatenate(out)
+
+
+def path_two_table_phase(dev, repeats: int = 3):
+    """The two-table configuration through ``PacketServeEngine(depth=2)``:
+    ddos_burst and port_scan at 16,000 packets (seed 1), the MLP suffix
+    and the mitigated MAT, B = 256 and 512 (the median of ``repeats``
+    engines), fused (one K1 multi-table launch per batch) and split (K2 per table + K3 or K4, the action
+    table graphed), each held against ``backend="interpret"`` on CPU
+    tensors: tables and action table bit-exact, MAT and mitigated
+    verdicts exact, MLP verdicts under the margin rule.  Launches held
+    to batches (K1 = fused batches, K2 = 2 x split batches).  One engine
+    per configuration dispatches under ``set_sync_debug_mode("error")``.
+    Then hot swaps mid-stream: flow-ddos (one table) -> two-table and
+    two-table -> flow-ddos, the detection tables starting fresh, and
+    once more mitigated, the action table carrying bit-identically."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import traffic
+    from repro_torch.kernels import _ext
+    from repro_torch.testing import verdict_mismatches
+
+    cpu = torch.device("cpu")
+    base = "cuda" if dev.type == "cuda" else "cpu-ref"
+    rows, launches = [], {k: 0 for k in _ext.LAUNCHES}
+    n_fused, n_split = 0, {"mlp": 0, "mat": 0}
+    for scenario in TWO_TABLE_SCENARIOS:
+        stream = traffic.make_stream(scenario, n_packets=N_PACKETS,
+                                     seed=STREAM_SEED)
+        for sfx, mitigated in (("mlp", False), ("mat", True)):
+            stages = two_table(sfx, mitigated)
+            _ext.reset_launches()
+            ieng = serve_engine(stages, "interpret", True, 512, cpu)
+            iv = np.concatenate(list(ieng.serve_stream(stream.chunks(512))))
+            check(sum(_ext.LAUNCHES.values()) == 0,
+                  "the interpret backend launched a kernel")
+            scores = None
+            if sfx == "mlp":
+                tps, sp, params, _ = multi_lowered(stages, cpu)
+                scores = plain_stream_scores(stages, stream.packets, tps, sp,
+                                             params)
+            split_name = "mixed" if mitigated else base
+            _ext.reset_launches()
+            for max_batch in (256, 512):
+                for fuse in (True, False):
+                    runs = []
+                    for _ in range(repeats):
+                        eng = serve_engine(stages, "cuda", fuse, max_batch,
+                                           dev)
+                        v = np.concatenate(list(eng.serve_stream(
+                            stream.chunks(max_batch))))
+                        name = f"{scenario} {sfx} B={max_batch} fuse={fuse}"
+                        want = f"{base}-fused-flow" if fuse else split_name
+                        check(eng.backend == want, f"{name}: {eng.backend}")
+                        check(same_state(eng.state, ieng.state),
+                              f"{name}: tables differ from interpret")
+                        close = 0
+                        if scores is None:
+                            check(np.array_equal(v, iv),
+                                  f"{name}: verdicts differ from interpret")
+                        else:
+                            bad, close = verdict_mismatches(v, scores)
+                            check(bad == 0, f"{name}: {bad} verdicts differ")
+                        st = eng.stats()
+                        nb = st["batches"] + 1     # + the warm-up batch
+                        if fuse:
+                            n_fused += nb
+                        else:
+                            n_split[sfx] += nb
+                        runs.append(st)
+                    med = sorted(runs, key=lambda r: r["pkt_per_s"])[
+                        len(runs) // 2]
+                    rows.append({
+                        "scenario": scenario, "suffix": sfx,
+                        "action_table": mitigated, "max_batch": max_batch,
+                        "depth": 2, **{k: med[k] for k in (
+                            "backend", "pkt_per_s", "lat_p50_ms",
+                            "lat_p99_ms", "dispatch_s", "wall_s",
+                            "batches", "mitigated")},
+                        "pkt_per_s_runs": sorted(r["pkt_per_s"]
+                                                 for r in runs),
+                        "margin_rows": close,
+                        "interpret_pkt_per_s": ieng.stats()["pkt_per_s"]})
+            got = dict(_ext.LAUNCHES)
+            for k, c in got.items():
+                launches[k] += c
+            if mitigated:
+                check(int((iv == -1).sum()) > 0,
+                      f"{scenario}: nothing mitigated")
+    torch.cuda.synchronize()
+    want = {k: 0 for k in launches}
+    want.update({"fused_flow_serve": n_fused,
+                 "flow_update": 2 * sum(n_split.values()),
+                 "fused_mlp_classify": n_split["mlp"],
+                 "mat_lut_classify": n_split["mat"]})
+    check(launches == want, f"path_two_table: launches {launches} != "
+          f"{want} (fused {n_fused}, split {n_split})")
+    # the dispatch makes no host sync, fused or split
+    stream = traffic.make_stream("ddos_burst", n_packets=4096,
+                                 seed=STREAM_SEED)
+    sync = {}
+    for sfx, mitigated in (("mlp", False), ("mat", True)):
+        stages = two_table(sfx, mitigated)
+        scores = None
+        if sfx == "mlp":
+            tps, sp, params, _ = multi_lowered(stages, cpu)
+            scores = plain_stream_scores(stages, stream.packets, tps, sp,
+                                         params)
+        ref = None
+        for fuse in (True, False):
+            eng = serve_engine(stages, "cuda", fuse, 512, dev)
+            v = sync_checked_serve(eng, stream.packets, 512)
+            name = f"sync-checked {sfx} fuse={fuse}"
+            if scores is not None:
+                # K1 and K3 sum the MLP in different orders: hold each to
+                # the plain scores under the margin rule
+                bad, close = verdict_mismatches(v, scores)
+                check(bad == 0, f"{name}: {bad} verdicts differ from the "
+                      "plain scores")
+                sync[f"{sfx} fuse={fuse} margin_rows"] = close
+            if ref is None:
+                ref = (v, eng.state)
+            else:
+                diff = int((v != ref[0]).sum())
+                sync[f"{sfx} fused/split differing rows"] = diff
+                check(scores is not None or diff == 0,
+                      f"{name}: fused and split verdicts differ")
+            check(same_state(eng.state, ref[1]),
+                  f"{name}: fused and split tables differ")
+    swaps = two_table_swaps(dev)
+    emit({"phase": "path_two_table", "n_packets": N_PACKETS,
+          "n_slots": S_KERNEL, "n_in": 47, "rows": rows,
+          "launches": launches, "batches": {"fused": n_fused,
+                                            "split": n_split},
+          "sync_debug": "error, no raise", "sync_checked": sync,
+          "swaps": swaps, "nvidia_smi": nvidia_smi()})
+    return launches, swaps
+
+
+def plain_stream_scores(stages, packets, tps, sp, params):
+    """The plain classifier scores of a whole stream on CPU tensors: each
+    table walked in arrival order (the sequential reference does not
+    depend on batching) -> [N, classes] numpy."""
+    import torch
+
+    from repro_torch.core import stageir
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels.flow_update import flow_update_ref
+
+    groups, _ = stageir.split_stateful_multi(
+        stageir.split_mitigation(stages)[0])
+    x = torch.as_tensor(packets)
+    valid = torch.ones(len(x), dtype=torch.int32)
+    zs = []
+    for (fk, ru, _), tp in zip(groups, tps):
+        spec = ru.spec
+        upd, bins = ru.prepare(x)
+        _, _, f = flow_update_ref(
+            torch.full((spec.n_slots,), -1, dtype=torch.int32),
+            torch.zeros((spec.n_slots, spec.width)), fk.apply_keys(x), upd,
+            bins, valid, n_counters=tp.n_counters, n_ewma=tp.n_ewma,
+            alpha=tp.alpha)
+        zs.append(ff.suffix_readout(f, tp))
+    return ff.suffix_scores(torch.cat(zs, 1), params, sp).numpy()
+
+
+def two_table_swaps(dev):
+    """Hot swaps between the one-table flow-ddos pipeline and the
+    two-table one, mid-stream (ddos_burst, 16,000 packets, B = 512,
+    fused), each against the same swap on ``backend="interpret"`` (CPU
+    tensors): verdicts and final state bit-exact, exactly one swap, the
+    detection tables empty at the install and the action table (the
+    mitigated pair) the same bits right before and right after it.
+    -> one row per swap, with the engine's journal kinds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import StatefulPipeline
+    from repro_torch.testing import verdict_mismatches
+
+    cpu = torch.device("cpu")
+    stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
+                                 seed=STREAM_SEED)
+    half = N_PACKETS // 2
+    one, one_mit = flow_ddos_stages(S_KERNEL), mat_fused_stages(S_KERNEL,
+                                                                True)
+    pairs = (("one->two", one, two_table("mlp")),
+             ("two->one", two_table("mlp"), one),
+             ("one->two mitigated", one_mit, two_table("mat", True)))
+    out = []
+    for name, old, new in pairs:
+        runs = {}
+        for backend, d in (("cuda", dev), ("interpret", cpu)):
+            eng = serve_engine(old, backend, True, 512, d)
+            eng.submit(stream.packets[:half])
+            v1 = eng.flush()
+            before = state_arrays(eng.state)
+            eng.swap(StatefulPipeline(new, backend=backend, device=d.type))
+            eng.flush()                  # the drained ring installs it
+            after = state_arrays(eng.state)
+            check(eng.stats()["swaps"] == 1, f"{name}: expected one swap")
+            check(all((k < 0).all() for k in after[0:len(after) - (
+                2 if "mitigated" in name else 0):2]),
+                f"{name}: the detection tables did not start fresh")
+            if "mitigated" in name:
+                check(np.array_equal(before[-2], after[-2])
+                      and np.array_equal(before[-1], after[-1]),
+                      f"{name}: the action table did not carry")
+                check(int((before[-2] >= 0).sum()) > 0,
+                      f"{name}: the action table was empty at the swap")
+            eng.submit(stream.packets[half:])
+            v = np.concatenate([v1, eng.flush()])
+            runs[backend] = (v, eng)
+        (v, eng), (iv, ieng) = runs["cuda"], runs["interpret"]
+        if "mitigated" in name:
+            check(np.array_equal(v, iv), f"{name}: verdicts differ")
+        else:
+            # before the boundary the old pipeline's verdicts, after it a
+            # fresh new pipeline's: the plain scores from empty tables
+            for part, stages, lo, hi in ((0, old, 0, half),
+                                         (1, new, half, N_PACKETS)):
+                tps, sp, params, _ = multi_lowered(stages, cpu)
+                sc = plain_stream_scores(stages, stream.packets[lo:hi], tps,
+                                         sp, params)
+                bad, _ = verdict_mismatches(v[lo:hi], sc)
+                check(bad == 0, f"{name}: {bad} verdicts differ in part "
+                      f"{part}")
+        check(same_state(eng.state, ieng.state),
+              f"{name}: final state differs from interpret")
+        st = eng.stats()
+        kinds = [e["kind"] for e in eng.telemetry().journal.events()]
+        check(kinds.count("hot_swap") == 1,
+              f"{name}: the journal holds {kinds.count('hot_swap')} swaps")
+        out.append({"swap": name, "swaps": st["swaps"],
+                    "swap_lat_ms": st["swap_lat_ms"],
+                    "swap_pkt_offsets": st["swap_pkt_offsets"],
+                    "backend_batches": st["backend_batches"],
+                    "mitigated": st["mitigated"], "journal": kinds})
+    return out
+
+
+def telemetry_phase(dev, mitigated_counts):
+    """The flow-ddos fused path at B = 512 through two engines, telemetry
+    off and on (the default), rounds interleaved off, on, off, on (as
+    ``benchmarks/telemetry_overhead.py``), each round ``TEL_PASSES``
+    passes of the stream: verdicts bit-identical, the packet counter
+    equal to the packets served, the best adjacent-pair on/off pkt/s
+    ratio at least the reference's 0.97; the median pair and their
+    spread beside it.  The on engine's dispatch hook and flush-time
+    health scan are also timed directly (host clock), as a share of its
+    serving span: the plane's host cost without the round-to-round
+    noise (the fetch-side histogram and span records are not in it).
+    ``mitigated_counts`` are (counter, MITIGATED verdicts) of the
+    path_mitigate_fused engines."""
+    import time
+
+    import numpy as np
+
+    from repro_torch.data import traffic
+
+    stages = flow_ddos_stages(S_KERNEL)
+    stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
+                                 seed=STREAM_SEED)
+    engines = {mode: serve_engine(stages, "cuda", True, 512, dev,
+                                  telemetry=tel)
+               for mode, tel in (("off", False), ("on", None))}
+    on = engines["on"]
+    hook_s = [0.0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                hook_s[0] += time.perf_counter() - t
+        return run
+
+    on._record_dispatch = timed(on._record_dispatch)
+    on._scan_flow_health = timed(on._scan_flow_health)
+    for eng in engines.values():                 # one warm pass each
+        for _ in eng.serve_stream(stream.chunks(512)):
+            pass
+    rates = {"off": [], "on": []}
+    hook_share = []
+    verdicts = {}
+    for _ in range(TEL_ROUNDS):
+        for mode in ("off", "on"):
+            eng = engines[mode]
+            p0, w0, h0 = eng.stats_.packets, eng.stats_.wall_s, hook_s[0]
+            for _ in range(TEL_PASSES):
+                verdicts[mode] = np.concatenate(list(eng.serve_stream(
+                    stream.chunks(512))))
+            wall = max(eng.stats_.wall_s - w0, 1e-9)
+            rates[mode].append((eng.stats_.packets - p0) / wall)
+            if mode == "on":
+                hook_share.append((hook_s[0] - h0) / wall)
+    check(np.array_equal(verdicts["on"], verdicts["off"]),
+          "telemetry changed the served verdicts")
+    snap = on.telemetry().snapshot()
+    counted = snap["serve_packets_total"]["values"][0]["value"]
+    check(counted == on.stats_.packets,
+          f"packet counter {counted} != packets served {on.stats_.packets}")
+    for c, n in mitigated_counts:
+        check(c == n and n > 0, f"mitigated counter {c} != {n} MITIGATED "
+              "verdicts on path_mitigate_fused")
+    pairs = [a / b for a, b in zip(rates["on"], rates["off"])]
+    ratio = max(pairs)
+    emit({"phase": "telemetry", "max_batch": 512, "rounds": TEL_ROUNDS,
+          "passes_per_round": TEL_PASSES,
+          "packets_per_round": TEL_PASSES * N_PACKETS,
+          "backend": on.backend, "pkt_per_s_off": rates["off"],
+          "pkt_per_s_on": rates["on"], "pair_ratios": pairs,
+          "overhead_ratio": ratio, "median_pair_ratio": float(
+              np.median(pairs)), "pair_spread": max(pairs) - min(pairs),
+          "hook_share_of_span": hook_share,
+          "hook_ms_per_batch": 1e3 * hook_s[0] / on.stats_.batches,
+          "gate": TEL_GATE, "mitigated_counts": mitigated_counts,
+          "metrics": sorted(snap), "spans": len(on.telemetry().tracer),
+          "nvidia_smi": nvidia_smi()})
+    check(ratio >= TEL_GATE, f"telemetry on/off ratio {ratio:.4f} < "
+          f"{TEL_GATE}")
+    return ratio
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -1559,21 +2285,26 @@ FULL_CONFIG = {"fused_mlp": "ad_full", "fused_dag": "ad_full>tc",
                "fused_mlp_classify": "ad_full"}
 
 
+def refuse(reason: str) -> int:
+    """Exit code 2 with the reason on both streams (a caller that keeps
+    only standard output still sees why)."""
+    print(f"chip_smoke: {reason}", flush=True)
+    print(f"chip_smoke: {reason}", file=sys.stderr)
+    return 2
+
+
 def main() -> int:
     try:
         import torch
     except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
+        return refuse("torch is not installed")
     if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 2
+        return refuse("torch.cuda.is_available() is False")
     try:
         from repro_torch.kernels import _ext
     except ImportError as e:
-        print(f"chip_smoke: the port is missing: {e!r}", file=sys.stderr)
-        return 2
+        return refuse(f"the port is missing (no src/repro_torch beside "
+                      f"this script): {e!r}")
 
     from repro_torch.core import chaining
     from repro_torch.data import traffic
@@ -1592,17 +2323,21 @@ def main() -> int:
         err, times = kernel_phase(dev)
         err.update(kernels_check_dag(dev))
         dag_times = dag_timing(dev)
+        err.update(kernels_check_multi(dev))
+        multi_times = multi_timing(dev)
         split_action_table_phase(dev)
+        mitigated_counts = []
         by_path = {
             "path_flow_ddos": path_phase(dev, "path_flow_ddos", S_KERNEL,
                                          (256, 512), (True, False),
                                          N_PACKETS, repeats=3),
             "path_mat_fused": mat_path_phase(dev, "path_mat_fused", False),
             "path_mitigate_fused": mat_path_phase(
-                dev, "path_mitigate_fused", True),
+                dev, "path_mitigate_fused", True, counts=mitigated_counts),
             "attack_defense": attack_defense_phase(dev),
             "path_dag": path_dag_phase(dev),
         }
+        by_path["path_two_table"], _ = path_two_table_phase(dev)
         launches = {k: sum(p[k] for p in by_path.values())
                     for k, _, _ in KERNELS}
         for path, want in (("path_flow_ddos", ("fused_flow_serve",
@@ -1618,16 +2353,22 @@ def main() -> int:
                                                "flow_update",
                                                "fused_mlp_classify")),
                            ("path_dag", ("fused_dag", "fused_mlp_classify",
-                                         "fused_mlp"))):
+                                         "fused_mlp")),
+                           ("path_two_table", ("fused_flow_serve",
+                                               "flow_update",
+                                               "fused_mlp_classify",
+                                               "mat_lut_classify"))):
             for k in want:
                 check(by_path[path][k] > 0, f"{k} never launched on {path}")
+        telemetry_phase(dev, mitigated_counts)
         path_phase(dev, "path_max_slots", 1 << 16, (512,), (True,),
                    N_PACKETS, repeats=3)
         stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
                                      seed=STREAM_SEED)
         for name, stages in (
                 ("flow-ddos", flow_ddos_stages(S_KERNEL)),
-                ("mitigate-fused", mat_fused_stages(S_KERNEL, True))):
+                ("mitigate-fused", mat_fused_stages(S_KERNEL, True)),
+                ("two-table", two_table("mlp"))):
             profile_phase(dev, name, StatefulPipeline(
                 stages, backend="cuda", device=dev.type),
                 lambda: stream.chunks(512), len(traffic.COLUMNS))
@@ -1663,6 +2404,14 @@ def main() -> int:
                        "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
                        "bound_by": m["bound"][1]}
                 for mode, m in tm["modes"].items()}
+            entry["multi_table"] = {
+                "max_abs_err": err["fused_flow_serve_multi"],
+                "launches": by_path["path_two_table"][name],
+                "modes": {mode: {
+                    "ms": m["ms"], "kernel_ms": m["kernel_ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
+                    "bound_by": m["bound"][1], "max_chain": m["max_chain"]}
+                    for mode, m in multi_times.items()}}
         kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)

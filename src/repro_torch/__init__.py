@@ -5,13 +5,15 @@ A second package beside the JAX reference (``repro``).  It imports
 ``repro`` or ``homunculus`` — and mirrors the reference's layout so each
 module has a named counterpart:
 
-  ``flowstate/``   per-flow register file + ``StatefulPipeline``
+  ``flowstate/``   per-flow register files (one table or several) +
+                   ``StatefulPipeline``
   ``core/``        stage IR and ``compile_stages``, the CUDA lowering
                    (``cuda_backend``), the DAG vocabulary (``alchemy``)
                    and ``chaining.compile_dag``
   ``kernels/``     hand-written CUDA C++ kernels (``csrc/``) beside their
                    plain PyTorch versions (``ref.py``)
   ``serve/``       ``PacketServeEngine``
+  ``telemetry/``   the serving engine's observability plane (numpy only)
   ``data/``        seeded packet streams and datasets (numpy only)
   ``convert.py``   carries stage lists, register state, DAGs and named
                    pipelines across from the reference package without

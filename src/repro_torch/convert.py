@@ -5,8 +5,9 @@ package without importing it.
 and its dataclass fields (numpy arrays, ints, tuples) and builds the
 port's stage; nothing here imports ``repro`` or ``jax``, so the port can
 serve pipelines the reference compiler generated.  ``state_from_numpy`` /
-``state_to_numpy`` move a register file across as numpy arrays, and
-``mitigation_from_numpy`` / ``mitigation_to_numpy`` the action table.
+``state_to_numpy`` move a register file (or a multi-table pipeline's
+files) across as numpy arrays, and ``mitigation_from_numpy`` /
+``mitigation_to_numpy`` the action table.
 ``dag_from_reference`` and ``pipelines_from_reference`` carry a model
 DAG and the pipelines it names.
 """
@@ -22,7 +23,11 @@ from repro_torch.flowstate.mitigation import (
     MitigatedFlowState,
     MitigationSpec,
 )
-from repro_torch.flowstate.registers import FlowState, FlowStateSpec
+from repro_torch.flowstate.registers import (
+    FlowState,
+    FlowStateSpec,
+    MultiFlowState,
+)
 
 
 def spec_from_reference(spec) -> FlowStateSpec:
@@ -118,30 +123,53 @@ def pipelines_from_reference(result, *, device="cuda") -> dict:
     return out
 
 
-def state_from_numpy(keys, regs, spec: FlowStateSpec,
-                     device="cuda") -> FlowState:
-    """[S] int32 keys + [S, W] f32 rows -> a ``FlowState`` on ``device``."""
-    dev = resolve_device(device)
+def _table_from_numpy(keys, regs, spec: FlowStateSpec, dev):
     keys = torch.as_tensor(np.asarray(keys, np.int32), device=dev)
     regs = torch.as_tensor(np.asarray(regs, np.float32), device=dev)
     if tuple(keys.shape) != (spec.n_slots,) \
             or tuple(regs.shape) != (spec.n_slots, spec.width):
         raise ValueError(f"state shapes {tuple(keys.shape)}, "
                          f"{tuple(regs.shape)} do not match {spec}")
-    return FlowState(spec, keys, regs)
+    return keys, regs
 
 
-def state_to_numpy(state: FlowState) -> tuple[np.ndarray, np.ndarray]:
-    """-> (keys [S] int32, regs [S, W] f32) on the host."""
-    return (state.keys.cpu().numpy().astype(np.int32),
-            state.regs.cpu().numpy().astype(np.float32))
+def state_from_numpy(keys, regs, spec, device="cuda"):
+    """[S] int32 keys + [S, W] f32 rows -> a ``FlowState`` on ``device``;
+    with a sequence of specs, one (keys, regs) pair per table -> a
+    ``MultiFlowState``."""
+    dev = resolve_device(device)
+    if isinstance(spec, FlowStateSpec):
+        return FlowState(spec, *_table_from_numpy(keys, regs, spec, dev))
+    specs = tuple(spec)
+    if not (len(keys) == len(regs) == len(specs)):
+        raise ValueError("one keys and one regs array per table")
+    pairs = [_table_from_numpy(k, r, sp, dev)
+             for k, r, sp in zip(keys, regs, specs)]
+    return MultiFlowState(specs, tuple(k for k, _ in pairs),
+                          tuple(r for _, r in pairs))
 
 
-def mitigation_from_numpy(state: FlowState, mit_keys, mit_regs,
-                          mit_spec: MitigationSpec) -> MitigatedFlowState:
-    """A register file + [Sm] int32 action keys + [Sm, 2] f32 [hits,
-    since] rows -> a ``MitigatedFlowState`` on the register file's
-    device."""
+def state_to_numpy(state):
+    """-> (keys [S] int32, regs [S, W] f32) on the host; for a
+    ``MultiFlowState`` -> (tuple of keys, tuple of regs), one per
+    table."""
+    def host(k, r):
+        return (k.cpu().numpy().astype(np.int32),
+                r.cpu().numpy().astype(np.float32))
+
+    if isinstance(state, MultiFlowState):
+        pairs = [host(k, r) for k, r in zip(state.keys_list,
+                                            state.regs_list)]
+        return tuple(k for k, _ in pairs), tuple(r for _, r in pairs)
+    return host(state.keys, state.regs)
+
+
+def mitigation_from_numpy(state, mit_keys, mit_regs,
+                          mit_spec: MitigationSpec):
+    """A register file (``FlowState``) or a multi-table pipeline's files
+    (``MultiFlowState``) + [Sm] int32 action keys + [Sm, 2] f32 [hits,
+    since] rows -> a ``MitigatedFlowState`` or a mitigated
+    ``MultiFlowState`` on the register files' device."""
     dev = state.keys.device
     mk = torch.as_tensor(np.asarray(mit_keys, np.int32), device=dev)
     mr = torch.as_tensor(np.asarray(mit_regs, np.float32), device=dev)
@@ -149,12 +177,14 @@ def mitigation_from_numpy(state: FlowState, mit_keys, mit_regs,
             or tuple(mr.shape) != (mit_spec.n_slots, mit_spec.width):
         raise ValueError(f"action table shapes {tuple(mk.shape)}, "
                          f"{tuple(mr.shape)} do not match {mit_spec}")
+    if isinstance(state, MultiFlowState):
+        return MultiFlowState(state.specs, state.keys_list, state.regs_list,
+                              mit_spec, mk, mr)
     return MitigatedFlowState(state.spec, state.keys, state.regs, mit_spec,
                               mk, mr)
 
 
-def mitigation_to_numpy(state: MitigatedFlowState
-                        ) -> tuple[np.ndarray, np.ndarray]:
+def mitigation_to_numpy(state) -> tuple[np.ndarray, np.ndarray]:
     """-> (mit_keys [Sm] int32, mit_regs [Sm, 2] f32) on the host."""
     return (state.mit_keys.cpu().numpy().astype(np.int32),
             state.mit_regs.cpu().numpy().astype(np.float32))

@@ -3,11 +3,13 @@ launches (counterpart of ``repro.core.pallas_backend``).
 
 Pattern matches on the stage list decide which launch serves:
 
-  ``FlowKey RegisterUpdate [WindowStats] <classifier> [Mitigate]``
+  ``(FlowKey RegisterUpdate [WindowStats])+ <classifier> [Mitigate]``
       -> ``lower_stateful_fused``: ONE K1 launch per batch
-         (kernels/fused_flow), the action table folded in;
+         (kernels/fused_flow) for one table or several, the action table
+         folded in;
   ``FlowKey RegisterUpdate``
-      -> ``lower_stateful``: K2 (kernels/flow_update), the split path;
+      -> ``lower_stateful``: K2 (kernels/flow_update), one launch per
+         table on the split path;
   ``[WindowStats | FeatureSelect]* <MLP classify>``
       -> ``lower_stages_cuda``: K3 (kernels/fused_mlp);
   ``[WindowStats | FeatureSelect]* <MLP>`` (logits, stateless only)
@@ -560,80 +562,137 @@ def lower_mitigation(mit) -> tuple[Callable, str]:
 # ------------------------------------------------------- fused flow path
 
 
-def _plan_fused(prefix, suffix, mitigation=None):
-    """-> (desc, reason), exactly one of them None.  ``desc`` =
-    (flow_key, register_update, readout mode, classifier descriptor,
-    mitigation spec | None)."""
-    seq = list(prefix)
-    if len(seq) != 2 or not isinstance(seq[0], FlowKey) \
-            or not isinstance(seq[1], RegisterUpdate):
-        if seq and all(isinstance(g, (tuple, list)) for g in seq):
-            return None, "multi-table plans not yet ported"
-        return None, "no [FlowKey, RegisterUpdate] table"
-    fk, ru = seq
-    spec = ru.spec
-    reason = _table_reason(fk, ru)
+def _as_table_groups(prefix_or_groups):
+    """A ``[FlowKey, RegisterUpdate]`` prefix (one table) or a
+    ``split_stateful_multi`` group list -> [(flow_key, register_update,
+    window_stats | None)], or None for anything else."""
+    seq = list(prefix_or_groups)
+    if seq and isinstance(seq[0], FlowKey):
+        if len(seq) != 2 or not isinstance(seq[1], RegisterUpdate):
+            return None
+        return [(seq[0], seq[1], None)]
+    groups = []
+    for g in seq:
+        if not isinstance(g, (tuple, list)):
+            return None
+        g = tuple(g)
+        if len(g) == 2:
+            g = (g[0], g[1], None)
+        if len(g) != 3 or not isinstance(g[0], FlowKey) \
+                or not isinstance(g[1], RegisterUpdate) \
+                or not (g[2] is None or isinstance(g[2], WindowStats)):
+            return None
+        groups.append(g)
+    return groups or None
+
+
+def _plan_fused(prefix_or_groups, suffix, mitigation=None):
+    """-> (desc, reason), exactly one of them None.  ``desc`` = (groups,
+    readout modes, classifier descriptor, mitigation spec | None); the
+    classifier reads the readouts of every table concatenated in group
+    order.  A single table's readout may lead the suffix instead of
+    closing its group."""
+    from repro_torch.kernels.fused_flow.ops import tables_reason
+
+    groups = _as_table_groups(prefix_or_groups)
+    if groups is None:
+        return None, "no [FlowKey, RegisterUpdate] table groups"
+    reason = tables_reason(len(groups))
     if reason is not None:
         return None, reason
+    body = list(suffix)
+    if len(groups) == 1 and groups[0][2] is None and body \
+            and isinstance(body[0], WindowStats):
+        groups[0] = (groups[0][0], groups[0][1], body.pop(0))
+    modes, n_in = [], 0
+    for fk, ru, ws in groups:
+        spec = ru.spec
+        reason = _table_reason(fk, ru)
+        if reason is not None:
+            return None, reason
+        if ws is None:
+            modes.append("raw")
+            n_in += spec.width
+            continue
+        s = ws.spec
+        if (s.width != spec.width or s.n_counters != spec.n_counters
+                or s.n_ewma != spec.n_ewma):
+            return None, "WindowStats readout disagrees with its table"
+        modes.append(ws.mode)
+        n_in += ws.n_out
     mit_spec = None
     if mitigation is not None:
         mit_spec = mitigation.spec
         if mit_spec.n_slots > MAX_SLOTS:
             return None, "mitigation table outside the kernel envelope"
-    body = list(suffix)
-    mode, n_in = "raw", spec.width
-    if body and isinstance(body[0], WindowStats):
-        ws = body.pop(0)
-        s = ws.spec
-        if (s.width != spec.width or s.n_counters != spec.n_counters
-                or s.n_ewma != spec.n_ewma):
-            return None, "WindowStats readout disagrees with its table"
-        mode, n_in = ws.mode, ws.n_out
     cls, reason = _classifier(body, n_in)
     if reason is not None:
         return None, reason
-    return (fk, ru, mode, cls, mit_spec), None
+    return (groups, tuple(modes), cls, mit_spec), None
 
 
-def fused_flow_decline_reason(prefix, suffix, mitigation=None) -> str | None:
+def fused_flow_decline_reason(prefix_or_groups, suffix,
+                              mitigation=None) -> str | None:
     """Why ``lower_stateful_fused`` declines this pipeline; None means the
     single K1 launch serves it.  Shape checks only."""
-    return _plan_fused(prefix, suffix, mitigation)[1]
+    return _plan_fused(prefix_or_groups, suffix, mitigation)[1]
 
 
-def lower_stateful_fused(prefix, suffix, device, mitigation=None
+def _table_plans(groups, modes):
+    from repro_torch.kernels.fused_flow import TablePlan
+
+    return tuple(
+        TablePlan(ru.spec.n_counters, ru.spec.n_ewma,
+                  len(ru.spec.hist_sizes), float(ru.spec.ewma_alpha),
+                  ru.spec.width, mode)
+        for (_, ru, _), mode in zip(groups, modes))
+
+
+def lower_stateful_fused(prefix_or_groups, suffix, device, mitigation=None
                          ) -> Callable | None:
-    """The whole stateful pipeline -> ``fn(keys, regs, x, valid) ->
-    (keys', regs', verdicts)``, or with a ``Mitigate`` stage ``fn(keys,
-    regs, mit_keys, mit_regs, x, valid) -> (keys', regs', mit_keys',
-    mit_regs', verdicts)``: one K1 launch per batch on CUDA tensors,
-    which it updates in place (the plain version on CPU tensors), the
-    classifier packed once here; None when ``fused_flow_decline_reason``
-    names a reason."""
-    from repro_torch.kernels.fused_flow import TablePlan, fused_flow_serve
+    """The whole stateful pipeline -> ``fn(*state, x, valid) -> (*state',
+    verdicts)``, ``state`` being (keys, regs) per table and then, with a
+    ``Mitigate`` stage, (mit_keys, mit_regs): one K1 launch per batch on
+    CUDA tensors, which it updates in place (the plain version on CPU
+    tensors), the classifier packed once here.  One table runs K1's
+    one-table mode, several its multi-table mode.  None when
+    ``fused_flow_decline_reason`` names a reason."""
+    from repro_torch.kernels.fused_flow import (
+        fused_flow_serve,
+        fused_flow_serve_multi,
+    )
 
-    desc, reason = _plan_fused(prefix, suffix, mitigation)
+    desc, reason = _plan_fused(prefix_or_groups, suffix, mitigation)
     if reason is not None:
         return None
-    fk, ru, mode, cls, mit_spec = desc
-    spec = ru.spec
-    tp = TablePlan(spec.n_counters, spec.n_ewma, len(spec.hist_sizes),
-                   float(spec.ewma_alpha), spec.width, mode)
+    groups, modes, cls, mit_spec = desc
+    tps = _table_plans(groups, modes)
     sp, params = _pack_classifier(cls, device)
 
-    if mit_spec is None:
-        def fused_fn(keys, regs, x, valid, _fk=fk, _ru=ru):
+    if len(groups) == 1:
+        (fk, ru, _), tp = groups[0], tps[0]
+
+        def fused_fn(*args, _fk=fk, _ru=ru, _tp=tp):
+            x, valid = args[-2], args[-1]
             upd, bins = _ru.prepare(x)
-            return fused_flow_serve(keys, regs, _fk.apply_keys(x), upd,
-                                    bins, valid, tp, sp, params)
+            mit = None if mit_spec is None else (args[2], args[3], mit_spec)
+            return fused_flow_serve(args[0], args[1], _fk.apply_keys(x), upd,
+                                    bins, valid, _tp, sp, params, mit=mit)
 
         return fused_fn
 
-    def fused_mit_fn(keys, regs, mit_keys, mit_regs, x, valid, _fk=fk,
-                     _ru=ru):
-        upd, bins = _ru.prepare(x)
-        return fused_flow_serve(keys, regs, _fk.apply_keys(x), upd, bins,
-                                valid, tp, sp, params,
-                                mit=(mit_keys, mit_regs, mit_spec))
+    n = len(groups)
 
-    return fused_mit_fn
+    def fused_multi_fn(*args, _groups=tuple(groups), _tps=tps):
+        x, valid = args[-2], args[-1]
+        tables = []
+        for t, (fk, ru, _) in enumerate(_groups):
+            upd, bins = ru.prepare(x)
+            tables.append((args[2 * t], args[2 * t + 1], fk.apply_keys(x),
+                           upd, bins))
+        mit = (None if mit_spec is None
+               else (args[2 * n], args[2 * n + 1], mit_spec))
+        return fused_flow_serve_multi(tables, valid, _tps, sp, params,
+                                      mit=mit)
+
+    return fused_multi_fn

@@ -4,8 +4,9 @@ a trained pipeline lowers into, with PyTorch ``apply`` forms.
 Ported: the stateless stages (FeatureSelect, Dense, FusedMLP,
 FusedClassify, CentroidDistance, Quantize, LUTGather, TreeTraverse,
 Reduce, LabelMap), the stateful vocabulary of the flow path (FlowKey,
-RegisterUpdate, WindowStats, Mitigate) and ``compile_stages`` with its
-backend reporting.  The multi-table grammar is a later slice.
+RegisterUpdate, WindowStats, Mitigate), the single- and multi-table
+stateful grammars (``split_stateful``, ``split_stateful_multi``) and
+``compile_stages`` with its backend reporting.
 
 Stages keep their parameters as numpy arrays (what ``convert`` carries
 across from the reference); ``apply`` moves them to the input's device
@@ -281,6 +282,18 @@ class FlowKey(Stage):
             key = _mul32(key, 16777619) ^ v
         return (key & 0x7FFFFFFF).to(torch.int32)
 
+    def apply_keys_np(self, h: np.ndarray) -> np.ndarray:
+        """Numpy twin of ``apply_keys`` (same rounding, same fold) for
+        host-side use: the engine's telemetry segments the batch from its
+        host staging rows without touching the card."""
+        h = np.asarray(h)
+        key = np.zeros(h.shape[0], np.uint32)
+        with np.errstate(over="ignore"):
+            for c in self.key_cols:
+                v = np.round(h[:, c]).astype(np.int32).astype(np.uint32)
+                key = key * np.uint32(16777619) ^ v
+        return (key & np.uint32(0x7FFFFFFF)).astype(np.int32)
+
 
 @dataclasses.dataclass(repr=False)
 class RegisterUpdate(Stage):
@@ -427,6 +440,37 @@ def split_stateful(stages: list) -> tuple[list, list]:
     if bad:
         raise ValueError(f"stateful stages {bad} outside the prefix")
     return list(stages[:2]), suffix
+
+
+def split_stateful_multi(stages: list) -> tuple[list, list]:
+    """A (possibly multi-table) stateful pipeline -> (groups, suffix).
+
+    Grammar: one or more ``FlowKey RegisterUpdate [WindowStats]`` groups
+    (a ``WindowStats`` directly after a ``RegisterUpdate`` is that
+    table's readout), then a stateless classifier suffix over the
+    readouts concatenated in group order.  Each group is a ``(flow_key,
+    register_update, window_stats | None)`` tuple; every table keys and
+    updates off the same packet rows.  Raises on any other arrangement,
+    with the JAX package's messages."""
+    groups: list = []
+    rest = list(stages)
+    while rest and isinstance(rest[0], FlowKey):
+        if len(rest) < 2 or not isinstance(rest[1], RegisterUpdate):
+            raise ValueError(
+                "each FlowKey must be followed by its RegisterUpdate; got "
+                f"{[s.kind for s in rest[:2]]}")
+        ws = rest[2] if len(rest) > 2 and isinstance(rest[2], WindowStats) \
+            else None
+        groups.append((rest[0], rest[1], ws))
+        rest = rest[3 if ws is not None else 2:]
+    if not groups:
+        raise ValueError(
+            "stateful pipelines must start with [FlowKey, RegisterUpdate]; "
+            f"got {[s.kind for s in stages[:2]]}")
+    bad = [s.kind for s in rest if is_stateful(s)]
+    if bad:
+        raise ValueError(f"stateful stages {bad} outside the table groups")
+    return groups, rest
 
 
 def apply_stages(stages: list, x: torch.Tensor, *, plain: bool = False

@@ -14,6 +14,7 @@ from repro_torch.flowstate.pipeline import StatefulPipeline
 from repro_torch.flowstate.registers import (
     FlowState,
     FlowStateSpec,
+    MultiFlowState,
     hash_slot_np,
     init_state,
     migrate_state,

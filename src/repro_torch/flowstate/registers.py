@@ -8,6 +8,8 @@ resets to zero and the new flow claims the slot (last writer wins).
 Keys ``-1`` mark empty slots.
 
 ``migrate_state`` is the hot-swap re-key path for a changed spec.
+``MultiFlowState`` is the state of a multi-table pipeline: several
+register files feeding one classifier, plus an optional action table.
 """
 
 from __future__ import annotations
@@ -83,6 +85,50 @@ class FlowState:
     spec: FlowStateSpec
     keys: torch.Tensor     # [S] int32 stored flow key, -1 = empty slot
     regs: torch.Tensor     # [S, W] f32 register rows
+
+
+@dataclasses.dataclass
+class MultiFlowState:
+    """Live state of a multi-table stateful pipeline: one register file
+    per ``FlowKey``/``RegisterUpdate`` group, and the action table when
+    the pipeline ends in ``Mitigate`` (keyed by table 0's flow key).
+
+    ``spec``/``keys``/``regs`` alias table 0, so readers of a single
+    table (the telemetry health scan, engine stats, reprs) keep working;
+    per-table access goes through the ``*_list`` tuples."""
+
+    specs: tuple               # of FlowStateSpec, one per table
+    keys_list: tuple           # of [S_t] int32 stored keys (-1 = empty)
+    regs_list: tuple           # of [S_t, W_t] f32 register rows
+    mit_spec: object = None    # mitigation.MitigationSpec | None
+    mit_keys: torch.Tensor | None = None
+    mit_regs: torch.Tensor | None = None
+
+    @property
+    def spec(self) -> FlowStateSpec:
+        return self.specs[0]
+
+    @property
+    def keys(self) -> torch.Tensor:
+        return self.keys_list[0]
+
+    @property
+    def regs(self) -> torch.Tensor:
+        return self.regs_list[0]
+
+    @property
+    def occupied(self) -> int:
+        """Occupied slots summed over every table."""
+        return int(sum(int((k >= 0).sum()) for k in self.keys_list))
+
+    @property
+    def mitigated_flows(self) -> int:
+        """Action slots currently marked (hits >= threshold)."""
+        if self.mit_spec is None:
+            return 0
+        marked = (self.mit_keys >= 0) \
+            & (self.mit_regs[:, 0] >= self.mit_spec.threshold)
+        return int(marked.sum())
 
 
 def init_state(spec: FlowStateSpec, device="cuda") -> FlowState:

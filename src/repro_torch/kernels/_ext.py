@@ -39,6 +39,16 @@ LAUNCHES = {"fused_flow_serve": 0, "flow_update": 0, "fused_mlp_classify": 0,
 _EXT = None
 
 
+def header_define(name: str) -> int:
+    """The integer a ``#define`` of ``csrc/rt_types.h`` gives ``name``, so
+    that a limit the kernels are compiled with is written once."""
+    for line in (_PKG / "csrc" / "rt_types.h").read_text().splitlines():
+        parts = line.split()
+        if parts[:2] == ["#define", name]:
+            return int(parts[2])
+    raise KeyError(f"{name} is not defined in csrc/rt_types.h")
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

@@ -192,23 +192,9 @@ void mat_lut_classify(at::Tensor x, at::Tensor edges, at::Tensor tables,
 // kind 0 (MLP): params = [w_flat, b_flat], dims = the layer widths;
 // kind 1 (MAT): params = [edges, tables, lmap], dims = [use_min];
 // kind 2 (centroid): params = [cent, fidx, lmap], dims = [use_min]
-// (fidx empty: no FeatureSelect).  mit: empty, or [mit_keys, mit_regs,
-// order, seg_first, seg_len, seg_slot] with mit_policy = [threshold,
-// keep_every, attack_class, drop].
-void fused_flow_serve(at::Tensor keys, at::Tensor regs, at::Tensor pkt_keys,
-                      at::Tensor upd, at::Tensor bins, at::Tensor valid,
-                      at::Tensor order, at::Tensor seg_first,
-                      at::Tensor seg_len, at::Tensor seg_slot, int64_t kind,
-                      std::vector<at::Tensor> params,
-                      std::vector<int64_t> dims, at::Tensor verdicts,
-                      int64_t n_counters, int64_t n_ewma, double alpha,
-                      int64_t mode, std::vector<at::Tensor> mit,
-                      std::vector<double> mit_policy) {
-  c10::cuda::CUDAGuard guard(regs.device());
-  FlowArgs a = flow_args(keys, regs, pkt_keys, upd, bins, valid, order,
-                         seg_first, seg_len, seg_slot, n_counters, n_ewma,
-                         alpha);
-  TORCH_CHECK(mode >= 0 && mode <= 2, "readout mode must be 0, 1 or 2");
+// (fidx empty: no FeatureSelect).
+SuffixArgs suffix_args(int64_t kind, const std::vector<at::Tensor>& params,
+                       const std::vector<int64_t>& dims) {
   SuffixArgs s{};
   s.kind = (int)kind;
   if (kind == 0) {
@@ -246,25 +232,93 @@ void fused_flow_serve(at::Tensor keys, at::Tensor regs, at::Tensor pkt_keys,
   } else {
     TORCH_CHECK(false, "suffix kind must be 0, 1 or 2");
   }
+  return s;
+}
+
+// mit: empty, or [mit_keys, mit_regs, order, seg_first, seg_len,
+// seg_slot] with mit_policy = [threshold, keep_every, attack_class, drop]
+// -> whether there is an action table.
+bool mit_args(const std::vector<at::Tensor>& mit,
+              const std::vector<double>& mit_policy, MitArgs* m) {
+  if (mit.empty()) return false;
+  TORCH_CHECK(mit.size() == 6 && mit_policy.size() == 4,
+              "mitigation takes 6 tensors and 4 policy values");
+  m->keys = mit[0].data_ptr<int>();
+  m->regs = mit[1].data_ptr<float>();
+  m->order = mit[2].data_ptr<int>();
+  m->seg_first = mit[3].data_ptr<int>();
+  m->seg_len = mit[4].data_ptr<int>();
+  m->seg_slot = mit[5].data_ptr<int>();
+  m->threshold = (float)mit_policy[0];
+  m->keep_every = (float)mit_policy[1];
+  m->attack_class = (int)mit_policy[2];
+  m->drop = mit_policy[3] != 0.0 ? 1 : 0;
+  return true;
+}
+
+void fused_flow_serve(at::Tensor keys, at::Tensor regs, at::Tensor pkt_keys,
+                      at::Tensor upd, at::Tensor bins, at::Tensor valid,
+                      at::Tensor order, at::Tensor seg_first,
+                      at::Tensor seg_len, at::Tensor seg_slot, int64_t kind,
+                      std::vector<at::Tensor> params,
+                      std::vector<int64_t> dims, at::Tensor verdicts,
+                      int64_t n_counters, int64_t n_ewma, double alpha,
+                      int64_t mode, std::vector<at::Tensor> mit,
+                      std::vector<double> mit_policy) {
+  c10::cuda::CUDAGuard guard(regs.device());
+  FlowArgs a = flow_args(keys, regs, pkt_keys, upd, bins, valid, order,
+                         seg_first, seg_len, seg_slot, n_counters, n_ewma,
+                         alpha);
+  TORCH_CHECK(mode >= 0 && mode <= 2, "readout mode must be 0, 1 or 2");
+  SuffixArgs s = suffix_args(kind, params, dims);
   MitArgs m{};
-  const MitArgs* mp = nullptr;
-  if (!mit.empty()) {
-    TORCH_CHECK(mit.size() == 6 && mit_policy.size() == 4,
-                "mitigation takes 6 tensors and 4 policy values");
-    m.keys = mit[0].data_ptr<int>();
-    m.regs = mit[1].data_ptr<float>();
-    m.order = mit[2].data_ptr<int>();
-    m.seg_first = mit[3].data_ptr<int>();
-    m.seg_len = mit[4].data_ptr<int>();
-    m.seg_slot = mit[5].data_ptr<int>();
-    m.threshold = (float)mit_policy[0];
-    m.keep_every = (float)mit_policy[1];
-    m.attack_class = (int)mit_policy[2];
-    m.drop = mit_policy[3] != 0.0 ? 1 : 0;
-    mp = &m;
-  }
+  const MitArgs* mp = mit_args(mit, mit_policy, &m) ? &m : nullptr;
   C10_CUDA_CHECK(launch_fused_flow_serve(a, s, verdicts.data_ptr<int>(),
                                          (int)mode, mp, stream_of(regs)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K1's multi-table mode.  tables: per table [keys, regs, pkt_keys, upd,
+// bins, order, seg_first, seg_len, seg_slot]; dims: per table
+// [n_counters, n_ewma, readout mode]; alphas: per table; z: the [B, n_in]
+// scratch of readout rows.
+void fused_flow_serve_multi(std::vector<at::Tensor> tables, at::Tensor valid,
+                            std::vector<int64_t> dims,
+                            std::vector<double> alphas, int64_t kind,
+                            std::vector<at::Tensor> params,
+                            std::vector<int64_t> sdims, at::Tensor z,
+                            at::Tensor verdicts, std::vector<at::Tensor> mit,
+                            std::vector<double> mit_policy) {
+  c10::cuda::CUDAGuard guard(valid.device());
+  const int nt = (int)alphas.size();
+  TORCH_CHECK(nt >= 1 && nt <= RT_MAX_TABLES, "a multi-table launch takes "
+              "1..", RT_MAX_TABLES, " tables");
+  TORCH_CHECK(tables.size() == 9 * (size_t)nt && dims.size() == 3 * (size_t)nt,
+              "9 tensors and 3 dims per table");
+  std::vector<TableArgs> tabs(nt);
+  int col = 0;
+  for (int t = 0; t < nt; ++t) {
+    at::Tensor* u = &tables[9 * t];
+    const int64_t mode = dims[3 * t + 2];
+    TORCH_CHECK(mode >= 0 && mode <= 2, "readout mode must be 0, 1 or 2");
+    tabs[t].a = flow_args(u[0], u[1], u[2], u[3], u[4], valid, u[5], u[6],
+                          u[7], u[8], dims[3 * t], dims[3 * t + 1],
+                          alphas[t]);
+    TORCH_CHECK(tabs[t].a.B == (int)valid.size(0),
+                "every table takes the whole batch");
+    tabs[t].mode = (int)mode;
+    tabs[t].col = col;
+    col += mode == 1 ? tabs[t].a.W - tabs[t].a.C - tabs[t].a.E
+                     : tabs[t].a.W;
+  }
+  TORCH_CHECK(z.size(0) == valid.size(0) && z.size(1) == col,
+              "z must be [B, sum of the readout widths]");
+  SuffixArgs s = suffix_args(kind, params, sdims);
+  MitArgs m{};
+  const MitArgs* mp = mit_args(mit, mit_policy, &m) ? &m : nullptr;
+  C10_CUDA_CHECK(launch_fused_flow_multi(tabs.data(), nt, z.data_ptr<float>(),
+                                         col, s, verdicts.data_ptr<int>(), mp,
+                                         stream_of(valid)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -277,6 +331,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fused_dag", &fused_dag, "K6: Seq/Par DAG of MLP classifiers");
   m.def("fused_flow_serve", &fused_flow_serve,
         "K1: register update + readout + classifier [+ mitigation]");
+  m.def("fused_flow_serve_multi", &fused_flow_serve_multi,
+        "K1, multi-table: every table's update + readout, one classifier "
+        "[+ mitigation]");
   m.def("mat_lut_classify", &mat_lut_classify,
         "K4: MAT quantize + LUT sum + arg-reduce + LabelMap");
 }

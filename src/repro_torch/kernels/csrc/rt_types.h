@@ -13,6 +13,10 @@
 #define RT_MITIGATED (-1)      // verdict of a packet the action table drops
 #define RT_DAG_MAX_MODELS 8    // distinct models in one fused DAG (K6)
 #define RT_DAG_MAX_OPS 32      // instructions of a DAG plan (K6)
+// Flow tables of one multi-table K1 launch: their descriptors ride by
+// value in the kernel parameter space (32,764 bytes on Hopper from CUDA
+// 12.1 on), so the count is bounded by that space, not by the kernel.
+#define RT_MAX_TABLES 256
 
 // One flow table and one slot-segmented batch.  ``keys``/``regs`` are
 // updated in place; only the batch's slots are read and written.
@@ -29,6 +33,15 @@ struct FlowArgs {
   const int* seg_slot;    // [B] per segment: table slot
   int B, W, U, H, C, E;
   float alpha;
+};
+
+// One table of K1's multi-table mode: its flow table and segmented batch,
+// its readout mode (0 "all", 1 "hist", 2 "raw") and the first column of
+// its readout in the classifier row.
+struct TableArgs {
+  FlowArgs a;
+  int mode;
+  int col;
 };
 
 // An MLP packed back to back: weights row-major [d_in, d_out] per layer,
@@ -119,3 +132,10 @@ cudaError_t launch_mat_lut_classify(const float* x, int B, const MatDims& m,
 cudaError_t launch_fused_flow_serve(const FlowArgs& a, const SuffixArgs& s,
                                     int* verdicts, int mode,
                                     const MitArgs* mit, cudaStream_t stream);
+// K1's multi-table mode: nt (1..RT_MAX_TABLES) tables over one batch, the
+// readout rows in the scratch z [B, n_in]; one cooperative launch, the
+// action table (``mit`` not null) keyed by table 0's keys.
+cudaError_t launch_fused_flow_multi(const TableArgs* tables, int nt,
+                                    float* z, int n_in, const SuffixArgs& s,
+                                    int* verdicts, const MitArgs* mit,
+                                    cudaStream_t stream);

@@ -1,8 +1,12 @@
 from repro_torch.kernels.fused_flow.ops import (
+    MAX_TABLES,
     centroid_envelope_reason,
     fused_flow_serve,
     fused_flow_serve_launch,
+    fused_flow_serve_multi,
+    fused_flow_serve_multi_launch,
     mitigation_segments,
+    tables_reason,
 )
 from repro_torch.kernels.fused_flow.mitigate_ref import (
     MITIGATED,
@@ -17,6 +21,7 @@ from repro_torch.kernels.fused_flow.ref import (
     SuffixPlan,
     TablePlan,
     centroid_scores_ref,
+    fused_flow_serve_multi_ref,
     fused_flow_serve_ref,
     pack_centroids,
     suffix_readout,

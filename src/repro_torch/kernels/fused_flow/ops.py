@@ -11,7 +11,15 @@ arrival index (no inverse gather).  With an action table the same launch
 then walks the action chains after a grid-wide barrier.  CPU tensors run
 the plain version, ``ref.fused_flow_serve_ref``.
 
-One table per launch in this slice.
+``fused_flow_serve_multi`` is the multi-table mode: several flow tables
+feeding one classifier, still one cooperative launch.  Each table is
+segmented by its own slots; warps walk every table's chains and write
+each packet's readout into a scratch row ``z [B, n_in]`` at the packet's
+arrival index and the table's column offset (the TPU kernel's inverse
+gather becomes a scatter); after a grid-wide barrier warp k classifies
+row k; after a second one the action table, keyed by table 0's keys,
+walks its own segmentation.  CPU tensors run
+``ref.fused_flow_serve_multi_ref``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from repro_torch.kernels.fused_flow.ref import (
     Centroids,
     SuffixPlan,
     TablePlan,
+    fused_flow_serve_multi_ref,
     fused_flow_serve_ref,
 )
 from repro_torch.kernels.fused_flow.mitigate_ref import MitigationSpec
@@ -40,6 +49,18 @@ from repro_torch.kernels.fused_mlp.ops import PackedMLP, check_mlp
 from repro_torch.kernels.mat_lut.ops import MAX_CLASSES, MatTables, check_mat
 
 MAX_CENTROID_DIM = 128
+# Tables one multi-table launch takes: their descriptors ride by value in
+# the kernel's parameter space (32,764 bytes on Hopper from CUDA 12.1 on)
+MAX_TABLES = _ext.header_define("RT_MAX_TABLES")
+
+
+def tables_reason(n_tables: int) -> str | None:
+    """Why K1 cannot take ``n_tables`` flow tables in one launch, or
+    None."""
+    if n_tables > MAX_TABLES:
+        return (f"{n_tables} flow tables > {MAX_TABLES} (the kernel "
+                "parameter space)")
+    return None
 
 
 def centroid_envelope_reason(n_centroids: int, dim: int, n_labels: int
@@ -70,34 +91,42 @@ def _check_centroids(c: Centroids, n_in: int, device) -> None:
                              f"on {device}, got {t.dtype} on {t.device}")
 
 
-def check_plan(regs, tp: TablePlan, sp: SuffixPlan, params) -> None:
-    if sp.kind not in SUFFIX_KINDS:
-        raise KeyError(f"suffix kind must be one of {SUFFIX_KINDS}")
+def _check_table_plan(regs, tp: TablePlan) -> None:
     if tp.mode not in READOUT_MODES:
         raise KeyError(f"readout mode must be one of {READOUT_MODES}")
     if tp.width != regs.shape[1]:
         raise ValueError(f"plan width {tp.width} != table width "
                          f"{regs.shape[1]}")
-    dev = regs.device
+
+
+def check_suffix(sp: SuffixPlan, params, n_in: int, dev) -> None:
+    """The classifier's parameters fit a readout row of ``n_in``."""
+    if sp.kind not in SUFFIX_KINDS:
+        raise KeyError(f"suffix kind must be one of {SUFFIX_KINDS}")
     if sp.kind == "mlp":
         if not isinstance(params, PackedMLP) \
-                or params.widths[0] != tp.n_out \
+                or params.widths[0] != n_in \
                 or sp.num_classes != params.num_classes:
             raise ValueError(f"MLP does not fit the readout width "
-                             f"{tp.n_out} / {sp.num_classes} classes")
+                             f"{n_in} / {sp.num_classes} classes")
         check_mlp(params, dev)
     elif sp.kind == "mat":
         if not isinstance(params, MatTables) \
-                or params.n_features != tp.n_out \
+                or params.n_features != n_in \
                 or sp.num_classes != params.num_classes:
             raise ValueError(f"MAT does not fit the readout width "
-                             f"{tp.n_out} / {sp.num_classes} classes")
+                             f"{n_in} / {sp.num_classes} classes")
         check_mat(params, dev)
     else:
         if not isinstance(params, Centroids) \
                 or sp.num_classes != params.num_classes:
             raise ValueError("centroid parameters do not fit the plan")
-        _check_centroids(params, tp.n_out, dev)
+        _check_centroids(params, n_in, dev)
+
+
+def check_plan(regs, tp: TablePlan, sp: SuffixPlan, params) -> None:
+    _check_table_plan(regs, tp)
+    check_suffix(sp, params, tp.n_out, regs.device)
 
 
 def _suffix_operands(sp: SuffixPlan, params):
@@ -150,17 +179,7 @@ def fused_flow_serve_launch(keys, regs, pkt_keys, upd, bins, valid,
     if regs.device.type != "cuda":
         raise ValueError("fused_flow_serve_launch runs CUDA tensors only")
     kind, tensors, dims = _suffix_operands(sp, params)
-    mit_ops, policy = [], []
-    if mit is not None:
-        mk, mr, spec = mit
-        check_mitigation(mk, mr, spec, regs.device)
-        if mseg is None:
-            raise ValueError("a mitigated launch needs its segmentation")
-        mit_ops = [mk, mr, mseg.order, mseg.seg_first, mseg.seg_len,
-                   mseg.seg_slot]
-        policy = [float(spec.threshold), float(spec.keep_every),
-                  float(spec.attack_class),
-                  1.0 if spec.mode == "drop" else 0.0]
+    mit_ops, policy = _mitigation_operands(mit, mseg, regs.device)
     verdicts = torch.empty((pkt_keys.shape[0],), dtype=torch.int32,
                            device=regs.device)
     _ext.extension().fused_flow_serve(
@@ -189,11 +208,111 @@ def fused_flow_serve(keys, regs, pkt_keys, upd, bins, valid,
         return fused_flow_serve_ref(keys, regs, pkt_keys, upd, bins, valid,
                                     tp, sp, params, mit)
     *ops, seg = prepare_operands(keys, regs, pkt_keys, upd, bins, valid)
-    mseg = None
-    if mit is not None:
-        mk, mr, spec = mit
-        mit = (mk.to(torch.int32).contiguous(),
-               mr.to(torch.float32).contiguous(), spec)
-        mseg = mitigation_segments(ops[2], ops[5], seg,
-                                   int(regs.shape[0]), int(mk.shape[0]))
+    mit, mseg = _prepare_mitigation(mit, ops[2], ops[5], seg,
+                                    int(regs.shape[0]))
     return fused_flow_serve_launch(*ops, seg, tp, sp, params, mit, mseg)
+
+
+def _prepare_mitigation(mit, pkt_keys, valid, seg: Segments, n_slots: int):
+    """-> (mit with contiguous tables, its segmentation), or (None,
+    None)."""
+    if mit is None:
+        return None, None
+    mk, mr, spec = mit
+    mit = (mk.to(torch.int32).contiguous(),
+           mr.to(torch.float32).contiguous(), spec)
+    return mit, mitigation_segments(pkt_keys, valid, seg, n_slots,
+                                    int(mk.shape[0]))
+
+
+def _mitigation_operands(mit, mseg, device):
+    """-> (the binding's action-table tensors, its policy values)."""
+    if mit is None:
+        return [], []
+    mk, mr, spec = mit
+    check_mitigation(mk, mr, spec, device)
+    if mseg is None:
+        raise ValueError("a mitigated launch needs its segmentation")
+    return ([mk, mr, mseg.order, mseg.seg_first, mseg.seg_len,
+             mseg.seg_slot],
+            [float(spec.threshold), float(spec.keep_every),
+             float(spec.attack_class), 1.0 if spec.mode == "drop" else 0.0])
+
+
+def fused_flow_serve_multi_launch(tables, valid, segs, tps, sp: SuffixPlan,
+                                  params, mit=None,
+                                  mseg: Segments | None = None):
+    """K1's multi-table wrapper: per table checked operands (keys, regs,
+    pkt_keys, upd, bins) with their segmentation ``segs`` and
+    ``TablePlan``s ``tps`` -> per table (keys, regs), then (mit_keys,
+    mit_regs) with ``mit``, then verdicts [B] int32 in arrival order; one
+    cooperative launch on the current stream.  The tables are updated in
+    place and returned; the [B, n_in] readout rows live in a scratch
+    tensor from PyTorch's caching allocator."""
+    tables, tps = list(tables), list(tps)
+    reason = tables_reason(len(tables))
+    if reason is not None:
+        raise ValueError(reason)
+    if not tables or len(tps) != len(tables) or len(segs) != len(tables):
+        raise ValueError("one TablePlan and one segmentation per table")
+    dev = tables[0][1].device
+    if dev.type != "cuda":
+        raise ValueError("fused_flow_serve_multi_launch runs CUDA tensors "
+                         "only")
+    flat, dims, alphas = [], [], []
+    for (keys, regs, pkt_keys, upd, bins), tp, seg in zip(tables, tps,
+                                                          segs):
+        check_operands(keys, regs, pkt_keys, upd, bins, valid,
+                       n_counters=tp.n_counters, n_ewma=tp.n_ewma)
+        _check_table_plan(regs, tp)
+        if regs.device != dev or pkt_keys.shape != tables[0][2].shape:
+            raise ValueError("every table takes the same batch on one "
+                             "device")
+        flat += [keys, regs, pkt_keys, upd, bins, seg.order, seg.seg_first,
+                 seg.seg_len, seg.seg_slot]
+        dims += [int(tp.n_counters), int(tp.n_ewma),
+                 READOUT_MODES.index(tp.mode)]
+        alphas.append(float(tp.alpha))
+    n_in = sum(tp.n_out for tp in tps)
+    check_suffix(sp, params, n_in, dev)
+    kind, tensors, sdims = _suffix_operands(sp, params)
+    mit_ops, policy = _mitigation_operands(mit, mseg, dev)
+    B = int(valid.shape[0])
+    z = torch.empty((B, n_in), dtype=torch.float32, device=dev)
+    verdicts = torch.empty((B,), dtype=torch.int32, device=dev)
+    _ext.extension().fused_flow_serve_multi(
+        flat, valid, dims, alphas, kind, tensors, sdims, z, verdicts,
+        mit_ops, policy)
+    _ext.count_launch("fused_flow_serve")
+    outs = [t for tab in tables for t in tab[:2]]
+    if mit is not None:
+        outs += [mit[0], mit[1]]
+    return (*outs, verdicts)
+
+
+def fused_flow_serve_multi(tables, valid, tps, sp: SuffixPlan, params,
+                           mit=None):
+    """Several flow tables feeding one classifier, as ONE K1 launch.
+    ``tables``: per table (keys [S_t], regs [S_t, W_t], pkt_keys [B],
+    upd [B, C_t+E_t], bins [B, H_t]), one ``TablePlan`` each in ``tps``.
+    -> per table (keys', regs'), then (mit_keys', mit_regs') with ``mit =
+    (mit_keys, mit_regs, MitigationSpec)``, then verdicts [B] int32 in
+    arrival order, dropped packets ``MITIGATED``.  The action table is
+    keyed by table 0's keys.
+
+    CUDA tensors: each table segmented on the device, one launch that
+    updates the tables in place.  CPU tensors: the plain version, which
+    returns fresh tensors."""
+    if tables[0][1].device.type == "cpu":
+        return fused_flow_serve_multi_ref(tables, valid, tps, sp, params,
+                                          mit)
+    prepared, segs = [], []
+    for keys, regs, pkt_keys, upd, bins in tables:
+        *ops, seg = prepare_operands(keys, regs, pkt_keys, upd, bins, valid)
+        prepared.append(tuple(ops[:5]))
+        segs.append(seg)
+    valid = ops[5]
+    mit, mseg = _prepare_mitigation(mit, prepared[0][2], valid, segs[0],
+                                    int(prepared[0][1].shape[0]))
+    return fused_flow_serve_multi_launch(prepared, valid, segs, tps, sp,
+                                         params, mit, mseg)

@@ -3,9 +3,10 @@ the plain-jnp half of ``repro.kernels.fused_flow.kernel`` and of the
 reference walk in ``fused_flow.ops``).
 
 ``TablePlan``/``SuffixPlan`` describe the launch statically, and the
-folded action table's ``mitigate_ref.MitigationSpec`` its policy.  One
-table; the ``"mlp"``, ``"mat"`` and ``"centroid"`` suffixes; an optional
-folded action table.  Multi-table plans wait for a later slice.
+folded action table's ``mitigate_ref.MitigationSpec`` its policy: one
+table (``fused_flow_serve_ref``) or several feeding one classifier
+(``fused_flow_serve_multi_ref``); the ``"mlp"``, ``"mat"`` and
+``"centroid"`` suffixes; an optional folded action table.
 
 Suffix parameters, packed once at lowering time:
 
@@ -172,3 +173,30 @@ def fused_flow_serve_ref(keys, regs, pkt_keys, upd, bins, valid,
     mk2, mr2, verd = mitigate_update(mk, mr, pkt_keys, verd, valid,
                                      spec=spec)
     return k2, r2, mk2, mr2, verd
+
+
+def fused_flow_serve_multi_ref(tables, valid, tps, sp: SuffixPlan, params,
+                               mit=None):
+    """Several flow tables feeding one classifier.  ``tables`` is a
+    sequence of (keys [S_t], regs [S_t, W_t], pkt_keys [B], upd, bins),
+    one per ``TablePlan`` of ``tps``.  -> per table (keys', regs'), then
+    (mit_keys', mit_regs') with ``mit = (mit_keys, mit_regs,
+    MitigationSpec)``, then verdicts [B] int32 in arrival order.
+
+    Each table updates by its own keys; the readout rows are concatenated
+    in table order and classified once; the action table is keyed by
+    table 0's keys.  Rows with ``valid == 0`` never touch a table."""
+    outs, zs = [], []
+    for (keys, regs, pkt_keys, upd, bins), tp in zip(tables, tps):
+        k2, r2, feats = flow_update_ref(
+            keys, regs, pkt_keys, upd, bins, valid,
+            n_counters=tp.n_counters, n_ewma=tp.n_ewma, alpha=tp.alpha)
+        outs += [k2, r2]
+        zs.append(suffix_readout(feats, tp))
+    verd = suffix_verdicts(torch.cat(zs, 1), params, sp)
+    if mit is not None:
+        mk, mr, spec = mit
+        mk2, mr2, verd = mitigate_update(mk, mr, tables[0][2], verd, valid,
+                                         spec=spec)
+        outs += [mk2, mr2]
+    return (*outs, verd)

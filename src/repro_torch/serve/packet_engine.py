@@ -38,7 +38,17 @@ stateless engine swaps between stateless programs; a swap that changes
 statefulness raises.  ``stats()`` records each swap's latency (request
 to install) and the packet offset of its boundary.
 
-Telemetry is a later slice.
+Telemetry (``telemetry=``, ``engine.telemetry()``): the reference's
+observability plane, copied in ``repro_torch.telemetry``, with the
+reference's metric names, help strings and journal event kinds.  It
+records on the host at dispatch-ring boundaries only: per-batch counters,
+histograms and the dispatch span; the slot-segmentation statistics of
+every ``TELEMETRY_SEG_SAMPLE``-th batch, recomputed from the host staging
+rows (table 0's flow key); batch latency and mitigated packets when a
+batch is fetched; hot-swap and ``backend_fallback`` journal events; and
+a table-health scan at each flush, which copies table 0's key vector
+(and the action table) to the host where the engine waits on the card
+anyway.  The dispatch reads no device tensor for it.
 """
 
 from __future__ import annotations
@@ -52,9 +62,11 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
+from repro_torch import telemetry as T
 from repro_torch.core import stageir
 from repro_torch.device import resolve_device
 from repro_torch.flowstate.mitigation import MITIGATED
+from repro_torch.flowstate.registers import hash_slot_np
 
 
 @dataclasses.dataclass
@@ -185,11 +197,18 @@ class PacketServeEngine:
     for another device is recompiled for this one.  ``state`` resumes an
     existing register file of a stateful pipeline (on the card the engine
     then updates its tensors in place); None starts empty.  ``depth``
-    batches stay in flight."""
+    batches stay in flight.  ``telemetry``: None or True creates an
+    enabled ``repro_torch.telemetry.Telemetry``, False disables
+    recording, an instance is shared; ``telemetry()`` returns it."""
+
+    # the slot segmentation of every Nth batch (the first included) is
+    # recomputed on the host for the telemetry, as in the reference
+    # engine; tests set 1 for exact counts
+    TELEMETRY_SEG_SAMPLE = 8
 
     def __init__(self, pipeline, *, feature_dim: int, max_batch: int = 256,
                  backend: str | None = None, state=None, depth: int = 2,
-                 device="cuda"):
+                 device="cuda", telemetry=None):
         dev = resolve_device(device)
         self._stateful = hasattr(pipeline, "init_state")
         self.device = dev
@@ -215,7 +234,188 @@ class PacketServeEngine:
         self._swap_lock = threading.Lock()
         self._pending_swap: tuple | None = None
         self.stats_ = ServeStats(backend=self.backend, depth=self.depth)
-        self._out_staging = self._warm_up(self.pipeline, self.state)
+        self._init_telemetry(telemetry, backend)
+        if self._tel is not None:
+            with self._tel.tracer.span("warm_up", cat="compile",
+                                       backend=self.backend):
+                self._out_staging = self._warm_up(self.pipeline, self.state)
+        else:
+            self._out_staging = self._warm_up(self.pipeline, self.state)
+
+    # --------------------------------------------------------- telemetry
+
+    def telemetry(self):
+        """The attached ``repro_torch.telemetry.Telemetry`` (None when
+        constructed with ``telemetry=False``)."""
+        return self._tel
+
+    def _init_telemetry(self, telemetry, requested_backend) -> None:
+        """Resolve the plane and bind every per-batch handle once, so a
+        batch records with a few attribute adds."""
+        self._tel = T.resolve(telemetry)
+        self._tel_flowkey = None
+        self._tel_slots = 0
+        self._backend_children: dict = {}
+        self._health_keys = None       # the previous flush's key vector
+        self._health_marked = 0        # the previous marked-flow count
+        self._seg_n = 0                # segmentation sampling tick
+        if self._tel is None:
+            return
+        m = self._tel.metrics
+        self._tm = {
+            "packets": m.counter(
+                "serve_packets_total", "real packets dispatched").default,
+            "batches": m.counter(
+                "serve_batches_total", "micro-batches dispatched").default,
+            "pad": m.counter(
+                "serve_pad_packets_total",
+                "zero rows added to fill fixed batch shapes").default,
+            "swaps": m.counter(
+                "serve_swaps_total", "hot swaps installed").default,
+            "mitigated": m.counter(
+                "serve_mitigated_packets_total",
+                "packets dropped/limited by the action table").default,
+            "dispatch_ms": m.histogram(
+                "serve_dispatch_ms",
+                "host time staging + launching one batch").default,
+            "batch_lat_ms": m.histogram(
+                "serve_batch_latency_ms",
+                "dispatch -> result ready, per batch").default,
+            "swap_lat_ms": m.histogram(
+                "serve_swap_latency_ms",
+                "swap request -> ring-boundary install").default,
+            # the lockstep/drain split is the reference's traffic-shape
+            # signal, names and help text kept for its dashboards; the
+            # port's K1 walks every chain and has neither schedule
+            "lockstep": m.counter(
+                "flow_lockstep_batches_total",
+                "sampled stateful batches retired mostly by the "
+                "compacted lockstep rounds").default,
+            "drain": m.counter(
+                "flow_drain_batches_total",
+                "sampled stateful batches with a drain-heavy traffic "
+                "shape (served in-kernel by the compacted drain)").default,
+            "deep_pkts": m.counter(
+                "flow_deep_packets_total",
+                "packets deeper than PAR_ROUNDS in a same-slot chain "
+                "(sampled batches)").default,
+            "max_chain": m.gauge(
+                "flow_batch_max_chain",
+                "deepest same-slot chain of the last dispatched batch"
+            ).default,
+            # kept for the reference's metric set: stays 0, the port has
+            # no sharded routing
+            "overflow": m.counter(
+                "serve_route_overflow_total",
+                "rows pushed back to the queue head because their "
+                "shard's sub-batch filled (sharded routing)").default,
+        }
+        self._backend_counter = m.counter(
+            "serve_backend_batches_total",
+            "batches per execution backend actually serving")
+        m.gauge("serve_depth", "dispatch-pipeline depth").default.set(
+            self.depth)
+        self._resolve_flow_telemetry(self.pipeline)
+        self._journal_fallback(self.pipeline, requested_backend)
+
+    def _journal_fallback(self, pipeline, requested, **during) -> None:
+        """A ``backend_fallback`` event when ``backend="cuda"`` was asked
+        for and a plain part serves ("interpret" or "mixed"), or the
+        pipeline carries a decline reason."""
+        reason = getattr(pipeline, "fallback_reason", None)
+        actual = pipeline.backend
+        if reason or (requested == "cuda"
+                      and actual in ("interpret", "mixed")):
+            ev = {"requested": requested or "cuda", "actual": actual,
+                  "engine": type(self).__name__, **during}
+            if reason:
+                ev["reason"] = reason
+            self._tel.journal.emit("backend_fallback", **ev)
+
+    def _resolve_flow_telemetry(self, pipeline) -> None:
+        """Take the pipeline's first FlowKey (table 0's) so the batch
+        segmentation can be recomputed from the host rows."""
+        self._tel_flowkey = None
+        if self._tel is None or not self._stateful:
+            return
+        fk = next((s for s in pipeline.stages
+                   if isinstance(s, stageir.FlowKey)), None)
+        if fk is not None:
+            self._tel_flowkey = fk
+            self._tel_slots = int(pipeline.spec.n_slots)
+
+    def _seg_tick(self) -> bool:
+        """True on the sampled batches (every TELEMETRY_SEG_SAMPLE-th,
+        the first included)."""
+        self._seg_n += 1
+        return self._seg_n % self.TELEMETRY_SEG_SAMPLE == 1 \
+            or self.TELEMETRY_SEG_SAMPLE == 1
+
+    def _record_dispatch(self, rows: np.ndarray, n: int, pad: int,
+                         t0: float, t1: float) -> None:
+        """Per-batch recording from host data: counters, the dispatch
+        span and, on sampled batches of a stateful pipeline, the slot
+        segmentation of the real rows."""
+        tm = self._tm
+        tm["packets"].inc(n)
+        tm["batches"].inc(1)
+        if pad:
+            tm["pad"].inc(pad)
+        child = self._backend_children.get(self.backend)
+        if child is None:
+            child = self._backend_children[self.backend] = \
+                self._backend_counter.labels(backend=self.backend)
+        child.inc(1)
+        tm["dispatch_ms"].observe((t1 - t0) * 1e3)
+        self._tel.tracer.record(
+            "dispatch", t0, t1,
+            args={"backend": self.backend, "rows": n, "pad": pad})
+        if self._tel_flowkey is not None and self._seg_tick():
+            seg = T.batch_segmentation(hash_slot_np(
+                self._tel_flowkey.apply_keys_np(rows), self._tel_slots))
+            (tm["drain"] if seg["drain_heavy"] else tm["lockstep"]).inc(1)
+            if seg["n_deep"]:
+                tm["deep_pkts"].inc(seg["n_deep"])
+            tm["max_chain"].set(seg["max_chain"])
+
+    def _scan_flow_health(self) -> None:
+        """Flush-boundary scan of the live table (table 0's keys and the
+        action table, copied to the host): occupancy, inserts and
+        evictions since the previous scan, and the mitigation
+        engage/release journal events."""
+        if self._tel is None or not self._stateful or self.state is None:
+            return
+        h = T.table_health(self.state, self._health_keys)
+        self._health_keys = h.pop("keys")
+        m = self._tel.metrics
+        m.gauge("flow_occupied_slots",
+                "occupied register-file slots").default.set(h["occupied"])
+        m.gauge("flow_occupancy_frac",
+                "occupied / total slots").default.set(
+            round(h["occupancy_frac"], 6))
+        if h["inserts"]:
+            m.counter("flow_inserts_total",
+                      "slots going empty -> occupied between scans"
+                      ).default.inc(h["inserts"])
+        if h["evictions"]:
+            m.counter("flow_evictions_total",
+                      "occupied slots whose key changed between scans "
+                      "(collision evictions)").default.inc(h["evictions"])
+        if h["mit_slots"]:
+            m.gauge("flow_mit_occupied",
+                    "occupied action-table slots").default.set(
+                h["mit_occupied"])
+            m.gauge("flow_mit_marked",
+                    "flows past the mitigation threshold").default.set(
+                h["mit_marked"])
+            delta = h["mit_marked"] - self._health_marked
+            if delta:
+                self._tel.journal.emit(
+                    "mitigation_engage" if delta > 0
+                    else "mitigation_release", flows=abs(delta),
+                    marked=h["mit_marked"],
+                    pkt_offset=int(self.stats_.packets))
+            self._health_marked = h["mit_marked"]
 
     def _ring(self, shape, dtype) -> list:
         """depth+1 host buffers, pinned when serving on the card."""
@@ -321,8 +521,11 @@ class PacketServeEngine:
             flight = _InFlight(n, out, t0, None, time.perf_counter())
         flight.mitigated = getattr(self.pipeline, "mitigation",
                                    None) is not None
-        self.stats_.dispatch_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.stats_.dispatch_s += t1 - t0
         self.stats_.count_batch(self.backend, n, pad)
+        if self._tel is not None:
+            self._record_dispatch(rows, n, pad, t0, t1)
         self._inflight.append(flight)
         return n
 
@@ -332,13 +535,20 @@ class PacketServeEngine:
         if f.event is not None:
             f.event.synchronize()
         out = f.out.numpy()[:f.n].copy()
-        if f.mitigated:
-            self.stats_.mitigated += int((out == MITIGATED).sum())
+        dropped = int((out == MITIGATED).sum()) if f.mitigated else 0
+        self.stats_.mitigated += dropped
         end = f.ready if f.ready is not None else time.perf_counter()
         self.stats_.batch_lat_s.append(end - f.t0)
         if self._mark is not None:
             self.stats_.wall_s += max(0.0, end - self._mark)
             self._mark = max(self._mark, end) if self._inflight else None
+        if self._tel is not None:
+            self._tm["batch_lat_ms"].observe((end - f.t0) * 1e3)
+            self._tel.tracer.record(
+                "batch", f.t0, end,
+                args={"backend": self.backend, "rows": f.n})
+            if dropped:
+                self._tm["mitigated"].inc(dropped)
         return out
 
     def flush(self) -> np.ndarray:
@@ -354,6 +564,7 @@ class PacketServeEngine:
         # the drained ring is a boundary: a parked swap never outlives a
         # flush, even when no more traffic arrives
         self._maybe_install_swap()
+        self._scan_flow_health()
         if not outs:
             return np.zeros((0,), np.int32)
         return outs[0] if len(outs) == 1 else np.concatenate(outs, 0)
@@ -390,6 +601,11 @@ class PacketServeEngine:
                              f"is {old}, new pipeline is {new}")
         pipeline = self._compiled(pipeline, backend)
         ring = self._prepare_swap(pipeline)
+        if self._tel is not None:
+            self._tel.tracer.record(
+                "swap_prepare", t_req, time.perf_counter(), cat="swap",
+                args={"backend": pipeline.backend})
+            self._journal_fallback(pipeline, backend, during="swap")
         with self._swap_lock:
             self._pending_swap = (pipeline, ring, t_req)
 
@@ -411,8 +627,23 @@ class PacketServeEngine:
         if pending is None:
             return
         pipeline, ring, t_req = pending
+        old_backend = self.backend
+        t0 = time.perf_counter()
         self._install_swap(pipeline, ring)
-        self.stats_.record_swap(time.perf_counter() - t_req)
+        t1 = time.perf_counter()
+        lat_s = t1 - t_req
+        self.stats_.record_swap(lat_s)
+        if self._tel is not None:
+            self._tm["swaps"].inc(1)
+            self._tm["swap_lat_ms"].observe(lat_s * 1e3)
+            self._tel.tracer.record(
+                "swap_install", t0, t1, cat="swap",
+                args={"from": old_backend, "to": self.backend})
+            self._tel.journal.emit(
+                "hot_swap", lat_ms=round(lat_s * 1e3, 3),
+                pkt_offset=int(self.stats_.packets),
+                old_backend=old_backend, new_backend=self.backend,
+                engine=type(self).__name__)
 
     def _install_swap(self, pipeline, ring) -> None:
         if self._stateful:
@@ -422,6 +653,8 @@ class PacketServeEngine:
         self.pipeline = pipeline
         self.backend = pipeline.backend
         self.stats_.backend = self.backend
+        # the segmentation follows the new pipeline's FlowKey and spec
+        self._resolve_flow_telemetry(pipeline)
 
     def _carry_state(self, pipeline) -> None:
         """The live state into the new pipeline's shape: the same specs

@@ -240,12 +240,15 @@ def verdict_mismatches(verdicts: np.ndarray, ref_logits: np.ndarray,
     return int(bad.sum()), int(close.sum())
 
 
-def mat_stages(n_in: int, seed: int = 7, *, use_min: bool = False):
+def mat_stages(n_in: int, seed: int = 7, *, use_min: bool = False,
+               stageir=None):
     """The mat-fused classifier of ``benchmarks/flow_throughput.py:58-80``
-    as port stages: edges [n_in, 7] (feature 0's edges 1..7, for the raw
-    packet count), tables [n_in, 8, 4] from ``default_rng(seed)`` and the
-    LabelMap [0, 1, 1, 0]."""
-    from repro_torch.core import stageir
+    as port stages (or as the stages of ``stageir``, a module with the
+    same stage classes): edges [n_in, 7] (feature 0's edges 1..7, for the
+    raw packet count), tables [n_in, 8, 4] from ``default_rng(seed)`` and
+    the LabelMap [0, 1, 1, 0]."""
+    if stageir is None:
+        from repro_torch.core import stageir
 
     rng = np.random.default_rng(seed)
     edges = np.sort(rng.random((n_in, 7)).astype(np.float32), axis=1)
@@ -254,3 +257,53 @@ def mat_stages(n_in: int, seed: int = 7, *, use_min: bool = False):
     return [stageir.Quantize(edges), stageir.LUTGather(tables),
             stageir.Reduce("argmin" if use_min else "argmax"),
             stageir.LabelMap(np.asarray([0, 1, 1, 0], np.int32))]
+
+
+TWO_TABLE_SUFFIXES = ("mlp", "mat", "centroid")
+
+
+def two_table_stages(stageir, traffic, spec_cls, *, n_slots: int = 2048,
+                     port_slots: int = 2048, suffix: str = "mlp",
+                     mitigation=None, hidden=(16, 8), seed: int = 0):
+    """The two-table configuration as the stages of ``stageir`` (the
+    port's or the JAX package's: the classes take the same arguments),
+    built with that package's ``traffic`` module and ``FlowStateSpec``
+    (``spec_cls``).  Table 0 is the flow-ddos table
+    (``traffic.flow_feature_stages``, W = 28); table 1 aggregates per
+    destination port: ``FlowStateSpec(port_slots, n_counters=2, n_ewma=1,
+    hist_sizes=(16,))`` counting packet length, an EWMA of the
+    inter-packet time and a packet-length histogram on the flow-ddos
+    edges, W = 19.  Both read out through ``WindowStats("all")``, so the
+    classifier takes 47 features: a seeded MLP ``[47, *hidden, 2]``, the
+    mat-fused MAT (``mat_stages(47)``) or 4 seeded centroids over 6
+    features of both tables (``FeatureSelect``, argmin, LabelMap [0, 1,
+    0, 1]).  ``mitigation`` (a ``MitigationSpec``) appends ``Mitigate``."""
+    (fk, ru, ws), _ = traffic.flow_feature_stages(n_slots=n_slots)
+    spec2 = spec_cls(n_slots=port_slots, n_counters=2, n_ewma=1,
+                     hist_sizes=(16,), ewma_alpha=0.125)
+    fk2 = stageir.FlowKey((traffic.COL_PORT,), port_slots)
+    ru2 = stageir.RegisterUpdate(
+        spec2, counter_cols=(traffic.COL_LEN,),
+        ewma_cols=(traffic.COL_IPT,), hist_cols=(traffic.COL_LEN,),
+        hist_edges=(np.asarray(ru.hist_edges[0]),))
+    ws2 = stageir.WindowStats(spec2, "all")
+    n_in = ws.n_out + ws2.n_out
+    if suffix == "mlp":
+        cls = [stageir.FusedMLP(*random_mlp((n_in, *hidden, 2), seed)),
+               stageir.Reduce("argmax")]
+    elif suffix == "mat":
+        cls = mat_stages(n_in, stageir=stageir)
+    elif suffix == "centroid":
+        rng = np.random.default_rng(seed + 11)
+        idx = np.asarray([0, 2, 5, 28, 30, 31], np.int64)
+        cent = (rng.random((4, 6)) * np.asarray([40, 1, 1, 400, 1, 1])
+                ).astype(np.float32)
+        cls = [stageir.FeatureSelect(idx), stageir.CentroidDistance(cent),
+               stageir.Reduce("argmin"),
+               stageir.LabelMap(np.asarray([0, 1, 0, 1], np.int32))]
+    else:
+        raise KeyError(f"suffix must be one of {TWO_TABLE_SUFFIXES}")
+    stages = [fk, ru, ws, fk2, ru2, ws2] + cls
+    if mitigation is not None:
+        stages.append(stageir.Mitigate(mitigation))
+    return stages

@@ -220,22 +220,32 @@ def test_centroid_outside_the_envelope():
 
 
 def test_mitigation_and_multi_table_raise_not_implemented():
-    """Multi-table pipelines still raise NotImplementedError and decline
-    by name; a single-table ``Mitigate`` now lowers (it used to raise
-    here too)."""
+    """A single-table ``Mitigate`` lowers (4 state arrays), and so do
+    multi-table pipelines now: the second table no longer raises
+    ``NotImplementedError`` or declines; they serve fused
+    (``cpu-ref-fused-flow`` here, ``cuda-fused-flow`` on the card) and
+    split (``cpu-ref``, ``cuda`` on the card), with 2 state arrays per
+    table."""
     stages = convert.stages_from_reference(_reference_stages("mitigate"))
     for backend in ("cuda", "interpret"):
         pipe = StatefulPipeline(stages, backend=backend, device="cpu")
         assert pipe.n_state_arrays == 4
-    two = stages[:2] + stages[:-1]
-    with pytest.raises(NotImplementedError, match="multi-table"):
-        StatefulPipeline(two, backend="cuda", device="cpu")
-    prefix, suffix = stages[:2], stages[2:-1]
+    rest, mit = stageir.split_mitigation(stages)
+    prefix, suffix = rest[:2], rest[2:]
     assert cuda_backend.fused_flow_decline_reason(
-        prefix, suffix, mitigation=stages[-1]) is None
-    assert cuda_backend.fused_flow_decline_reason(
-        [tuple(prefix), tuple(prefix)], suffix) \
-        == "multi-table plans not yet ported"
+        prefix, suffix, mitigation=mit) is None
+    groups = [tuple(prefix) + (suffix[0],)] * 2
+    fk, ru, ws = groups[0]
+    w, b = random_mlp((2 * ws.n_out, 8, 2), seed=3)
+    two = [fk, ru, ws, fk, ru, ws, stageir.FusedMLP(w, b),
+           stageir.Reduce("argmax")]
+    assert cuda_backend.fused_flow_decline_reason(groups, two[6:]) is None
+    for fuse, name in ((True, "cpu-ref-fused-flow"), (False, "cpu-ref")):
+        pipe = StatefulPipeline(two, backend="cuda", fuse=fuse,
+                                device="cpu")
+        assert pipe.backend == name and pipe.n_tables == 2
+        assert pipe.n_state_arrays == 4
+    assert stageir.kernel_backend(torch.device("cuda")) == "cuda"
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)

@@ -25,7 +25,8 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
 assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
-        "repro_torch.data.netdata"} <= set(names), names
+        "repro_torch.data.netdata", "repro_torch.telemetry",
+        "repro_torch.telemetry.flow_health"} <= set(names), names
 """
 
 
