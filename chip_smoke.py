@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (into
-``build/torch_kernels/``), then drives the stateful serving paths and
-the stateless DAG path on the card and checks them, printing one JSON
-line per phase:
+``build/torch_kernels/``), then drives the stateful serving paths, the
+stateless DAG path and the LM serving path on the card and checks them,
+printing one JSON line per phase:
 
   1. device and build: ``nvidia-smi`` name / power limit, build seconds;
   2. kernels: K1 ``fused_flow_serve``, K2 ``flow_update``, K3
@@ -100,6 +100,20 @@ its plain version: every suffix with and without the action table, B =
 five tables; tables exact, MAT and mitigated verdicts exact, MLP and
 centroid verdicts under the margin rule) and ``kernels_time_multi`` (its
 time per suffix beside its plain version and bound).
+
+Slice 5 adds LM serving on the dense family: ``kernels_check_lm`` (K7
+``flash_attention`` against its plain version at the Qwen3-1.7B prefill
+shapes B = 4, S = 512 and 2,048, H = 16 over K = 8, D = 128, bf16,
+causal; decode Sq = 1 against 1,024 keys at q_offset 0, 511 and 1,023;
+ragged S = 1,000 with windows 256 and 4,096; G = 12; D = 16, 32 and 64;
+f32; within 1e-5 in f32 and 8e-3 of the output's scale in bf16),
+``kernels_time_lm`` (K7's wrapper and device time at the path's shapes
+beside its plain version, ``scaled_dot_product_attention`` on the same
+inputs as ``library_ms``, and its bound) and ``path_lm_serve``
+(``ServeEngine`` with Qwen3-1.7B at full width and depth, seeded bf16
+weights, 4 slots, 8 requests of 32 new tokens, K7 launched 28 x (prefill
++ decode calls) times; against ``backend="interpret"`` and against
+teacher forcing).
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -941,7 +955,8 @@ def path_phase(dev, name: str, n_slots: int, batches, fuses, n_packets,
     # one K1 launch per fused batch; one K2 + one K3 per split batch
     check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
                        "fused_mlp_classify": n_split, "mat_lut_classify": 0,
-                       "fused_mlp": 0, "fused_dag": 0},
+                       "fused_mlp": 0, "fused_dag": 0,
+                       "flash_attention": 0},
           f"{name}: launches {launches} != batches "
           f"(fused {n_fused}, split {n_split})")
     emit({"phase": name, "n_slots": n_slots, "n_packets": n_packets,
@@ -1045,7 +1060,8 @@ def mat_path_phase(dev, name: str, mitigated: bool, batches=(256, 512),
     torch.cuda.synchronize()
     check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
                        "fused_mlp_classify": 0, "mat_lut_classify": n_split,
-                       "fused_mlp": 0, "fused_dag": 0},
+                       "fused_mlp": 0, "fused_dag": 0,
+                       "flash_attention": 0},
           f"{name}: launches {launches} != batches "
           f"(fused {n_fused}, split {n_split})")
     report = traffic.reaction_report(stream, iv)
@@ -2262,6 +2278,349 @@ def telemetry_phase(dev, mitigated_counts):
     return ratio
 
 
+# ------------------------------------------------- slice 5: LM serving
+
+# bf16 dense tensor-core peak (NVIDIA data sheet): K7's operations bound,
+# the rate a later design on wgmma can reach
+BF16_FLOP_PER_S = 989e12
+K7_INSTANCE = "flash_attention_kernel<{dtype}, {D}>"
+LM_ARCH, LM_SEED, LM_SLOTS, LM_MAX_SEQ, LM_NEW = "qwen3-1.7b", 0, 4, 1024, 32
+# K7 against its plain version: f32 within 1e-5 (the same f32 math, the
+# sums in another order; outputs of order 1); bf16 within 8e-3 of the
+# output's scale, max(1, |plain|) (both compute in f32 from the same
+# bf16 inputs and round once; two f32 results that straddle a rounding
+# boundary land one bf16 step, 2^-7 of the value, apart)
+K7_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+# the LM path against backend="interpret" (plain attention), bf16 through
+# 28 layers: a rounding flip of one layer's attention output (2^-8 of
+# the value) moves the residual stream and so the logits, which are of
+# scale 1 here (tied 0.02-std table after a unit-RMS final norm); greedy
+# tokens may then first differ only where the top two logits lie within
+# twice that of each other
+LM_LOGIT_TOL = 0.1
+LM_AGREE = 0.9                     # tests/test_train_serve.py's bound
+
+
+def live_pairs(Sq: int, skv: int, causal: bool, window: int,
+               q_offset: int) -> int:
+    """(q, kv) pairs K7's masks keep: the work this call's data needs."""
+    import numpy as np
+
+    q_pos = q_offset + np.arange(Sq)
+    hi = np.minimum(q_pos, skv - 1) if causal else np.full(Sq, skv - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def k7_bound(B, Sq, H, K, D, itemsize, pairs, kv_rows):
+    """Q and O once, the K and V rows the masks keep once, over the HBM
+    rate; 4 * D operations per live pair per head over the bf16
+    tensor-core rate."""
+    moved = itemsize * (2 * B * Sq * H * D + 2 * B * kv_rows * K * D)
+    t_b = moved / HBM_BYTES_PER_S * 1e3
+    t_o = 4.0 * B * H * D * pairs / BF16_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k7_inputs(dev, B, Sq, Skv, H, K, D, dtype, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+
+
+# name, B, Sq, Skv, H, K, D, dtype, causal, window, q_offset, skv (None:
+# Skv): the Qwen3-1.7B prefill and decode shapes, ragged rows with a
+# window, starcoder2's G = 12, the smoke width D = 16, every D instance
+# and f32
+K7_CASES = (
+    ("prefill_512", 4, 512, 512, 16, 8, 128, "bfloat16", True, 0, 0, None),
+    ("prefill_2048", 4, 2048, 2048, 16, 8, 128, "bfloat16", True, 0, 0,
+     None),
+    ("decode_0", 4, 1, 1024, 16, 8, 128, "bfloat16", True, 0, 0, None),
+    ("decode_511", 4, 1, 1024, 16, 8, 128, "bfloat16", True, 0, 511, None),
+    ("decode_1023", 4, 1, 1024, 16, 8, 128, "bfloat16", True, 0, 1023,
+     None),
+    ("ragged_w256", 2, 1000, 1000, 16, 8, 128, "bfloat16", True, 256, 0,
+     None),
+    ("ragged_w4096", 2, 1000, 1000, 16, 8, 128, "bfloat16", True, 4096, 0,
+     None),
+    ("gqa_12", 2, 512, 512, 48, 4, 128, "bfloat16", True, 0, 0, None),
+    ("d16_bf16", 2, 100, 130, 4, 2, 16, "bfloat16", True, 8, 5, 120),
+    ("d16_f32", 2, 100, 130, 4, 2, 16, "float32", True, 8, 5, 120),
+    ("d32_f32", 2, 65, 97, 8, 2, 32, "float32", False, 8, 5, None),
+    ("d64_f32", 2, 200, 300, 4, 4, 64, "float32", True, 0, 100, None),
+    ("prefill_512_f32", 2, 512, 512, 16, 8, 128, "float32", True, 0, 0,
+     None),
+)
+
+
+def kernels_check_lm(dev):
+    """K7 against its plain version (``attention_ref`` over the first skv
+    keys) on the card at every case of ``K7_CASES``, within ``K7_TOL``.
+    -> {"flash_attention": max abs error over the cases}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        flash_attention_launch,
+    )
+
+    rows, worst = [], 0.0
+    for i, (name, B, Sq, Skv, H, K, D, dt, causal, window, q_offset,
+            skv) in enumerate(K7_CASES):
+        skv = Skv if skv is None else skv
+        q, k, v = k7_inputs(dev, B, Sq, Skv, H, K, D, getattr(torch, dt), i)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = flash_attention_launch(q, k, v, skv=skv, **kw)
+        want = attention_ref(q, k[:, :skv], v[:, :skv], **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == q.dtype and got.shape == q.shape,
+              f"K7 {name}: output {got.dtype} {tuple(got.shape)}")
+        diff = (got.float() - want.float()).abs()
+        scale = want.float().abs().clamp_min(1.0) if dt == "bfloat16" \
+            else torch.ones_like(diff)
+        err = float(diff.max())
+        check(bool((diff <= K7_TOL[dt] * scale).all()),
+              f"K7 {name}: max abs {err} beyond {K7_TOL[dt]}")
+        worst = max(worst, err)
+        rows.append({"case": name, "dtype": dt, "shape": [B, Sq, Skv, H, K,
+                                                          D],
+                     "causal": causal, "window": window,
+                     "q_offset": q_offset, "skv": skv, "max_abs_err": err})
+    emit({"phase": "kernels_check_lm", "tol": K7_TOL, "cases": rows})
+    return {"flash_attention": worst}
+
+
+# the timed shapes: name, Sq, Skv, q_offset at B, H, K, D below
+K7_TIMED = (("prefill_512", 512, 512, 0), ("prefill_2048", 2048, 2048, 0),
+            ("decode_511", 1, 1024, 511), ("decode_1023", 1, 1024, 1023))
+K7_TIMED_HEADS = (4, 16, 8, 128)
+
+
+def kernels_time_lm(dev):
+    """K7 at the LM path's shapes (bf16, Qwen3-1.7B heads): prefill B = 4
+    at S = 512 (the path's first batch) and 2,048, decode at skv = 1,024
+    with q_offset 511 (the path's cache index is 512-543) and 1,023.
+    Wrapper ms over 50 calls (CUDA events), device ms (profiler), the
+    plain version's ms, ``scaled_dot_product_attention``'s ms on the same
+    inputs (prefill: causal, GQA; decode: the first q_offset + 1 keys,
+    unmasked: the same function) as ``library_ms``, and the bound.
+    -> {config: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        flash_attention_launch,
+    )
+
+    B, H, K, D = K7_TIMED_HEADS
+    dt = torch.bfloat16
+    out = {}
+    for name, Sq, Skv, q_offset in K7_TIMED:
+        q, k, v = k7_inputs(dev, B, Sq, Skv, H, K, D, dt, 7)
+        kw = dict(causal=True, window=0, q_offset=q_offset)
+        k7 = lambda: flash_attention_launch(q, k, v, skv=Skv, **kw)  # noqa
+        seen = kernel_device_ms({K7_INSTANCE.format(
+            dtype="__nv_bfloat16", D=D): k7})
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if Sq == 1:
+            kt, vt = kt[:, :, :q_offset + 1], vt[:, :, :q_offset + 1]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=Sq > 1, enable_gqa=True)
+        got = k7()
+        # the yardstick must compute K7's function (a mask aligned
+        # elsewhere would differ by O(1)); it rounds P to bf16 for P V
+        check(max_abs(got, lib().transpose(1, 2)) <= 0.1,
+              f"K7 {name} and SDPA compute different functions")
+        pairs = live_pairs(Sq, Skv, True, 0, q_offset)
+        kv_rows = min(Skv, q_offset + Sq)
+        out[name] = dict(
+            ms=time_ms(k7, TIMED_LAUNCHES), **kernel_fields(seen.popitem()[1]),
+            plain_ms=time_ms(lambda: attention_ref(q, k, v, **kw), 10),
+            library_ms=time_ms(lib, TIMED_LAUNCHES),
+            bound=k7_bound(B, Sq, H, K, D, 2, pairs, kv_rows),
+            shape=[B, Sq, Skv, H, K, D], q_offset=q_offset, pairs=pairs)
+    emit({"phase": "kernels_time_lm", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
+def lm_requests(vocab: int):
+    """8 requests of 32 new tokens: a batch of four 512-token prompts and
+    one of 384-512 tokens (left-padded to the longest), seeded."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(LM_SEED)
+    lens = [512] * 4 + [384, 512] + [int(n) for n in rng.integers(385, 512,
+                                                                  2)]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=LM_NEW) for i, n in enumerate(lens)]
+
+
+def lm_batches(reqs):
+    """The engine's lockstep batches: [4, S] left-padded prompts followed
+    by each request's tokens."""
+    import numpy as np
+
+    out = []
+    for i in range(0, len(reqs), LM_SLOTS):
+        group = reqs[i:i + LM_SLOTS]
+        S = max(len(r.prompt) for r in group)
+        toks = np.zeros((LM_SLOTS, S + LM_NEW), np.int32)
+        for j, r in enumerate(group):
+            toks[j, S - len(r.prompt):S] = r.prompt
+            toks[j, S:] = r.out
+        out.append((S, toks, group))
+    return out
+
+
+def path_lm_serve(dev):
+    """``ServeEngine`` with Qwen3-1.7B at full width and depth (28
+    layers, d_model 2,048, 16/8 heads of 128, d_ff 6,144, vocab 151,936),
+    bf16 weights (1-D scales f32) from ``torch.Generator`` seed 0,
+    batch_slots 4, max_seq 1,024: 8 requests of 32 new tokens
+    (``lm_requests``), counts set to 0 just before the run and read just
+    after: K7 must launch 28 x (prefill + decode calls) times and nothing
+    else.  Then the same engine on ``backend="interpret"`` (plain
+    attention, same weights): prefill logits of the first batch within
+    ``LM_LOGIT_TOL``; each request's tokens the same, or first differing
+    where the plain path's teacher-forced top two logits lie within
+    2 x ``LM_LOGIT_TOL``; and the decode-through-cache tokens agreeing with
+    a teacher-forced forward's argmax on at least ``LM_AGREE`` of the
+    positions (the mean, as tests/test_train_serve.py takes it), each
+    miss where that forward's top two lie within 2 x ``LM_LOGIT_TOL``.
+    The phase line is printed before these checks.  -> launches per
+    kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import _ext
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.steps import init_cache
+
+    cfg = configs.get_config(LM_ARCH)
+    params = init_params(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(LM_SEED), device=dev,
+                         dtype=torch.bfloat16)
+    engines, runs = {}, {}
+    for backend in ("cuda", "interpret"):
+        eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                          max_seq=LM_MAX_SEQ, backend=backend, device=dev)
+        eng.submit(Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
+                           max_new_tokens=2))
+        eng.run()                                   # warm-up
+        before = dict(eng.timing, tokens=eng.tokens_out)
+        reqs = lm_requests(cfg.vocab_size)
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _ext.reset_launches()
+        stats = eng.run(max_steps=2 * LM_NEW)
+        torch.cuda.synchronize()
+        launches = dict(_ext.LAUNCHES)
+        calls = {k: v - before[k] for k, v in
+                 dict(eng.timing, tokens=eng.tokens_out).items()}
+        # the engine's token count and tok/s include the warm-up's
+        stats["tok_per_s"] = calls["tokens"] / stats["wall_s"]
+        engines[backend] = eng
+        runs[backend] = dict(stats=stats, launches=launches, calls=calls,
+                             reqs=reqs, peak_gb=torch.cuda.max_memory_allocated(
+                                 dev) / 1e9)
+    cuda, plain = runs["cuda"], runs["interpret"]
+    n_calls = cuda["calls"]["prefill_calls"] + cuda["calls"]["decode_calls"]
+    check(cuda["launches"]["flash_attention"] == cfg.num_layers * n_calls,
+          f"K7 launched {cuda['launches']['flash_attention']} times, not "
+          f"{cfg.num_layers} x {n_calls}")
+    check(sum(cuda["launches"].values())
+          == cuda["launches"]["flash_attention"],
+          f"the LM path launched other kernels: {cuda['launches']}")
+    check(sum(plain["launches"].values()) == 0,
+          f"backend='interpret' launched kernels: {plain['launches']}")
+    check(cuda["stats"]["requests"] == 8
+          and cuda["calls"]["tokens"] == 8 * LM_NEW,
+          f"stats {cuda['stats']}, {cuda['calls']['tokens']} new tokens")
+
+    # prefill logits of the first batch on both attention engines
+    S, toks, _ = lm_batches(cuda["reqs"])[0]
+    prompt = torch.as_tensor(toks[:, :S], device=dev)
+    logits = {}
+    with torch.no_grad():
+        for backend in ("cuda", "interpret"):
+            cache = init_cache(cfg, LM_SLOTS, LM_MAX_SEQ, device=dev)
+            logits[backend] = forward(
+                params, cfg, tokens=prompt, mode="prefill", caches=cache,
+                logits_slice_last=True, backend=backend)[0].float()
+    logit_err = max_abs(logits["cuda"], logits["interpret"])
+
+    # tokens against the plain path, and against teacher forcing
+    first_diff, agree, tf_misses = [], [], []
+    for (S, toks, group), (_, ptoks, pgroup) in zip(
+            lm_batches(cuda["reqs"]), lm_batches(plain["reqs"])):
+        x = torch.as_tensor(toks[:, :-1], device=dev)
+        with torch.no_grad():
+            tf = {b: forward(params, cfg, tokens=x, mode="train",
+                             backend=b)[0][:, S - 1:].float()
+                  for b in ("cuda", "interpret")}
+        pred = tf["cuda"].argmax(-1)
+        for j, (r, pr) in enumerate(zip(group, pgroup)):
+            out = torch.as_tensor(r.out, device=dev)
+            agree.append(float((pred[j] == out).float().mean()))
+            row = tf["cuda"][j]
+            for t in torch.nonzero(pred[j] != out).flatten().tolist():
+                tf_misses.append(float(row[t, pred[j, t]] - row[t, out[t]]))
+            diff = np.flatnonzero(np.asarray(r.out) != np.asarray(pr.out))
+            if diff.size:
+                t = int(diff[0])
+                row = tf["interpret"][j, t]
+                first_diff.append({"rid": r.rid, "step": t, "margin": float(
+                    row[pr.out[t]] - row[r.out[t]])})
+    tm = cuda["calls"]
+    emit({"phase": "path_lm_serve", "arch": LM_ARCH,
+          "params": cfg.param_count(), "batch_slots": LM_SLOTS,
+          "max_seq": LM_MAX_SEQ, "prompt_lens": [len(r.prompt)
+                                                 for r in cuda["reqs"]],
+          "max_new_tokens": LM_NEW, "backend": engines["cuda"].backend,
+          "launches": cuda["launches"]["flash_attention"],
+          "prefill_calls": tm["prefill_calls"],
+          "decode_calls": tm["decode_calls"],
+          "prefill_ms": 1e3 * tm["prefill_s"] / tm["prefill_calls"],
+          "decode_ms_per_step": 1e3 * tm["decode_s"] / tm["decode_calls"],
+          "tok_per_s": cuda["stats"]["tok_per_s"],
+          "wall_s": cuda["stats"]["wall_s"],
+          "peak_gb": cuda["peak_gb"],
+          "interpret": {
+              "prefill_ms": 1e3 * plain["calls"]["prefill_s"]
+              / plain["calls"]["prefill_calls"],
+              "decode_ms_per_step": 1e3 * plain["calls"]["decode_s"]
+              / plain["calls"]["decode_calls"],
+              "tok_per_s": plain["stats"]["tok_per_s"]},
+          "prefill_logit_err": logit_err, "logit_tol": LM_LOGIT_TOL,
+          "requests_differing": len(first_diff), "first_diffs": first_diff,
+          "teacher_forcing_agree": float(np.mean(agree)),
+          "teacher_forcing_agree_by_request": agree,
+          "teacher_forcing_miss_margins": tf_misses,
+          "nvidia_smi": nvidia_smi()})
+    check(logit_err <= LM_LOGIT_TOL,
+          f"prefill logits differ by {logit_err} > {LM_LOGIT_TOL}")
+    for d in first_diff:
+        check(abs(d["margin"]) <= 2 * LM_LOGIT_TOL,
+              f"request {d['rid']}: tokens first differ at step "
+              f"{d['step']} with a margin of {d['margin']}")
+    check(all(m <= 2 * LM_LOGIT_TOL for m in tf_misses),
+          f"decode misses teacher forcing outside the margin: {tf_misses}")
+    check(np.mean(agree) >= LM_AGREE,
+          f"decode against teacher forcing agrees on {np.mean(agree)}")
+    return cuda["launches"]
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -2277,6 +2636,9 @@ KERNELS = (
      "src/repro/kernels/fused_mlp/kernel.py:59"),
     ("fused_dag", "src/repro_torch/kernels/fused_mlp/csrc/fused_dag.cu",
      "src/repro/kernels/fused_mlp/kernel.py:158"),
+    ("flash_attention",
+     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:35"),
 )
 # the timing row of each kernel in the kernels line (K5, K6: the AD
 # widths; the full-width rows ride along under "full_width")
@@ -2325,6 +2687,8 @@ def main() -> int:
         dag_times = dag_timing(dev)
         err.update(kernels_check_multi(dev))
         multi_times = multi_timing(dev)
+        err.update(kernels_check_lm(dev))
+        lm_times = kernels_time_lm(dev)
         split_action_table_phase(dev)
         mitigated_counts = []
         by_path = {
@@ -2338,6 +2702,7 @@ def main() -> int:
             "path_dag": path_dag_phase(dev),
         }
         by_path["path_two_table"], _ = path_two_table_phase(dev)
+        by_path["path_lm_serve"] = path_lm_serve(dev)
         launches = {k: sum(p[k] for p in by_path.values())
                     for k, _, _ in KERNELS}
         for path, want in (("path_flow_ddos", ("fused_flow_serve",
@@ -2357,7 +2722,8 @@ def main() -> int:
                            ("path_two_table", ("fused_flow_serve",
                                                "flow_update",
                                                "fused_mlp_classify",
-                                               "mat_lut_classify"))):
+                                               "mat_lut_classify")),
+                           ("path_lm_serve", ("flash_attention",))):
             for k in want:
                 check(by_path[path][k] > 0, f"{k} never launched on {path}")
         telemetry_phase(dev, mitigated_counts)
@@ -2381,6 +2747,7 @@ def main() -> int:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
     kernels = []
+    times["flash_attention"] = lm_times["prefill_512"]
     for name, source, replaces in KERNELS:
         tm = (dag_times[name][MAIN_CONFIG[name]] if name in MAIN_CONFIG
               else times[name])
@@ -2389,9 +2756,17 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": tm["ms"],
             "kernel_ms": tm["kernel_ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
-            "bound_by": tm["bound"][1], "library_ms": None,
+            "bound_by": tm["bound"][1],
+            "library_ms": tm.get("library_ms"),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
         }
+        if name == "flash_attention":
+            entry["shapes"] = {
+                cfg: {"shape": m["shape"], "q_offset": m["q_offset"],
+                      "ms": m["ms"], "kernel_ms": m["kernel_ms"],
+                      "plain_ms": m["plain_ms"], "library_ms": m["library_ms"],
+                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
+                for cfg, m in lm_times.items()}
         if name in FULL_CONFIG:
             full = dag_times[name][FULL_CONFIG[name]]
             entry["full_width"] = {

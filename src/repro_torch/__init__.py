@@ -12,12 +12,16 @@ module has a named counterpart:
                    and ``chaining.compile_dag``
   ``kernels/``     hand-written CUDA C++ kernels (``csrc/``) beside their
                    plain PyTorch versions (``ref.py``)
-  ``serve/``       ``PacketServeEngine``
+  ``serve/``       ``PacketServeEngine``; the LM ``ServeEngine`` and its
+                   prefill/decode steps
+  ``configs/``     ``ModelConfig`` and the dense LM family's configs
+  ``models/``      the LM stack: layers, attention and KV caches, the
+                   decoder forward, the parameter registry
   ``telemetry/``   the serving engine's observability plane (numpy only)
   ``data/``        seeded packet streams and datasets (numpy only)
-  ``convert.py``   carries stage lists, register state, DAGs and named
-                   pipelines across from the reference package without
-                   importing it
+  ``convert.py``   carries stage lists, register state, DAGs, named
+                   pipelines and LM parameter trees across from the
+                   reference package without importing it
 
 Device rule: every entry point takes ``device`` (default ``"cuda"``) and
 raises when CUDA is asked for and no GPU exists.  A kernel op launches its

@@ -9,7 +9,8 @@ serve pipelines the reference compiler generated.  ``state_from_numpy`` /
 files) across as numpy arrays, and ``mitigation_from_numpy`` /
 ``mitigation_to_numpy`` the action table.
 ``dag_from_reference`` and ``pipelines_from_reference`` carry a model
-DAG and the pipelines it names.
+DAG and the pipelines it names; ``lm_params_from_reference`` an LM's
+parameter tree.
 """
 
 from __future__ import annotations
@@ -188,3 +189,35 @@ def mitigation_to_numpy(state) -> tuple[np.ndarray, np.ndarray]:
     """-> (mit_keys [Sm] int32, mit_regs [Sm, 2] f32) on the host."""
     return (state.mit_keys.cpu().numpy().astype(np.int32),
             state.mit_regs.cpu().numpy().astype(np.float32))
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones too, by their bits) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def lm_params_from_reference(params, *, device="cuda") -> dict:
+    """The reference's scan-stacked LM parameter tree (numpy leaves:
+    ``embed``, ``final_norm`` and the ``[L, ...]`` leaves under
+    ``decoder/slot0``) -> the port's tree (``models.transformer``), dtypes
+    and layouts kept, so every value is a copy.  Layer l's tensors are
+    views of the stacked tensors."""
+    dev = resolve_device(device)
+
+    def tree(t):
+        return {k: tree(v) if isinstance(v, dict) else _tensor(v, dev)
+                for k, v in t.items()}
+
+    def layer(t, i):
+        return {k: layer(v, i) if isinstance(v, dict) else v[i]
+                for k, v in t.items()}
+
+    stacked = tree(params["decoder"]["slot0"])
+    n_layers = len(next(iter(stacked["ln1"].values())))
+    return {"embed": tree(params["embed"]),
+            "final_norm": tree(params["final_norm"]),
+            "layers": [layer(stacked, i) for i in range(n_layers)]}

@@ -28,13 +28,15 @@ SOURCES = (
     _PKG / "fused_mlp" / "csrc" / "fused_dag.cu",
     _PKG / "fused_flow" / "csrc" / "fused_flow.cu",
     _PKG / "mat_lut" / "csrc" / "mat_lut.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 )
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 # launches per kernel wrapper, counted where each wrapper launches its
 # kernel and nowhere else (chip_smoke.py reads them around the main path)
 LAUNCHES = {"fused_flow_serve": 0, "flow_update": 0, "fused_mlp_classify": 0,
-            "mat_lut_classify": 0, "fused_mlp": 0, "fused_dag": 0}
+            "mat_lut_classify": 0, "fused_mlp": 0, "fused_dag": 0,
+            "flash_attention": 0}
 
 _EXT = None
 

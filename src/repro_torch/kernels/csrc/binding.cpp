@@ -9,6 +9,8 @@
 #include <c10/cuda/CUDAStream.h>
 #include <pybind11/stl.h>
 
+#include <climits>
+#include <cmath>
 #include <vector>
 
 #include "rt_types.h"
@@ -322,6 +324,53 @@ void fused_flow_serve_multi(std::vector<at::Tensor> tables, at::Tensor valid,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K7: o = attention(q, k, v) over the first skv keys; the wrapper has
+// checked the shapes, dtypes, contiguity and alignment.
+void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
+                     int64_t skv, int64_t q_offset, bool causal,
+                     int64_t window) {
+  c10::cuda::CUDAGuard guard(q.device());
+  const bool bf16 = q.scalar_type() == at::kBFloat16;
+  TORCH_CHECK(bf16 || q.scalar_type() == at::kFloat,
+              "K7 takes bf16 or f32 operands");
+  TORCH_CHECK(k.scalar_type() == q.scalar_type() &&
+                  v.scalar_type() == q.scalar_type() &&
+                  o.scalar_type() == q.scalar_type(),
+              "q, k, v and o must share one dtype");
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && v.sizes() == k.sizes() &&
+                  o.sizes() == q.sizes(),
+              "q, o [B, Sq, H, D]; k, v [B, Skv, K, D]");
+  TORCH_CHECK(q.is_contiguous() && k.is_contiguous() && v.is_contiguous() &&
+                  o.is_contiguous(),
+              "K7 takes contiguous tensors");
+  const int64_t D = q.size(3);
+  TORCH_CHECK(k.size(0) == q.size(0) && k.size(3) == D,
+              "q and k differ in batch or head width");
+  TORCH_CHECK(k.size(2) >= 1 && q.size(2) % k.size(2) == 0,
+              "query heads must group over the kv heads");
+  TORCH_CHECK(skv >= 1 && skv <= k.size(1), "skv outside 1..Skv");
+  TORCH_CHECK(q.size(0) <= 65535 && q.size(2) <= 65535,
+              "batch and heads index the grid's y and z");
+  TORCH_CHECK(q_offset >= 0 && window >= 0 &&
+                  q_offset + q.size(1) < INT_MAX && k.size(1) < INT_MAX,
+              "positions must fit an int");
+  FlashArgs a;
+  a.B = (int)q.size(0);
+  a.Sq = (int)q.size(1);
+  a.Skv = (int)k.size(1);
+  a.H = (int)q.size(2);
+  a.K = (int)k.size(2);
+  a.skv = (int)skv;
+  a.q_offset = (int)q_offset;
+  a.causal = causal ? 1 : 0;
+  a.window = (int)window;
+  a.scale = (float)(1.0 / std::sqrt((double)D));
+  C10_CUDA_CHECK(launch_flash_attention(q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), o.data_ptr(), a,
+                                        (int)D, bf16 ? 1 : 0, stream_of(q)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -336,4 +385,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "[+ mitigation]");
   m.def("mat_lut_classify", &mat_lut_classify,
         "K4: MAT quantize + LUT sum + arg-reduce + LabelMap");
+  m.def("flash_attention", &flash_attention,
+        "K7: online-softmax attention (causal, window, GQA, q offset)");
 }

@@ -111,6 +111,18 @@ struct MitArgs {
   int attack_class, drop; // drop: 1 = "drop", 0 = "rate_limit"
 };
 
+// K7 flash attention: q [B, Sq, H, D], k and v [B, Skv, K, D] (H % K ==
+// 0), o like q; keys at positions >= skv are masked; the query at row i
+// sits at position q_offset + i.
+struct FlashArgs {
+  int B, Sq, Skv, H, K;
+  int skv;
+  int q_offset;
+  int causal;             // 1: kv_pos <= q_pos
+  int window;             // > 0: kv_pos > q_pos - window
+  float scale;            // 1 / sqrt(D), rounded once from double
+};
+
 cudaError_t launch_flow_update(const FlowArgs& a, float* feats,
                                cudaStream_t stream);
 cudaError_t launch_fused_mlp_classify(const float* x, int B,
@@ -139,3 +151,8 @@ cudaError_t launch_fused_flow_multi(const TableArgs* tables, int nt,
                                     float* z, int n_in, const SuffixArgs& s,
                                     int* verdicts, const MitArgs* mit,
                                     cudaStream_t stream);
+// K7: D in {16, 32, 64, 128}; bf16 1 takes __nv_bfloat16 operands, 0 f32.
+cudaError_t launch_flash_attention(const void* q, const void* k,
+                                   const void* v, void* o,
+                                   const FlashArgs& a, int D, int bf16,
+                                   cudaStream_t stream);

@@ -1,0 +1,55 @@
+"""Layer primitives (counterpart of ``repro.models.layers``): RMSNorm,
+RoPE, the MLPs and the tied or untied embedding.  Parameters are plain
+dicts of tensors with the reference's names and layouts; each function
+keeps the reference's expression order and compute dtypes."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In f32, times ``scale``, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * p["scale"]).to(dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x [..., S, H, Dh]; positions broadcastable to [..., S].  Rotates
+    the two halves of each head (not interleaved pairs), in f32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)         # [Dh/2]
+    angles = positions[..., None].to(torch.float32) * freqs  # [..., S, Dh/2]
+    cos = torch.cos(angles)[..., None, :]           # [..., S, 1, Dh/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """SwiGLU (``act="silu"``: wg, wu, wd) or the biased two-projection
+    MLP with the tanh-approximated gelu (jax.nn.gelu's default)."""
+    if act == "silu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    h = F.gelu((x @ p["wi"]) + p["bi"].to(x.dtype), approximate="tanh")
+    return (h @ p["wd"]) + p["bd"].to(x.dtype)
+
+
+def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids.long()]
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if "unembed" in p:
+        return x @ p["unembed"]
+    return x @ p["table"].T

@@ -1,0 +1,115 @@
+"""Model registry (counterpart of ``repro.models.registry``): parameter
+and cache shapes, the parameter count, and seeded initialisation.
+
+``param_defs`` gives, for one layer and for the embedding and final norm,
+each tensor's shape, its reference dtype and its init kind — the
+``ParamDef`` kinds of ``repro.common.pytree``: ``normal`` (x 0.02),
+``scaled`` (by fan-in: the second-to-last dim, as the reference's stacked
+tree has it), ``ones`` and ``zeros``.  ``init_params`` draws them from a
+``torch.Generator``; its bits differ from the reference's (the tests
+carry the reference's weights across instead).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.transformer import decoder_layout
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _attn_defs(cfg: ModelConfig) -> dict:
+    d, H, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    defs = {"wq": ((d, H, Dh), BF16, "scaled"),
+            "wk": ((d, K, Dh), BF16, "scaled"),
+            "wv": ((d, K, Dh), BF16, "scaled"),
+            "wo": ((H, Dh, d), BF16, "scaled")}
+    if cfg.use_qkv_bias:
+        defs.update(bq=((H, Dh), F32, "zeros"), bk=((K, Dh), F32, "zeros"),
+                    bv=((K, Dh), F32, "zeros"))
+    if cfg.use_qk_norm:
+        defs.update(q_norm=((Dh,), F32, "ones"), k_norm=((Dh,), F32, "ones"))
+    return defs
+
+
+def _mlp_defs(d: int, d_ff: int, act: str) -> dict:
+    if act == "silu":
+        return {"wg": ((d, d_ff), BF16, "scaled"),
+                "wu": ((d, d_ff), BF16, "scaled"),
+                "wd": ((d_ff, d), BF16, "scaled")}
+    return {"wi": ((d, d_ff), BF16, "scaled"), "bi": ((d_ff,), F32, "zeros"),
+            "wd": ((d_ff, d), BF16, "scaled"), "bd": ((d,), F32, "zeros")}
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    """{"embed", "final_norm", "layer"} -> {name: (shape, dtype, init)};
+    "layer" is one decoder layer's tree (there are ``num_layers``)."""
+    decoder_layout(cfg)
+    d = cfg.d_model
+    emb = {"table": ((cfg.vocab_size, d), BF16, "normal")}
+    if not cfg.tie_embeddings:
+        emb["unembed"] = ((d, cfg.vocab_size), BF16, "scaled")
+    norm = {"scale": ((d,), F32, "ones")}
+    return {"embed": emb, "final_norm": norm,
+            "layer": {"ln1": dict(norm), "attn": _attn_defs(cfg),
+                      "ln2": dict(norm),
+                      "ffn": _mlp_defs(d, cfg.d_ff, cfg.act)}}
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def param_count(cfg: ModelConfig) -> int:
+    defs = param_defs(cfg)
+    n = lambda t: sum(math.prod(s) for s, _, _ in _leaves(t))  # noqa: E731
+    return (n(defs["embed"]) + n(defs["final_norm"])
+            + cfg.num_layers * n(defs["layer"]))
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The decode cache's tree of (shape, dtype)."""
+    n_layers, _ = decoder_layout(cfg)
+    return {"slot0": {"kv": attn.cache_defs(cfg, batch, max_seq, n_layers)}}
+
+
+def _init_one(shape, init: str, dtype, generator, device) -> torch.Tensor:
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=generator, dtype=F32, device=device)
+    if init == "normal":
+        return (x * 0.02).to(dtype)
+    if init == "scaled":
+        fan_in = shape[-2] if len(shape) >= 2 else max(shape[0], 1)
+        return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+    raise ValueError(f"unknown init {init!r}")
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+                device="cuda", dtype=BF16) -> dict:
+    """Seeded parameters on ``device``: tensors of rank >= 2 in ``dtype``,
+    1-D scales and biases in f32 (as ``cast_for_compute`` leaves them).
+    ``generator`` must live on ``device``."""
+    dev = resolve_device(device)
+    defs = param_defs(cfg)
+
+    def make(tree):
+        return {k: make(v) if isinstance(v, dict) else _init_one(
+            v[0], v[2], dtype if len(v[0]) >= 2 else F32, generator, dev)
+            for k, v in tree.items()}
+
+    return {"embed": make(defs["embed"]),
+            "final_norm": make(defs["final_norm"]),
+            "layers": [make(defs["layer"]) for _ in range(cfg.num_layers)]}

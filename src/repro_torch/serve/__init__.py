@@ -1,1 +1,1 @@
-"""Packet-serving engine."""
+"""Serving engines: packets (``packet_engine``) and the LM (``engine``)."""

@@ -2,7 +2,9 @@
 ``repro.serve.packet_engine.PacketServeEngine``) over one compiled
 program: a stateful ``flowstate.StatefulPipeline``, a
 ``chaining.CompiledDag``, a ``stageir.CompiledStages`` or anything with a
-stateless ``.stages`` list (compiled by ``compile_stages``).
+stateless ``.stages`` list (compiled by ``compile_stages``) — or a bare
+``[n, F] -> verdicts`` callable, served as given (``state=`` makes it
+``(state, X, valid) -> (state, verdicts)``), as the reference serves one.
 
 Incoming packets are cut into batches of a FIXED shape ``max_batch``;
 ragged tails are padded with zero rows and their verdicts are sliced
@@ -165,6 +167,50 @@ class _InFlight:
     mitigated: bool = False        # served by a pipeline with Mitigate
 
 
+class _Callable:
+    """A bare callable served as given: it has no stage list to lower, so
+    it reports ``"interpret"``, as the reference's engine reports one.
+    It gets the host batch as a CPU tensor (``.numpy()`` views it without
+    a copy) and may return numpy or a tensor on any device."""
+
+    backend = "interpret"
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def dispatch(self, *args):
+        """(X) -> verdicts, or (state, X, valid) -> (state, verdicts)."""
+        out = self.fn(*args)
+        if len(args) == 1:
+            return _verdicts(out)
+        state, out = out
+        return state, _verdicts(out)
+
+
+def _verdicts(out) -> torch.Tensor:
+    return out if isinstance(out, torch.Tensor) \
+        else torch.as_tensor(np.asarray(out))
+
+
+def _is_program(pipeline) -> bool:
+    """A program the port compiles (as opposed to a bare callable)."""
+    return hasattr(pipeline, "with_backend") or hasattr(pipeline, "stages")
+
+
+def _bare(fn, backend: str | None) -> _Callable:
+    """A bare callable for the engine.  The reference degrades any
+    requested backend to serving it as given; the port serves it so for
+    None and "interpret" and refuses "cuda", which it cannot honour
+    without a stage list (no quiet fallback)."""
+    if backend == "cuda":
+        raise ValueError("backend='cuda' lowers a stage list onto the "
+                         "port's kernels; a bare callable has none (serve "
+                         "it with backend=None or 'interpret')")
+    if backend not in (None, *stageir.EXEC_BACKENDS):
+        raise KeyError(f"backend must be one of {stageir.EXEC_BACKENDS}")
+    return _Callable(fn)
+
+
 def _stateless(pipeline, backend: str | None, device: torch.device):
     """A stateless program compiled for ``backend`` (None: as it was
     asked) on ``device``, as it is when neither differs: a ``CompiledDag``
@@ -178,10 +224,6 @@ def _stateless(pipeline, backend: str | None, device: torch.device):
     if isinstance(pipeline, stageir.CompiledStages) and backend is None \
             and pipeline.device == device:
         return pipeline
-    if not hasattr(pipeline, "stages"):
-        raise TypeError("the port serves a StatefulPipeline, a CompiledDag, "
-                        "a CompiledStages or a pipeline with .stages; got "
-                        f"{type(pipeline).__name__}")
     return stageir.compile_stages(
         pipeline.stages, fuse=getattr(pipeline, "fuse", True),
         backend=backend or getattr(pipeline, "requested_backend",
@@ -189,10 +231,12 @@ def _stateless(pipeline, backend: str | None, device: torch.device):
 
 
 class PacketServeEngine:
-    """Micro-batching front end over one compiled program.
+    """Micro-batching front end over one compiled program or a bare
+    callable.
 
     ``backend`` (``"interpret"`` | ``"cuda"``) recompiles the pipeline for
-    that engine (a ``StatefulPipeline`` keeps its ``fuse`` flag);
+    that engine (a ``StatefulPipeline`` keeps its ``fuse`` flag; a bare
+    callable is served as given and refuses ``"cuda"``);
     ``device`` (default ``"cuda"``) is where it serves — a pipeline built
     for another device is recompiled for this one.  ``state`` resumes an
     existing register file of a stateful pipeline (on the card the engine
@@ -210,7 +254,7 @@ class PacketServeEngine:
                  backend: str | None = None, state=None, depth: int = 2,
                  device="cuda", telemetry=None):
         dev = resolve_device(device)
-        self._stateful = hasattr(pipeline, "init_state")
+        self._stateful = state is not None or hasattr(pipeline, "init_state")
         self.device = dev
         self.pipeline = self._compiled(pipeline, backend)
         self.backend = self.pipeline.backend
@@ -336,7 +380,8 @@ class PacketServeEngine:
         """Take the pipeline's first FlowKey (table 0's) so the batch
         segmentation can be recomputed from the host rows."""
         self._tel_flowkey = None
-        if self._tel is None or not self._stateful:
+        if self._tel is None or not self._stateful \
+                or not hasattr(pipeline, "spec"):
             return
         fk = next((s for s in pipeline.stages
                    if isinstance(s, stageir.FlowKey)), None)
@@ -425,7 +470,9 @@ class PacketServeEngine:
 
     def _compiled(self, pipeline, backend):
         """``pipeline`` compiled for this engine's device (and ``backend``
-        when given)."""
+        when given); a bare callable as given."""
+        if not _is_program(pipeline):
+            return _bare(pipeline, backend)
         if not self._stateful:
             return _stateless(pipeline, backend, self.device)
         if backend is not None or pipeline.device != self.device:

@@ -1,0 +1,49 @@
+"""Serving steps (counterpart of ``repro.serve.steps``): prefill, which
+fills the KV cache and returns each row's first greedy token, and the
+one-token decode step."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import registry
+from repro_torch.models.transformer import forward
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device="cuda") -> dict:
+    """A zeroed cache tree on ``device``."""
+    dev = resolve_device(device)
+    return {slot: {kind: {name: torch.zeros(shape, dtype=dt, device=dev)
+                          for name, (shape, dt) in leaves.items()}
+                   for kind, leaves in tree.items()}
+            for slot, tree in registry.cache_defs(cfg, batch,
+                                                  max_seq).items()}
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The first maximal index, as jnp.argmax."""
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig, backend: str = "cuda"):
+    def prefill_step(params, cache, batch):
+        logits, new_cache, _ = forward(
+            params, cfg, tokens=batch["tokens"], mode="prefill",
+            caches=cache, logits_slice_last=True, backend=backend)
+        return _greedy(logits), new_cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, backend: str = "cuda"):
+    def decode_step(params, cache, tokens, index: int):
+        """tokens [B, 1]; index: the new token's position."""
+        logits, new_cache, _ = forward(
+            params, cfg, tokens=tokens, mode="decode", index=index,
+            caches=cache, logits_slice_last=True, backend=backend)
+        return _greedy(logits), new_cache
+
+    return decode_step

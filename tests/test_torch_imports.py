@@ -26,7 +26,9 @@ assert not bad, bad
 assert len(names) >= 20, names
 assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.data.netdata", "repro_torch.telemetry",
-        "repro_torch.telemetry.flow_health"} <= set(names), names
+        "repro_torch.telemetry.flow_health",
+        "repro_torch.models.transformer", "repro_torch.serve.engine",
+        "repro_torch.kernels.flash_attention"} <= set(names), names
 """
 
 
@@ -46,8 +48,19 @@ def test_cuda_entry_points_raise_without_a_gpu():
     from repro_torch.data import traffic
     from repro_torch.flowstate import StatefulPipeline
     from repro_torch.flowstate.registers import init_state
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_launch,
+    )
+    from repro_torch.models.registry import init_params
+    from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.packet_engine import PacketServeEngine
+    from repro_torch.serve.steps import init_cache
 
+    cfg = get_smoke_config("qwen3-1.7b")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
     stages, _ = traffic.flow_feature_stages(n_slots=64)
     for make in (
         lambda: StatefulPipeline(list(stages), backend="cuda"),
@@ -57,6 +70,18 @@ def test_cuda_entry_points_raise_without_a_gpu():
             StatefulPipeline(list(stages), device="cpu"), feature_dim=4),
         lambda: stageir.compile_stages([stageir.Reduce("argmax")]),
         lambda: chaining.compile_dag(Model("a") > Model("b"), {}),
+        lambda: ServeEngine(cfg, params),
+        lambda: init_cache(cfg, 1, 8),
+        lambda: init_params(cfg, generator=torch.Generator()),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+    # K7 on tensors made for the default device "cuda": torch refuses to
+    # make them; on CPU tensors the launch wrapper refuses, never falling
+    # back to the plain version
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        flash_attention(*[torch.zeros(1, 4, 2, 16, device="cuda")] * 3)
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_launch(q, q, q, causal=True, window=0, q_offset=0,
+                               skv=4)

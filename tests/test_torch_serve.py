@@ -355,8 +355,11 @@ def test_stateless_engine_rejects_wrong_width_and_serves_logits(dag_case):
                                   dag_case["tp"]["ad"](dag_case["X"][:70]))
     assert {(tuple(t.shape), t.dtype) for t in eng._out_staging} \
         == {((64,), torch.int32)}
-    with pytest.raises(TypeError, match="stages"):
-        PacketServeEngine(lambda x: x, feature_dim=D_FEAT, device="cpu")
+    # a bare callable serves as given; backend="cuda" has no stage list
+    # to lower and is refused, never quietly served plain
+    with pytest.raises(ValueError, match="stage list"):
+        PacketServeEngine(lambda x: x, feature_dim=D_FEAT, backend="cuda",
+                          device="cpu")
 
 
 def test_stateless_swap_at_the_ring_boundary(dag_case):
@@ -401,3 +404,102 @@ def test_swap_refuses_a_change_of_statefulness(case, dag_case):
     with pytest.raises(ValueError, match="engine is stateful"):
         seng.swap(dag)
     assert not eng.swap_pending and not seng.swap_pending
+
+
+# ------------------------------------------------- bare callables, as the
+# reference serves them (tests/test_packet_engine.py,
+# tests/test_hot_swap.py)
+
+OLD_TAG, NEW_TAG = 0, 1_000_000
+
+
+def _tagged(n, start=0):
+    out = np.zeros((n, 2), np.float32)
+    out[:, 0] = np.arange(start, start + n)
+    return out
+
+
+def test_bare_callable_verdicts_survive_buffer_reuse():
+    """A callable returning a VIEW of its input keeps the verdicts it
+    already returned when the staging ring is reused, and reports
+    interpret, as the reference's engine does."""
+    for backend in (None, "interpret"):
+        eng = PacketServeEngine(lambda x: x[:, 0], feature_dim=2,
+                                max_batch=8, depth=2, backend=backend,
+                                device="cpu")
+        jeng = JEngine(lambda x: x[:, 0], feature_dim=2, max_batch=8,
+                       depth=2, backend=backend)
+        assert eng.backend == jeng.backend == "interpret"
+        eng.submit(_tagged(40))            # 5 batches > ring size (depth+1)
+        first = eng.flush()
+        np.testing.assert_array_equal(first, np.arange(40))
+        eng.submit(np.full((16, 2), 777.0, np.float32))
+        eng.flush()
+        np.testing.assert_array_equal(first, np.arange(40))
+        assert eng.stats()["backend_batches"] == {"interpret": 7}
+    with pytest.raises(KeyError, match="backend"):
+        PacketServeEngine(lambda x: x[:, 0], feature_dim=2, backend="pallas",
+                          device="cpu")
+
+
+def test_bare_callable_may_return_numpy_or_a_tensor():
+    X = _tagged(21)
+    outs = []
+    for fn in (lambda x: x.numpy()[:, 0].astype(np.int32),
+               lambda x: x[:, 0].to(torch.int32)):
+        eng = PacketServeEngine(fn, feature_dim=2, max_batch=8,
+                                device="cpu")
+        eng.submit(X)
+        outs.append(eng.flush())
+    jeng = JEngine(lambda x: x[:, 0].astype(np.int32), feature_dim=2,
+                   max_batch=8)
+    jeng.submit(X)
+    ref = jeng.flush()
+    for out in outs:
+        assert out.dtype == np.int32
+        np.testing.assert_array_equal(out, ref)
+
+
+def test_swap_between_bare_callables_lands_at_the_boundary():
+    """One swap between two callables mid-stream: verdicts before the
+    recorded boundary are the old callable's, after it the new one's,
+    and none is dropped."""
+    old = lambda x: x[:, 0].to(torch.int32) + OLD_TAG  # noqa: E731
+    new = lambda x: x[:, 0].to(torch.int32) + NEW_TAG  # noqa: E731
+    eng = PacketServeEngine(old, feature_dim=2, max_batch=7, depth=3,
+                            device="cpu")
+    eng.submit(_tagged(30))
+    got = [eng.flush()]
+    eng.swap(new)
+    assert eng.swap_pending
+    eng.submit(_tagged(25, start=30))
+    got.append(eng.flush())
+    verdicts = np.concatenate(got)
+    assert len(verdicts) == 55 and eng.stats_.swaps == 1
+    off = eng.stats_.swap_pkt_offsets[0]
+    assert off == 30
+    tags = np.arange(55)
+    np.testing.assert_array_equal(verdicts[:off], tags[:off] + OLD_TAG)
+    np.testing.assert_array_equal(verdicts[off:], tags[off:] + NEW_TAG)
+    assert eng.backend == "interpret"
+    with pytest.raises(ValueError, match="stage list"):
+        eng.swap(new, backend="cuda")
+
+
+def test_bare_callable_threads_state_like_the_reference():
+    """``state=`` makes a callable ``(state, X, valid) -> (state,
+    verdicts)``: padding rows arrive with valid 0, and the state threads
+    through every batch in order, as in the reference's engine."""
+    def count(st, X, valid):
+        return st + int(np.asarray(valid).sum()), np.asarray(X)[:, 0] * 2
+
+    X = _tagged(29)
+    eng = PacketServeEngine(count, feature_dim=2, max_batch=8, state=5,
+                            device="cpu", telemetry=False)
+    jeng = JEngine(count, feature_dim=2, max_batch=8, state=5,
+                   telemetry=False)
+    for e in (eng, jeng):
+        e.submit(X)
+    np.testing.assert_array_equal(eng.flush(), jeng.flush())
+    assert eng.state == jeng.state == 5 + 29
+    assert eng.stats()["pad_packets"] == jeng.stats()["pad_packets"] == 3
