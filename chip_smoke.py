@@ -106,7 +106,9 @@ Slice 5 adds LM serving on the dense family: ``kernels_check_lm`` (K7
 shapes B = 4, S = 512 and 2,048, H = 16 over K = 8, D = 128, bf16,
 causal; decode Sq = 1 against 1,024 keys at q_offset 0, 511 and 1,023;
 ragged S = 1,000 with windows 256 and 4,096; G = 12; D = 16, 32 and 64;
-f32; within 1e-5 in f32 and 8e-3 of the output's scale in bf16),
+f32; the Jamba-1.5-Large shapes H = 64 over K = 8 at S = 512 and 192
+and decode at q_offset 255 and 543; within 1e-5 in f32 and 8e-3 of the
+output's scale in bf16),
 ``kernels_time_lm`` (K7's wrapper and device time at the path's shapes
 beside its plain version, ``scaled_dot_product_attention`` on the same
 inputs as ``library_ms``, and its bound) and ``path_lm_serve``
@@ -114,6 +116,21 @@ inputs as ``library_ms``, and its bound) and ``path_lm_serve``
 weights, 4 slots, 8 requests of 32 new tokens, K7 launched 28 x (prefill
 + decode calls) times; against ``backend="interpret"`` and against
 teacher forcing).
+
+Slice 6 adds hybrid LM serving: ``kernels_check_scan`` (K8
+``selective_scan`` against its plain version at the Jamba path's shapes
+B = 4, di = 16,384, N = 16 at S = 512, 256, 192 and 1 with a random h0,
+with uniform and with realistic dA = exp(dt * A); N = 8 at di = 128; S =
+3; y and h_final within 1e-5 * (1 + |plain|)), ``kernels_time_scan`` (K8
+at prefill S = 512 and decode S = 1 beside its plain version and its
+bound; no PyTorch call computes the scan) and ``path_hybrid_serve``
+(``ServeEngine`` with Jamba-1.5-Large at full width, one 8-layer period,
+experts 0-7 of 16, seeded bf16 weights: four 512-token prompts with 32
+new tokens, then four of 160-192 tokens with 64; K8 launched 7 x (2 +
+96) = 686 times and K7 98; in bf16 the period's Mamba, attention and MoE
+blocks against their plain versions on the path's own input; in f32,
+experts 0-1, against ``backend="interpret"`` and round 2 against teacher
+forcing on a drop-free rerun).
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -953,10 +970,9 @@ def path_phase(dev, name: str, n_slots: int, batches, fuses, n_packets,
     launches = dict(_ext.LAUNCHES)
     torch.cuda.synchronize()
     # one K1 launch per fused batch; one K2 + one K3 per split batch
-    check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
-                       "fused_mlp_classify": n_split, "mat_lut_classify": 0,
-                       "fused_mlp": 0, "fused_dag": 0,
-                       "flash_attention": 0},
+    check(launches == dict.fromkeys(_ext.LAUNCHES, 0) | {
+              "fused_flow_serve": n_fused, "flow_update": n_split,
+              "fused_mlp_classify": n_split},
           f"{name}: launches {launches} != batches "
           f"(fused {n_fused}, split {n_split})")
     emit({"phase": name, "n_slots": n_slots, "n_packets": n_packets,
@@ -1058,10 +1074,9 @@ def mat_path_phase(dev, name: str, mitigated: bool, batches=(256, 512),
                                                    for r in runs)))
     launches = dict(_ext.LAUNCHES)
     torch.cuda.synchronize()
-    check(launches == {"fused_flow_serve": n_fused, "flow_update": n_split,
-                       "fused_mlp_classify": 0, "mat_lut_classify": n_split,
-                       "fused_mlp": 0, "fused_dag": 0,
-                       "flash_attention": 0},
+    check(launches == dict.fromkeys(_ext.LAUNCHES, 0) | {
+              "fused_flow_serve": n_fused, "flow_update": n_split,
+              "mat_lut_classify": n_split},
           f"{name}: launches {launches} != batches "
           f"(fused {n_fused}, split {n_split})")
     report = traffic.reaction_report(stream, iv)
@@ -2333,7 +2348,9 @@ def k7_inputs(dev, B, Sq, Skv, H, K, D, dtype, seed):
 # name, B, Sq, Skv, H, K, D, dtype, causal, window, q_offset, skv (None:
 # Skv): the Qwen3-1.7B prefill and decode shapes, ragged rows with a
 # window, starcoder2's G = 12, the smoke width D = 16, every D instance
-# and f32
+# and f32, and the Jamba-1.5-Large shapes of path_hybrid_serve (64 query
+# heads over 8 KV heads: prefills at S = 512 and 192, decode at the last
+# index of each round)
 K7_CASES = (
     ("prefill_512", 4, 512, 512, 16, 8, 128, "bfloat16", True, 0, 0, None),
     ("prefill_2048", 4, 2048, 2048, 16, 8, 128, "bfloat16", True, 0, 0,
@@ -2352,6 +2369,14 @@ K7_CASES = (
     ("d32_f32", 2, 65, 97, 8, 2, 32, "float32", False, 8, 5, None),
     ("d64_f32", 2, 200, 300, 4, 4, 64, "float32", True, 0, 100, None),
     ("prefill_512_f32", 2, 512, 512, 16, 8, 128, "float32", True, 0, 0,
+     None),
+    ("jamba_prefill_512", 4, 512, 512, 64, 8, 128, "bfloat16", True, 0, 0,
+     None),
+    ("jamba_prefill_192", 4, 192, 192, 64, 8, 128, "bfloat16", True, 0, 0,
+     None),
+    ("jamba_decode_255", 4, 1, 1024, 64, 8, 128, "bfloat16", True, 0, 255,
+     None),
+    ("jamba_decode_543", 4, 1, 1024, 64, 8, 128, "bfloat16", True, 0, 543,
      None),
 )
 
@@ -2462,20 +2487,63 @@ def lm_requests(vocab: int):
 
 
 def lm_batches(reqs):
-    """The engine's lockstep batches: [4, S] left-padded prompts followed
-    by each request's tokens."""
+    """The engine's lockstep batches: (S, [4, S + new] left-padded
+    prompts followed by each request's tokens, the requests)."""
     import numpy as np
 
     out = []
     for i in range(0, len(reqs), LM_SLOTS):
         group = reqs[i:i + LM_SLOTS]
         S = max(len(r.prompt) for r in group)
-        toks = np.zeros((LM_SLOTS, S + LM_NEW), np.int32)
+        new = max(r.max_new_tokens for r in group)
+        toks = np.zeros((LM_SLOTS, S + new), np.int32)
         for j, r in enumerate(group):
             toks[j, S - len(r.prompt):S] = r.prompt
-            toks[j, S:] = r.out
+            toks[j, S:S + len(r.out)] = r.out
         out.append((S, toks, group))
     return out
+
+
+def serve_both(cfg, params, make_requests, max_steps: int, dev,
+               experts=None) -> dict:
+    """The requests of ``make_requests(vocab)`` through ``ServeEngine`` on
+    ``backend="cuda"`` and on ``"interpret"`` (a warm-up request first),
+    the launch counts set to 0 just before each ``run`` and read just
+    after.  -> {backend: stats (tok/s without the warm-up), launches,
+    calls, requests, the engine's backend name, peak GB}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _ext
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    runs = {}
+    for backend in ("cuda", "interpret"):
+        eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                          max_seq=LM_MAX_SEQ, backend=backend, device=dev,
+                          experts=experts)
+        eng.submit(Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
+                           max_new_tokens=2))
+        eng.run()                                   # warm-up
+        before = dict(eng.timing, tokens=eng.tokens_out)
+        reqs = make_requests(cfg.vocab_size)
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _ext.reset_launches()
+        stats = eng.run(max_steps=max_steps)
+        torch.cuda.synchronize()
+        launches = dict(_ext.LAUNCHES)
+        calls = {k: v - before[k] for k, v in
+                 dict(eng.timing, tokens=eng.tokens_out).items()}
+        # the engine's token count and tok/s include the warm-up's
+        stats["tok_per_s"] = calls["tokens"] / stats["wall_s"]
+        runs[backend] = dict(
+            stats=stats, launches=launches, calls=calls, reqs=reqs,
+            backend=eng.backend,
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return runs
 
 
 def path_lm_serve(dev):
@@ -2499,41 +2567,15 @@ def path_lm_serve(dev):
     import torch
 
     from repro_torch import configs
-    from repro_torch.kernels import _ext
     from repro_torch.models.registry import init_params
     from repro_torch.models.transformer import forward
-    from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.steps import init_cache
 
     cfg = configs.get_config(LM_ARCH)
     params = init_params(cfg, generator=torch.Generator(device=dev)
                          .manual_seed(LM_SEED), device=dev,
                          dtype=torch.bfloat16)
-    engines, runs = {}, {}
-    for backend in ("cuda", "interpret"):
-        eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
-                          max_seq=LM_MAX_SEQ, backend=backend, device=dev)
-        eng.submit(Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
-                           max_new_tokens=2))
-        eng.run()                                   # warm-up
-        before = dict(eng.timing, tokens=eng.tokens_out)
-        reqs = lm_requests(cfg.vocab_size)
-        for r in reqs:
-            eng.submit(r)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        _ext.reset_launches()
-        stats = eng.run(max_steps=2 * LM_NEW)
-        torch.cuda.synchronize()
-        launches = dict(_ext.LAUNCHES)
-        calls = {k: v - before[k] for k, v in
-                 dict(eng.timing, tokens=eng.tokens_out).items()}
-        # the engine's token count and tok/s include the warm-up's
-        stats["tok_per_s"] = calls["tokens"] / stats["wall_s"]
-        engines[backend] = eng
-        runs[backend] = dict(stats=stats, launches=launches, calls=calls,
-                             reqs=reqs, peak_gb=torch.cuda.max_memory_allocated(
-                                 dev) / 1e9)
+    runs = serve_both(cfg, params, lm_requests, 2 * LM_NEW, dev)
     cuda, plain = runs["cuda"], runs["interpret"]
     n_calls = cuda["calls"]["prefill_calls"] + cuda["calls"]["decode_calls"]
     check(cuda["launches"]["flash_attention"] == cfg.num_layers * n_calls,
@@ -2587,7 +2629,7 @@ def path_lm_serve(dev):
           "params": cfg.param_count(), "batch_slots": LM_SLOTS,
           "max_seq": LM_MAX_SEQ, "prompt_lens": [len(r.prompt)
                                                  for r in cuda["reqs"]],
-          "max_new_tokens": LM_NEW, "backend": engines["cuda"].backend,
+          "max_new_tokens": LM_NEW, "backend": cuda["backend"],
           "launches": cuda["launches"]["flash_attention"],
           "prefill_calls": tm["prefill_calls"],
           "decode_calls": tm["decode_calls"],
@@ -2621,6 +2663,582 @@ def path_lm_serve(dev):
     return cuda["launches"]
 
 
+# ---------------------------------------- slice 6: hybrid LM serving (K8)
+
+K8_INSTANCE = "selective_scan_kernel<{N}>"
+# K8 against its plain version: within 1e-5 x (1 + |plain|).  h is the
+# same f32 products and sums in the same order (no FMA on either side),
+# so it matches bit for bit; y sums its N products in another order
+K8_TOL = 1e-5
+# name, B, S, di, N, h0 (nonzero random or zero), dA ("uniform":
+# exp(-U(0, 2)); "dt": exp(dt * A), dt = softplus(N(0, 1)), A = -(1..N))
+K8_CASES = (
+    ("prefill_512", 4, 512, 16384, 16, "random", "uniform"),
+    ("prefill_256", 4, 256, 16384, 16, "random", "uniform"),
+    ("prefill_192", 4, 192, 16384, 16, "random", "dt"),
+    ("decode_1", 4, 1, 16384, 16, "random", "uniform"),
+    ("prefill_512_dt", 4, 512, 16384, 16, "random", "dt"),
+    ("decode_1_dt", 4, 1, 16384, 16, "random", "dt"),
+    ("smoke_n8", 2, 64, 128, 8, "random", "dt"),
+    ("odd_s3", 1, 3, 16384, 16, "zero", "uniform"),
+    ("odd_s3_n8_di100", 1, 3, 100, 8, "random", "dt"),
+)
+# the timed shapes: the path's prefill (B = 4, S = 512) and decode step
+K8_TIMED = (("prefill_512", 4, 512, 16384, 16), ("decode_1", 4, 1, 16384, 16))
+
+# path_hybrid_serve: Jamba-1.5-Large at every published width, one
+# 8-layer period (one of the deployment's 9 pipeline stages), experts
+# 0-7 of 16 (expert parallelism ep = 2: this card's share)
+HY_ARCH, HY_LAYERS, HY_EXPERTS = "jamba-1.5-large-398b", 8, range(0, 8)
+# the f32 run's share: f32 weights take 4 bytes, so 2 experts of each MoE
+# layer fit beside the rest of the period (45.7 GB)
+HY_F32_EXPERTS = range(0, 2)
+HY_SEED = 0
+# round 1: four 512-token prompts, 32 new tokens; round 2: four prompts
+# of 160-192 tokens (left-padded to 192), 64 new tokens.  Both prefills
+# take the reference's length rules (Mamba: S % min(256, S) == 0; MoE:
+# B * S <= 256 or a multiple of 256), and so does round 2's teacher-
+# forced forward over 192 + 64 = 256 positions
+HY_ROUNDS = ((512, 512, 32), (160, 192, 64))
+
+
+def hybrid_config():
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(HY_ARCH),
+                               num_layers=HY_LAYERS)
+
+
+def scan_inputs(dev, B, S, di, N, h0_kind, dA_kind, seed):
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    if dA_kind == "dt":
+        dt = F.softplus(randn(B, S, di, 1))
+        dA = torch.exp(dt * -torch.arange(1, N + 1, device=dev,
+                                          dtype=torch.float32))
+    else:
+        dA = torch.exp(-2.0 * torch.rand((B, S, di, N), generator=g,
+                                         device=dev))
+    h0 = randn(B, di, N) if h0_kind == "random" else torch.zeros(
+        (B, di, N), device=dev)
+    return dA.contiguous(), randn(B, S, di, N), randn(B, S, N), h0
+
+
+def k8_bound(B, S, di, N):
+    """dA and dBx read once, C and h0 read once, y and h_final written
+    once, over the HBM rate; 4 f32 operations per (t, d, n) (the step's
+    multiply and add, the readout's product and sum) over 67 TFLOP/s."""
+    moved = 4 * (2 * B * S * di * N + B * S * N + 2 * B * di * N
+                 + B * S * di)
+    return bound(moved, 4.0 * B * S * di * N)
+
+
+def kernels_check_scan(dev):
+    """K8 against its plain version (``selective_scan_ref``) on the card
+    at every case of ``K8_CASES``: y and h_final within ``K8_TOL`` x (1 +
+    |plain|).  -> {"selective_scan": max abs error over the cases}."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_launch,
+        selective_scan_ref,
+    )
+
+    rows, worst = [], 0.0
+    for i, (name, B, S, di, N, h0_kind, dA_kind) in enumerate(K8_CASES):
+        args = scan_inputs(dev, B, S, di, N, h0_kind, dA_kind, 100 + i)
+        y, h = selective_scan_launch(*args)
+        want_y, want_h = selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        check(y.shape == (B, S, di) and h.shape == (B, di, N),
+              f"K8 {name}: outputs {tuple(y.shape)}, {tuple(h.shape)}")
+        errs = {}
+        for part, got, want in (("y", y, want_y), ("h_final", h, want_h)):
+            diff = (got - want).abs()
+            errs[part] = float(diff.max())
+            check(bool((diff <= K8_TOL * (1 + want.abs())).all()),
+                  f"K8 {name}: {part} max abs {errs[part]} beyond "
+                  f"{K8_TOL} x (1 + |plain|)")
+        worst = max(worst, *errs.values())
+        rows.append({"case": name, "shape": [B, S, di, N], "h0": h0_kind,
+                     "dA": dA_kind, "max_abs_err": errs,
+                     "max_abs_y": float(want_y.abs().max())})
+        del args, y, h, want_y, want_h
+    emit({"phase": "kernels_check_scan", "tol": K8_TOL, "cases": rows})
+    return {"selective_scan": worst}
+
+
+def kernels_time_scan(dev):
+    """K8 at the hybrid path's shapes: prefill B = 4, S = 512 and one
+    decode step S = 1, di = 16,384, N = 16.  Wrapper ms over 50 calls
+    (CUDA events), device ms (profiler), the plain version's ms and the
+    bound; no single PyTorch call computes the scan, so ``library_ms`` is
+    null.  -> {config: numbers}."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_launch,
+        selective_scan_ref,
+    )
+
+    out = {}
+    for name, B, S, di, N in K8_TIMED:
+        args = scan_inputs(dev, B, S, di, N, "random", "dt", 7)
+        k8 = lambda: selective_scan_launch(*args)  # noqa: E731
+        seen = kernel_device_ms({K8_INSTANCE.format(N=N): k8})
+        out[name] = dict(
+            ms=time_ms(k8, TIMED_LAUNCHES), **kernel_fields(seen.popitem()[1]),
+            plain_ms=time_ms(lambda: selective_scan_ref(*args), 5),
+            library_ms=None, bound=k8_bound(B, S, di, N),
+            shape=[B, S, di, N])
+        del args
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_time_scan", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
+def hybrid_requests(vocab: int):
+    """Round 1 then round 2 of ``HY_ROUNDS``, four requests each, seeded:
+    the first three prompts of a round draw their lengths, the last takes
+    the round's longest."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(HY_SEED + 1)
+    reqs = []
+    for lo, hi, new in HY_ROUNDS:
+        lens = [int(n) for n in rng.integers(lo, hi + 1, LM_SLOTS - 1)]
+        for n in lens + [hi]:
+            reqs.append(Request(rid=len(reqs), prompt=rng.integers(
+                0, vocab, n).astype(np.int32), max_new_tokens=new))
+    return reqs
+
+
+def replay_logits(params, cfg, toks, S, n, backend, experts, dev):
+    """The serving path's last-position logits along given tokens: a
+    prefill of toks[:, :S], then n - 1 decode steps fed toks[:, S + t] ->
+    [n, B, V] f32 (step t's logits choose token S + t)."""
+    import torch
+
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.steps import init_cache
+
+    cache = init_cache(cfg, LM_SLOTS, LM_MAX_SEQ, device=dev)
+    x = torch.as_tensor(toks, device=dev)
+    kw = dict(caches=cache, logits_slice_last=True, backend=backend,
+              experts=experts)
+    out = []
+    with torch.no_grad():
+        out.append(forward(params, cfg, tokens=x[:, :S], mode="prefill",
+                           **kw)[0][:, -1].float())
+        for t in range(n - 1):
+            out.append(forward(params, cfg, tokens=x[:, S + t:S + t + 1],
+                               mode="decode", index=S + t,
+                               **kw)[0][:, -1].float())
+    return torch.stack(out)
+
+
+def prefill_logits(params, cfg, toks, backend, experts, dev):
+    """-> (last-position logits [B, V] f32, MoE aux) of a prefill."""
+    import torch
+
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.steps import init_cache
+
+    x = torch.as_tensor(toks, device=dev)
+    cache = init_cache(cfg, x.shape[0], LM_MAX_SEQ, device=dev)
+    with torch.no_grad():
+        lg, _, aux = forward(params, cfg, tokens=x, mode="prefill",
+                             caches=cache, logits_slice_last=True,
+                             backend=backend, experts=experts)
+    return lg[:, -1].float(), aux
+
+
+def first_diffs(params, cfg, reqs, preqs, experts, dev):
+    """Each request whose served tokens differ from the plain path's: the
+    first differing step and the plain path's own logit margin there
+    between its token and the served one (its logits along its tokens,
+    ``replay_logits``)."""
+    import numpy as np
+
+    out = []
+    for (S, _, group), (_, ptoks, pgroup) in zip(lm_batches(reqs),
+                                                 lm_batches(preqs)):
+        diffs = [np.flatnonzero(np.asarray(r.out) != np.asarray(pr.out))
+                 for r, pr in zip(group, pgroup)]
+        if not any(d.size for d in diffs):
+            continue
+        n = 1 + max(int(d[0]) for d in diffs if d.size)
+        lg = replay_logits(params, cfg, ptoks, S, n, "interpret", experts,
+                           dev)
+        for j, (r, pr, d) in enumerate(zip(group, pgroup, diffs)):
+            if d.size:
+                t = int(d[0])
+                out.append({"rid": r.rid, "step": t, "margin": float(
+                    lg[t, j, pr.out[t]] - lg[t, j, r.out[t]])})
+    return out
+
+
+def teacher_forcing(params, cfg, reqs, experts, dev) -> dict:
+    """One lockstep batch of served requests against a teacher-forced
+    forward over its prompts and new tokens: per request the share of
+    new tokens equal to that forward's argmax, each miss with the
+    forward's margin between its argmax and the served token, and the
+    forward's MoE drop fraction (summed over the layers)."""
+    import torch
+
+    from repro_torch.models.transformer import forward
+
+    (S, toks, group), = lm_batches(reqs)
+    with torch.no_grad():
+        tf, _, aux = forward(params, cfg, tokens=torch.as_tensor(
+            toks, device=dev), mode="train", backend="cuda",
+            experts=experts)
+    tf = tf[:, S - 1:-1].float()
+    pred = tf.argmax(-1)
+    agree, misses = [], []
+    for j, r in enumerate(group):
+        out = torch.as_tensor(r.out, device=dev)
+        agree.append(float((pred[j] == out).float().mean()))
+        for t in torch.nonzero(pred[j] != out).flatten().tolist():
+            misses.append({"rid": r.rid, "step": t, "margin": float(
+                tf[j, t, pred[j, t]] - tf[j, t, out[t]])})
+    return {"agree": agree, "misses": misses,
+            "drop_frac_sum": float(aux["moe_drop_frac"])}
+
+
+def hybrid_serve(cfg, params, experts, dev) -> dict:
+    """Both rounds through ``serve_both``: K8 must launch once per Mamba
+    mixer per call, K7 once per call, nothing else; the plain path
+    nothing; every request gets its tokens, in the vocabulary."""
+    from repro_torch.kernels import _ext
+
+    n_mamba = cfg.attn_period - 1
+    n_new = sum(new for _, _, new in HY_ROUNDS)
+    runs = serve_both(cfg, params, hybrid_requests, n_new, dev, experts)
+    cuda, plain = runs["cuda"], runs["interpret"]
+    n_calls = cuda["calls"]["prefill_calls"] + cuda["calls"]["decode_calls"]
+    want = dict.fromkeys(_ext.LAUNCHES, 0) | {
+        "selective_scan": n_mamba * n_calls, "flash_attention": n_calls}
+    check(cuda["launches"] == want,
+          f"path_hybrid_serve launched {cuda['launches']}, not {want}")
+    check(sum(plain["launches"].values()) == 0,
+          f"backend='interpret' launched kernels: {plain['launches']}")
+    for run in runs.values():
+        check(run["stats"]["requests"] == 2 * LM_SLOTS
+              and run["calls"]["tokens"] == LM_SLOTS * n_new
+              and all(len(r.out) == r.max_new_tokens
+                      and 0 <= min(r.out) <= max(r.out) < cfg.vocab_size
+                      for r in run["reqs"]),
+              f"stats {run['stats']}, {run['calls']['tokens']} tokens")
+    return runs
+
+
+def run_fields(runs) -> dict:
+    cuda, plain = runs["cuda"], runs["interpret"]
+    tm, pm = cuda["calls"], plain["calls"]
+    return {"backend": cuda["backend"],
+            "launches": {k: v for k, v in cuda["launches"].items() if v},
+            "prefill_calls": tm["prefill_calls"],
+            "decode_calls": tm["decode_calls"],
+            "prefill_ms": 1e3 * tm["prefill_s"] / tm["prefill_calls"],
+            "decode_ms_per_step": 1e3 * tm["decode_s"] / tm["decode_calls"],
+            "tok_per_s": cuda["stats"]["tok_per_s"],
+            "wall_s": cuda["stats"]["wall_s"], "peak_gb": cuda["peak_gb"],
+            "interpret": {
+                "prefill_ms": 1e3 * pm["prefill_s"] / pm["prefill_calls"],
+                "decode_ms_per_step": 1e3 * pm["decode_s"]
+                / pm["decode_calls"],
+                "tok_per_s": plain["stats"]["tok_per_s"]}}
+
+
+def block_input(params, cfg, layer: int, norm: str, toks, dev):
+    """The path's own input to one block of ``layer``: the tokens
+    embedded and normed by its ``norm`` ("ln1" before the mixer, "ln2"
+    before the FFN)."""
+    import torch
+
+    from repro_torch.models.layers import embed, rmsnorm
+
+    p = params["layers"][layer]
+    x = torch.as_tensor(toks, device=dev)
+    return rmsnorm(p[norm], embed(params["embed"], x), cfg.norm_eps)
+
+
+def bf16_close(got, want, what: str) -> float:
+    """Finite, and within ``K7_TOL["bfloat16"]`` of max(1, |plain|), as
+    K7's bf16 cases: one bf16 step of each value (the attention outputs
+    reach 32 and more, the reference's init scaling wk and wv by their
+    K dim) -> the max abs difference."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    err = float(d.max())
+    check(bool(torch.isfinite(got).all()) and bool(
+        (d <= K7_TOL["bfloat16"] * want.float().abs().clamp_min(1.0)).all()),
+        f"{what}: differs from its plain version by {err}")
+    return err
+
+
+def mamba_block_check(params, cfg, toks, dev) -> dict:
+    """Layer 0's Mamba mixer on K8 against its plain scan: a prefill of
+    toks[:, :-1], then one decode step from each one's state; outputs by
+    ``bf16_close``, states within ``K8_TOL`` x (1 + |plain|), the conv
+    state exact."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    p = params["layers"][0]["mamba"]
+    h = block_input(params, cfg, 0, "ln1", toks, dev)
+    errs, states = {}, {}
+    with torch.no_grad():
+        for step, hx in (("prefill", h[:, :-1]), ("decode", h[:, -1:])):
+            out = {b: ssm.mamba_apply(p, hx, cfg, state=states.get(b),
+                                      return_state=True, backend=b)
+                   for b in ("cuda", "interpret")}
+            (o, st), (po, pst) = out["cuda"], out["interpret"]
+            states = {b: out[b][1] for b in out}
+            dh = (st["h"] - pst["h"]).abs()
+            check(bool((dh <= K8_TOL * (1 + pst["h"].abs())).all())
+                  and torch.equal(st["conv"], pst["conv"]),
+                  f"Mamba block {step}: states differ by {float(dh.max())}")
+            errs[step] = {"out": bf16_close(o, po, f"Mamba block {step}"),
+                          "h": float(dh.max())}
+    return errs
+
+
+def attention_block_check(params, cfg, toks, dev) -> dict:
+    """Layer P // 2's attention on K7 against plain attention: the causal
+    prefill of toks[:, :-1], then one decode step at index S against the
+    [B, max_seq] cache that prefill wrote, as the engine calls them; the
+    attention outputs (before the output projection) by
+    ``bf16_close``."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.serve.steps import init_cache
+
+    i = cfg.attn_period // 2
+    p = params["layers"][i]["attn"]
+    h = block_input(params, cfg, i, "ln1", toks, dev)
+    B, S = h.shape[0], h.shape[1] - 1
+    kv = {name: t[0] for name, t in init_cache(
+        cfg, B, LM_MAX_SEQ, device=dev)[f"slot{i}"]["kv"].items()}
+    with torch.no_grad():
+        pos = torch.arange(S, device=dev)
+        q = attn.project_q(p, h[:, :S], cfg, pos)
+        k, v = attn.project_kv(p, h[:, :S], cfg, pos)
+        pre = {b: attn.prefill_attention(q, k, v, backend=b)
+               for b in ("cuda", "interpret")}
+        attn.cache_update_tree(kv, k, v, 0)
+        q = attn.project_q(p, h[:, S:], cfg, pos[-1:] + 1)
+        k, v = attn.project_kv(p, h[:, S:], cfg, pos[-1:] + 1)
+        attn.cache_update_tree(kv, k, v, S)
+        dec = {b: attn.decode_attention_tree(q, kv, S, backend=b)
+               for b in ("cuda", "interpret")}
+    return {"prefill": bf16_close(pre["cuda"], pre["interpret"],
+                                  "attention block prefill"),
+            "decode": bf16_close(dec["cuda"], dec["interpret"],
+                                 "attention block decode")}
+
+
+def moe_block_check(params, cfg, toks, experts, dev) -> dict:
+    """Layer 0's MoE FFN (``moe_apply``: capacity dispatch, the held
+    experts' batched SwiGLU, combine) against a plain gather: each held
+    expert's SwiGLU on the tokens its routing keeps, weighted by their
+    gates and summed in f32, by ``bf16_close``, over the prefill's
+    tokens toks[:, :-1].  The routing is the layer's own ``route``, held
+    to the reference's on the CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    p = params["layers"][0]["ffn"]
+    x = block_input(params, cfg, 0, "ln2", toks[:, :-1], dev)
+    B, S, d = x.shape
+    T, k = B * S, cfg.num_experts_per_tok
+    lo, hi = moe.expert_range(experts, cfg.num_experts)
+    with torch.no_grad():
+        got, aux = moe.moe_apply(p, x, cfg, experts=experts)
+        g = min(moe.GROUP_SIZE, T)
+        r = moe.route(p["router"], x.reshape(T // g, g, d), cfg)
+        ids, keep = r["experts"].reshape(T, k), r["keep"].reshape(T, k)
+        gates, xt = r["gates"].reshape(T, k), x.reshape(T, d)
+        want = torch.zeros((T, d), dtype=torch.float32, device=dev)
+        for e in range(lo, hi):
+            tok, slot = torch.nonzero((ids == e) & keep, as_tuple=True)
+            xe = xt[tok]
+            y = (F.silu(xe @ p["wg"][e - lo]) * (xe @ p["wu"][e - lo])
+                 ) @ p["wd"][e - lo]
+            want.index_add_(0, tok, gates[tok, slot, None] * y.float())
+    return {"out": bf16_close(got, want.to(x.dtype).reshape(B, S, d),
+                              "MoE block"),
+            "drop_frac": float(aux["moe_drop_frac"]),
+            "held_slots": int(((ids >= lo) & (ids < hi) & keep).sum())}
+
+
+def path_hybrid_serve(dev):
+    """``ServeEngine`` with Jamba-1.5-Large at every published width
+    (d_model 8,192, 64 query heads over 8 KV heads of 128, d_ff 24,576,
+    d_inner 16,384, d_state 16, d_conv 4, dt_rank 512, vocab 65,536, 16
+    experts top-2), one 8-layer period (7 Mamba mixers, attention at
+    slot 4, MoE at slots 0, 2, 4, 6), weights from ``torch.Generator``
+    seed 0, batch_slots 4, max_seq 1,024, the two rounds of ``HY_ROUNDS``
+    in one ``run`` per engine (``hybrid_serve``: K8 7 x (2 + 96) = 686
+    launches, K7 98), twice:
+
+    * bf16 with experts 0-7 (the deployment's share of a card, the main
+      path the kernels line counts): timings and peak memory.  With
+      seeded weights at this width one bf16 rounding flip anywhere
+      moves the logits by O(1) (the reference's init gives attention
+      scores a spread near 360 without QK-norm, so near-ties decide
+      which key a query takes, and MoE routing has near-ties too), so
+      no end-to-end gate holds in bf16.  The gates are per block, on
+      the path's own input (round 1's prompts embedded and normed, B =
+      4, S = 512, then one decode step): layer 0's Mamba mixer on K8
+      against its plain scan, layer 4's attention on K7 against plain
+      attention, layer 0's MoE FFN against a plain per-expert gather.
+      The logits against ``backend="interpret"``, tokens and teacher
+      forcing are reported.
+    * f32 with experts 0-1 (f32 weights take 45.7 GB): the same rounds,
+      where the plain path's gates hold: each round's prefill logits
+      within ``LM_LOGIT_TOL`` of ``interpret``; each request's tokens the
+      same, or first differing where the plain path's own logits along
+      its tokens put the two within 2 x ``LM_LOGIT_TOL``; round 2 against
+      a teacher-forced forward over its 192 + 64 = 256 positions.  The
+      MoE capacity drops depend on the grouping, so that gate holds a
+      rerun of round 2 with no drop possible (``capacity_factor`` = E /
+      k): agreement on at least ``LM_AGREE`` of the positions, each miss
+      where the forward's top two lie within 2 x ``LM_LOGIT_TOL``; at
+      the published capacity the agreement is reported.
+
+    The phase line is printed before the gates that follow the runs.
+    -> the bf16 run's launches per kernel."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = hybrid_config()
+    report, gates = {}, []
+    for dtype, experts in ((torch.bfloat16, HY_EXPERTS),
+                           (torch.float32, HY_F32_EXPERTS)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params = init_params(cfg, generator=torch.Generator(device=dev)
+                             .manual_seed(HY_SEED), device=dev, dtype=dtype,
+                             experts=experts)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        runs = hybrid_serve(cfg, params, experts, dev)
+        rep = dict(experts=[experts.start, experts.stop - 1],
+                   weights_gb=sum(x.numel() * x.element_size()
+                                  for x in _leaves(params)) / 1e9,
+                   init_s=init_s, **run_fields(runs))
+        batches = lm_batches(runs["cuda"]["reqs"])
+        errs, drops = [], {}
+        for i, (S, toks, _) in enumerate(batches):
+            lg, aux = prefill_logits(params, cfg, toks[:, :S], "cuda",
+                                     experts, dev)
+            plg, _ = prefill_logits(params, cfg, toks[:, :S], "interpret",
+                                    experts, dev)
+            check(bool(torch.isfinite(lg).all()), "non-finite logits")
+            errs.append(max_abs(lg, plg))
+            drops[f"prefill_round_{i + 1}"] = float(aux["moe_drop_frac"])
+        rep["prefill_logit_err"] = errs
+        diffs = first_diffs(params, cfg, runs["cuda"]["reqs"],
+                            runs["interpret"]["reqs"], experts, dev)
+        rep["requests_differing"], rep["first_diffs"] = len(diffs), diffs
+        published = teacher_forcing(params, cfg, runs["cuda"]["reqs"][
+            LM_SLOTS:], experts, dev)
+        rep["published_capacity"] = {
+            "capacity_factor": cfg.capacity_factor,
+            "teacher_forcing_agree": float(np.mean(published["agree"])),
+            "teacher_forcing_miss_margins": [
+                m["margin"] for m in published["misses"]],
+            "moe_drop_frac_sum": dict(
+                drops, teacher_forcing=published["drop_frac_sum"])}
+        if dtype == torch.bfloat16:
+            main_launches = runs["cuda"]["launches"]
+            S, toks, _ = batches[0]
+            toks = toks[:, :S + 1]
+            rep["block_err"] = {
+                "mamba": mamba_block_check(params, cfg, toks, dev),
+                "attention": attention_block_check(params, cfg, toks, dev),
+                "moe": moe_block_check(params, cfg, toks, experts, dev)}
+        else:
+            free = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts
+                / cfg.num_experts_per_tok)
+            eng = ServeEngine(free, params, batch_slots=LM_SLOTS,
+                              max_seq=LM_MAX_SEQ, backend="cuda", device=dev,
+                              experts=experts)
+            free_reqs = hybrid_requests(cfg.vocab_size)[LM_SLOTS:]
+            for r in free_reqs:
+                eng.submit(r)
+            eng.run(max_steps=HY_ROUNDS[1][2])
+            del eng
+            tf = teacher_forcing(params, free, free_reqs, experts, dev)
+            rep["teacher_forcing"] = {
+                "capacity_factor": free.capacity_factor,
+                "agree": float(np.mean(tf["agree"])),
+                "agree_by_request": tf["agree"], "misses": tf["misses"],
+                "moe_drop_frac_sum": tf["drop_frac_sum"]}
+            gates += [
+                (max(errs) <= LM_LOGIT_TOL,
+                 f"f32 prefill logits differ by {errs} > {LM_LOGIT_TOL}"),
+                (all(abs(d["margin"]) <= 2 * LM_LOGIT_TOL for d in diffs),
+                 f"f32 tokens first differ outside the margin: {diffs}"),
+                (all(m["margin"] <= 2 * LM_LOGIT_TOL for m in tf["misses"]),
+                 f"decode misses teacher forcing outside the margin: "
+                 f"{tf['misses']}"),
+                (np.mean(tf["agree"]) >= LM_AGREE,
+                 f"decode against teacher forcing agrees on "
+                 f"{np.mean(tf['agree'])}")]
+        report["bf16" if dtype == torch.bfloat16 else "f32"] = rep
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "path_hybrid_serve", "arch": HY_ARCH,
+          "num_layers": cfg.num_layers, "batch_slots": LM_SLOTS,
+          "max_seq": LM_MAX_SEQ,
+          "prompt_lens": [len(r.prompt) for r in hybrid_requests(
+              cfg.vocab_size)],
+          "max_new_tokens": [new for _, _, new in HY_ROUNDS],
+          "logit_tol": LM_LOGIT_TOL, **report, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
+    return main_launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -2639,6 +3257,9 @@ KERNELS = (
     ("flash_attention",
      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention/kernel.py:35"),
+    ("selective_scan",
+     "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+     "src/repro/kernels/selective_scan/kernel.py:35"),
 )
 # the timing row of each kernel in the kernels line (K5, K6: the AD
 # widths; the full-width rows ride along under "full_width")
@@ -2689,6 +3310,8 @@ def main() -> int:
         multi_times = multi_timing(dev)
         err.update(kernels_check_lm(dev))
         lm_times = kernels_time_lm(dev)
+        err.update(kernels_check_scan(dev))
+        scan_times = kernels_time_scan(dev)
         split_action_table_phase(dev)
         mitigated_counts = []
         by_path = {
@@ -2703,6 +3326,7 @@ def main() -> int:
         }
         by_path["path_two_table"], _ = path_two_table_phase(dev)
         by_path["path_lm_serve"] = path_lm_serve(dev)
+        by_path["path_hybrid_serve"] = path_hybrid_serve(dev)
         launches = {k: sum(p[k] for p in by_path.values())
                     for k, _, _ in KERNELS}
         for path, want in (("path_flow_ddos", ("fused_flow_serve",
@@ -2723,7 +3347,9 @@ def main() -> int:
                                                "flow_update",
                                                "fused_mlp_classify",
                                                "mat_lut_classify")),
-                           ("path_lm_serve", ("flash_attention",))):
+                           ("path_lm_serve", ("flash_attention",)),
+                           ("path_hybrid_serve", ("selective_scan",
+                                                  "flash_attention"))):
             for k in want:
                 check(by_path[path][k] > 0, f"{k} never launched on {path}")
         telemetry_phase(dev, mitigated_counts)
@@ -2748,6 +3374,7 @@ def main() -> int:
         return 1
     kernels = []
     times["flash_attention"] = lm_times["prefill_512"]
+    times["selective_scan"] = scan_times["prefill_512"]
     for name, source, replaces in KERNELS:
         tm = (dag_times[name][MAIN_CONFIG[name]] if name in MAIN_CONFIG
               else times[name])
@@ -2767,6 +3394,13 @@ def main() -> int:
                       "plain_ms": m["plain_ms"], "library_ms": m["library_ms"],
                       "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
                 for cfg, m in lm_times.items()}
+        if name == "selective_scan":
+            entry["shapes"] = {
+                cfg: {"shape": m["shape"], "ms": m["ms"],
+                      "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+                      "library_ms": None, "bound_ms": m["bound"][0],
+                      "bound_by": m["bound"][1]}
+                for cfg, m in scan_times.items()}
         if name in FULL_CONFIG:
             full = dag_times[name][FULL_CONFIG[name]]
             entry["full_width"] = {

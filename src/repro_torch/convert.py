@@ -29,6 +29,7 @@ from repro_torch.flowstate.registers import (
     FlowStateSpec,
     MultiFlowState,
 )
+from repro_torch.models.moe import expert_range
 
 
 def spec_from_reference(spec) -> FlowStateSpec:
@@ -200,15 +201,22 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(dev)
 
 
-def lm_params_from_reference(params, *, device="cuda") -> dict:
+def lm_params_from_reference(params, *, device="cuda", experts=None) -> dict:
     """The reference's scan-stacked LM parameter tree (numpy leaves:
-    ``embed``, ``final_norm`` and the ``[L, ...]`` leaves under
-    ``decoder/slot0``) -> the port's tree (``models.transformer``), dtypes
-    and layouts kept, so every value is a copy.  Layer l's tensors are
-    views of the stacked tensors."""
+    ``embed``, ``final_norm`` and, per slot ``decoder/slot{i}``, leaves
+    stacked over the periods) -> the port's tree (``models.transformer``:
+    layer p * P + i is slot i of period p), dtypes and layouts kept, so
+    every value is a copy.  ``experts`` (a contiguous run of expert ids,
+    None: all) keeps only those experts' ``wg``/``wu``/``wd`` of each MoE
+    layer.  Each layer's tensors are views of its slot's stacked
+    tensors."""
     dev = resolve_device(device)
 
     def tree(t):
+        if "router" in t:          # an MoE layer: the held experts only
+            lo, hi = expert_range(experts, np.shape(t["router"])[-1])
+            t = {k: v if k == "router" else np.asarray(v)[:, lo:hi]
+                 for k, v in t.items()}
         return {k: tree(v) if isinstance(v, dict) else _tensor(v, dev)
                 for k, v in t.items()}
 
@@ -216,8 +224,9 @@ def lm_params_from_reference(params, *, device="cuda") -> dict:
         return {k: layer(v, i) if isinstance(v, dict) else v[i]
                 for k, v in t.items()}
 
-    stacked = tree(params["decoder"]["slot0"])
-    n_layers = len(next(iter(stacked["ln1"].values())))
+    dec = params["decoder"]
+    stacked = [tree(dec[f"slot{i}"]) for i in range(len(dec))]
+    n_p = len(next(iter(stacked[0]["ln1"].values())))
     return {"embed": tree(params["embed"]),
             "final_norm": tree(params["final_norm"]),
-            "layers": [layer(stacked, i) for i in range(n_layers)]}
+            "layers": [layer(s, p) for p in range(n_p) for s in stacked]}

@@ -371,6 +371,44 @@ void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K8: y, h_out = the selective scan of (dA, dBx, C, h0); the wrapper has
+// checked the shapes, dtypes, contiguity and N.
+void selective_scan(at::Tensor dA, at::Tensor dBx, at::Tensor C,
+                    at::Tensor h0, at::Tensor y, at::Tensor h_out) {
+  c10::cuda::CUDAGuard guard(dA.device());
+  for (const at::Tensor* t : {&dA, &dBx, &C, &h0, &y, &h_out}) {
+    TORCH_CHECK(t->scalar_type() == at::kFloat && t->is_contiguous(),
+                "K8 takes contiguous float32 tensors");
+  }
+  TORCH_CHECK(dA.dim() == 4 && dBx.sizes() == dA.sizes(),
+              "dA, dBx [B, S, di, N]");
+  const int64_t B = dA.size(0), S = dA.size(1), di = dA.size(2),
+                N = dA.size(3);
+  TORCH_CHECK(C.dim() == 3 && C.size(0) == B && C.size(1) == S &&
+                  C.size(2) == N,
+              "C [B, S, N]");
+  TORCH_CHECK(h0.dim() == 3 && h0.size(0) == B && h0.size(1) == di &&
+                  h0.size(2) == N && h_out.sizes() == h0.sizes(),
+              "h0, h_out [B, di, N]");
+  TORCH_CHECK(y.dim() == 3 && y.size(0) == B && y.size(1) == S &&
+                  y.size(2) == di,
+              "y [B, S, di]");
+  TORCH_CHECK(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
+              "N must be a power of two <= 32");
+  TORCH_CHECK(B <= 65535, "the batch indexes the grid's y");
+  TORCH_CHECK(S < INT_MAX && di * N < INT_MAX, "sizes must fit an int");
+  ScanArgs a;
+  a.B = (int)B;
+  a.S = (int)S;
+  a.di = (int)di;
+  a.N = (int)N;
+  C10_CUDA_CHECK(launch_selective_scan(
+      dA.data_ptr<float>(), dBx.data_ptr<float>(), C.data_ptr<float>(),
+      h0.data_ptr<float>(), y.data_ptr<float>(), h_out.data_ptr<float>(), a,
+      stream_of(dA)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -387,4 +425,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K4: MAT quantize + LUT sum + arg-reduce + LabelMap");
   m.def("flash_attention", &flash_attention,
         "K7: online-softmax attention (causal, window, GQA, q offset)");
+  m.def("selective_scan", &selective_scan,
+        "K8: the Mamba S6 recurrence (y, h_final)");
 }

@@ -123,6 +123,12 @@ struct FlashArgs {
   float scale;            // 1 / sqrt(D), rounded once from double
 };
 
+// K8 selective scan: dA and dBx [B, S, di, N], C [B, S, N], h0 and
+// h_final [B, di, N], y [B, S, di]; N a power of two <= 32.
+struct ScanArgs {
+  int B, S, di, N;
+};
+
 cudaError_t launch_flow_update(const FlowArgs& a, float* feats,
                                cudaStream_t stream);
 cudaError_t launch_fused_mlp_classify(const float* x, int B,
@@ -156,3 +162,8 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o,
                                    const FlashArgs& a, int D, int bf16,
                                    cudaStream_t stream);
+// K8: y and h_out from the f32 inputs; N in {1, 2, 4, 8, 16, 32}.
+cudaError_t launch_selective_scan(const float* dA, const float* dBx,
+                                  const float* C, const float* h0, float* y,
+                                  float* h_out, const ScanArgs& a,
+                                  cudaStream_t stream);

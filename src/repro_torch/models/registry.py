@@ -5,7 +5,8 @@ and cache shapes, the parameter count, and seeded initialisation.
 each tensor's shape, its reference dtype and its init kind — the
 ``ParamDef`` kinds of ``repro.common.pytree``: ``normal`` (x 0.02),
 ``scaled`` (by fan-in: the second-to-last dim, as the reference's stacked
-tree has it), ``ones`` and ``zeros``.  ``init_params`` draws them from a
+tree has it), ``ones``, ``zeros`` and ``ssm_a`` (Mamba's ``A_log``:
+log(1..N) in every channel).  ``init_params`` draws them from a
 ``torch.Generator``; its bits differ from the reference's (the tests
 carry the reference's weights across instead).
 """
@@ -19,6 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.transformer import decoder_layout
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -47,19 +50,31 @@ def _mlp_defs(d: int, d_ff: int, act: str) -> dict:
             "wd": ((d_ff, d), BF16, "scaled"), "bd": ((d,), F32, "zeros")}
 
 
-def param_defs(cfg: ModelConfig) -> dict:
-    """{"embed", "final_norm", "layer"} -> {name: (shape, dtype, init)};
-    "layer" is one decoder layer's tree (there are ``num_layers``)."""
-    decoder_layout(cfg)
+def _slot_defs(cfg: ModelConfig, slot, experts) -> dict:
+    norm = {"scale": ((cfg.d_model,), F32, "ones")}
+    d = {"ln1": dict(norm)}
+    if slot.mixer == "attn":
+        d["attn"] = _attn_defs(cfg)
+    else:
+        d["mamba"] = ssm_mod.mamba_defs(cfg)
+    d["ln2"] = dict(norm)
+    d["ffn"] = (moe_mod.moe_defs(cfg, experts) if slot.ffn == "moe"
+                else _mlp_defs(cfg.d_model, cfg.d_ff, cfg.act))
+    return d
+
+
+def param_defs(cfg: ModelConfig, experts=None) -> dict:
+    """{"embed", "final_norm", "slots"} -> {name: (shape, dtype, init)};
+    "slots" lists one period's layer trees, slot by slot (layer l is
+    slot l % P of period l // P).  MoE layers hold ``experts`` (None:
+    all)."""
+    _, slots = decoder_layout(cfg)
     d = cfg.d_model
     emb = {"table": ((cfg.vocab_size, d), BF16, "normal")}
     if not cfg.tie_embeddings:
         emb["unembed"] = ((d, cfg.vocab_size), BF16, "scaled")
-    norm = {"scale": ((d,), F32, "ones")}
-    return {"embed": emb, "final_norm": norm,
-            "layer": {"ln1": dict(norm), "attn": _attn_defs(cfg),
-                      "ln2": dict(norm),
-                      "ffn": _mlp_defs(d, cfg.d_ff, cfg.act)}}
+    return {"embed": emb, "final_norm": {"scale": ((d,), F32, "ones")},
+            "slots": [_slot_defs(cfg, s, experts) for s in slots]}
 
 
 def _leaves(tree: dict):
@@ -71,16 +86,21 @@ def _leaves(tree: dict):
 
 
 def param_count(cfg: ModelConfig) -> int:
+    n_p, _ = decoder_layout(cfg)
     defs = param_defs(cfg)
     n = lambda t: sum(math.prod(s) for s, _, _ in _leaves(t))  # noqa: E731
     return (n(defs["embed"]) + n(defs["final_norm"])
-            + cfg.num_layers * n(defs["layer"]))
+            + n_p * sum(n(t) for t in defs["slots"]))
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """The decode cache's tree of (shape, dtype)."""
-    n_layers, _ = decoder_layout(cfg)
-    return {"slot0": {"kv": attn.cache_defs(cfg, batch, max_seq, n_layers)}}
+    """The decode cache's tree of (shape, dtype), stacked per slot over
+    the periods."""
+    n_p, slots = decoder_layout(cfg)
+    return {f"slot{i}": ({"kv": attn.cache_defs(cfg, batch, max_seq, n_p)}
+                         if s.mixer == "attn" else
+                         {"ssm": ssm_mod.mamba_state_defs(cfg, batch, n_p)})
+            for i, s in enumerate(slots)}
 
 
 def _init_one(shape, init: str, dtype, generator, device) -> torch.Tensor:
@@ -88,22 +108,28 @@ def _init_one(shape, init: str, dtype, generator, device) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if init == "ssm_a":
+        a = torch.log(torch.arange(1, shape[-1] + 1, dtype=F32,
+                                   device=device))
+        return a.expand(shape).to(dtype).contiguous()
     x = torch.randn(shape, generator=generator, dtype=F32, device=device)
     if init == "normal":
-        return (x * 0.02).to(dtype)
+        return x.mul_(0.02).to(dtype)
     if init == "scaled":
         fan_in = shape[-2] if len(shape) >= 2 else max(shape[0], 1)
-        return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+        return x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
     raise ValueError(f"unknown init {init!r}")
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
-                device="cuda", dtype=BF16) -> dict:
+                device="cuda", dtype=BF16, experts=None) -> dict:
     """Seeded parameters on ``device``: tensors of rank >= 2 in ``dtype``,
-    1-D scales and biases in f32 (as ``cast_for_compute`` leaves them).
-    ``generator`` must live on ``device``."""
+    1-D scales and biases in f32 (as ``cast_for_compute`` leaves them);
+    MoE layers hold ``experts`` (None: all).  ``generator`` must live on
+    ``device``."""
     dev = resolve_device(device)
-    defs = param_defs(cfg)
+    defs = param_defs(cfg, experts)
+    P = len(defs["slots"])
 
     def make(tree):
         return {k: make(v) if isinstance(v, dict) else _init_one(
@@ -112,4 +138,5 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 
     return {"embed": make(defs["embed"]),
             "final_norm": make(defs["final_norm"]),
-            "layers": [make(defs["layer"]) for _ in range(cfg.num_layers)]}
+            "layers": [make(defs["slots"][l % P])
+                       for l in range(cfg.num_layers)]}

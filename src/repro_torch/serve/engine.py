@@ -8,11 +8,14 @@ lockstep: each step appends the current token to every request that
 wants more and then runs one decode call, ``min(n_new, max_steps)``
 calls per batch.  ``run`` returns the reference's stats keys.
 
-``backend="cuda"`` (the default) runs attention on K7, ``"interpret"``
-on the plain versions; ``engine.backend`` reports what served
-(``"cpu-ref"`` for K7's plain version on CPU tensors).  ``timing``
-holds the prefill and decode calls and their host-clock seconds, each
-call ending in the copy of its tokens to the host.
+``backend="cuda"`` (the default) runs attention on K7 and the Mamba
+scan on K8, ``"interpret"`` both on the plain versions;
+``engine.backend`` reports what served (``"cpu-ref"`` for the kernels'
+plain versions on CPU tensors).  ``experts`` names the experts the MoE
+layers' parameters hold (a contiguous run of ids, None: all), for a
+card that holds a share of them.  ``timing`` holds the prefill and
+decode calls and their host-clock seconds, each call ending in the copy
+of its tokens to the host.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ def _to_device(tree, dev: torch.device):
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
-                 max_seq: int = 128, backend: str = "cuda", device="cuda"):
+                 max_seq: int = 128, backend: str = "cuda", device="cuda",
+                 experts=None):
         if backend not in BACKENDS:
             raise KeyError(f"backend must be one of {BACKENDS}")
         decoder_layout(cfg)
@@ -65,8 +69,8 @@ class ServeEngine:
         self.batch = batch_slots
         self.backend = ("cpu-ref" if backend == "cuda" and dev.type == "cpu"
                         else backend)
-        self.prefill = make_prefill_step(cfg, backend)
-        self.decode = make_decode_step(cfg, backend)
+        self.prefill = make_prefill_step(cfg, backend, experts)
+        self.decode = make_decode_step(cfg, backend, experts)
         self.cache = init_cache(cfg, batch_slots, max_seq, device=dev)
         self.queue: list[Request] = []
         self.active: dict[int, Request] = {}

@@ -1,6 +1,6 @@
 """Serving steps (counterpart of ``repro.serve.steps``): prefill, which
-fills the KV cache and returns each row's first greedy token, and the
-one-token decode step."""
+fills the cache (KV and Mamba state) and returns each row's first
+greedy token, and the one-token decode step."""
 
 from __future__ import annotations
 
@@ -28,22 +28,26 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
-def make_prefill_step(cfg: ModelConfig, backend: str = "cuda"):
+def make_prefill_step(cfg: ModelConfig, backend: str = "cuda",
+                      experts=None):
     def prefill_step(params, cache, batch):
         logits, new_cache, _ = forward(
             params, cfg, tokens=batch["tokens"], mode="prefill",
-            caches=cache, logits_slice_last=True, backend=backend)
+            caches=cache, logits_slice_last=True, backend=backend,
+            experts=experts)
         return _greedy(logits), new_cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, backend: str = "cuda"):
+def make_decode_step(cfg: ModelConfig, backend: str = "cuda",
+                     experts=None):
     def decode_step(params, cache, tokens, index: int):
         """tokens [B, 1]; index: the new token's position."""
         logits, new_cache, _ = forward(
             params, cfg, tokens=tokens, mode="decode", index=index,
-            caches=cache, logits_slice_last=True, backend=backend)
+            caches=cache, logits_slice_last=True, backend=backend,
+            experts=experts)
         return _greedy(logits), new_cache
 
     return decode_step

@@ -28,7 +28,9 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.data.netdata", "repro_torch.telemetry",
         "repro_torch.telemetry.flow_health",
         "repro_torch.models.transformer", "repro_torch.serve.engine",
-        "repro_torch.kernels.flash_attention"} <= set(names), names
+        "repro_torch.kernels.flash_attention", "repro_torch.models.ssm",
+        "repro_torch.models.moe", "repro_torch.kernels.selective_scan",
+        "repro_torch.configs.jamba_1_5_large_398b"} <= set(names), names
 """
 
 
@@ -52,6 +54,10 @@ def test_cuda_entry_points_raise_without_a_gpu():
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_launch,
+    )
+    from repro_torch.kernels.selective_scan import (
+        selective_scan,
+        selective_scan_launch,
     )
     from repro_torch.models.registry import init_params
     from repro_torch.serve.engine import ServeEngine
@@ -85,3 +91,19 @@ def test_cuda_entry_points_raise_without_a_gpu():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_launch(q, q, q, causal=True, window=0, q_offset=0,
                                skv=4)
+    # K8 the same way; and the hybrid engine raises like the dense one
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        selective_scan(torch.zeros(1, 2, 4, 8, device="cuda"),
+                       torch.zeros(1, 2, 4, 8, device="cuda"),
+                       torch.zeros(1, 2, 8, device="cuda"),
+                       torch.zeros(1, 4, 8, device="cuda"))
+    a = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan_launch(a, a, torch.zeros(1, 2, 8), torch.zeros(1, 4, 8))
+    hybrid = get_smoke_config("jamba-1.5-large-398b")
+    hparams = init_params(hybrid, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    for make in (lambda: ServeEngine(hybrid, hparams),
+                 lambda: init_cache(hybrid, 1, 8)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()

@@ -52,7 +52,8 @@ from repro_torch.serve.steps import (
     make_prefill_step,
 )
 
-ARCHS = ("qwen3-1.7b", "qwen2-7b", "starcoder2-15b", "qwen1.5-32b")
+DENSE = ("qwen3-1.7b", "qwen2-7b", "starcoder2-15b", "qwen1.5-32b")
+ARCHS = DENSE + ("jamba-1.5-large-398b",)
 TOL = 1e-5
 
 
@@ -89,13 +90,23 @@ def test_dense_configs_are_the_references_field_for_field():
 
 def test_other_families_and_windows_raise_with_their_roadmap_item():
     base = configs.get_smoke_config("qwen3-1.7b")
-    for cfg in (dataclasses.replace(base, family="moe", num_experts=4),
-                dataclasses.replace(base, family="hybrid"),
+    for cfg in (dataclasses.replace(base, family="moe", num_experts=4,
+                                    sliding_window=8),
+                dataclasses.replace(base, family="moe", num_experts=4),
+                dataclasses.replace(base, family="ssm", slstm_period=8),
+                dataclasses.replace(base, family="vlm", cross_attn_period=2),
+                dataclasses.replace(base, family="encdec",
+                                    num_encoder_layers=2,
+                                    num_decoder_layers=2),
                 dataclasses.replace(base, sliding_window=8)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             decoder_layout(cfg)
         with pytest.raises(NotImplementedError):
             TR.cache_defs(cfg, 1, 8)
+    # the hybrid family serves now (tests/test_torch_hybrid.py)
+    hybrid = configs.get_smoke_config("jamba-1.5-large-398b")
+    assert decoder_layout(hybrid)[0] == 2
+    assert set(TR.cache_defs(hybrid, 1, 8)) == {f"slot{i}" for i in range(8)}
 
 
 # ----------------------------------------------------------------- layers
@@ -141,7 +152,7 @@ def _layer0(params):
     return jax.tree.map(lambda a: a[0], params["decoder"]["slot0"])
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", DENSE)
 def test_projections_match_the_reference(name):
     cfg = jax_smoke(name)
     params = pt.cast_floating(
@@ -260,7 +271,7 @@ def _assert_caches_close(jcache, tcache, tol):
             assert (np.abs(a - b) <= 2.0 ** -7 * np.abs(a) + tol).all()
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", DENSE)
 def test_forward_f32_matches_the_reference_in_every_mode(name, monkeypatch):
     cfg, params, ours = _params(name, 0)
     B, S = 2, 16
@@ -302,7 +313,7 @@ def test_forward_f32_matches_the_reference_in_every_mode(name, monkeypatch):
         _assert_caches_close(jcache2, tcache, bound)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", DENSE)
 def test_forward_bf16_matches_under_the_margin_rule(name, record_property):
     cfg, params, ours = _params(name, 0, bf16=True)
     tol = 0.02 if cfg.use_qk_norm else 1.0
@@ -359,7 +370,7 @@ def test_decode_through_cache_matches_teacher_forcing(backend):
 # --------------------------------------------------------------- registry
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", DENSE)
 def test_shapes_counts_and_init_follow_the_reference(name):
     cfg = configs.get_smoke_config(name)
     jdefs = JR.param_defs(jax_smoke(name))
