@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (into
 ``build/torch_kernels/``), then drives the stateful serving paths, the
-stateless DAG path and the LM serving path on the card and checks them,
-printing one JSON line per phase:
+stateless DAG path, the LM serving paths and the compiler on the card and
+checks them, printing one JSON line per phase:
 
   1. device and build: ``nvidia-smi`` name / power limit, build seconds;
   2. kernels: K1 ``fused_flow_serve``, K2 ``flow_update``, K3
@@ -131,6 +131,20 @@ new tokens, then four of 160-192 tokens with 64; K8 launched 7 x (2 +
 blocks against their plain versions on the path's own input; in f32,
 experts 0-1, against ``backend="interpret"`` and round 2 against teacher
 forcing on a drop-free rerun).
+
+Slice 7 adds the compiler and the last kernel: ``kernels_check_bgemm``
+(K9 ``binarized_gemm`` against its plain version int for int: ragged B =
+37, K = 200, N = 45 with 0, -0.0 and NaN planted, in f32 and bf16; bf16
+at 256 x 1,000 x 96; 1,024 x 128 x 128; 4,096^3), ``kernels_time_bgemm``
+(K9 at 1,024 x 128 x 128 and 4,096^3 beside its plain version, its bound
+and ``torch._int_mm`` on pre-signed int8 operands, which leaves out the
+sign pass) and ``path_generate`` (the quickstart program,
+``examples/quickstart.py``, through ``repro_torch.facade.generate`` at
+its own size, budget 14: every DNN candidate trained on the card, the
+pipeline on K3, ``verify`` under the margin rule, served through the
+stateless engine at B = 1,024; then the same data on Tofino at budget 8,
+a MAT on K4, exact against the plain walk).  No path runs K9: the JAX
+package has no stage that lowers onto it.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -3228,6 +3242,316 @@ def path_hybrid_serve(dev):
     return main_launches
 
 
+# ------------------------------- slice 7: the compiler and K9 (bgemm)
+
+K9_NAMES = ("bgemm_pack_rows<{x}>", "bgemm_pack_cols<{w}>", "bgemm_xor_popc")
+INT8_OPS_PER_S = 1979e12            # H100 SXM int8 dense (data sheet)
+# name, B, K, N, dtype, whether 0 / -0.0 / NaN are planted in x and w
+K9_CASES = (
+    ("ragged_planted", 37, 200, 45, "float32", True),
+    ("ragged_planted_bf16", 37, 200, 45, "bfloat16", True),
+    ("bf16", 256, 1000, 96, "bfloat16", False),
+    ("1024x128x128", 1024, 128, 128, "float32", False),
+    ("4096^3", 4096, 4096, 4096, "float32", False),
+)
+K9_TIMED = (("1024x128x128", 1024, 128, 128), ("4096^3", 4096, 4096, 4096))
+
+# path_generate: the quickstart program (examples/quickstart.py) at its
+# own size, then the same data on Tofino (a MAT, so K4)
+GEN_BUDGET, GEN_N_INIT, GEN_SEED = 14, 6, 0
+TOFINO_BUDGET, TOFINO_N_INIT = 8, 4
+TOFINO_ALGOS = ("svm", "logreg")
+GEN_BATCH, GEN_TILE, GEN_CHUNK, GEN_PASSES = 1024, 16, 997, 3
+MAT_MISMATCH = 0.03                  # the reference's 512-bin LUT bound
+# the trainer on the card (a CUDA graph after its warm-up steps) against
+# the same Adam steps on the CPU from one init and schedule: the
+# quickstart's pick, 20 steps; logits within 1e-4 x (1 + |CPU|) (cuBLAS
+# and the CPU's BLAS sum in other orders)
+TRAIN_CHECK = dict(widths=[7, 24, 4, 12, 16, 16, 16, 4, 4, 4, 2],
+                   lr=0.016, batch=128, nsteps=20)
+TRAIN_TOL = 1e-4
+
+
+def bgemm_inputs(dev, B, K, N, dtype, planted, seed):
+    """Seeded normal x [B, K] and w [K, N] on ``dev`` in ``dtype``; with
+    ``planted``, 0.0, -0.0 and NaN each at 1 % of both operands'
+    positions."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, K), generator=g, device=dev)
+    w = torch.randn((K, N), generator=g, device=dev)
+    if planted:
+        for t in (x, w):
+            u = torch.rand(t.shape, generator=g, device=dev)
+            t[u < 0.01] = 0.0
+            t[(u >= 0.01) & (u < 0.02)] = -0.0
+            t[(u >= 0.02) & (u < 0.03)] = float("nan")
+    dt = getattr(torch, dtype)
+    return x.to(dt).contiguous(), w.to(dt).contiguous()
+
+
+def k9_bound(B, K, N, itemsize):
+    """x and w read once, out (int32) written once, over the HBM rate;
+    2BKN operations over the int8 tensor-core rate."""
+    moved = itemsize * (B * K + K * N) + 4 * B * N
+    t_b = moved / HBM_BYTES_PER_S * 1e3
+    t_o = 2.0 * B * K * N / INT8_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def kernels_check_bgemm(dev):
+    """K9 against its plain version (``binarized_gemm_ref``) on the card,
+    int for int, at every case of ``K9_CASES`` (ragged B, K, N; 0, -0.0
+    and NaN planted; bf16; 1,024 x 128 x 128; 4,096^3); the result has
+    K's parity.  -> {"binarized_gemm": max abs error (0)}."""
+    import torch
+
+    from repro_torch.kernels.binarized_gemm import (
+        binarized_gemm_launch,
+        binarized_gemm_ref,
+    )
+
+    rows, worst = [], 0.0
+    for i, (name, B, K, N, dtype, planted) in enumerate(K9_CASES):
+        x, w = bgemm_inputs(dev, B, K, N, dtype, planted, 300 + i)
+        got = binarized_gemm_launch(x, w)
+        want = binarized_gemm_ref(x, w)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and tuple(got.shape) == (B, N),
+              f"K9 {name}: {got.dtype} {tuple(got.shape)}")
+        err = max_abs(got, want)
+        check(torch.equal(got, want.to(torch.int32)),
+              f"K9 {name}: differs from the plain version by {err}")
+        check(bool(((got - K) % 2 == 0).all()), f"K9 {name}: parity of K")
+        worst = max(worst, err)
+        rows.append({"case": name, "shape": [B, K, N], "dtype": dtype,
+                     "planted": planted, "max_abs_err": err,
+                     "nan_in_x": int(torch.isnan(x.float()).sum())})
+        del x, w, got, want
+    emit({"phase": "kernels_check_bgemm", "tol": "exact int32", "cases": rows})
+    return {"binarized_gemm": worst}
+
+
+def kernels_time_bgemm(dev):
+    """K9 at 1,024 x 128 x 128 and 4,096^3 (f32): wrapper ms over 50
+    calls (CUDA events), device ms (profiler: the two pack kernels and
+    the XNOR-popcount product, summed per call), the plain version's ms
+    and the bound; ``library_ms``: ``torch._int_mm`` on pre-signed int8
+    operands, which leaves out the sign pass K9 includes (and is checked
+    equal to K9's result).  -> {config: numbers}."""
+    import torch
+
+    from repro_torch.kernels.binarized_gemm import (
+        binarized_gemm_launch,
+        binarized_gemm_ref,
+        sign_pm1,
+    )
+
+    out = {}
+    for name, B, K, N in K9_TIMED:
+        x, w = bgemm_inputs(dev, B, K, N, "float32", False, 7)
+        k9 = lambda: binarized_gemm_launch(x, w)  # noqa: E731
+        names = [n.format(x="float", w="float") for n in K9_NAMES]
+        seen = kernel_device_ms({names[0]: k9, **{n: lambda: None
+                                                  for n in names[1:]}})
+        parts = {n: seen[n]["ms"] for n in names}
+        xs = sign_pm1(x).to(torch.int8)
+        ws = sign_pm1(w).to(torch.int8)
+        lib = torch._int_mm(xs, ws)
+        check(torch.equal(lib, k9()), f"K9 {name}: torch._int_mm differs")
+        out[name] = dict(
+            ms=time_ms(k9, TIMED_LAUNCHES),
+            kernel_ms=(sum(parts.values()) if None not in parts.values()
+                       else None),
+            kernel_parts_ms=parts,
+            plain_ms=time_ms(lambda: binarized_gemm_ref(x, w), 5),
+            library_ms=time_ms(lambda: torch._int_mm(xs, ws), TIMED_LAUNCHES),
+            library="torch._int_mm on pre-signed int8 (no sign pass)",
+            bound=k9_bound(B, K, N, 4), shape=[B, K, N])
+        del x, w, xs, ws, lib
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_time_bgemm", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
+def quickstart_loader():
+    """The quickstart's @DataLoader (examples/quickstart.py)."""
+    from repro_torch.core.alchemy import DataLoader
+    from repro_torch.data import netdata
+
+    @DataLoader
+    def wrapper_func():
+        d = netdata.make_ad_dataset(features=7, n_train=4096, n_test=2048)
+        return {"data": {"train": d.train_x, "test": d.test_x},
+                "labels": {"train": d.train_y, "test": d.test_y},
+                "feature_names": d.feature_names,
+                "name": "anomaly_detection"}
+
+    return wrapper_func
+
+
+def generate_run(dev, kind: str, algos, budget: int, n_init: int):
+    """One ``facade.generate`` of the quickstart's model on ``kind`` ->
+    (its ModelResult, the trainer's buckets, wall seconds, the Model)."""
+    from repro_torch import facade
+    from repro_torch.core.alchemy import Model, Platforms
+    from repro_torch.core.traincache import CandidateCache
+
+    model = Model({"optimization_metric": ["f1"], "algorithm": list(algos),
+                   "name": "anomaly_detection",
+                   "data_loader": quickstart_loader()})
+    platform = getattr(Platforms, kind)()
+    platform.constrain(performance={"throughput": 1, "latency": 500},
+                       resources={"rows": 16, "cols": 16})
+    platform.schedule(model)
+    t = time.perf_counter()
+    result = facade.generate(platform, budget=budget, n_init=n_init,
+                             seed=GEN_SEED, cache=CandidateCache(),
+                             device=dev.type)
+    wall = time.perf_counter() - t
+    r = result["anomaly_detection"]
+    # each trained bucket once (a fresh cache: every candidate was trained)
+    buckets = {id(b): b for b in (o.info["trained"].bucket
+                                  for o in r.history) if b is not None}
+    return r, list(buckets.values()), wall, model
+
+
+def trainer_check(dev, data) -> float:
+    """``mlalgos.mlp_train`` on ``dev`` (replaying its step graph after
+    the warm-up) against the CPU from one seeded init and schedule:
+    ``TRAIN_CHECK`` steps, the test set's logits within ``TRAIN_TOL``.
+    -> max abs logit difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mlalgos
+
+    c = TRAIN_CHECK
+    init = mlalgos._mlp_init(torch.Generator().manual_seed(0), c["widths"])
+    idx = mlalgos.minibatch_schedule(1, len(data.train_x), c["nsteps"],
+                                     c["batch"])
+    logits = []
+    for d in (dev, torch.device("cpu")):
+        got = mlalgos.mlp_train(
+            [{k: t[None].to(d) for k, t in layer.items()} for layer in init],
+            None, torch.as_tensor(data.train_x, device=d),
+            torch.as_tensor(data.train_y.astype(np.int64), device=d),
+            idx.to(d), torch.tensor([c["lr"]], device=d))
+        logits.append(mlalgos.mlp_forward(
+            [{k: t[0] for k, t in layer.items()} for layer in got],
+            torch.as_tensor(data.test_x, device=d)).cpu())
+    err = max_abs(logits[0], logits[1])
+    check(bool(((logits[0] - logits[1]).abs()
+                <= TRAIN_TOL * (1 + logits[1].abs())).all()),
+          f"the card's trainer differs from the CPU's by {err}")
+    return err
+
+
+def serve_generated(dev, pipe, X):
+    """The test set tiled ``GEN_TILE`` times through the stateless
+    ``PacketServeEngine`` at B = ``GEN_BATCH``, ``GEN_PASSES`` passes ->
+    (median row, verdicts of one pass)."""
+    import numpy as np
+
+    from repro_torch.serve.packet_engine import PacketServeEngine
+
+    stream = np.tile(X, (GEN_TILE, 1))
+    chunks = [stream[i:i + GEN_CHUNK]
+              for i in range(0, len(stream), GEN_CHUNK)]
+    runs, v = [], None
+    for _ in range(GEN_PASSES):
+        eng = PacketServeEngine(pipe, feature_dim=X.shape[1],
+                                max_batch=GEN_BATCH, depth=2,
+                                device=dev.type)
+        v = np.concatenate(list(eng.serve_stream(chunks)))
+        runs.append(row_of(eng))
+    med = sorted(runs, key=lambda r: r["pkt_per_s"])[len(runs) // 2]
+    return dict(med, pkt_per_s_runs=sorted(r["pkt_per_s"] for r in runs),
+                n_packets=len(stream)), v
+
+
+def path_generate(dev):
+    """The paper's entry point on the card: the quickstart program
+    (``make_ad_dataset(features=7, n_train=4096, n_test=2048)``,
+    ``Platforms.Taurus()`` 16 x 16 at 1 GPkt/s and 500 ns, a DNN,
+    ``generate(budget=14, n_init=6, seed=0)``) through
+    ``repro_torch.facade``: every candidate trained on the card, the
+    pipeline compiled for the kernels.  Gates: ``compiled_backend`` is
+    "cuda"; ``verify`` (K3's verdicts against the trained model) differs
+    only on rows whose top-two logit margin is within 1e-4; the served
+    verdicts (``PacketServeEngine`` at B = 1,024) equal the pipeline's.
+    Then a Tofino run on the same data (svm or logreg as a MAT on K4,
+    budget 8): K4's verdicts equal the plain walk on the CPU exactly, and
+    ``verify`` stays within the reference's 0.03 quantization bound.  Last
+    ``trainer_check`` holds the trainer on the card to the CPU's.
+    -> launches per kernel over the phase's generate and serving runs."""
+    import numpy as np
+
+    from repro_torch.core import codegen
+    from repro_torch.kernels import _ext
+
+    data = quickstart_loader()()
+    X = data.test_x
+    want_backend = "cuda" if dev.type == "cuda" else "cpu-ref"
+    _ext.reset_launches()
+    report = {}
+    for kind, algos, budget, n_init, want_kernel in (
+            ("Taurus", ("dnn",), GEN_BUDGET, GEN_N_INIT,
+             "fused_mlp_classify"),
+            ("Tofino", TOFINO_ALGOS, TOFINO_BUDGET, TOFINO_N_INIT,
+             "mat_lut_classify")):
+        r, buckets, wall, model = generate_run(dev, kind, algos, budget,
+                                               n_init)
+        pipe = r.pipeline
+        check(pipe.compiled_backend == want_backend,
+              f"{kind}: the pipeline serves on {pipe.compiled_backend}")
+        before = _ext.LAUNCHES[want_kernel]
+        outside, near = pipe.mismatches(X)
+        check(_ext.LAUNCHES[want_kernel] == before + 1,
+              f"{kind}: verify did not run on {want_kernel}")
+        got = pipe(X)
+        row = {"algorithm": r.algorithm, "config": r.trained.config,
+               "f1": r.value, "iterations": len(r.history),
+               "report": r.report.resources,
+               "latency_ns": r.report.latency_ns,
+               "compiled_backend": pipe.compiled_backend,
+               "stages": [s.kind for s in pipe.stages],
+               "dse_wall_s": r.wall_s, "generate_s": wall,
+               "verify_outside_margin": outside, "verify_within_margin": near}
+        if kind == "Taurus":
+            check(outside == 0, f"Taurus: {outside} verdicts differ from the "
+                  "trained model outside the 1e-4 margin")
+        else:
+            plain = codegen.generate_pipeline(
+                "tofino", "plain", r.trained, r.report,
+                model.data().train_x, exec_backend="interpret",
+                device="cpu")
+            check(np.array_equal(got, plain(X)),
+                  "Tofino: K4's verdicts differ from the plain walk")
+            frac = pipe.verify(X, max_mismatch_frac=MAT_MISMATCH)
+            row["verify_frac"] = frac
+        lanes = sum(b["lanes"] for b in buckets)
+        train_s = sum(b["s"] for b in buckets)
+        row.update(
+            dnn_candidates_trained=lanes, trainer_s=train_s,
+            trainer_ms_per_candidate=train_s / lanes * 1e3 if lanes else None,
+            buckets=[{"lanes": b["lanes"], "nsteps": b["nsteps"],
+                      "batch": b["batch"], "widths": b["widths"],
+                      "ms": b["s"] * 1e3} for b in buckets])
+        served, v = serve_generated(dev, pipe, X)
+        check(np.array_equal(v, np.tile(got, GEN_TILE)),
+              f"{kind}: served verdicts differ from the pipeline's")
+        row["serve"] = served
+        report[kind] = row
+    launches = dict(_ext.LAUNCHES)
+    report["trainer_vs_cpu_max_abs"] = trainer_check(dev, data)
+    emit({"phase": "path_generate", **report, "launches": launches,
+          "nvidia_smi": nvidia_smi()})
+    return launches
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3260,6 +3584,9 @@ KERNELS = (
     ("selective_scan",
      "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
      "src/repro/kernels/selective_scan/kernel.py:35"),
+    ("binarized_gemm",
+     "src/repro_torch/kernels/binarized_gemm/csrc/binarized_gemm.cu",
+     "src/repro/kernels/binarized_gemm/kernel.py:29"),
 )
 # the timing row of each kernel in the kernels line (K5, K6: the AD
 # widths; the full-width rows ride along under "full_width")
@@ -3312,6 +3639,8 @@ def main() -> int:
         lm_times = kernels_time_lm(dev)
         err.update(kernels_check_scan(dev))
         scan_times = kernels_time_scan(dev)
+        err.update(kernels_check_bgemm(dev))
+        bgemm_times = kernels_time_bgemm(dev)
         split_action_table_phase(dev)
         mitigated_counts = []
         by_path = {
@@ -3327,6 +3656,7 @@ def main() -> int:
         by_path["path_two_table"], _ = path_two_table_phase(dev)
         by_path["path_lm_serve"] = path_lm_serve(dev)
         by_path["path_hybrid_serve"] = path_hybrid_serve(dev)
+        by_path["path_generate"] = path_generate(dev)
         launches = {k: sum(p[k] for p in by_path.values())
                     for k, _, _ in KERNELS}
         for path, want in (("path_flow_ddos", ("fused_flow_serve",
@@ -3349,7 +3679,9 @@ def main() -> int:
                                                "mat_lut_classify")),
                            ("path_lm_serve", ("flash_attention",)),
                            ("path_hybrid_serve", ("selective_scan",
-                                                  "flash_attention"))):
+                                                  "flash_attention")),
+                           ("path_generate", ("fused_mlp_classify",
+                                              "mat_lut_classify"))):
             for k in want:
                 check(by_path[path][k] > 0, f"{k} never launched on {path}")
         telemetry_phase(dev, mitigated_counts)
@@ -3375,6 +3707,7 @@ def main() -> int:
     kernels = []
     times["flash_attention"] = lm_times["prefill_512"]
     times["selective_scan"] = scan_times["prefill_512"]
+    times["binarized_gemm"] = bgemm_times["4096^3"]
     for name, source, replaces in KERNELS:
         tm = (dag_times[name][MAIN_CONFIG[name]] if name in MAIN_CONFIG
               else times[name])
@@ -3401,6 +3734,14 @@ def main() -> int:
                       "library_ms": None, "bound_ms": m["bound"][0],
                       "bound_by": m["bound"][1]}
                 for cfg, m in scan_times.items()}
+        if name == "binarized_gemm":
+            entry["library"] = bgemm_times["4096^3"]["library"]
+            entry["shapes"] = {
+                cfg: {"shape": m["shape"], "ms": m["ms"],
+                      "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+                      "library_ms": m["library_ms"],
+                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
+                for cfg, m in bgemm_times.items()}
         if name in FULL_CONFIG:
             full = dag_times[name][FULL_CONFIG[name]]
             entry["full_width"] = {

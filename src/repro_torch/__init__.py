@@ -8,8 +8,13 @@ module has a named counterpart:
   ``flowstate/``   per-flow register files (one table or several) +
                    ``StatefulPipeline``
   ``core/``        stage IR and ``compile_stages``, the CUDA lowering
-                   (``cuda_backend``), the DAG vocabulary (``alchemy``)
-                   and ``chaining.compile_dag``
+                   (``cuda_backend``), the Alchemy front end and DAG
+                   vocabulary (``alchemy``), ``chaining.compile_dag``,
+                   and the compiler: trainers (``mlalgos``), design
+                   spaces, surrogate and BO, the candidate cache,
+                   feasibility models, ``codegen`` and ``dse``
+  ``facade.py``    ``generate`` and friends, as the JAX package's
+                   ``homunculus`` exports them
   ``kernels/``     hand-written CUDA C++ kernels (``csrc/``) beside their
                    plain PyTorch versions (``ref.py``)
   ``serve/``       ``PacketServeEngine``; the LM ``ServeEngine`` and its
@@ -24,7 +29,8 @@ module has a named counterpart:
                    reference package without importing it
 
 Device rule: every entry point takes ``device`` (default ``"cuda"``) and
-raises when CUDA is asked for and no GPU exists.  A kernel op launches its
+raises when CUDA is asked for and no GPU exists; the compiler trains
+and serves there too.  A kernel op launches its
 CUDA kernel for CUDA tensors and runs its plain version for CPU tensors;
 there is no other switch and no fallback.
 """

@@ -10,7 +10,8 @@ files) across as numpy arrays, and ``mitigation_from_numpy`` /
 ``mitigation_to_numpy`` the action table.
 ``dag_from_reference`` and ``pipelines_from_reference`` carry a model
 DAG and the pipelines it names; ``lm_params_from_reference`` an LM's
-parameter tree.
+parameter tree; ``trained_from_reference`` a trained model (its numpy
+parameters, topology and config) into the port's ``TrainedModel``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import alchemy, stageir
+from repro_torch.core import alchemy, mlalgos, stageir
 from repro_torch.device import resolve_device
 from repro_torch.flowstate.mitigation import (
     MitigatedFlowState,
@@ -230,3 +231,36 @@ def lm_params_from_reference(params, *, device="cuda", experts=None) -> dict:
     return {"embed": tree(params["embed"]),
             "final_norm": tree(params["final_norm"]),
             "layers": [layer(s, p) for p in range(n_p) for s in stacked]}
+
+
+def trained_from_reference(trained, *, n_inputs: int | None = None,
+                           device="cuda") -> mlalgos.TrainedModel:
+    """A reference ``TrainedModel`` (read by its fields: ``algorithm``,
+    numpy ``params``, ``topology``, ``num_classes``, ``config``) -> the
+    port's, whose ``predict`` runs on ``device`` (a DNN/logreg forward)
+    or in numpy (the others), so codegen and dispatch can be held to the
+    same parameters in both packages.  ``n_inputs``: a kmeans model's
+    input width when it uses a feature subset (the reference's topology
+    does not carry it; default the centroids' width)."""
+    algo = str(trained.algorithm)
+    topo, params = trained.topology, trained.params
+    config = dict(trained.config)
+    if algo in ("dnn", "logreg"):
+        layers = [{"w": _f32(l["w"]), "b": _f32(l["b"])} for l in params]
+        return mlalgos.dnn_model(layers, list(topo["widths"]),
+                                 int(trained.num_classes), config,
+                                 algorithm=algo, device=device)
+    if algo == "kmeans":
+        fi = topo.get("feature_idx")
+        return mlalgos.kmeans_model(
+            _f32(params["centroids"]),
+            np.asarray(params["label_map"], np.int32),
+            None if fi is None else list(fi), int(trained.num_classes),
+            config, n_inputs=n_inputs)
+    if algo == "svm":
+        return mlalgos.svm_model(_f32(params["W"]), _f32(params["b"]), config)
+    if algo == "tree":
+        return mlalgos.tree_model([dict(n) for n in topo["nodes"]],
+                                  int(topo["depth"]),
+                                  int(trained.num_classes), config)
+    raise NotImplementedError(f"algorithm {algo!r}")

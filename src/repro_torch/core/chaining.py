@@ -17,9 +17,9 @@ next model's.  A ``Par`` runs every child and merges the verdicts:
 
 The result is ``{name: pipeline}`` where a pipeline has ``.stages`` (and
 is callable for ``run_dag``), as ``convert.pipelines_from_reference``
-builds it.  The resource accounting of the JAX module
-(``dag_resources``, ``dag_stage_summary``, ``strategy_table``) needs the
-feasibility model and comes with the compiler.
+builds it, or a ``dse.GenerationResult``.  The resource accounting of
+the JAX module (``dag_resources``, ``dag_stage_summary``,
+``strategy_table``) is not ported yet.
 """
 
 from __future__ import annotations

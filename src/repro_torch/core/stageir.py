@@ -5,8 +5,15 @@ Ported: the stateless stages (FeatureSelect, Dense, FusedMLP,
 FusedClassify, CentroidDistance, Quantize, LUTGather, TreeTraverse,
 Reduce, LabelMap), the stateful vocabulary of the flow path (FlowKey,
 RegisterUpdate, WindowStats, Mitigate), the single- and multi-table
-stateful grammars (``split_stateful``, ``split_stateful_multi``) and
-``compile_stages`` with its backend reporting.
+stateful grammars (``split_stateful``, ``split_stateful_multi``),
+``compile_stages`` with its backend reporting, and the accounting half:
+each stage's ``meta()``, ``stage_summary`` and the shape-only
+``StageSpec`` lowering (``lower_topology``, ``flowstate_specs``,
+``mitigation_specs``) the feasibility models read before anything is
+trained.  One difference from the JAX package: a kmeans MAT is charged
+the entries its LUT holds (every input feature's table, the topology's
+``n_inputs``), where the JAX lowering charges only the features the
+centroids use.
 
 Stages keep their parameters as numpy arrays (what ``convert`` carries
 across from the reference); ``apply`` moves them to the input's device
@@ -29,6 +36,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flow_update.ref import _M32, _mul32
 from repro_torch.kernels.fused_mlp.ref import mlp_classify_ref, mlp_ref
+
+# bucket count of the MAT range tables — single source of truth for both
+# the executable lowering (codegen._quantize_tables) and the shape-only
+# accounting specs below
+MAT_BINS = 512
 
 # The JAX package's MLP kernels take every width up to its 128-lane tile
 # (``repro/kernels/fused_mlp/ops.py:_prepare``); wider models it walks in
@@ -65,6 +77,11 @@ class Stage:
         """``apply`` in plain PyTorch only (no kernel op)."""
         return self.apply(h)
 
+    def meta(self) -> dict:
+        """What ``stage_summary`` charges: parameter words ("params") and
+        multiply-accumulates per row ("macs"), where the stage has any."""
+        return {}
+
     def __repr__(self):
         return f"{type(self).__name__}()"
 
@@ -91,6 +108,10 @@ class Dense(Stage):
         out = h @ _param(self, "w", self.w, h.device, torch.float32) \
             + _param(self, "b", self.b, h.device, torch.float32)
         return torch.relu(out) if self.act == "relu" else out
+
+    def meta(self):
+        return {"params": int(np.size(self.w) + np.size(self.b)),
+                "macs": int(np.size(self.w))}
 
 
 def mlp_widths(weights) -> list[int]:
@@ -123,6 +144,12 @@ class _MLPStage(Stage):
     def _layers(self, device):
         return (_params(self, "w", self.weights, device),
                 _params(self, "b", self.biases, device))
+
+    def meta(self):
+        return {"params": int(sum(np.size(w) + np.size(b)
+                                  for w, b in zip(self.weights,
+                                                  self.biases))),
+                "macs": int(sum(np.size(w) for w in self.weights))}
 
 
 @dataclasses.dataclass(repr=False)
@@ -177,6 +204,10 @@ class CentroidDistance(Stage):
         cent = _param(self, "c", self.centroids, h.device, torch.float32)
         return torch.sum((h[:, None, :] - cent[None]) ** 2, -1)
 
+    def meta(self):
+        return {"params": int(np.size(self.centroids)),
+                "macs": int(np.size(self.centroids))}
+
 
 @dataclasses.dataclass(repr=False)
 class Quantize(Stage):
@@ -200,6 +231,9 @@ class LUTGather(Stage):
         f = torch.arange(tables.shape[0], device=bins.device)
         return tables[f[None, :], bins].sum(1)
 
+    def meta(self):
+        return {"params": int(np.size(self.tables))}
+
 
 @dataclasses.dataclass(repr=False)
 class TreeTraverse(Stage):
@@ -215,6 +249,30 @@ class TreeTraverse(Stage):
     depth: int
 
     kind = "tree_traverse"
+
+    @classmethod
+    def from_nodes(cls, nodes: list[dict], depth: int) -> "TreeTraverse":
+        """Flat CART nodes (``mlalgos.train_tree``) -> the stage."""
+        n = len(nodes)
+        feat = np.zeros(n, np.int32)
+        thr = np.zeros(n, np.float32)
+        left = np.arange(n, dtype=np.int32)
+        right = np.arange(n, dtype=np.int32)
+        leaf_class = np.zeros(n, np.int32)
+        is_leaf = np.zeros(n, bool)
+        for i, nd in enumerate(nodes):
+            if "leaf" in nd:
+                is_leaf[i] = True
+                leaf_class[i] = nd["leaf"]
+            else:
+                feat[i] = nd["feat"]
+                thr[i] = np.float32(nd["thr"])
+                left[i] = nd["left"]
+                right[i] = nd["right"]
+        return cls(feat, thr, left, right, leaf_class, is_leaf, depth)
+
+    def meta(self):
+        return {"params": int(len(self.feat))}
 
     def apply(self, h):
         dev = h.device
@@ -331,6 +389,10 @@ class RegisterUpdate(Stage):
     def apply(self, h):
         raise TypeError("RegisterUpdate is stateful; serve it through "
                         "repro_torch.flowstate.StatefulPipeline")
+
+    def meta(self):
+        # stored key + W register words per slot (flowstate_specs)
+        return {"params": self.spec.n_slots * (self.spec.width + 1)}
 
     def prepare(self, h: torch.Tensor):
         """[B, F] packet rows -> (upd [B, C+E] f32, bins [B, H] int32
@@ -623,3 +685,138 @@ class StagePipeline:
     def __repr__(self):
         return (f"StagePipeline({[s.kind for s in self.stages]}, "
                 f"backend={self.backend!r})")
+
+
+def stage_summary(stages: list) -> dict:
+    """Aggregate stage metadata (params/macs/tables) for reports."""
+    params = macs = 0
+    for s in stages:
+        m = s.meta()
+        params += m.get("params", 0)
+        macs += m.get("macs", 0)
+    return {"stages": [s.kind for s in stages], "params": int(params),
+            "macs": int(macs)}
+
+
+# ===================================================== shape-only stage specs
+#
+# The feasibility oracle runs before anything is trained, so it lowers a
+# *topology* into StageSpecs — same vocabulary, shapes only
+# (``repro/core/stageir.py:700-856``).
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    kind: str
+    n_in: int = 0
+    n_out: int = 0
+    params: int = 0
+    extra: tuple = ()                    # kind-specific (depth, bins, ...)
+
+    @property
+    def is_layer(self) -> bool:
+        """Does this spec occupy compute as one dense layer (CU rows)?"""
+        return self.kind in ("dense", "centroid_distance")
+
+
+def lower_topology(algorithm: str, topology: dict, *, form: str = "dense"
+                   ) -> list[StageSpec]:
+    """Topology dict -> abstract stage list for one backend family.
+
+    ``form="dense"``: Taurus/FPGA/GPU MapReduce lowering.
+    ``form="mat"``:   IIsy-style match-action-table lowering.
+    """
+    if form == "dense":
+        return _lower_dense(algorithm, topology)
+    if form == "mat":
+        return _lower_mat(algorithm, topology)
+    raise KeyError(form)
+
+
+def _dense_layers(widths) -> list[StageSpec]:
+    w = list(widths)
+    return [StageSpec("dense", w[i], w[i + 1], w[i] * w[i + 1] + w[i + 1])
+            for i in range(len(w) - 1)]
+
+
+def _tree_spec(topology: dict) -> StageSpec:
+    return StageSpec("tree_traverse", 0, 0, len(topology["nodes"]),
+                     extra=(topology.get("depth", 8),))
+
+
+def _lower_dense(algorithm: str, topology: dict) -> list[StageSpec]:
+    if algorithm in ("dnn", "logreg"):
+        return _dense_layers(topology["widths"]) + [StageSpec("reduce")]
+    if algorithm == "svm":
+        f, c = topology["n_features"], topology["n_classes"]
+        return [StageSpec("dense", f, c, f * c + c), StageSpec("reduce")]
+    if algorithm == "kmeans":
+        f, k = topology["n_features"], topology["k"]
+        return [StageSpec("centroid_distance", f, k, f * k),
+                StageSpec("reduce"), StageSpec("label_map", k, k)]
+    if algorithm == "tree":
+        return [_tree_spec(topology)]
+    raise KeyError(f"dense lowering does not map {algorithm}")
+
+
+def _lut_specs(f: int, c: int, bins: int) -> list[StageSpec]:
+    return [StageSpec("quantize", f, f, extra=(bins,)),
+            StageSpec("lut_gather", f, c, f * bins * c, extra=(bins,)),
+            StageSpec("reduce")]
+
+
+def _lower_mat(algorithm: str, topology: dict, bins: int = MAT_BINS
+               ) -> list[StageSpec]:
+    if algorithm == "svm":
+        return _lut_specs(topology["n_features"], topology["n_classes"], bins)
+    if algorithm == "logreg":
+        w = topology["widths"]
+        return _lut_specs(w[0], w[-1], bins)
+    if algorithm == "kmeans":
+        # the executable LUT holds one table per INPUT feature
+        # (codegen._quantize_tables; unused features' tables are zero), so
+        # the charge is n_inputs x bins x k, not n_features x bins x k
+        f = topology.get("n_inputs", topology["n_features"])
+        k = topology["k"]
+        return _lut_specs(f, k, bins) + [StageSpec("label_map", k, k)]
+    if algorithm == "tree":
+        return [_tree_spec(topology)]
+    if algorithm == "dnn":
+        # N2Net-style: each dense layer burns ~12 MATs; keep the dense
+        # shapes so the accounting can read layer count
+        return _dense_layers(topology["widths"]) + [StageSpec("reduce")]
+    raise KeyError(f"MAT lowering does not map {algorithm}")
+
+
+def flowstate_specs(spec, *, mode: str = "all") -> list[StageSpec]:
+    """Shape-only specs for the stateful prefix + readout — what the
+    feasibility oracle charges for the register file.  ``params`` of the
+    register_update spec is the table's word count (stored key + W
+    register words per slot), equal to ``RegisterUpdate.meta()``'s."""
+    W = spec.width
+    n_out = sum(spec.hist_sizes) if mode == "hist" else W
+    return [
+        StageSpec("flow_key", n_in=0, n_out=1, extra=(spec.n_slots,)),
+        StageSpec("register_update", n_in=W, n_out=W,
+                  params=spec.n_slots * (W + 1), extra=(spec.n_slots, W)),
+        StageSpec("window_stats", n_in=W, n_out=n_out),
+    ]
+
+
+def mitigation_specs(spec) -> list[StageSpec]:
+    """Shape-only spec for the mitigation action table; ``params`` is the
+    table's word count (stored key + [hits, since] per slot), equal to
+    ``Mitigate.meta()``'s."""
+    W = spec.width
+    return [StageSpec("mitigate", n_in=1, n_out=1,
+                      params=spec.n_slots * (W + 1),
+                      extra=(spec.n_slots, W))]
+
+
+def spec_layers(specs: list[StageSpec]) -> list[tuple[int, int]]:
+    """(n_in, n_out) of every compute layer — what Taurus maps to CU rows."""
+    return [(s.n_in, s.n_out) for s in specs if s.is_layer]
+
+
+def spec_params(specs: list[StageSpec]) -> int:
+    return sum(s.params for s in specs)

@@ -1,0 +1,5 @@
+from repro_torch.kernels.binarized_gemm.ops import (
+    binarized_gemm,
+    binarized_gemm_launch,
+)
+from repro_torch.kernels.binarized_gemm.ref import binarized_gemm_ref, sign_pm1

@@ -409,6 +409,43 @@ void selective_scan(at::Tensor dA, at::Tensor dBx, at::Tensor C,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K9: out = sign(x) @ sign(w) in int32; xbits and wbits are the packed
+// signs' scratch; the wrapper has checked shapes, dtypes and contiguity.
+void binarized_gemm(at::Tensor x, at::Tensor w, at::Tensor xbits,
+                    at::Tensor wbits, at::Tensor out) {
+  c10::cuda::CUDAGuard guard(x.device());
+  for (const at::Tensor* t : {&x, &w}) {
+    TORCH_CHECK(t->scalar_type() == at::kFloat ||
+                    t->scalar_type() == at::kBFloat16,
+                "K9 takes f32 or bf16 operands");
+  }
+  for (const at::Tensor* t : {&x, &w, &xbits, &wbits, &out}) {
+    TORCH_CHECK(t->is_contiguous(), "K9 takes contiguous tensors");
+  }
+  TORCH_CHECK(x.dim() == 2 && w.dim() == 2 && x.size(1) == w.size(0),
+              "x [B, K], w [K, N]");
+  const int64_t B = x.size(0), K = x.size(1), N = w.size(1);
+  TORCH_CHECK(B >= 1 && K >= 1 && N >= 1, "B, K and N must be >= 1");
+  TORCH_CHECK(B < INT_MAX && K < INT_MAX && N < INT_MAX &&
+                  (B + 63) / 64 <= 65535,
+              "sizes must fit an int and B / 64 the grid's y");
+  const int64_t KW = (K + 31) / 32;
+  TORCH_CHECK(xbits.scalar_type() == at::kInt && xbits.numel() == KW * B &&
+                  wbits.scalar_type() == at::kInt &&
+                  wbits.numel() == KW * N,
+              "xbits [ceil(K/32), B] and wbits [ceil(K/32), N] int32");
+  TORCH_CHECK(out.scalar_type() == at::kInt && out.dim() == 2 &&
+                  out.size(0) == B && out.size(1) == N,
+              "out [B, N] int32");
+  C10_CUDA_CHECK(launch_binarized_gemm(
+      x.data_ptr(), x.scalar_type() == at::kBFloat16 ? 1 : 0, w.data_ptr(),
+      w.scalar_type() == at::kBFloat16 ? 1 : 0,
+      reinterpret_cast<uint32_t*>(xbits.data_ptr<int>()),
+      reinterpret_cast<uint32_t*>(wbits.data_ptr<int>()),
+      out.data_ptr<int>(), (int)B, (int)K, (int)N, stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -427,4 +464,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K7: online-softmax attention (causal, window, GQA, q offset)");
   m.def("selective_scan", &selective_scan,
         "K8: the Mamba S6 recurrence (y, h_final)");
+  m.def("binarized_gemm", &binarized_gemm,
+        "K9: sign(x) @ sign(w), int32 (XNOR-popcount)");
 }

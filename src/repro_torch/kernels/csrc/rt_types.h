@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_runtime_api.h>
+#include <stdint.h>
 
 #define RT_WARPS 8             // warps per block in every kernel
 #define RT_COLS 8              // register columns per lane: W <= 256
@@ -167,3 +168,10 @@ cudaError_t launch_selective_scan(const float* dA, const float* dBx,
                                   const float* C, const float* h0, float* y,
                                   float* h_out, const ScanArgs& a,
                                   cudaStream_t stream);
+// K9: out [B, N] int32 = sign(x) @ sign(w); x [B, K] and w [K, N] each
+// f32 (0) or bf16 (1); xbits [ceil(K/32), B] and wbits [ceil(K/32), N]
+// are the caller's scratch for the packed signs.
+cudaError_t launch_binarized_gemm(const void* x, int x_bf16, const void* w,
+                                  int w_bf16, uint32_t* xbits,
+                                  uint32_t* wbits, int* out, int B, int K,
+                                  int N, cudaStream_t stream);

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -30,7 +31,12 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.models.transformer", "repro_torch.serve.engine",
         "repro_torch.kernels.flash_attention", "repro_torch.models.ssm",
         "repro_torch.models.moe", "repro_torch.kernels.selective_scan",
-        "repro_torch.configs.jamba_1_5_large_398b"} <= set(names), names
+        "repro_torch.configs.jamba_1_5_large_398b",
+        "repro_torch.kernels.binarized_gemm", "repro_torch.core.mlalgos",
+        "repro_torch.core.designspace", "repro_torch.core.surrogate",
+        "repro_torch.core.bo", "repro_torch.core.traincache",
+        "repro_torch.core.feasibility", "repro_torch.core.codegen",
+        "repro_torch.core.dse", "repro_torch.facade"} <= set(names), names
 """
 
 
@@ -107,3 +113,43 @@ def test_cuda_entry_points_raise_without_a_gpu():
                  lambda: init_cache(hybrid, 1, 8)):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+
+
+def test_compiler_entry_points_raise_without_a_gpu():
+    """The compiler trains and serves on the card by default: without a
+    GPU its entry points raise instead of moving to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU rule cannot be shown")
+    from repro_torch import facade
+    from repro_torch.core import codegen, dse, mlalgos
+    from repro_torch.core.alchemy import Model, Platforms
+    from repro_torch.core.feasibility import FeasibilityReport
+    from repro_torch.data import netdata
+    from repro_torch.kernels.binarized_gemm import (
+        binarized_gemm,
+        binarized_gemm_launch,
+    )
+
+    d = netdata.make_ad_dataset(features=7, n_train=256, n_test=64)
+    platform = Platforms.Taurus()
+    platform.schedule(Model({"name": "m", "algorithm": ["dnn"],
+                             "data_loader": lambda: d}))
+    svm = mlalgos.train_svm(d, epochs=1)
+    rep = FeasibilityReport(True, [], {}, 1.0, 1e9)
+    for make in (
+        lambda: facade.generate(platform, budget=2, n_init=1),
+        lambda: dse.retrain_model(platform, d, algorithms=["svm"],
+                                  budget=2),
+        lambda: mlalgos.train_dnn(d, hidden=[4], epochs=1),
+        lambda: codegen.taurus_codegen("m", svm, rep),
+        lambda: mlalgos.dnn_model([{"w": np.zeros((7, 2), np.float32),
+                                    "b": np.zeros(2, np.float32)}],
+                                  [7, 2], 2, {}),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        binarized_gemm(torch.zeros(2, 3, device="cuda"),
+                       torch.zeros(3, 4, device="cuda"))
+    with pytest.raises(ValueError, match="CUDA"):
+        binarized_gemm_launch(torch.zeros(2, 3), torch.zeros(3, 4))
