@@ -107,11 +107,16 @@ shapes B = 4, S = 512 and 2,048, H = 16 over K = 8, D = 128, bf16,
 causal; decode Sq = 1 against 1,024 keys at q_offset 0, 511 and 1,023;
 ragged S = 1,000 with windows 256 and 4,096; G = 12; D = 16, 32 and 64;
 f32; the Jamba-1.5-Large shapes H = 64 over K = 8 at S = 512 and 192
-and decode at q_offset 255 and 543; within 1e-5 in f32 and 8e-3 of the
-output's scale in bf16),
-``kernels_time_lm`` (K7's wrapper and device time at the path's shapes
+and decode at q_offset 255 and 543; since slice 8 also the split-KV
+decode's chunk edges at G = 8, a windowed decode, Sq = 4 and 5 either
+side of the decode threshold and bf16 at D = 32 and 64, every case
+against the plain version and against the plain decomposition of the
+kernel it takes; within 1e-5 in f32 and 8e-3 of the output's scale in
+bf16), ``kernels_time_lm`` (K7's wrapper and device time, summed over a
+call's kernels, at the Qwen3 and Jamba shapes and for the f32 instance,
 beside its plain version, ``scaled_dot_product_attention`` on the same
-inputs as ``library_ms``, and its bound) and ``path_lm_serve``
+inputs as ``library_ms`` with its own device time, and its bound) and
+``path_lm_serve``
 (``ServeEngine`` with Qwen3-1.7B at full width and depth, seeded bf16
 weights, 4 slots, 8 requests of 32 new tokens, K7 launched 28 x (prefill
 + decode calls) times; against ``backend="interpret"`` and against
@@ -307,6 +312,22 @@ def kernel_device_ms(calls: dict, n: int = 20) -> dict:
             "keys": [] if events == n else
             [f"{e.key[:120]} x{e.count}" for e in avg if stem in e.key]}
     return out
+
+
+def call_device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn()``, every CUDA kernel it launches
+    summed (one torch.profiler run of n calls): a library call's own
+    device time, whatever its kernels are named."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
 
 
 # K1's template instance, as the profiler names it: the suffix kind's
@@ -2309,10 +2330,9 @@ def telemetry_phase(dev, mitigated_counts):
 
 # ------------------------------------------------- slice 5: LM serving
 
-# bf16 dense tensor-core peak (NVIDIA data sheet): K7's operations bound,
-# the rate a later design on wgmma can reach
+# bf16 dense tensor-core peak (NVIDIA data sheet): the operations bound of
+# K7's bf16 calls (its f32 calls: the f32 rate)
 BF16_FLOP_PER_S = 989e12
-K7_INSTANCE = "flash_attention_kernel<{dtype}, {D}>"
 LM_ARCH, LM_SEED, LM_SLOTS, LM_MAX_SEQ, LM_NEW = "qwen3-1.7b", 0, 4, 1024, 32
 # K7 against its plain version: f32 within 1e-5 (the same f32 math, the
 # sums in another order; outputs of order 1); bf16 within 8e-3 of the
@@ -2344,11 +2364,51 @@ def live_pairs(Sq: int, skv: int, causal: bool, window: int,
 def k7_bound(B, Sq, H, K, D, itemsize, pairs, kv_rows):
     """Q and O once, the K and V rows the masks keep once, over the HBM
     rate; 4 * D operations per live pair per head over the bf16
-    tensor-core rate."""
+    tensor-core rate (itemsize 2) or the f32 rate (itemsize 4)."""
     moved = itemsize * (2 * B * Sq * H * D + 2 * B * kv_rows * K * D)
     t_b = moved / HBM_BYTES_PER_S * 1e3
-    t_o = 4.0 * B * H * D * pairs / BF16_FLOP_PER_S * 1e3
+    rate = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
+    t_o = 4.0 * B * H * D * pairs / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k7_kernels(dtype: str, Sq: int, D: int) -> list:
+    """The kernels one K7 call launches, as the profiler names them: bf16
+    with Sq <= DECODE_MAX_SQ the split-KV decode and its combine, longer
+    bf16 the tensor-core prefill, f32 the SIMT kernel."""
+    from repro_torch.kernels.flash_attention import DECODE_MAX_SQ
+
+    if dtype == "float32":
+        return [f"fa_simt_kernel<{D}>"]
+    if Sq <= DECODE_MAX_SQ:
+        return [f"fa_decode_kernel<{D}>", f"fa_combine_kernel<{D}>"]
+    return [f"fa_prefill_kernel<{D}>"]
+
+
+def k7_split_ref(dev, q, k, v, skv, **kw):
+    """The plain decomposition (``attention_split_ref``) of the kernel a
+    call takes: the wrapper's decode plan in 32-key tiles, the prefill's
+    64-key tiles with P split into bf16 hi and lo, or the SIMT kernel's
+    32-key tiles."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        DECODE_MAX_SQ,
+        attention_split_ref,
+        decode_plan,
+    )
+
+    B, Sq, H, _ = q.shape
+    k, v = k[:, :skv], v[:, :skv]
+    if q.dtype == torch.float32:
+        return attention_split_ref(q, k, v, tile=32, **kw)
+    if Sq > DECODE_MAX_SQ:
+        return attention_split_ref(q, k, v, tile=64, split_p=True, **kw)
+    lo, hi, chunk, _ = decode_plan(
+        B, Sq, H, k.shape[2], skv, n_sm=torch.cuda.get_device_properties(
+            dev).multi_processor_count, **kw)
+    return attention_split_ref(q, k, v, lo=lo, hi=hi, chunk=chunk, tile=32,
+                               **kw)
 
 
 def k7_inputs(dev, B, Sq, Skv, H, K, D, dtype, seed):
@@ -2392,13 +2452,32 @@ K7_CASES = (
      None),
     ("jamba_decode_543", 4, 1, 1024, 64, 8, 128, "bfloat16", True, 0, 543,
      None),
+    # the split-KV decode's edges at G = 8 (32-key chunks): the first key,
+    # the last key of a chunk, the first of the next, the cache's last; a
+    # window; Sq on both sides of DECODE_MAX_SQ; bf16 at D = 32 and 64
+    ("decode_g8_0", 4, 1, 1024, 64, 8, 128, "bfloat16", True, 0, 0, None),
+    ("decode_g8_63", 4, 1, 1024, 64, 8, 128, "bfloat16", True, 0, 63,
+     None),
+    ("decode_g8_64", 4, 1, 1024, 64, 8, 128, "bfloat16", True, 0, 64,
+     None),
+    ("decode_g8_1023", 4, 1, 1024, 64, 8, 128, "bfloat16", True, 0, 1023,
+     None),
+    ("decode_w100", 4, 1, 1024, 16, 8, 128, "bfloat16", True, 100, 700,
+     None),
+    ("sq4_decode", 2, 4, 300, 48, 4, 128, "bfloat16", True, 0, 200, None),
+    ("sq5_prefill", 2, 5, 300, 48, 4, 128, "bfloat16", True, 0, 200, None),
+    ("d32_bf16", 2, 65, 97, 8, 2, 32, "bfloat16", False, 8, 5, None),
+    ("d32_decode_bf16", 2, 2, 97, 8, 2, 32, "bfloat16", False, 0, 5, None),
+    ("d64_bf16", 2, 200, 300, 4, 4, 64, "bfloat16", True, 0, 100, None),
 )
 
 
 def kernels_check_lm(dev):
     """K7 against its plain version (``attention_ref`` over the first skv
-    keys) on the card at every case of ``K7_CASES``, within ``K7_TOL``.
-    -> {"flash_attention": max abs error over the cases}."""
+    keys) and against the plain decomposition of the kernel the call takes
+    (``k7_split_ref``) on the card at every case of ``K7_CASES``, each
+    within ``K7_TOL``.  -> {"flash_attention": max abs error over the
+    cases}."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -2423,30 +2502,50 @@ def kernels_check_lm(dev):
         err = float(diff.max())
         check(bool((diff <= K7_TOL[dt] * scale).all()),
               f"K7 {name}: max abs {err} beyond {K7_TOL[dt]}")
+        split = k7_split_ref(dev, q, k, v, skv, **kw).float()
+        d_split = (got.float() - split).abs()
+        scale = split.abs().clamp_min(1.0) if dt == "bfloat16" \
+            else torch.ones_like(d_split)
+        err_split = float(d_split.max())
+        check(bool((d_split <= K7_TOL[dt] * scale).all()),
+              f"K7 {name}: max abs {err_split} from its decomposition")
         worst = max(worst, err)
         rows.append({"case": name, "dtype": dt, "shape": [B, Sq, Skv, H, K,
                                                           D],
                      "causal": causal, "window": window,
-                     "q_offset": q_offset, "skv": skv, "max_abs_err": err})
+                     "q_offset": q_offset, "skv": skv, "max_abs_err": err,
+                     "max_abs_err_split": err_split,
+                     "kernels": k7_kernels(dt, Sq, D)})
     emit({"phase": "kernels_check_lm", "tol": K7_TOL, "cases": rows})
     return {"flash_attention": worst}
 
 
-# the timed shapes: name, Sq, Skv, q_offset at B, H, K, D below
-K7_TIMED = (("prefill_512", 512, 512, 0), ("prefill_2048", 2048, 2048, 0),
-            ("decode_511", 1, 1024, 511), ("decode_1023", 1, 1024, 1023))
-K7_TIMED_HEADS = (4, 16, 8, 128)
+# the timed shapes, D = 128: name, B, Sq, Skv, H, K, q_offset, dtype.  The
+# Qwen3-1.7B heads (16 over 8) at prefill S = 512 (the path's first batch)
+# and 2,048 and decode against 1,024 keys at q_offset 511 (the path's cache
+# index is 512-543) and 1,023; the Jamba-1.5-Large heads (64 over 8) at
+# path_hybrid_serve's first prefill and last decode; the f32 SIMT kernel
+# at the Qwen3 prefill and decode
+K7_TIMED = (("prefill_512", 4, 512, 512, 16, 8, 0, "bfloat16"),
+            ("prefill_2048", 4, 2048, 2048, 16, 8, 0, "bfloat16"),
+            ("decode_511", 4, 1, 1024, 16, 8, 511, "bfloat16"),
+            ("decode_1023", 4, 1, 1024, 16, 8, 1023, "bfloat16"),
+            ("jamba_prefill_512", 4, 512, 512, 64, 8, 0, "bfloat16"),
+            ("jamba_decode_543", 4, 1, 1024, 64, 8, 543, "bfloat16"),
+            ("prefill_512_f32", 4, 512, 512, 16, 8, 0, "float32"),
+            ("decode_511_f32", 4, 1, 1024, 16, 8, 511, "float32"))
+K7_TIMED_D = 128
 
 
 def kernels_time_lm(dev):
-    """K7 at the LM path's shapes (bf16, Qwen3-1.7B heads): prefill B = 4
-    at S = 512 (the path's first batch) and 2,048, decode at skv = 1,024
-    with q_offset 511 (the path's cache index is 512-543) and 1,023.
-    Wrapper ms over 50 calls (CUDA events), device ms (profiler), the
-    plain version's ms, ``scaled_dot_product_attention``'s ms on the same
-    inputs (prefill: causal, GQA; decode: the first q_offset + 1 keys,
-    unmasked: the same function) as ``library_ms``, and the bound.
-    -> {config: numbers}."""
+    """K7 at the shapes of ``K7_TIMED``: wrapper ms over 50 calls (CUDA
+    events), device ms (profiler: the call's kernels, ``k7_kernels``,
+    summed per call), the plain version's ms,
+    ``scaled_dot_product_attention``'s ms on the same inputs (prefill:
+    causal, GQA; decode: the first q_offset + 1 keys, unmasked: the same
+    function) as ``library_ms`` (CUDA events) and ``library_kernel_ms``
+    (its kernels' device time, profiler), and the bound.  -> {config:
+    numbers}."""
     import torch
     import torch.nn.functional as F
 
@@ -2455,15 +2554,20 @@ def kernels_time_lm(dev):
         flash_attention_launch,
     )
 
-    B, H, K, D = K7_TIMED_HEADS
-    dt = torch.bfloat16
+    D = K7_TIMED_D
     out = {}
-    for name, Sq, Skv, q_offset in K7_TIMED:
-        q, k, v = k7_inputs(dev, B, Sq, Skv, H, K, D, dt, 7)
+    for name, B, Sq, Skv, H, K, q_offset, dt in K7_TIMED:
+        q, k, v = k7_inputs(dev, B, Sq, Skv, H, K, D, getattr(torch, dt), 7)
         kw = dict(causal=True, window=0, q_offset=q_offset)
         k7 = lambda: flash_attention_launch(q, k, v, skv=Skv, **kw)  # noqa
-        seen = kernel_device_ms({K7_INSTANCE.format(
-            dtype="__nv_bfloat16", D=D): k7})
+        names = k7_kernels(dt, Sq, D)
+        calls = {names[0]: k7, **{n: lambda: None for n in names[1:]}}
+        # the profiler now and then drops a run's events: read it again
+        for _ in range(3):
+            seen = kernel_device_ms(calls)
+            if all(seen[n]["events"] == 20 for n in names):
+                break
+        parts = {n: seen[n]["ms"] for n in names}
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if Sq == 1:
             kt, vt = kt[:, :, :q_offset + 1], vt[:, :, :q_offset + 1]
@@ -2477,11 +2581,22 @@ def kernels_time_lm(dev):
         pairs = live_pairs(Sq, Skv, True, 0, q_offset)
         kv_rows = min(Skv, q_offset + Sq)
         out[name] = dict(
-            ms=time_ms(k7, TIMED_LAUNCHES), **kernel_fields(seen.popitem()[1]),
+            ms=time_ms(k7, TIMED_LAUNCHES),
+            kernel_ms=(sum(parts.values()) if None not in parts.values()
+                       else None),
+            kernel_parts_ms=parts,
+            kernel_events={n: seen[n]["events"] for n in names},
             plain_ms=time_ms(lambda: attention_ref(q, k, v, **kw), 10),
             library_ms=time_ms(lib, TIMED_LAUNCHES),
-            bound=k7_bound(B, Sq, H, K, D, 2, pairs, kv_rows),
-            shape=[B, Sq, Skv, H, K, D], q_offset=q_offset, pairs=pairs)
+            library_kernel_ms=next(
+                (t for t in (call_device_ms(lib) for _ in range(3)) if t),
+                None),
+            bound=k7_bound(B, Sq, H, K, D, q.element_size(), pairs, kv_rows),
+            shape=[B, Sq, Skv, H, K, D], q_offset=q_offset, dtype=dt,
+            pairs=pairs, kernels=names)
+        keys = [key for n in names for key in seen[n]["keys"]]
+        if keys:
+            out[name]["kernel_keys"] = keys
     emit({"phase": "kernels_time_lm", **out, "nvidia_smi": nvidia_smi()})
     return out
 
@@ -3721,10 +3836,15 @@ def main() -> int:
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
         }
         if name == "flash_attention":
+            entry["kernels"] = sorted({n for m in lm_times.values()
+                                       for n in m["kernels"]})
             entry["shapes"] = {
                 cfg: {"shape": m["shape"], "q_offset": m["q_offset"],
+                      "dtype": m["dtype"], "kernels": m["kernels"],
                       "ms": m["ms"], "kernel_ms": m["kernel_ms"],
+                      "kernel_parts_ms": m["kernel_parts_ms"],
                       "plain_ms": m["plain_ms"], "library_ms": m["library_ms"],
+                      "library_kernel_ms": m["library_kernel_ms"],
                       "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
                 for cfg, m in lm_times.items()}
         if name == "selective_scan":

@@ -29,6 +29,8 @@ SOURCES = (
     _PKG / "fused_flow" / "csrc" / "fused_flow.cu",
     _PKG / "mat_lut" / "csrc" / "mat_lut.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_prefill.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_decode.cu",
     _PKG / "selective_scan" / "csrc" / "selective_scan.cu",
     _PKG / "binarized_gemm" / "csrc" / "binarized_gemm.cu",
 )

@@ -325,10 +325,15 @@ void fused_flow_serve_multi(std::vector<at::Tensor> tables, at::Tensor valid,
 }
 
 // K7: o = attention(q, k, v) over the first skv keys; the wrapper has
-// checked the shapes, dtypes, contiguity and alignment.
+// checked the shapes, dtypes, contiguity and alignment.  A bf16 call
+// with Sq <= FA_DECODE_MAX_SQ is a split-KV decode over keys [kv_lo,
+// kv_hi) in n_chunks chunks of ``chunk`` keys, its partials in ``ws``
+// (f32, B * K * n_chunks * R * (D + 2), R = Sq * H / K); other calls
+// ignore those arguments.
 void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
-                     int64_t skv, int64_t q_offset, bool causal,
-                     int64_t window) {
+                     at::Tensor ws, int64_t skv, int64_t q_offset,
+                     bool causal, int64_t window, int64_t kv_lo,
+                     int64_t kv_hi, int64_t chunk, int64_t n_chunks) {
   c10::cuda::CUDAGuard guard(q.device());
   const bool bf16 = q.scalar_type() == at::kBFloat16;
   TORCH_CHECK(bf16 || q.scalar_type() == at::kFloat,
@@ -343,6 +348,11 @@ void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
   TORCH_CHECK(q.is_contiguous() && k.is_contiguous() && v.is_contiguous() &&
                   o.is_contiguous(),
               "K7 takes contiguous tensors");
+  for (const at::Tensor* t : {&q, &k, &v, &o})
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) %
+                        (bf16 ? 16 : 8) ==
+                    0,
+                "K7's loads need ", bf16 ? 16 : 8, "-byte aligned tensors");
   const int64_t D = q.size(3);
   TORCH_CHECK(k.size(0) == q.size(0) && k.size(3) == D,
               "q and k differ in batch or head width");
@@ -365,6 +375,29 @@ void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
   a.causal = causal ? 1 : 0;
   a.window = (int)window;
   a.scale = (float)(1.0 / std::sqrt((double)D));
+  a.kv_lo = a.kv_hi = a.chunk = a.n_chunks = 0;
+  a.ws_acc = a.ws_ml = nullptr;
+  if (bf16 && a.Sq <= FA_DECODE_MAX_SQ && a.B > 0) {
+    const int64_t R = q.size(1) * (q.size(2) / k.size(2));
+    TORCH_CHECK(0 <= kv_lo && kv_lo < kv_hi && kv_hi <= skv && chunk >= 1 &&
+                    n_chunks >= 1 && (n_chunks - 1) * chunk < kv_hi - kv_lo &&
+                    n_chunks * chunk >= kv_hi - kv_lo,
+                "split-KV plan does not cover keys [kv_lo, kv_hi)");
+    TORCH_CHECK((k.size(2) * ((R + FA_DECODE_ROWS - 1) / FA_DECODE_ROWS)) <=
+                    65535 && n_chunks < INT_MAX,
+                "kv heads x row groups index the grid's y");
+    const int64_t n_acc = q.size(0) * k.size(2) * n_chunks * R * D;
+    TORCH_CHECK(ws.scalar_type() == at::kFloat && ws.is_contiguous() &&
+                    ws.device() == q.device() &&
+                    ws.numel() >= n_acc + n_acc / D * 2,
+                "split-KV workspace: f32, B * K * n_chunks * R * (D + 2)");
+    a.kv_lo = (int)kv_lo;
+    a.kv_hi = (int)kv_hi;
+    a.chunk = (int)chunk;
+    a.n_chunks = (int)n_chunks;
+    a.ws_acc = ws.data_ptr<float>();
+    a.ws_ml = a.ws_acc + n_acc;
+  }
   C10_CUDA_CHECK(launch_flash_attention(q.data_ptr(), k.data_ptr(),
                                         v.data_ptr(), o.data_ptr(), a,
                                         (int)D, bf16 ? 1 : 0, stream_of(q)));

@@ -18,6 +18,13 @@
 // value in the kernel parameter space (32,764 bytes on Hopper from CUDA
 // 12.1 on), so the count is bounded by that space, not by the kernel.
 #define RT_MAX_TABLES 256
+// K7: bf16 calls with at most this many query rows take the split-KV
+// decode kernel, longer ones the tensor-core prefill kernel.
+#define FA_DECODE_MAX_SQ 4
+// K7's split-KV decode: query rows (Sq x the GQA group) per block, and
+// keys per staged tile (a chunk is a whole number of tiles).
+#define FA_DECODE_ROWS 64
+#define FA_DECODE_TILE 32
 
 // One flow table and one slot-segmented batch.  ``keys``/``regs`` are
 // updated in place; only the batch's slots are read and written.
@@ -122,6 +129,11 @@ struct FlashArgs {
   int causal;             // 1: kv_pos <= q_pos
   int window;             // > 0: kv_pos > q_pos - window
   float scale;            // 1 / sqrt(D), rounded once from double
+  // split-KV decode only: keys [kv_lo, kv_hi) in n_chunks chunks of
+  // ``chunk`` keys (the last may be shorter); R = Sq * H / K rows
+  int kv_lo, kv_hi, chunk, n_chunks;
+  float* ws_acc;          // [B, K, n_chunks, R, D] partial acc
+  float* ws_ml;           // [B, K, n_chunks, R, 2] partial (m, l)
 };
 
 // K8 selective scan: dA and dBx [B, S, di, N], C [B, S, N], h0 and
@@ -159,10 +171,18 @@ cudaError_t launch_fused_flow_multi(const TableArgs* tables, int nt,
                                     int* verdicts, const MitArgs* mit,
                                     cudaStream_t stream);
 // K7: D in {16, 32, 64, 128}; bf16 1 takes __nv_bfloat16 operands, 0 f32.
+// f32: the SIMT kernel; bf16: the split-KV decode (Sq <=
+// FA_DECODE_MAX_SQ, two launches) or the tensor-core prefill.
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o,
                                    const FlashArgs& a, int D, int bf16,
                                    cudaStream_t stream);
+cudaError_t launch_flash_prefill(const void* q, const void* k,
+                                 const void* v, void* o, const FlashArgs& a,
+                                 int D, cudaStream_t stream);
+cudaError_t launch_flash_decode(const void* q, const void* k, const void* v,
+                                void* o, const FlashArgs& a, int D,
+                                cudaStream_t stream);
 // K8: y and h_out from the f32 inputs; N in {1, 2, 4, 8, 16, 32}.
 cudaError_t launch_selective_scan(const float* dA, const float* dBx,
                                   const float* C, const float* h0, float* y,

@@ -1,44 +1,54 @@
 // K7 flash_attention: online-softmax attention with causal masking, a
 // sliding window, GQA and a q position offset; f32 accumulation, the
-// output in q's dtype (bf16 or f32).
+// output in q's dtype (bf16 or f32).  Three designs, chosen by dtype and
+// by Sq alone (launch_flash_attention below):
 //
-// Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:35
-// (_flash_kernel, launched by flash_attention_padded :113), which
-// computes what models/attention.chunked_attention computes.  The port's
-// LM path runs it for prefill (q_offset 0) and for every decode step
-// (Sq = 1, q_offset = the cache index, skv = the cache length) of every
-// layer.
+//   bf16, Sq > FA_DECODE_MAX_SQ: fa_prefill_kernel (flash_prefill.cu),
+//     P V on the tensor cores (wgmma), the scores on the CUDA cores;
+//   bf16, Sq <= FA_DECODE_MAX_SQ: fa_decode_kernel + fa_combine_kernel
+//     (flash_decode.cu), a split-KV decode on the CUDA cores;
+//   f32: fa_simt_kernel (this file), f32 FMAs on the CUDA cores.
 //
-// Bound: bytes (Q, K, V and O once) over 3.35 TB/s against operations
-// (4 * B * H * D per live (q, kv) pair) over 989 TFLOP/s, the bf16
-// tensor-core rate a later design can reach.  Causal prefill at the
-// Qwen3-1.7B shape is bound by operations; decode by bytes.  This first
-// design does f32 FMAs on the CUDA cores; wgmma, TMA and a split-KV
-// decode are later work.
+// All three replace the TPU kernel repro/kernels/flash_attention/
+// kernel.py:35 (_flash_kernel, launched by flash_attention_padded :113),
+// which computes what models/attention.chunked_attention computes.  The
+// port's LM path runs K7 for prefill (q_offset 0) and for every decode
+// step (Sq = 1, q_offset = the cache index, skv = the cache length) of
+// every layer.  Its expressions fix the numbers in every kernel: the
+// scale after the dot (computed once on the host in double), the finite
+// NEG_INF, the element masks kv_pos < skv, kv_pos <= q_pos and kv_pos >
+// q_pos - window, alpha = exp(m_prev - m_new), acc / max(l, 1e-30), expf
+// (no fast math).  Ragged q rows and kv rows past skv are masked in the
+// kernels, so the wrapper pads nothing.
 //
-// Design.  One block of 4 warps per (64-row q tile, q head, batch); a
-// loop inside the block over 32-row kv tiles takes the place of the
-// TPU's sequential innermost grid dimension.  The q tile and each K/V
-// tile are staged in shared memory as f32 (converted on load with the
-// bf16 intrinsics; K rows padded by one float so that lane j reading
-// row j is free of bank conflicts).  Each warp owns 16 q rows: for the
-// scores lane j takes kv column j of every row; the row max and sum are
-// warp shuffles; the probabilities go through shared memory and for the
-// product with V each lane takes the output columns lane + 32 c.  The
-// running (m, l, acc) stay in registers.  The kv head is h / (H / K).
-// A kv tile is skipped with the TPU kernel's predicates (causal: k_lo >
-// q_hi; window: k_hi <= q_lo - window, over the block's real rows); the
-// element masks are its masks (kv_pos < skv, kv_pos <= q_pos, kv_pos >
-// q_pos - window).  Its expressions fix the numbers: the scale after
-// the dot (computed once on the host in double), the finite NEG_INF,
-// alpha = exp(m_prev - m_new), acc / max(l, 1e-30), expf (no fast
-// math).  Ragged q rows and kv rows past skv are masked here, so the
-// wrapper pads nothing.  Rows past Sq in a warp are skipped, which keeps
-// decode (Sq = 1) from computing 63 padding rows per block; the other 3
-// warps of a decode block only help load the tiles.
+// Bounds.  Prefill is bound by bytes at 512 tokens and by operations at
+// 2,048 (4 * D per live (q, kv) pair per head over 989 TFLOP/s of bf16
+// tensor cores); its design puts P V on wgmma, runs the scores as f32
+// FMA chains in the reference's order (the tensor cores' sums are too
+// coarse for them; see flash_prefill.cu) and overlaps the next K/V
+// tile's load with this one's products.  Decode is bound by bytes: each
+// live key brings 4 * D bytes of K and V for 4 * G * D operations, far
+// below the card's 295 operations per byte, over 3.35 TB/s; its design
+// reads each live K/V row once per GQA group, with enough chunks to fill
+// the SMs.
+// f32 operands (the int8-cache configs and the f32 Jamba run, which the
+// models cast to f32) keep the SIMT kernel: its 1e-5 parity cannot hold
+// through bf16 tensor cores.
+//
+// The SIMT kernel.  One block of 4 warps per (64-row q tile, q head,
+// batch); a loop inside the block over 32-row kv tiles takes the place
+// of the TPU's sequential innermost grid dimension.  The q tile and each
+// K/V tile are staged in shared memory (K rows padded by one float so
+// that lane j reading row j is free of bank conflicts).  Each warp owns
+// 16 q rows: for the scores lane j takes kv column j of every row; the
+// row max and sum are warp shuffles; the probabilities go through shared
+// memory and for the product with V each lane takes the output columns
+// lane + 32 c.  The running (m, l, acc) stay in registers.  The kv head
+// is h / (H / K).  A kv tile is skipped with the TPU kernel's predicates
+// (causal: k_lo > q_hi; window: k_hi <= q_lo - window, over the block's
+// real rows).  Rows past Sq in a warp are skipped.
 
-#include <cuda_bf16.h>
-
+#include "flash_common.cuh"
 #include "rt_types.h"
 
 namespace {
@@ -47,7 +57,6 @@ constexpr int FA_BQ = 64;                  // q rows per block
 constexpr int FA_BK = 32;                  // kv rows per tile: one a lane
 constexpr int FA_WARPS = 4;
 constexpr int FA_RPW = FA_BQ / FA_WARPS;   // q rows per warp
-constexpr float FA_NEG_INF = -1e30f;
 
 template <int D>
 constexpr size_t fa_smem_floats() {
@@ -59,34 +68,11 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_WARPS * 32)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           FlashArgs a) {
+    fa_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   FlashArgs a) {
   constexpr int DPL = (D + 31) / 32;       // output columns per lane
   constexpr int KST = D + 1;               // padded K row
   extern __shared__ float smem[];
@@ -103,9 +89,9 @@ __global__ void __launch_bounds__(FA_WARPS * 32)
   const int kvh = h / (a.H / a.K);
   const size_t q_rs = (size_t)a.H * D;     // q / o row stride
   const size_t kv_rs = (size_t)a.K * D;    // k / v row stride
-  const T* qb = q + (size_t)b * a.Sq * q_rs + (size_t)h * D;
-  const T* kb = k + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
+  const float* qb = q + (size_t)b * a.Sq * q_rs + (size_t)h * D;
+  const float* kb = k + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
 
   for (int i = tid; i < FA_BQ * D / 2; i += FA_WARPS * 32) {
     const int r = (2 * i) / D;
@@ -123,7 +109,7 @@ __global__ void __launch_bounds__(FA_WARPS * 32)
   float l[FA_RPW];
 #pragma unroll
   for (int r = 0; r < FA_RPW; ++r) {
-    m[r] = FA_NEG_INF;
+    m[r] = fa::NEG_INF;
     l[r] = 0.f;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
@@ -179,11 +165,11 @@ __global__ void __launch_bounds__(FA_WARPS * 32)
         bool ok = kv_pos < a.skv;
         if (a.causal) ok = ok && kv_pos <= q_pos;
         if (a.window > 0) ok = ok && kv_pos > q_pos - a.window;
-        const float sv = ok ? s[r] * a.scale : FA_NEG_INF;
-        const float m_new = fmaxf(m[r], warp_max(sv));
+        const float sv = ok ? s[r] * a.scale : fa::NEG_INF;
+        const float m_new = fmaxf(m[r], fa::warp_max(sv));
         const float alpha = expf(m[r] - m_new);
         const float p = expf(sv - m_new);
-        l[r] = l[r] * alpha + warp_sum(p);
+        l[r] = l[r] * alpha + fa::warp_sum(p);
         m[r] = m_new;
         pw[r * FA_BK + lane] = p;
 #pragma unroll
@@ -217,45 +203,32 @@ __global__ void __launch_bounds__(FA_WARPS * 32)
   for (int r = 0; r < FA_RPW; ++r) {
     if (r < nr) {
       const float den = fmaxf(l[r], 1e-30f);
-      T* orow = o + ((size_t)b * a.Sq + row0 + wrow + r) * q_rs +
-                (size_t)h * D;
+      float* orow = o + ((size_t)b * a.Sq + row0 + wrow + r) * q_rs +
+                    (size_t)h * D;
 #pragma unroll
       for (int c = 0; c < DPL; ++c) {
         const int d = lane + 32 * c;
-        if (d < D) store1(orow + d, acc[r][c] / den);
+        if (d < D) orow[d] = acc[r][c] / den;
       }
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_fa(const void* q, const void* k, const void* v, void* o,
-                      const FlashArgs& a, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_fa_simt(const void* q, const void* k, const void* v,
+                           void* o, const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * fa_smem_floats<D>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fa_simt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((a.Sq + FA_BQ - 1) / FA_BQ, a.H, a.B);
-  flash_attention_kernel<T, D><<<grid, FA_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), a);
+  fa_simt_kernel<D><<<grid, FA_WARPS * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), a);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_fa_width(const void* q, const void* k, const void* v,
-                            void* o, const FlashArgs& a, int D,
-                            cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_fa<T, 16>(q, k, v, o, a, stream);
-    case 32: return launch_fa<T, 32>(q, k, v, o, a, stream);
-    case 64: return launch_fa<T, 64>(q, k, v, o, a, stream);
-    case 128: return launch_fa<T, 128>(q, k, v, o, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -265,6 +238,15 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const FlashArgs& a, int D, int bf16,
                                    cudaStream_t stream) {
   if (a.B == 0 || a.Sq == 0) return cudaSuccess;
-  return bf16 ? launch_fa_width<__nv_bfloat16>(q, k, v, o, a, D, stream)
-              : launch_fa_width<float>(q, k, v, o, a, D, stream);
+  if (bf16)
+    return a.Sq <= FA_DECODE_MAX_SQ
+               ? launch_flash_decode(q, k, v, o, a, D, stream)
+               : launch_flash_prefill(q, k, v, o, a, D, stream);
+  switch (D) {
+    case 16: return launch_fa_simt<16>(q, k, v, o, a, stream);
+    case 32: return launch_fa_simt<32>(q, k, v, o, a, stream);
+    case 64: return launch_fa_simt<64>(q, k, v, o, a, stream);
+    case 128: return launch_fa_simt<128>(q, k, v, o, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }

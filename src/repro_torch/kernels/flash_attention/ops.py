@@ -1,9 +1,16 @@
 """Public op: flash attention (counterpart of
 ``repro.kernels.flash_attention.ops``).
 
-``flash_attention`` launches CUDA kernel K7 (``csrc/flash_attention.cu``)
-for CUDA tensors and runs the plain version (``ref.attention_ref``) for
-CPU tensors.  There is no other switch and no fallback.
+``flash_attention`` launches CUDA kernel K7 for CUDA tensors and runs the
+plain version (``ref.attention_ref``) for CPU tensors.  There is no other
+switch and no fallback.  K7 picks its kernels by dtype and by Sq alone:
+bf16 with Sq <= ``DECODE_MAX_SQ`` the split-KV decode
+(``csrc/flash_decode.cu``: two launches, its chunk plan from
+``decode_plan``, its partials in a workspace allocated here), longer bf16
+calls the prefill (``csrc/flash_prefill.cu``: P V on the tensor cores),
+f32 the SIMT kernel (``csrc/flash_attention.cu``).
+``ref.attention_split_ref`` is the plain form of the two bf16 kernels'
+arithmetic.
 
 Semantics: q [B, Sq, H, D], k and v [B, Skv, K, D] with H % K == 0; the
 query at row i sits at position ``q_offset + i``; key t is attended when
@@ -14,14 +21,25 @@ dtype.  The kernel masks ragged edges itself, so nothing is padded.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _ext
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, live_keys
 
 # K7's head widths (a template parameter; the repo's configs use 16 and 128)
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
+# bf16 calls with at most this many query rows take the split-KV decode
+DECODE_MAX_SQ = _ext.header_define("FA_DECODE_MAX_SQ")
+# query rows (Sq x the GQA group) per decode block; keys per staged tile
+DECODE_ROWS = _ext.header_define("FA_DECODE_ROWS")
+DECODE_TILE = _ext.header_define("FA_DECODE_TILE")
+# decode blocks to aim for on each SM (each streams 16 KiB of K and V a
+# 32-key tile through two stages): 2 ran the LM path's decode shapes
+# fastest of 2, 4, 8 and 16 on the H100
+DECODE_BLOCKS_PER_SM = 2
 
 
 def _check(q, k, v, *, window: int, q_offset: int, skv: int) -> None:
@@ -44,10 +62,30 @@ def _check(q, k, v, *, window: int, q_offset: int, skv: int) -> None:
         raise ValueError("q_offset and window must be >= 0")
 
 
+def decode_plan(B: int, Sq: int, H: int, K: int, skv: int, *,
+                causal: bool, window: int, q_offset: int,
+                n_sm: int) -> tuple[int, int, int, int]:
+    """The split-KV decode's chunks -> (kv_lo, kv_hi, chunk, n_chunks):
+    the live keys (``ref.live_keys``) in chunks of whole 32-key tiles, as
+    few as give about ``DECODE_BLOCKS_PER_SM`` blocks on each of ``n_sm``
+    SMs over the (kv head, row group, batch) blocks."""
+    lo, hi = live_keys(Sq, skv, causal=causal, window=window,
+                       q_offset=q_offset)
+    n_rg = -(-Sq * (H // K) // DECODE_ROWS)
+    want = max(1, -(-DECODE_BLOCKS_PER_SM * n_sm // (B * K * n_rg)))
+    chunk = DECODE_TILE * -(-(hi - lo) // (want * DECODE_TILE))
+    return lo, hi, chunk, -(-(hi - lo) // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     skv: int | None = None) -> torch.Tensor:
-    """-> [B, Sq, H, D] in q's dtype.  CUDA tensors: one K7 launch; CPU
+    """-> [B, Sq, H, D] in q's dtype.  CUDA tensors: one K7 call; CPU
     tensors: the plain version over the first ``skv`` keys."""
     skv = int(k.shape[1] if skv is None else skv)
     window, q_offset = int(window), int(q_offset)
@@ -61,8 +99,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_launch(q, k, v, *, causal: bool, window: int,
                            q_offset: int, skv: int) -> torch.Tensor:
-    """K7's wrapper: checked operands -> the output, one launch on the
-    current stream."""
+    """K7's wrapper: checked operands -> the output, on the current
+    stream: one launch, or the split-KV decode's two (counted as one
+    call)."""
     _check(q, k, v, window=window, q_offset=q_offset, skv=skv)
     for t in (q, k, v):
         if t.device.type != "cuda" or t.device != q.device:
@@ -74,12 +113,21 @@ def flash_attention_launch(q, k, v, *, causal: bool, window: int,
         if not t.is_contiguous():
             raise ValueError("flash_attention_launch takes contiguous "
                              "tensors")
-        # the kernel loads element pairs
-        if t.data_ptr() % (2 * t.element_size()):
+        # the bf16 kernels load 16 bytes a thread, the f32 one pairs
+        align = 16 if q.dtype == torch.bfloat16 else 8
+        if t.data_ptr() % align:
             raise ValueError("flash_attention_launch needs tensors aligned "
-                             "to two elements")
+                             f"to {align} bytes")
     out = torch.empty_like(q)
-    _ext.extension().flash_attention(q, k, v, out, skv, q_offset,
-                                     bool(causal), window)
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    plan, ws = (0, 0, 0, 0), q.new_empty(0, dtype=torch.float32)
+    if q.dtype == torch.bfloat16 and Sq <= DECODE_MAX_SQ:
+        plan = decode_plan(B, Sq, H, K, skv, causal=causal, window=window,
+                           q_offset=q_offset, n_sm=_sm_count(q.device))
+        ws = q.new_empty(B * K * plan[3] * Sq * (H // K) * (D + 2),
+                         dtype=torch.float32)
+    _ext.extension().flash_attention(q, k, v, out, ws, skv, q_offset,
+                                     bool(causal), window, *plan)
     _ext.count_launch("flash_attention")
     return out

@@ -1,8 +1,11 @@
-"""Plain PyTorch version of K7 (counterpart of
-``repro.kernels.flash_attention.ref``): naive full-matrix softmax
-attention with causal masking, a sliding window, GQA (H % K == 0) and a
-q position offset.  The CPU tests hold it against the reference, and
-``chip_smoke.py`` holds the kernel against it on the card."""
+"""Plain PyTorch versions of K7 (counterpart of
+``repro.kernels.flash_attention.ref``).  ``attention_ref``: naive
+full-matrix softmax attention with causal masking, a sliding window, GQA
+(H % K == 0) and a q position offset.  ``attention_split_ref``: the same
+function by the arithmetic of K7's bf16 kernels (chunks of the live keys,
+tiles, the online softmax and the combine; P split into bf16 hi and lo).
+The CPU tests hold both against the reference, and ``chip_smoke.py``
+holds the kernels against both on the card."""
 
 from __future__ import annotations
 
@@ -34,4 +37,89 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bkgsd", p, v.to(torch.float32))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def live_keys(Sq: int, skv: int, *, causal: bool, window: int,
+              q_offset: int) -> tuple[int, int]:
+    """[lo, hi): the keys that some query row of a call may attend — up to
+    the last row's position under ``causal``, above the first row's
+    ``q_offset - window`` under a window, below ``skv`` — or every key
+    [0, skv) when that range is empty (every key is masked then, and the
+    softmax averages them all, as ``attention_ref`` does)."""
+    hi = min(skv, q_offset + Sq) if causal else skv
+    lo = max(q_offset - window + 1, 0) if window > 0 else 0
+    return (lo, hi) if lo < hi else (0, skv)
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor, split_p: bool) -> torch.Tensor:
+    """P V over one tile; with ``split_p`` as p_hi V + p_lo V, p_hi =
+    bf16(p) and p_lo = bf16(p - p_hi) (about 2^-16 of p from f32)."""
+    if not split_p:
+        return torch.einsum("bkgst,btkd->bkgsd", p, v)
+    hi = p.to(torch.bfloat16).to(torch.float32)
+    lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+    return (torch.einsum("bkgst,btkd->bkgsd", hi, v)
+            + torch.einsum("bkgst,btkd->bkgsd", lo, v))
+
+
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, lo: int = 0,
+                        hi: int | None = None, chunk: int | None = None,
+                        tile: int = 64, split_p: bool = False
+                        ) -> torch.Tensor:
+    """The arithmetic of K7's bf16 kernels, in plain PyTorch: keys [lo,
+    hi) (default every key of k) in chunks of ``chunk`` keys (default one
+    chunk), each walked in tiles of ``tile`` keys with the TPU kernel's
+    online softmax — the scale after the dot, the masks to NEG_INF, alpha
+    = exp(m_prev - m_new) — the chunks' partial (m, l, acc) merged with
+    the same alpha, and acc / max(l, 1e-30).  The bf16 prefill is one
+    chunk of 64-key tiles with ``split_p`` (its P V on the tensor cores);
+    the split-KV decode is the wrapper's chunks of 32-key tiles.  Keys
+    outside [lo, hi) take no part.
+    q [B, Sq, H, D]; k, v [B, Skv, K, D] -> q's dtype, computed in f32."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    f32 = torch.float32
+    hi = k.shape[1] if hi is None else hi
+    chunk = hi - lo if chunk is None else chunk
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=f32)
+    qg = q.reshape(B, Sq, K, G, D).to(f32)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    parts = []
+    for c_lo in range(lo, hi, chunk):
+        m = torch.full((B, K, G, Sq), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, K, G, Sq, D), dtype=f32, device=q.device)
+        c_hi = min(c_lo + chunk, hi)
+        for t_lo in range(c_lo, c_hi, tile):
+            t_hi = min(t_lo + tile, c_hi)
+            vt = v[:, t_lo:t_hi].to(f32)
+            s = torch.einsum("bskgd,btkd->bkgst", qg,
+                             k[:, t_lo:t_hi].to(f32)) * scale
+            kv_pos = torch.arange(t_lo, t_hi, device=q.device)
+            mask = torch.ones((Sq, t_hi - t_lo), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+            if window > 0:
+                mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            m = m_new
+            acc = acc * alpha[..., None] + _pv(p, vt, split_p)
+        parts.append((m, l, acc))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for m_c, l_c, acc_c in parts:
+        alpha = torch.exp(m_c - m)
+        l = l + l_c * alpha
+        acc = acc + acc_c * alpha[..., None]
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)

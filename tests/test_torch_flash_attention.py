@@ -19,9 +19,13 @@ from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.models.attention import chunked_attention, decode_attention
 from repro_torch.kernels.flash_attention import (
+    DECODE_MAX_SQ,
     attention_ref,
+    attention_split_ref,
+    decode_plan,
     flash_attention,
     flash_attention_launch,
+    live_keys,
 )
 from repro_torch.models import attention as tattn
 
@@ -150,3 +154,170 @@ def test_launch_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_launch(q, q, q, causal=True, window=0, q_offset=0,
                                skv=4)
+
+
+# ------------------------------------------- the bf16 kernels' arithmetic
+#
+# ``attention_split_ref`` is the plain form of K7's two bf16 kernels: the
+# split-KV decode (the wrapper's chunks of the live keys, 32-key tiles,
+# partial (m, l, acc) merged with the TPU kernel's alpha) and the
+# prefill (64-key tiles, P V as p_hi V + p_lo V on the tensor cores).
+# Tolerance: f32 inputs within TOL of the reference (the same f32 math in
+# another order; the split P costs about 2^-16 of p); bf16 inputs within
+# K7_BF16_TOL * max(1, |ref|), chip_smoke.K7_TOL's rule: both compute in
+# f32 from the same bf16 inputs and round once, so two results that
+# straddle a rounding boundary land one bf16 step apart.
+
+K7_BF16_TOL = 8e-3
+N_SM = 132                                  # the H100's SMs
+
+
+def _split_decode(q, k, v, *, causal, window, q_offset, skv=None):
+    B, Sq, H, _ = q.shape
+    K = k.shape[2]
+    skv = k.shape[1] if skv is None else skv
+    lo, hi, chunk, _ = decode_plan(B, Sq, H, K, skv, causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   n_sm=N_SM)
+    return attention_split_ref(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, lo=lo, hi=hi, chunk=chunk,
+                               tile=32)
+
+
+# D, G, Sq, Skv, q_offset, window, chunk: chunk edges that cut the live
+# keys, q_offset at a chunk's first key (64) and last (63, 95), the last
+# key of the cache, a window in decode, Sq up to DECODE_MAX_SQ
+SPLIT_CASES = [
+    (16, 1, 1, 130, 63, 0, None), (16, 2, 1, 130, 64, 0, None),
+    (32, 8, 1, 200, 95, 0, None), (32, 12, 1, 200, 199, 0, None),
+    (64, 2, 1, 300, 0, 0, None), (64, 8, 2, 300, 150, 40, None),
+    (128, 12, 4, 160, 120, 0, None), (128, 8, 1, 200, 150, 37, None),
+    (128, 2, 3, 256, 100, 0, 7), (16, 12, 4, 70, 40, 9, 5),
+    (32, 1, 2, 90, 31, 16, 32), (64, 12, 1, 128, 127, 0, 32)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"D{c[0]}-G{c[1]}-Sq{c[2]}-o{c[4]}-w{c[5]}"
+                              f"-c{c[6]}" for c in SPLIT_CASES])
+def test_split_decode_arithmetic_matches_reference(case):
+    """The split-KV decode's chunks and combine, f32 inputs, against the
+    JAX ``attention_ref`` and the Pallas kernel in interpret mode."""
+    D, G, Sq, Skv, q_offset, window, chunk = case
+    B, K = 2, 2
+    q, k, v = _inputs(D * G + Sq, B, Sq, Skv, K * G, K, D)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)), **kw)
+    kernel = jax_flash(*map(jnp.asarray, (q, k, v)), block_q=8,
+                       block_k=16, interpret=True, **kw)
+    tq, tk, tv = map(torch.as_tensor, (q, k, v))
+    if chunk is None:
+        got = _split_decode(tq, tk, tv, **kw)
+    else:
+        lo, hi = live_keys(Sq, Skv, **kw)
+        got = attention_split_ref(tq, tk, tv, lo=lo, hi=hi, chunk=chunk,
+                                  tile=32, **kw)
+    assert got.shape == (B, Sq, K * G, D) and got.dtype == torch.float32
+    assert _max_abs(got, ref) <= TOL
+    assert _max_abs(got, kernel) <= TOL
+
+
+@pytest.mark.parametrize("D", (16, 32, 64, 128))
+@pytest.mark.parametrize("G", (1, 2, 8, 12))
+def test_split_prefill_arithmetic_matches_reference(D, G):
+    """The prefill's 64-key tiles with P split into bf16 hi and lo, ragged
+    rows and keys, causal with a window, f32 inputs."""
+    B, K, Sq = 1, 2, 70
+    kw = dict(causal=True, window=50, q_offset=9)
+    q, k, v = _inputs(D + G, B, Sq, Sq + 9, K * G, K, D)
+    ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)), **kw)
+    got = attention_split_ref(*map(torch.as_tensor, (q, k, v)), tile=64,
+                              split_p=True, **kw)
+    assert _max_abs(got, ref) <= TOL
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a).view(np.uint16).copy()).view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("Sq,q_offset,window", [(1, 0, 0), (1, 63, 0),
+                                                (1, 64, 0), (1, 255, 0),
+                                                (1, 200, 64), (4, 100, 0),
+                                                (70, 0, 0), (70, 30, 24)])
+def test_split_arithmetic_in_bf16_rounds_once(Sq, q_offset, window):
+    """bf16 inputs at the Qwen3 head width, G = 8: decode (the wrapper's
+    plan) and prefill (split P) within K7's bf16 rule of the reference's
+    f32 math on the same inputs."""
+    B, K, G, D, Skv = 1, 2, 8, 128, 256
+    q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in
+               _inputs(Sq + q_offset, B, Sq, Skv, K * G, K, D))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    ref = np.asarray(jax_attention_ref(*map(jnp.asarray, (q, k, v)), **kw),
+                     np.float32)
+    tq, tk, tv = map(_bf16, (q, k, v))
+    if Sq <= DECODE_MAX_SQ:
+        got = _split_decode(tq, tk, tv, **kw)
+    else:
+        got = attention_split_ref(tq, tk, tv, tile=64, split_p=True, **kw)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - ref)
+    assert (diff <= K7_BF16_TOL * np.maximum(np.abs(ref), 1.0)).all(), \
+        diff.max()
+
+
+def test_decode_plan_covers_the_live_keys_only():
+    """Chunks are whole 32-key tiles over [lo, hi), the causal and window
+    limits of the call's rows, and fill the card's SMs; with no live key
+    every key is taken (all masked: the softmax's uniform average)."""
+    from repro_torch.kernels.flash_attention.ops import DECODE_BLOCKS_PER_SM
+
+    per_sm = DECODE_BLOCKS_PER_SM
+    for B, Sq, H, K, skv, window, q_offset in [
+            (4, 1, 16, 8, 1024, 0, 511), (4, 1, 16, 8, 1024, 0, 1023),
+            (4, 1, 64, 8, 1024, 0, 543), (4, 1, 16, 8, 1024, 100, 700),
+            (1, 4, 96, 1, 300, 0, 10), (2, 1, 4, 2, 40, 0, 0)]:
+        lo, hi, chunk, n = decode_plan(B, Sq, H, K, skv, causal=True,
+                                       window=window, q_offset=q_offset,
+                                       n_sm=N_SM)
+        assert hi == min(skv, q_offset + Sq)
+        assert lo == (max(q_offset - window + 1, 0) if window else 0)
+        assert chunk % 32 == 0 and (n - 1) * chunk < hi - lo <= n * chunk
+        rows = -(-Sq * (H // K) // 64)
+        assert n == 1 or B * K * rows * (n - 1) < per_sm * N_SM
+    assert decode_plan(4, 1, 16, 8, 1024, causal=True, window=0,
+                       q_offset=63, n_sm=N_SM)[2:] == (32, 2)
+    assert live_keys(1, 10, causal=True, window=4, q_offset=40) == (0, 10)
+    q, k, v = map(torch.as_tensor, _inputs(9, 1, 1, 10, 2, 1, 16))
+    kw = dict(causal=True, window=4, q_offset=40)
+    assert _max_abs(_split_decode(q, k, v, **kw),
+                    attention_ref(q, k, v, **kw)) <= TOL
+
+
+def test_cpu_op_runs_attention_ref_and_nothing_else(monkeypatch):
+    """On CPU tensors the op is ``attention_ref``: no plan, no split, no
+    extension, no counted launch."""
+    from repro_torch.kernels import _ext
+    from repro_torch.kernels.flash_attention import ops
+
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return attention_ref(*a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("not on the CPU")
+
+    monkeypatch.setattr(ops, "attention_ref", counted)
+    monkeypatch.setattr(ops, "decode_plan", refuse)
+    monkeypatch.setattr(_ext, "extension", refuse)
+    before = dict(_ext.LAUNCHES)
+    for Sq, q_offset in ((1, 20), (30, 0)):
+        q, k, v = map(torch.as_tensor, _inputs(Sq, 2, Sq, 40, 8, 2, 32))
+        kw = dict(causal=True, window=0, q_offset=q_offset)
+        got = flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                              skv=32, **kw)
+        assert torch.equal(got, attention_ref(
+            q.bfloat16(), k[:, :32].bfloat16(), v[:, :32].bfloat16(), **kw))
+    assert len(calls) == 2 and _ext.LAUNCHES == before
+
