@@ -151,6 +151,22 @@ stateless engine at B = 1,024; then the same data on Tofino at budget 8,
 a MAT on K4, exact against the plain walk).  No path runs K9: the JAX
 package has no stage that lowers onto it.
 
+Slice 9 redesigns K1 and K2 (the slot-chain walk with its operands
+staged off the chain; K1 one cooperative launch for one table or many,
+classifying after the walk, one warp per packet).  ``kernels_check``,
+``kernels_check_suffix`` and ``kernels_check_multi`` gain the chunk-edge
+patterns of ``repro_torch.testing`` (chains of 1, 31, 32, 33, 64 and
+254 / 512 packets, evictions at a chunk's first packet, -0.0
+increments), also with bins as RegisterUpdate makes them (no column
+hit twice, so every chunk takes the fast walk), a table with no
+histograms, and a check of every K1/K2 table, and of the mitigated
+verdicts, against the decomposition the kernels walk by
+(``flow_update_staged_ref``, ``mitigate_update_staged``);
+``kernels_time_chain`` times K1 ("mlp") and K2 at B = 512 with deepest
+chains of 1, 135 and 512 packets and reports the slope, device ns per
+chain step, beside a model (not a measurement) of the chain's latency
+floor.
+
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 exits 1; a missing GPU, torch or ``src/repro_torch`` exits 2 and prints
@@ -331,10 +347,9 @@ def call_device_ms(fn, n: int = 20) -> float:
 
 
 # K1's template instance, as the profiler names it: the suffix kind's
-# index in SUFFIX_KINDS and whether the mitigation phase is compiled in
-K1_INSTANCE = "fused_flow_kernel<{kind}, {mit}>"
-# K1's multi-table mode, by the suffix kind's index
-K1_MULTI_INSTANCE = "fused_flow_multi_kernel<{kind}>"
+# index in SUFFIX_KINDS and the table descriptors it carries (1 for one
+# table, MAX_TABLES for several)
+K1_INSTANCE = "fused_flow_kernel<{kind}, {cap}>"
 # K3 and K5 are one template, by whether it writes logits
 K3_INSTANCE, K5_INSTANCE = "fused_mlp_kernel<false>", "fused_mlp_kernel<true>"
 K6_NAME = "fused_dag_kernel"
@@ -396,17 +411,24 @@ def kernel_phase(dev):
     readouts (WindowStats(mode="hist") and no WindowStats) with MLPs of
     their input widths, then a 246-word row with a [246, 64, 4] MLP (eight
     columns per lane; over 48 KB of shared memory, so the kernels' opt-in
-    path runs)."""
+    path runs), and a table with no histograms.  The chunk-edge patterns
+    (``testing.EDGE_PATTERNS``: chains of 1, 31, 32, 33, 64 and 254 or
+    512 packets, evictions at a chunk's first packet, -0.0 increments)
+    run on the flow-ddos, the 246-word and the histogram-less tables, and
+    again on the flow-ddos and 246-word tables with bins as RegisterUpdate
+    makes them (no column hit twice, so no chunk leaves the fast walk)."""
     from repro_torch.flowstate.registers import FlowStateSpec
     from repro_torch.kernels import fused_flow as ff
     from repro_torch.kernels import fused_mlp as fm
-    from repro_torch.testing import PATTERNS, he_mlp, random_mlp
+    from repro_torch.testing import EDGE_PATTERNS, PATTERNS, he_mlp, random_mlp
 
     stages = flow_ddos_stages(S_KERNEL)
     spec = stages[1].spec
     mlp = fm.pack_params(stages[3].weights, stages[3].biases, device=dev)
     wide = FlowStateSpec(n_slots=S_KERNEL, n_counters=3, n_ewma=3,
                          hist_sizes=(100, 90, 50), ewma_alpha=0.5)
+    bare = FlowStateSpec(n_slots=S_KERNEL, n_counters=2, n_ewma=1,
+                         hist_sizes=(), ewma_alpha=0.25)
 
     def seeded_mlp(sp_, mode, hidden, classes, seed):
         widths = (table_plan(sp_, mode).n_out, *hidden, classes)
@@ -416,6 +438,7 @@ def kernel_phase(dev):
     hist_mlp = seeded_mlp(spec, "hist", (16, 8), 2, 4)
     raw_mlp = seeded_mlp(spec, "raw", (16, 8), 2, 5)
     wide_hist_mlp = seeded_mlp(wide, "hist", (64,), 4, 6)
+    bare_mlp = seeded_mlp(bare, "all", (16,), 2, 7)
     # the design space's deepest DNN at the flow-ddos readout: 611 KB of
     # parameters, read from device memory instead of shared memory
     full_mlp = fm.pack_params(*he_mlp((spec.width,) + FULL_HIDDEN + (2,),
@@ -435,14 +458,26 @@ def kernel_phase(dev):
                  ("same_slot", False))]
              + [(wide, "hist", wide_hist_mlp, "mixed", True)]
              + [(spec, "all", full_mlp, p, r) for p, r in (
-                 ("mixed", True), ("same_slot", False))])
-    for i, (sp_, mode, mlp_, pattern, ragged) in enumerate(cases):
+                 ("mixed", True), ("same_slot", False))]
+             + [(sp_, "all", m_, p, False) for sp_, m_ in (
+                 (spec, mlp), (wide, wide_mlp), (bare, bare_mlp))
+                for p in EDGE_PATTERNS]
+             + [(bare, "all", bare_mlp, "mixed", True)])
+    cases = ([c + (True,) for c in cases]
+             + [(sp_, "all", m_, p, False, False) for sp_, m_ in (
+                 (spec, mlp), (wide, wide_mlp)) for p in EDGE_PATTERNS])
+    for i, (sp_, mode, mlp_, pattern, ragged, dup) in enumerate(cases):
         for k, e in check_kernels(dev, sp_, mode, mlp_, pattern, ragged,
-                                  seed=100 + i).items():
+                                  seed=100 + i, dup_bins=dup).items():
             err[k] = max(err[k], e)
     emit({"phase": "kernels_check", "cases": len(cases), "B": B_KERNEL,
-          "n_slots": S_KERNEL, "widths": [spec.width, wide.width],
-          "modes": sorted({c[1] for c in cases}), "max_abs_err": err})
+          "n_slots": S_KERNEL,
+          "widths": [spec.width, wide.width, bare.width],
+          "modes": sorted({c[1] for c in cases}),
+          "edge_patterns": list(EDGE_PATTERNS),
+          "distinct_bins_cases": [f"{c[3]} W={c[0].width}" for c in cases
+                                  if not c[5]],
+          "max_abs_err": err})
     err.update(suffix_kernel_phase(dev))
     kw = dict(n_counters=spec.n_counters, n_ewma=spec.n_ewma,
               alpha=spec.ewma_alpha)
@@ -451,10 +486,13 @@ def kernel_phase(dev):
 
 
 def check_kernels(dev, spec, mode: str, mlp, pattern: str, ragged: bool,
-                  seed: int):
+                  seed: int, dup_bins: bool = True):
     """One batch through K2, K1 (readout ``mode``) and K3 and their plain
     versions, against a table a previous batch of the same pattern left
-    -> max abs error per kernel (raises on any disagreement)."""
+    (bins as ``testing.flow_batch`` plants them with ``dup_bins``);
+    K2 and K1's tables also against the decomposition the kernels walk by
+    (``flow_update_staged_ref``) -> max abs error per kernel (raises on
+    any disagreement)."""
     import torch
 
     from repro_torch.kernels import flow_update as fu
@@ -469,7 +507,8 @@ def check_kernels(dev, spec, mode: str, mlp, pattern: str, ragged: bool,
 
     def batch(s, r):
         return {k: torch.as_tensor(v, device=dev) for k, v in flow_batch(
-            spec, pattern, B_KERNEL, seed=s, ragged=r).items()}
+            spec, pattern, B_KERNEL, seed=s, ragged=r,
+            dup_bins=dup_bins).items()}
 
     t, t0 = batch(seed, ragged), batch(seed + 1000, False)
     empty = (torch.full((spec.n_slots,), -1, dtype=torch.int32, device=dev),
@@ -479,9 +518,10 @@ def check_kernels(dev, spec, mode: str, mlp, pattern: str, ragged: bool,
                                        t0["bins"], t0["valid"], **kw)
     ops = (keys, regs, t["pkt_keys"], t["upd"], t["bins"], t["valid"])
     rk, rr, rf = fu.flow_update_ref(*ops, **kw)
+    sk, sr, sf = fu.flow_update_staged_ref(*ops, **kw)
     z = ff.suffix_readout(rf, tp)
     logits = ff.ref.suffix_logits(z, mlp)
-    name = f"{pattern} W={spec.width} mode={mode}"
+    name = f"{pattern} W={spec.width} mode={mode} dup_bins={dup_bins}"
 
     def bits(x):
         return x.view(torch.int32)
@@ -491,10 +531,14 @@ def check_kernels(dev, spec, mode: str, mlp, pattern: str, ragged: bool,
     torch.cuda.synchronize()
     check(torch.equal(k2, rk) and torch.equal(bits(r2), bits(rr))
           and torch.equal(bits(f2), bits(rf)), f"K2 differs on {name}")
+    check(torch.equal(k2, sk) and torch.equal(bits(r2), bits(sr))
+          and torch.equal(bits(f2), bits(sf)),
+          f"K2 differs from the decomposition on {name}")
     k1, r1, v1 = ff.fused_flow_serve(keys.clone(), regs.clone(), *ops[2:],
                                      tp, sp, mlp)
     torch.cuda.synchronize()
-    check(torch.equal(k1, rk) and torch.equal(bits(r1), bits(rr)),
+    check(torch.equal(k1, rk) and torch.equal(bits(r1), bits(rr))
+          and torch.equal(k1, sk) and torch.equal(bits(r1), bits(sr)),
           f"K1 state differs on {name}")
     v3 = fm.fused_mlp_classify_packed(z.contiguous(), mlp)
     torch.cuda.synchronize()
@@ -514,7 +558,12 @@ def suffix_kernel_phase(dev):
     the first leaving a table the second partly continues and partly
     evicts; keys, rows, action keys and rows must be bit-exact, MAT and
     mitigated verdicts exact, centroid verdicts under the margin rule.
-    -> max abs error per kernel."""
+    The chunk-edge patterns run with and without the action table, also
+    with bins as RegisterUpdate makes them (no column hit twice, so no
+    chunk leaves the fast walk), and every case is also held against the
+    decomposition K1 walks by:
+    the staged flow walk, the plain classifier and the chunked action
+    walk (``mitigate_update_staged``).  -> max abs error per kernel."""
     import numpy as np
     import torch
 
@@ -523,6 +572,7 @@ def suffix_kernel_phase(dev):
     from repro_torch.kernels import fused_mlp as fm
     from repro_torch.kernels import mat_lut as ml
     from repro_torch.testing import (
+        EDGE_PATTERNS,
         flow_batch,
         mat_stages,
         random_mlp,
@@ -557,10 +607,21 @@ def suffix_kernel_phase(dev):
                 for mode in ("drop", "rate_limit")
                 for p in ("slot_runs", "one_hot_flow")]
              + [("mlp", 2 * S_KERNEL, mode, "slot_runs")
-                for mode in ("drop", "rate_limit")])
+                for mode in ("drop", "rate_limit")]
+             + [(k, None, None, p) for k in ("mat", "centroid")
+                for p in EDGE_PATTERNS]
+             + [("mat", S_KERNEL, "drop", "chain_edges"),
+                ("mat", 2 * S_KERNEL, "rate_limit", "one_chain"),
+                ("centroid", 2 * S_KERNEL, "drop", "one_chain"),
+                ("mlp", S_KERNEL, "rate_limit", "chain_edges")])
+    cases = ([c + (True,) for c in cases]
+             + [(k, sm, mode, p, False) for k, sm, mode in (
+                 ("mat", None, None), ("mlp", S_KERNEL, "drop"),
+                 ("centroid", 2 * S_KERNEL, "rate_limit"))
+                for p in EDGE_PATTERNS])
     err = {"fused_flow_serve": 0.0, "mat_lut_classify": 0.0}
     dropped = 0
-    for i, (kind, sm, mode, pattern) in enumerate(cases):
+    for i, (kind, sm, mode, pattern, dup) in enumerate(cases):
         sp, params = suffixes[kind]
         mit = None
         if sm is not None:
@@ -571,12 +632,12 @@ def suffix_kernel_phase(dev):
         keys = torch.full((spec.n_slots,), -1, dtype=torch.int32,
                           device=dev)
         regs = torch.zeros((spec.n_slots, W), device=dev)
-        name = f"{kind} {pattern} mit={sm} {mode}"
+        name = f"{kind} {pattern} mit={sm} {mode} dup_bins={dup}"
         for step in range(2):
             b = {k: torch.as_tensor(v, device=dev) for k, v in flow_batch(
                 spec, pattern, B_KERNEL, seed=200 + 2 * i + step,
-                ragged=step == 1, key_slots=max(spec.n_slots, sm or 0)
-            ).items()}
+                ragged=step == 1, key_slots=max(spec.n_slots, sm or 0),
+                dup_bins=dup).items()}
             ops = (keys, regs, b["pkt_keys"], b["upd"], b["bins"],
                    b["valid"])
             ref = ff.fused_flow_serve_ref(*ops, tp, sp, params, mit)
@@ -592,11 +653,23 @@ def suffix_kernel_phase(dev):
                       f"K1 state differs on {name}")
                 err["fused_flow_serve"] = max(err["fused_flow_serve"],
                                               max_abs(r, g))
+            # the decomposition: staged walk, classifier, chunked walk
+            kw = dict(n_counters=spec.n_counters, n_ewma=spec.n_ewma,
+                      alpha=spec.ewma_alpha)
+            dk, dr, feats = fu.flow_update_staged_ref(*ops, **kw)
+            dec = [dk, dr]
+            if mit is not None:
+                dec += ff.mitigate_update_staged(
+                    mit[0], mit[1], ops[2], ff.suffix_verdicts(
+                        ff.suffix_readout(feats, tp), params, sp),
+                    ops[5], spec=mit[2])
+            for d, g in zip(dec, got):
+                bits = (lambda x: x.view(torch.int32)) \
+                    if d.dtype == torch.float32 else (lambda x: x)
+                check(torch.equal(bits(d), bits(g)),
+                      f"K1 differs from the decomposition on {name}")
             if kind == "centroid" or kind == "mlp":
                 # verdicts under the margin rule: the plain scores
-                _, _, feats = fu.flow_update_ref(
-                    *ops, n_counters=spec.n_counters, n_ewma=spec.n_ewma,
-                    alpha=spec.ewma_alpha)
                 z = ff.suffix_readout(feats, tp)
                 sc = ff.suffix_scores(z, params, sp).cpu().numpy()
                 lm = (params.lmap.cpu().numpy() if kind == "centroid"
@@ -634,6 +707,9 @@ def suffix_kernel_phase(dev):
             err["mat_lut_classify"] = max(err["mat_lut_classify"],
                                           max_abs(got, want))
     emit({"phase": "kernels_check_suffix", "cases": len(cases),
+          "edge_patterns": list(EDGE_PATTERNS),
+          "distinct_bins_cases": [f"{c[0]} mit={c[1]} {c[3]}" for c in cases
+                                  if not c[4]],
           "k4_batches": [1, 37, 517, 4096], "B": B_KERNEL,
           "n_slots": S_KERNEL, "mit_slots": [S_KERNEL, 2 * S_KERNEL],
           "dropped": dropped, "max_abs_err": err})
@@ -701,7 +777,7 @@ def timing(dev, stages, tp, sp, mlp, kw):
                                             mlp)
     k2 = lambda: fu.flow_update_launch(*table, *ops[2:], seg, **kw)
     k3 = lambda: fm.fused_mlp_classify_launch(z, mlp)
-    k1_name = K1_INSTANCE.format(kind=0, mit="false")
+    k1_name = K1_INSTANCE.format(kind=0, cap=1)
     dev_ms = kernel_device_ms({k1_name: k1, "flow_update_kernel": k2,
                                K3_INSTANCE: k3})
     out = {}
@@ -846,15 +922,97 @@ def suffix_timing(dev, stages, ops, seg, tp, z, rows, batch, upd_flops,
             return ff.fused_flow_serve_ref(*ops, tp, _sp, _p, _m)
 
         instance = K1_INSTANCE.format(kind=ff.SUFFIX_KINDS.index(sp.kind),
-                                      mit="false" if sm is None else "true")
+                                      cap=1)
         out[mode] = dict(
             ms=time_ms(k1, TIMED_LAUNCHES),
             **kernel_fields(kernel_device_ms({instance: k1})[instance]),
             plain_ms=time_ms(plain, 3),
             bound=bound(rows + batch + pbytes + B * 4 + extra_b,
                         upd_flops + pops + extra_o), **shape)
+    # the split path's classifier at full width on the same readout rows:
+    # K2 + this against "mlp_full" decides the fuse advice
+    k3 = lambda: fm.fused_mlp_classify_launch(z, full)
+    out["mlp_full"]["k3_kernel_ms"] = kernel_device_ms(
+        {K3_INSTANCE: k3})[K3_INSTANCE]["ms"]
     out["_mat"] = mat
     return out
+
+
+CHAIN_DEPTHS = (1, 135, 512)
+
+
+def chain_timing(dev):
+    """The slot chain's cost: K1 (the flow-ddos table and MLP, one table)
+    and K2 at B = 512 on batches whose deepest slot chain is 1, 135 and
+    512 packets (one flow for the deep chain, every other packet alone in
+    a slot of its own, the arrival order shuffled, histogram bins as
+    RegisterUpdate makes them), each kernel's device
+    time (profiler, 20 launches applying the batch again to one copy of
+    the table) and the slope between the shallowest and the deepest
+    batch: the device ns a chain step costs.  Beside it, a model of the
+    chain's latency floor, not a measurement: the four dependent
+    operations an EWMA column's step keeps (r - r*alpha as one FFMA, the
+    select on the column's kind, the add of the term, the select on the
+    eviction flag) at 4 cycles each at the card's maximum SM clock
+    (nvidia-smi's clocks.max.sm, a setting, not a reading)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flow_update as fu
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.testing import flow_batch, slot_groups
+
+    stages = flow_ddos_stages(S_KERNEL)
+    spec = stages[1].spec
+    mlp = fm.pack_params(stages[3].weights, stages[3].biases, device=dev)
+    tp = table_plan(spec, "all")
+    sp = ff.SuffixPlan("mlp", mlp.num_classes)
+    kw = dict(n_counters=spec.n_counters, n_ewma=spec.n_ewma,
+              alpha=spec.ewma_alpha)
+    k1_name = K1_INSTANCE.format(kind=0, cap=1)
+    rows = {}
+    for d in CHAIN_DEPTHS:
+        rng = np.random.default_rng(d)
+        b = flow_batch(spec, "all_distinct", B_KERNEL, seed=700 + d,
+                       dup_bins=False)
+        keys = np.concatenate(slot_groups(B_KERNEL - d + 1, 1, S_KERNEL,
+                                          S_KERNEL))
+        b["pkt_keys"] = rng.permutation(np.concatenate(
+            [np.full(d, keys[0]), keys[1:]])).astype(np.int32)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        empty = (torch.full((S_KERNEL,), -1, dtype=torch.int32, device=dev),
+                 torch.zeros((S_KERNEL, spec.width), device=dev))
+        *ops, seg = fu.ops.prepare_operands(*empty, t["pkt_keys"], t["upd"],
+                                            t["bins"], t["valid"])
+        check(int(seg.seg_len.max()) == d,
+              f"chain timing: deepest chain {int(seg.seg_len.max())} != {d}")
+        table = ops[0].clone(), ops[1].clone()
+        k1 = (lambda _t=table, _o=ops, _s=seg: ff.fused_flow_serve_launch(
+            *_t, *_o[2:], _s, tp, sp, mlp))
+        k2 = (lambda _t=table, _o=ops, _s=seg: fu.flow_update_launch(
+            *_t, *_o[2:], _s, **kw))
+        seen = kernel_device_ms({k1_name: k1, "flow_update_kernel": k2})
+        rows[d] = {"fused_flow_serve": seen[k1_name]["ms"],
+                   "flow_update": seen["flow_update_kernel"]["ms"],
+                   "events": [seen[k1_name]["events"],
+                              seen["flow_update_kernel"]["events"]]}
+    lo, hi = CHAIN_DEPTHS[0], CHAIN_DEPTHS[-1]
+    slope = {k: (rows[hi][k] - rows[lo][k]) * 1e6 / (hi - lo)
+             if rows[hi][k] is not None and rows[lo][k] is not None
+             else None for k in ("fused_flow_serve", "flow_update")}
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    mhz = float(r.stdout.split()[0]) if r.stdout.strip() else None
+    floor = 4 * 4 / mhz * 1e3 if mhz else None      # ns per step
+    emit({"phase": "kernels_time_chain", "B": B_KERNEL, "n_slots": S_KERNEL,
+          "W": spec.width, "depths": list(CHAIN_DEPTHS),
+          "device_ms": {str(d): v for d, v in rows.items()},
+          "ns_per_step": slope, "sm_mhz_max": mhz,
+          "chain_floor_model_ns_per_step": floor})
+    return {"ns_per_step": slope,
+            "device_ms": {str(d): v for d, v in rows.items()}}
 
 
 def split_action_table_phase(dev):
@@ -1669,10 +1827,11 @@ def multi_lowered(stages, dev):
     return cuda_backend._table_plans(groups, modes), sp, params, mit_spec
 
 
-def multi_batch(dev, stages, pattern, B, seed, ragged):
+def multi_batch(dev, stages, pattern, B, seed, ragged, dup_bins=True):
     """Per-table operands of one batch: table 0 keyed by ``pattern`` of
     ``repro_torch.testing``, table 1 by "mixed" (a few keys, deep
-    chains), the valid mask shared."""
+    chains), the valid mask shared; bins as ``testing.flow_batch`` plants
+    them with ``dup_bins``."""
     import torch
 
     from repro_torch.core import stageir
@@ -1684,7 +1843,8 @@ def multi_batch(dev, stages, pattern, B, seed, ragged):
     for t, (_, ru, _) in enumerate(groups):
         b = flow_batch(ru.spec, pattern if t == 0 else "mixed", B,
                        seed=seed + t, ragged=ragged,
-                       key_slots=max(ru.spec.n_slots, 2 * S_KERNEL))
+                       key_slots=max(ru.spec.n_slots, 2 * S_KERNEL),
+                       dup_bins=dup_bins)
         ops.append([torch.as_tensor(b[k], device=dev)
                     for k in ("pkt_keys", "upd", "bins")])
         if t == 0:
@@ -1717,15 +1877,21 @@ def kernels_check_multi(dev):
     full-width classifier [47, 128 x 10, 2], five tables, and per-table
     readout modes ("all", "hist", raw) under the MLP and the MAT.  Two
     chained batches per case, the second from the tables the first
-    left.  Tables and action tables bit-exact; MAT
-    and mitigated verdicts exact; MLP and centroid verdicts under the
-    margin rule.  -> max abs error."""
+    left.  The chunk-edge patterns key table 0 in every suffix, with and
+    without the action table, and in five tables; some of them again with
+    bins as RegisterUpdate makes them (no column hit twice, so no chunk
+    leaves the fast walk).  Tables and action
+    tables bit-exact, also against the decomposition K1 walks by
+    (``flow_update_staged_ref`` per table); MAT and mitigated verdicts
+    exact; MLP and centroid verdicts under the margin rule.  -> max abs
+    error."""
     import numpy as np
     import torch
 
     from repro_torch.core import stageir
     from repro_torch.kernels import fused_flow as ff
     from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels.flow_update import flow_update_staged_ref
     from repro_torch.testing import he_mlp, mat_stages, verdict_mismatches
 
     cases = [(sfx, mit, B, pattern)
@@ -1743,8 +1909,22 @@ def kernels_check_multi(dev):
                   (("hist", "raw"), "mlp", MIT_SLOTS, "same_slot"),
                   (("raw", "hist"), "mat", None, "one_hot_flow"),
                   (("hist", "all"), "mat", 2 * MIT_SLOTS, "mixed"))]
+    # the chunk-edge patterns (testing.EDGE_PATTERNS) on table 0
+    cases += [("mlp", None, 512, "chain_edges"),
+              ("mlp", 2 * MIT_SLOTS, 512, "one_chain"),
+              ("mat", None, 512, "one_chain"),
+              ("mat", MIT_SLOTS, 512, "chain_edges"),
+              ("centroid", None, 512, "chain_edges"),
+              ("centroid", 2 * MIT_SLOTS, 512, "one_chain"),
+              ("five", None, 512, "one_chain"),
+              ("five", MIT_SLOTS, 512, "chain_edges")]
+    cases = ([c + (True,) for c in cases]
+             + [("mlp", None, 512, "chain_edges", False),
+                ("mat", MIT_SLOTS, 512, "one_chain", False),
+                ("centroid", 2 * MIT_SLOTS, 512, "chain_edges", False),
+                ("five", None, 512, "one_chain", False)])
     err, dropped, margin_rows = 0.0, 0, 0
-    for i, (sfx, sm, B, pattern) in enumerate(cases):
+    for i, (sfx, sm, B, pattern, dup) in enumerate(cases):
         stages = two_table(sfx if sfx in MULTI_SUFFIXES else "mlp")
         if sfx == "five" or sfx.startswith("modes"):
             rest, _ = stageir.split_mitigation(stages)
@@ -1781,11 +1961,12 @@ def kernels_check_multi(dev):
                              device=dev),
                   torch.zeros((S_KERNEL, tp.width), device=dev))
                  for tp in tps]
-        name = f"multi {sfx} mit={sm} B={B} {pattern}"
+        name = f"multi {sfx} mit={sm} B={B} {pattern} dup_bins={dup}"
         for step in range(2):
             ops, valid = multi_batch(dev, stages, pattern, B,
                                      seed=500 + 2 * i + step,
-                                     ragged=step == 1 and B > 8)
+                                     ragged=step == 1 and B > 8,
+                                     dup_bins=dup)
             tables = [(k, r, *o) for (k, r), o in zip(state, ops)]
             ref = ff.fused_flow_serve_multi_ref(tables, valid, tps, sp,
                                                 params, mit)
@@ -1801,6 +1982,14 @@ def kernels_check_multi(dev):
                 check(torch.equal(bits(r), bits(g)),
                       f"K1 multi-table state differs on {name}")
                 err = max(err, max_abs(r, g))
+            for t, ((k, r, pk, u, b), tp) in enumerate(zip(tables, tps)):
+                dk, dr, _ = flow_update_staged_ref(
+                    k, r, pk, u, b, valid, n_counters=tp.n_counters,
+                    n_ewma=tp.n_ewma, alpha=tp.alpha)
+                check(torch.equal(dk, got[2 * t]) and torch.equal(
+                    dr.view(torch.int32), got[2 * t + 1].view(torch.int32)),
+                    f"K1 multi-table table {t} differs from the "
+                    f"decomposition on {name}")
             live = valid.bool()
             if sp.kind == "mat" or mit is not None:
                 check(torch.equal(ref[-1][live], got[-1][live]),
@@ -1821,6 +2010,9 @@ def kernels_check_multi(dev):
                 mit = (ref[2 * n], ref[2 * n + 1], mit[2])
     check(dropped > 0, "no multi-table mitigation case dropped a packet")
     emit({"phase": "kernels_check_multi", "cases": len(cases),
+          "edge_cases": [f"{c[0]} mit={c[1]} {c[3]}"
+                         + ("" if c[4] else " distinct_bins") for c in cases
+                         if c[3] in ("chain_edges", "one_chain")],
           "batches": list(MULTI_BATCHES), "n_slots": S_KERNEL,
           "readout_widths": [28, 19], "n_in": 47,
           "readout_modes": [c[0] for c in cases if c[0].startswith("modes")],
@@ -1935,8 +2127,8 @@ def multi_timing(dev):
         def plain(_c=tables, _t=tps, _sp=sp, _p=params, _m=mit):
             return ff.fused_flow_serve_multi_ref(_c, ones, _t, _sp, _p, _m)
 
-        instance = K1_MULTI_INSTANCE.format(
-            kind=ff.SUFFIX_KINDS.index(sp.kind))
+        instance = K1_INSTANCE.format(kind=ff.SUFFIX_KINDS.index(sp.kind),
+                                      cap=ff.MAX_TABLES)
         out[mode] = dict(
             ms=time_ms(k1, TIMED_LAUNCHES),
             **kernel_fields(kernel_device_ms({instance: k1})[instance]),
@@ -3750,6 +3942,7 @@ def main() -> int:
         dag_times = dag_timing(dev)
         err.update(kernels_check_multi(dev))
         multi_times = multi_timing(dev)
+        chain_times = chain_timing(dev)
         err.update(kernels_check_lm(dev))
         lm_times = kernels_time_lm(dev)
         err.update(kernels_check_scan(dev))
@@ -3868,11 +4061,18 @@ def main() -> int:
                 "widths": full["widths"], "ms": full["ms"],
                 "kernel_ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
                 "bound_ms": full["bound"][0], "bound_by": full["bound"][1]}
+        if name in ("fused_flow_serve", "flow_update"):
+            entry["chain"] = {
+                "device_ms_by_depth": {
+                    d: v[name] for d, v in chain_times["device_ms"].items()},
+                "ns_per_step": chain_times["ns_per_step"][name]}
         if name == "fused_flow_serve":
             entry["modes"] = {
                 mode: {"ms": m["ms"], "kernel_ms": m["kernel_ms"],
                        "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
-                       "bound_by": m["bound"][1]}
+                       "bound_by": m["bound"][1],
+                       **({"k3_kernel_ms": m["k3_kernel_ms"]}
+                          if "k3_kernel_ms" in m else {})}
                 for mode, m in tm["modes"].items()}
             entry["multi_table"] = {
                 "max_abs_err": err["fused_flow_serve_multi"],

@@ -35,12 +35,11 @@ Backends, reported by ``backend`` as what actually serves:
                                   ``"interpret"``, and the whole
                                   ``"mixed"``, as the JAX package reports
                                   it;
-  ``fuse=True`` is the default, but ``fuse=False`` is the faster choice
-  once the MLP is too large for shared memory (K1 walks each slot chain
-  one step at a time and runs the MLP at every step, its weights read
-  through L2): on an H100 the design space's deepest classifier costs
-  K1 about 40 times what K2 + K3 take per batch (PERF.md, the kernel
-  table's rows 1e and 3a);
+  ``fuse=True`` is the default and the faster kernel at every MLP width
+  measured: K1 walks the slot chains, then classifies each packet's row
+  on a warp of its own, so even the design space's deepest classifier
+  (weights read through L2) costs K1 less than K2 + K3 per batch
+  (PERF.md, the kernel table's row 1e);
   ``backend="interpret"``         the plain stage walk: sequential
                                   register update + each stage's plain
                                   ``apply`` + the plain action-table walk

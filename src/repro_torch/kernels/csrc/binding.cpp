@@ -25,6 +25,8 @@ FlowArgs flow_args(at::Tensor& keys, at::Tensor& regs,
                    int64_t n_counters, int64_t n_ewma, double alpha) {
   TORCH_CHECK(regs.size(1) <= 32 * RT_COLS, "register width > ",
               32 * RT_COLS);
+  TORCH_CHECK(bins.size(1) <= RT_MAX_HISTS, "bins columns > ",
+              RT_MAX_HISTS);
   FlowArgs a;
   a.keys = keys.data_ptr<int>();
   a.regs = regs.data_ptr<float>();
@@ -258,47 +260,24 @@ bool mit_args(const std::vector<at::Tensor>& mit,
   return true;
 }
 
-void fused_flow_serve(at::Tensor keys, at::Tensor regs, at::Tensor pkt_keys,
-                      at::Tensor upd, at::Tensor bins, at::Tensor valid,
-                      at::Tensor order, at::Tensor seg_first,
-                      at::Tensor seg_len, at::Tensor seg_slot, int64_t kind,
-                      std::vector<at::Tensor> params,
-                      std::vector<int64_t> dims, at::Tensor verdicts,
-                      int64_t n_counters, int64_t n_ewma, double alpha,
-                      int64_t mode, std::vector<at::Tensor> mit,
+// K1, one table or several.  tables: per table [keys, regs, pkt_keys,
+// upd, bins, order, seg_first, seg_len, seg_slot]; dims: per table
+// [n_counters, n_ewma, readout mode]; alphas: per table; z: the scratch
+// of post-update rows, [B, sum of the widths each rounded up to 32].
+void fused_flow_serve(std::vector<at::Tensor> tables, at::Tensor valid,
+                      std::vector<int64_t> dims, std::vector<double> alphas,
+                      int64_t kind, std::vector<at::Tensor> params,
+                      std::vector<int64_t> sdims, at::Tensor z,
+                      at::Tensor verdicts, std::vector<at::Tensor> mit,
                       std::vector<double> mit_policy) {
-  c10::cuda::CUDAGuard guard(regs.device());
-  FlowArgs a = flow_args(keys, regs, pkt_keys, upd, bins, valid, order,
-                         seg_first, seg_len, seg_slot, n_counters, n_ewma,
-                         alpha);
-  TORCH_CHECK(mode >= 0 && mode <= 2, "readout mode must be 0, 1 or 2");
-  SuffixArgs s = suffix_args(kind, params, dims);
-  MitArgs m{};
-  const MitArgs* mp = mit_args(mit, mit_policy, &m) ? &m : nullptr;
-  C10_CUDA_CHECK(launch_fused_flow_serve(a, s, verdicts.data_ptr<int>(),
-                                         (int)mode, mp, stream_of(regs)));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
-// K1's multi-table mode.  tables: per table [keys, regs, pkt_keys, upd,
-// bins, order, seg_first, seg_len, seg_slot]; dims: per table
-// [n_counters, n_ewma, readout mode]; alphas: per table; z: the [B, n_in]
-// scratch of readout rows.
-void fused_flow_serve_multi(std::vector<at::Tensor> tables, at::Tensor valid,
-                            std::vector<int64_t> dims,
-                            std::vector<double> alphas, int64_t kind,
-                            std::vector<at::Tensor> params,
-                            std::vector<int64_t> sdims, at::Tensor z,
-                            at::Tensor verdicts, std::vector<at::Tensor> mit,
-                            std::vector<double> mit_policy) {
   c10::cuda::CUDAGuard guard(valid.device());
   const int nt = (int)alphas.size();
-  TORCH_CHECK(nt >= 1 && nt <= RT_MAX_TABLES, "a multi-table launch takes "
-              "1..", RT_MAX_TABLES, " tables");
+  TORCH_CHECK(nt >= 1 && nt <= RT_MAX_TABLES, "a K1 launch takes 1..",
+              RT_MAX_TABLES, " tables");
   TORCH_CHECK(tables.size() == 9 * (size_t)nt && dims.size() == 3 * (size_t)nt,
               "9 tensors and 3 dims per table");
   std::vector<TableArgs> tabs(nt);
-  int col = 0;
+  int col = 0, n_in = 0;
   for (int t = 0; t < nt; ++t) {
     at::Tensor* u = &tables[9 * t];
     const int64_t mode = dims[3 * t + 2];
@@ -310,17 +289,18 @@ void fused_flow_serve_multi(std::vector<at::Tensor> tables, at::Tensor valid,
                 "every table takes the whole batch");
     tabs[t].mode = (int)mode;
     tabs[t].col = col;
-    col += mode == 1 ? tabs[t].a.W - tabs[t].a.C - tabs[t].a.E
-                     : tabs[t].a.W;
+    col += (tabs[t].a.W + 31) & ~31;         // rows start on 128-byte lines
+    n_in += mode == 1 ? tabs[t].a.W - tabs[t].a.C - tabs[t].a.E
+                      : tabs[t].a.W;
   }
   TORCH_CHECK(z.size(0) == valid.size(0) && z.size(1) == col,
-              "z must be [B, sum of the readout widths]");
+              "z must be [B, sum of the register widths rounded up to 32]");
   SuffixArgs s = suffix_args(kind, params, sdims);
   MitArgs m{};
   const MitArgs* mp = mit_args(mit, mit_policy, &m) ? &m : nullptr;
-  C10_CUDA_CHECK(launch_fused_flow_multi(tabs.data(), nt, z.data_ptr<float>(),
-                                         col, s, verdicts.data_ptr<int>(), mp,
-                                         stream_of(valid)));
+  C10_CUDA_CHECK(launch_fused_flow(tabs.data(), nt, z.data_ptr<float>(), col,
+                                   n_in, s, verdicts.data_ptr<int>(), mp,
+                                   stream_of(valid)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -487,9 +467,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fused_mlp", &fused_mlp, "K5: MLP -> logits");
   m.def("fused_dag", &fused_dag, "K6: Seq/Par DAG of MLP classifiers");
   m.def("fused_flow_serve", &fused_flow_serve,
-        "K1: register update + readout + classifier [+ mitigation]");
-  m.def("fused_flow_serve_multi", &fused_flow_serve_multi,
-        "K1, multi-table: every table's update + readout, one classifier "
+        "K1: every table's update + readout, one classifier "
         "[+ mitigation]");
   m.def("mat_lut_classify", &mat_lut_classify,
         "K4: MAT quantize + LUT sum + arg-reduce + LabelMap");

@@ -17,10 +17,10 @@
 // of different features do not wait on one another.  Then the masked
 // arg-reduce (ties to the lowest index) and the LabelMap gather.
 //
-// Why a warp per row and not a thread: K1 runs this on the warp that
-// walks a slot chain, once per chain step, so lanes share the step's
-// compares and classes instead of leaving 31 of them idle on the serial
-// chain; K4 uses the same function so both compute the same bits.
+// Why a warp per row and not a thread: lanes share a row's compares and
+// classes, so a row's latency is a warp's, not a thread's: K1 classifies
+// each packet's row on a warp of its own after its chain walk, and K4
+// uses the same function so both compute the same bits.
 #pragma once
 
 #include "arg_reduce.cuh"

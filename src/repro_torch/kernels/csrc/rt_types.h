@@ -11,10 +11,12 @@
 #define RT_MAX_MLP_WIDTH 256   // widest MLP layer the kernels take
 #define RT_CLS_PER_LANE 4      // MAT classes / centroids per lane: <= 128
 #define RT_MAT_MAX_FEATURES 64 // MAT features (K4's per-warp row buffer)
+#define RT_MAX_HISTS 8         // bins columns of a flow table
 #define RT_MITIGATED (-1)      // verdict of a packet the action table drops
+#define RT_CHAIN_CHUNK 32      // slot-chain steps K1 and K2 stage at a time
 #define RT_DAG_MAX_MODELS 8    // distinct models in one fused DAG (K6)
 #define RT_DAG_MAX_OPS 32      // instructions of a DAG plan (K6)
-// Flow tables of one multi-table K1 launch: their descriptors ride by
+// Flow tables of one K1 launch: their descriptors ride by
 // value in the kernel parameter space (32,764 bytes on Hopper from CUDA
 // 12.1 on), so the count is bounded by that space, not by the kernel.
 #define RT_MAX_TABLES 256
@@ -43,9 +45,9 @@ struct FlowArgs {
   float alpha;
 };
 
-// One table of K1's multi-table mode: its flow table and segmented batch,
-// its readout mode (0 "all", 1 "hist", 2 "raw") and the first column of
-// its readout in the classifier row.
+// One table of a K1 launch: its flow table and segmented batch, its
+// readout mode (0 "all", 1 "hist", 2 "raw") and the first column of its
+// rows in the launch's scratch z.
 struct TableArgs {
   FlowArgs a;
   int mode;
@@ -158,18 +160,14 @@ cudaError_t launch_mat_lut_classify(const float* x, int B, const MatDims& m,
                                     const float* edges, const float* tables,
                                     const int* lmap, int* out,
                                     cudaStream_t stream);
-// ``mit`` null: no action table (a plain launch); else one cooperative
-// launch with a grid-wide barrier before the mitigation phase.
-cudaError_t launch_fused_flow_serve(const FlowArgs& a, const SuffixArgs& s,
-                                    int* verdicts, int mode,
-                                    const MitArgs* mit, cudaStream_t stream);
-// K1's multi-table mode: nt (1..RT_MAX_TABLES) tables over one batch, the
-// readout rows in the scratch z [B, n_in]; one cooperative launch, the
-// action table (``mit`` not null) keyed by table 0's keys.
-cudaError_t launch_fused_flow_multi(const TableArgs* tables, int nt,
-                                    float* z, int n_in, const SuffixArgs& s,
-                                    int* verdicts, const MitArgs* mit,
-                                    cudaStream_t stream);
+// K1: nt (1..RT_MAX_TABLES) tables over one batch, the post-update rows
+// in the scratch z [B, zw] (table t's at its ``col``), the classifier row
+// n_in wide; one cooperative launch, the action table (``mit`` not null)
+// keyed by table 0's keys.
+cudaError_t launch_fused_flow(const TableArgs* tables, int nt, float* z,
+                              int zw, int n_in, const SuffixArgs& s,
+                              int* verdicts, const MitArgs* mit,
+                              cudaStream_t stream);
 // K7: D in {16, 32, 64, 128}; bf16 1 takes __nv_bfloat16 operands, 0 f32.
 // f32: the SIMT kernel; bf16: the split-KV decode (Sq <=
 // FA_DECODE_MAX_SQ, two launches) or the tensor-core prefill.

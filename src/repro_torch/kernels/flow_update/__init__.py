@@ -10,5 +10,6 @@ from repro_torch.kernels.flow_update.ops import (
 from repro_torch.kernels.flow_update.ref import (
     ewma_blend,
     flow_update_ref,
+    flow_update_staged_ref,
     hash_slot,
 )

@@ -32,7 +32,7 @@ from repro_torch.kernels.flow_update.ref import (
 
 MAX_SLOTS = 1 << 16
 MAX_WIDTH = 256
-MAX_HISTS = 8
+MAX_HISTS = _ext.header_define("RT_MAX_HISTS")
 
 
 def envelope_reason(n_slots: int, width: int, n_hists: int) -> str | None:

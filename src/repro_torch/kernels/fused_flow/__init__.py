@@ -13,6 +13,7 @@ from repro_torch.kernels.fused_flow.mitigate_ref import (
     MitigationSpec,
     mitigate_update,
     mitigate_update_segmented,
+    mitigate_update_staged,
 )
 from repro_torch.kernels.fused_flow.ref import (
     READOUT_MODES,

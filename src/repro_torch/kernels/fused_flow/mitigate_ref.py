@@ -209,3 +209,76 @@ def mitigate_update_segmented(mit_keys: torch.Tensor,
     r2 = torch.cat([mit_regs, mit_regs.new_zeros((B, MIT_WIDTH))]
                    ).index_copy_(0, tgt, rows)[:S]
     return k2, r2, out
+
+
+def mitigate_update_staged(mit_keys: torch.Tensor, mit_regs: torch.Tensor,
+                           pkt_keys: torch.Tensor, verdicts: torch.Tensor,
+                           valid: torch.Tensor, *, spec: MitigationSpec,
+                           chunk: int | None = None):
+    """``mitigate_update``'s result computed the way K1's mitigation
+    phase walks (``kernels/csrc/mitigate_chain.cuh``): the plain form of
+    its decomposition.  Each action segment goes in chunks of ``chunk``
+    steps (default ``RT_CHAIN_CHUNK``): the chunk's eviction flags compare
+    adjacent keys, its first step against the key carried across the
+    edge, and its attack flags are read at once; the chain keeps only the
+    (hits, since) recurrence, recording each step's state before the
+    packet; after the chunk every step's drop rule is applied at once.
+    f32 values, as the kernel's; segments walked side by side; the inputs
+    are not written."""
+    from repro_torch.kernels._ext import header_define
+
+    chunk = header_define("RT_CHAIN_CHUNK") if chunk is None else chunk
+    S = int(mit_keys.shape[0])
+    dev = mit_keys.device
+    f32 = torch.float32
+    keys_out = mit_keys.to(torch.int32).clone()
+    regs_out = mit_regs.to(f32).clone()
+    out = verdicts.to(torch.int32).clone()
+    if int(pkt_keys.shape[0]) == 0:
+        return keys_out, regs_out, out
+    seg = segment_batch(hash_slot(pkt_keys.to(torch.int32), S), valid, S)
+    live = seg.seg_len > 0
+    slot = seg.seg_slot[live].to(torch.int64)
+    first = seg.seg_first[live].to(torch.int64)
+    length = seg.seg_len[live].to(torch.int64)
+    order = seg.order.to(torch.int64)
+    pk = pkt_keys.to(torch.int32)
+    stored = keys_out[slot]
+    hits = regs_out[slot, 0]
+    since = regs_out[slot, 1]
+    zero = torch.zeros_like(hits)
+    thr = torch.tensor(float(spec.threshold), dtype=f32, device=dev)
+    keep = torch.tensor(float(spec.keep_every), dtype=f32, device=dev)
+    steps = torch.arange(chunk, dtype=torch.int64, device=dev)
+    for r0 in range(0, int(length.max()) if len(length) else 0, chunk):
+        r = r0 + steps
+        on = r[None, :] < length[:, None]                   # [K, chunk]
+        p = order[torch.where(on, first[:, None] + r[None, :], 0)]
+        key = pk[p]
+        prev = torch.cat([stored[:, None], key[:, :-1]], 1)
+        fresh = on & (key != prev)
+        attack = on & (out[p] == spec.attack_class)
+        marked = torch.zeros_like(on)
+        s0s = torch.zeros(on.shape, dtype=f32, device=dev)
+        for i in range(chunk):
+            act = on[:, i]
+            if not bool(act.any()):
+                break
+            h0 = torch.where(fresh[:, i], zero, hits)
+            s0 = torch.where(fresh[:, i], zero, since)
+            mk = h0 >= thr
+            marked[:, i] = act & mk
+            s0s[:, i] = s0
+            hits = torch.where(act, h0 + torch.where(attack[:, i],
+                                                     zero + 1.0, zero),
+                               hits)
+            since = torch.where(act, torch.where(mk, s0 + 1.0, zero), since)
+        drop = marked if spec.mode == "drop" else \
+            marked & (torch.fmod(s0s, keep) != 0)
+        out[p[drop]] = MITIGATED
+        n_in = on.sum(1)
+        last = key.gather(1, (n_in - 1).clamp(min=0)[:, None])[:, 0]
+        stored = torch.where(n_in > 0, last, stored)
+    keys_out[slot] = stored
+    regs_out[slot] = torch.stack([hits, since], 1)
+    return keys_out, regs_out, out

@@ -3,22 +3,20 @@
 
 ``fused_flow_serve`` segments the batch by slot on the device — and once
 more by action slot when a mitigation table with another slot count is
-folded in — and launches CUDA kernel K1 (``csrc/fused_flow.cu``): one
-warp per slot segment walks the chain, and for each packet reads out the
-WindowStats row, classifies it (MLP, MAT or centroid, parameters staged
-in shared memory) and writes the verdict straight to the packet's
-arrival index (no inverse gather).  With an action table the same launch
-then walks the action chains after a grid-wide barrier.  CPU tensors run
-the plain version, ``ref.fused_flow_serve_ref``.
+folded in — and launches CUDA kernel K1 (``csrc/fused_flow.cu``), one
+cooperative launch in three phases: one warp per slot segment walks the
+chain and stores each packet's post-update row into a scratch row of
+``z`` at the packet's arrival index (the TPU kernel's inverse gather
+becomes a scatter); after a grid-wide barrier one warp per packet reads
+its row out (WindowStats) and classifies it (MLP, MAT or centroid,
+parameters staged in shared memory); with an action table, after a
+second barrier, one warp per action segment walks the action chain.  CPU
+tensors run the plain version, ``ref.fused_flow_serve_ref``.
 
 ``fused_flow_serve_multi`` is the multi-table mode: several flow tables
-feeding one classifier, still one cooperative launch.  Each table is
-segmented by its own slots; warps walk every table's chains and write
-each packet's readout into a scratch row ``z [B, n_in]`` at the packet's
-arrival index and the table's column offset (the TPU kernel's inverse
-gather becomes a scatter); after a grid-wide barrier warp k classifies
-row k; after a second one the action table, keyed by table 0's keys,
-walks its own segmentation.  CPU tensors run
+feeding one classifier, the same launch with one segmentation per table
+and each table's rows at its column offset of ``z``; the action table is
+keyed by table 0's keys.  CPU tensors run
 ``ref.fused_flow_serve_multi_ref``.
 """
 
@@ -124,11 +122,6 @@ def check_suffix(sp: SuffixPlan, params, n_in: int, dev) -> None:
         _check_centroids(params, n_in, dev)
 
 
-def check_plan(regs, tp: TablePlan, sp: SuffixPlan, params) -> None:
-    _check_table_plan(regs, tp)
-    check_suffix(sp, params, tp.n_out, regs.device)
-
-
 def _suffix_operands(sp: SuffixPlan, params):
     """-> (kind id, parameter tensors, integer dims) for the binding."""
     if sp.kind == "mlp":
@@ -173,24 +166,9 @@ def fused_flow_serve_launch(keys, regs, pkt_keys, upd, bins, valid,
     mit_keys, mit_regs, verdicts); one launch on the current stream.
     The tables are updated in place (only the batch's slots) and
     returned."""
-    check_operands(keys, regs, pkt_keys, upd, bins, valid,
-                   n_counters=tp.n_counters, n_ewma=tp.n_ewma)
-    check_plan(regs, tp, sp, params)
-    if regs.device.type != "cuda":
-        raise ValueError("fused_flow_serve_launch runs CUDA tensors only")
-    kind, tensors, dims = _suffix_operands(sp, params)
-    mit_ops, policy = _mitigation_operands(mit, mseg, regs.device)
-    verdicts = torch.empty((pkt_keys.shape[0],), dtype=torch.int32,
-                           device=regs.device)
-    _ext.extension().fused_flow_serve(
-        keys, regs, pkt_keys, upd, bins, valid, seg.order,
-        seg.seg_first, seg.seg_len, seg.seg_slot, kind, tensors, dims,
-        verdicts, int(tp.n_counters), int(tp.n_ewma), float(tp.alpha),
-        READOUT_MODES.index(tp.mode), mit_ops, policy)
-    _ext.count_launch("fused_flow_serve")
-    if mit is None:
-        return keys, regs, verdicts
-    return keys, regs, mit[0], mit[1], verdicts
+    return fused_flow_serve_multi_launch(
+        [(keys, regs, pkt_keys, upd, bins)], valid, [seg], [tp], sp, params,
+        mit, mseg)
 
 
 def fused_flow_serve(keys, regs, pkt_keys, upd, bins, valid,
@@ -247,8 +225,7 @@ def fused_flow_serve_multi_launch(tables, valid, segs, tps, sp: SuffixPlan,
     ``TablePlan``s ``tps`` -> per table (keys, regs), then (mit_keys,
     mit_regs) with ``mit``, then verdicts [B] int32 in arrival order; one
     cooperative launch on the current stream.  The tables are updated in
-    place and returned; the [B, n_in] readout rows live in a scratch
-    tensor from PyTorch's caching allocator."""
+    place and returned."""
     tables, tps = list(tables), list(tps)
     reason = tables_reason(len(tables))
     if reason is not None:
@@ -259,28 +236,31 @@ def fused_flow_serve_multi_launch(tables, valid, segs, tps, sp: SuffixPlan,
     if dev.type != "cuda":
         raise ValueError("fused_flow_serve_multi_launch runs CUDA tensors "
                          "only")
-    flat, dims, alphas = [], [], []
-    for (keys, regs, pkt_keys, upd, bins), tp, seg in zip(tables, tps,
-                                                          segs):
+    for (keys, regs, pkt_keys, upd, bins), tp in zip(tables, tps):
         check_operands(keys, regs, pkt_keys, upd, bins, valid,
                        n_counters=tp.n_counters, n_ewma=tp.n_ewma)
         _check_table_plan(regs, tp)
         if regs.device != dev or pkt_keys.shape != tables[0][2].shape:
             raise ValueError("every table takes the same batch on one "
                              "device")
+    check_suffix(sp, params, sum(tp.n_out for tp in tps), dev)
+    flat, dims, alphas = [], [], []
+    for (keys, regs, pkt_keys, upd, bins), tp, seg in zip(tables, tps,
+                                                          segs):
         flat += [keys, regs, pkt_keys, upd, bins, seg.order, seg.seg_first,
                  seg.seg_len, seg.seg_slot]
         dims += [int(tp.n_counters), int(tp.n_ewma),
                  READOUT_MODES.index(tp.mode)]
         alphas.append(float(tp.alpha))
-    n_in = sum(tp.n_out for tp in tps)
-    check_suffix(sp, params, n_in, dev)
     kind, tensors, sdims = _suffix_operands(sp, params)
     mit_ops, policy = _mitigation_operands(mit, mseg, dev)
     B = int(valid.shape[0])
-    z = torch.empty((B, n_in), dtype=torch.float32, device=dev)
+    # the post-update rows, each table's starting on a 128-byte line (a
+    # misaligned row costs the walking warp a second line per store)
+    z = torch.empty((B, sum(-(-tp.width // 32) * 32 for tp in tps)),
+                    dtype=torch.float32, device=dev)
     verdicts = torch.empty((B,), dtype=torch.int32, device=dev)
-    _ext.extension().fused_flow_serve_multi(
+    _ext.extension().fused_flow_serve(
         flat, valid, dims, alphas, kind, tensors, sdims, z, verdicts,
         mit_ops, policy)
     _ext.count_launch("fused_flow_serve")

@@ -20,6 +20,21 @@ flow table's); keys that share a slot in the larger of two power-of-two
 tables share one in the smaller too, so passing the larger slot count
 makes them collide in the flow table and the action table alike.
 
+Chunk-edge patterns (``EDGE_PATTERNS``, not in ``PATTERNS``), for the
+kernels' slot-chain walk, which stages a chain ``RT_CHAIN_CHUNK`` (32)
+packets at a time:
+
+  ``chain_edges``   chains of exactly 1, 31, 32, 33, 33, 64 and 64
+                    packets in distinct slots, the second 33 and 64 with
+                    an eviction at packet 32 (a chunk's first packet), and
+                    the rest of the batch as one chain with evictions at
+                    packets 32, 96 and 128; arrival order interleaves the
+                    chains at random
+  ``one_chain``     the whole batch on one slot, with evictions at packets
+                    32, 40, 96, 256 and 480
+
+Both also carry ``-0.0`` counter increments.
+
 ``ragged=True`` marks the last quarter of a batch and a few holes as
 padding (``valid == 0``).  Every batch also carries a few ``-0.0`` EWMA
 values and packets whose two histogram columns coincide.
@@ -34,6 +49,14 @@ from repro_torch.flowstate.registers import FlowStateSpec, hash_slot_np
 
 PATTERNS = ("one_hot_flow", "all_distinct", "same_slot", "mixed",
             "slot_runs")
+
+EDGE_PATTERNS = ("chain_edges", "one_chain")
+# chain lengths of "chain_edges" and the packets of each at which the
+# key changes; the rest of the batch forms one more chain
+EDGE_CHAINS = ((1, ()), (31, ()), (32, ()), (33, ()), (33, (32,)),
+               (64, ()), (64, (32,)))
+EDGE_REST_SWITCHES = (32, 96, 128)
+ONE_CHAIN_SWITCHES = (32, 40, 96, 256, 480)
 
 # verdicts may differ only on rows whose top-two logit margin is within
 # this (the MLP's f32 summation order differs between engines)
@@ -50,7 +73,63 @@ def same_slot_keys(n: int, n_slots: int) -> np.ndarray:
     return hit[:n]
 
 
-def pattern_keys(rng, pattern: str, n: int, n_slots: int) -> np.ndarray:
+def slot_groups(n_groups: int, per: int, n_slots: int,
+                min_slots: int) -> list:
+    """``n_groups`` lists of ``per`` distinct keys: the keys of a list
+    share a slot of ``n_slots``, and no two lists share a slot of
+    ``min_slots`` (the smaller of the tables the keys go to)."""
+    cand = np.arange(1, 64 * n_slots, dtype=np.int32)
+    slots = hash_slot_np(cand, n_slots)
+    groups, taken = [], set()
+    for s in dict.fromkeys(slots.tolist()):
+        if s % min_slots in taken:
+            continue
+        keys = cand[slots == s][:per]
+        if len(keys) == per:
+            groups.append(keys)
+            taken.add(s % min_slots)
+            if len(groups) == n_groups:
+                return groups
+    raise ValueError("widen the candidate scan")
+
+
+def _switching(pool, length: int, switches) -> np.ndarray:
+    """``length`` keys from ``pool``, the next key from packet ``s`` on
+    for each s in ``switches``."""
+    idx = np.zeros(length, np.int64)
+    for s in switches:
+        idx[s:] += 1
+    return pool[idx % len(pool)]
+
+
+def edge_keys(rng, pattern: str, n: int, n_slots: int,
+              min_slots: int) -> np.ndarray:
+    """Keys of the chunk-edge patterns (``EDGE_PATTERNS``)."""
+    if pattern == "one_chain":
+        pool = slot_groups(1, 3, n_slots, min_slots)[0]
+        return _switching(pool, n, [s for s in ONE_CHAIN_SWITCHES if s < n])
+    chains, total = [], 0
+    for length, sw in EDGE_CHAINS:
+        if total + length > n:
+            break
+        chains.append((length, sw))
+        total += length
+    if n > total:
+        chains.append((n - total, [s for s in EDGE_REST_SWITCHES
+                                   if s < n - total]))
+    pools = slot_groups(len(chains), 2, n_slots, min_slots)
+    labels = rng.permutation(np.repeat(np.arange(len(chains)),
+                                       [c[0] for c in chains]))
+    keys = np.empty(n, np.int32)
+    for c, ((length, sw), pool) in enumerate(zip(chains, pools)):
+        keys[labels == c] = _switching(pool, length, sw)
+    return keys
+
+
+def pattern_keys(rng, pattern: str, n: int, n_slots: int,
+                 min_slots: int | None = None) -> np.ndarray:
+    if pattern in EDGE_PATTERNS:
+        return edge_keys(rng, pattern, n, n_slots, min_slots or n_slots)
     if pattern == "one_hot_flow":
         hot = rng.random(n) < 0.9
         return np.where(hot, 7, rng.integers(0, 200, n)).astype(np.int32)
@@ -69,11 +148,14 @@ def pattern_keys(rng, pattern: str, n: int, n_slots: int) -> np.ndarray:
 
 
 def flow_batch(spec: FlowStateSpec, pattern: str, B: int, seed: int, *,
-               ragged: bool = False, key_slots: int | None = None) -> dict:
+               ragged: bool = False, key_slots: int | None = None,
+               dup_bins: bool = True) -> dict:
     """Seeded operands for one register update, as numpy: pkt_keys [B]
     int32, upd [B, C+E] f32, bins [B, H] int32, valid [B] int32.  Keys of
     the colliding patterns collide over ``key_slots`` slots (default
-    ``spec.n_slots``)."""
+    ``spec.n_slots``).  With ``dup_bins`` about 5 % of packets hit one
+    histogram column twice; without it every bins column hits its own
+    histogram or nothing, as RegisterUpdate makes them."""
     rng = np.random.default_rng(seed)
     C, E = spec.n_counters, spec.n_ewma
     upd = np.empty((B, C + E), np.float32)
@@ -86,15 +168,18 @@ def flow_batch(spec: FlowStateSpec, pattern: str, B: int, seed: int, *,
     for j, (off, size) in enumerate(zip(spec.hist_offsets, spec.hist_sizes)):
         col = rng.integers(off, off + size, B)
         bins[:, j] = np.where(rng.random(B) < 0.9, col, -1)
-    if H > 1:                 # a column hit twice in one packet
+    if H > 1 and dup_bins:    # a column hit twice in one packet
         dup = rng.random(B) < 0.05
         bins[dup, 1] = bins[dup, 0]
+    if pattern in EDGE_PATTERNS:
+        upd[:, 1:C][rng.random((B, C - 1)) < 0.05] = -0.0
     valid = np.ones(B, np.int32)
     if ragged:
         valid[3 * B // 4:] = 0
         valid[rng.integers(0, 3 * B // 4, 5)] = 0
     slots = spec.n_slots if key_slots is None else key_slots
-    return {"pkt_keys": pattern_keys(rng, pattern, B, slots),
+    return {"pkt_keys": pattern_keys(rng, pattern, B, slots,
+                                     min(slots, spec.n_slots)),
             "upd": upd, "bins": bins, "valid": valid}
 
 
