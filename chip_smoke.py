@@ -32,8 +32,8 @@ checks them, printing one JSON line per phase:
      (torch.profiler, the kernel's exact instance, null unless it saw one
      event per call) on a batch of the stream, beside its plain version
      and its bound, K1 in each mode (the full-width MLP included);
-     ``kernels_time_dag``: K5, K6 and K3 on 1,024 AD rows at the AD widths
-     and at full width.  ``split_action_table``: the split
+     ``kernels_time_dag``: K5 and K6 on 1,024 AD rows at the AD widths,
+     K3, K5 and K6 at full width on 128, 1,024 and 4,096.  ``split_action_table``: the split
      path's action table (plain PyTorch on the card) against the
      sequential walk, exact, with CUDA's sync debug mode set to raise;
   3. the paths, each driven with the launch counts set to 0 just before
@@ -166,6 +166,18 @@ verdicts, against the decomposition the kernels walk by
 chains of 1, 135 and 512 packets and reports the slope, device ns per
 chain step, beside a model (not a measurement) of the chain's latency
 floor.
+
+Slice 10 redesigns K3, K5 and K6 for Hopper (``csrc/mlp_tile.cuh``: a
+model past one weight chunk goes through a tile of rows per block, its
+weights streamed through shared memory by bulk copies; smaller models
+keep one warp a row).  ``kernels_check_dag`` adds K3 beside K5 at the
+design space's full-width DNN with 7, 30 and 47 inputs, a 256-wide
+model, 16 layers and a 1-wide input, at B = 1, 31, 37, 128, 1,024, 4,096
+and 8,192, and K6 on ``ad_full > tc`` and on two full-width models under
+"or" at the same sizes, each against the plain version and against
+``mlp_tile_ref`` (the tiled schedule written out); ``kernels_time_dag``
+times the full-width K3, K5 and K6 at B = 128, 1,024 and 4,096, which the
+kernels line carries under ``full_width``.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -350,9 +362,19 @@ def call_device_ms(fn, n: int = 20) -> float:
 # index in SUFFIX_KINDS and the table descriptors it carries (1 for one
 # table, MAX_TABLES for several)
 K1_INSTANCE = "fused_flow_kernel<{kind}, {cap}>"
-# K3 and K5 are one template, by whether it writes logits
+# K3 and K5 are one template, by whether it writes logits; a model past
+# one weight chunk runs the tile kernels (``fused_mlp.tiled``)
 K3_INSTANCE, K5_INSTANCE = "fused_mlp_kernel<false>", "fused_mlp_kernel<true>"
-K6_NAME = "fused_dag_kernel"
+K3_TILE, K5_TILE = "fused_mlp_tile_kernel<false>", "fused_mlp_tile_kernel<true>"
+K6_NAME, K6_TILE = "fused_dag_kernel", "fused_dag_tile_kernel"
+
+
+def mlp_kernel_names(n_weights: int) -> tuple[str, str, str]:
+    """The profiler names of K3, K5 and K6 for models of ``n_weights``."""
+    from repro_torch.kernels import fused_mlp as fm
+
+    return ((K3_TILE, K5_TILE, K6_TILE) if fm.tiled(n_weights)
+            else (K3_INSTANCE, K5_INSTANCE, K6_NAME))
 
 
 def kernel_fields(seen: dict) -> dict:
@@ -778,8 +800,9 @@ def timing(dev, stages, tp, sp, mlp, kw):
     k2 = lambda: fu.flow_update_launch(*table, *ops[2:], seg, **kw)
     k3 = lambda: fm.fused_mlp_classify_launch(z, mlp)
     k1_name = K1_INSTANCE.format(kind=0, cap=1)
+    k3_name = mlp_kernel_names(mlp.w_flat.numel())[0]
     dev_ms = kernel_device_ms({k1_name: k1, "flow_update_kernel": k2,
-                               K3_INSTANCE: k3})
+                               k3_name: k3})
     out = {}
     out["fused_flow_serve"] = dict(
         ms=time_ms(k1, TIMED_LAUNCHES),
@@ -795,7 +818,7 @@ def timing(dev, stages, tp, sp, mlp, kw):
         bound=bound(rows + batch + B * W * 4, upd_flops), **shapes)
     out["fused_mlp_classify"] = dict(
         ms=time_ms(k3, TIMED_LAUNCHES),
-        **kernel_fields(dev_ms[K3_INSTANCE]),
+        **kernel_fields(dev_ms[k3_name]),
         plain_ms=time_ms(lambda: fm.mlp_classify_ref(z, ws, bs),
                          TIMED_LAUNCHES),
         bound=bound(B * z.shape[1] * 4 + params + B * 4, B * mlp_flops),
@@ -932,8 +955,9 @@ def suffix_timing(dev, stages, ops, seg, tp, z, rows, batch, upd_flops,
     # the split path's classifier at full width on the same readout rows:
     # K2 + this against "mlp_full" decides the fuse advice
     k3 = lambda: fm.fused_mlp_classify_launch(z, full)
+    k3_name = mlp_kernel_names(full.w_flat.numel())[0]
     out["mlp_full"]["k3_kernel_ms"] = kernel_device_ms(
-        {K3_INSTANCE: k3})[K3_INSTANCE]["ms"]
+        {k3_name: k3})[k3_name]["ms"]
     out["_mat"] = mat
     return out
 
@@ -1424,6 +1448,44 @@ def profile_phase(dev, name: str, pipe, chunks, feature_dim: int,
 AD_N_TRAIN, AD_N_TEST, AD_FEATURES = 4096, 8192, 7
 DAG_CHUNK, DAG_PASSES, DAG_BATCHES = 997, 3, (128, 256, 1024, 4096)
 DAG_TIME_B = 1024
+# slice 10: the full-width K3, K5 and K6 are timed at path_dag's batch
+# sizes; the tile kernels are checked at the design space's full-width
+# DNN with 7, 30 and 47 inputs, a 256-wide model, 16 layers and a 1-wide
+# input, on batches either side of tile and chunk edges
+DAG_TIME_FULL = (128, 1024, 4096)
+TILE_WIDTHS = {"full7": (7,) + FULL_HIDDEN + (2,),
+               "full30": (30,) + FULL_HIDDEN + (2,),
+               "full47": (47,) + FULL_HIDDEN + (2,),
+               "w256": (64, 256, 256, 10), "deep16": (20,) + (48,) * 15 + (3,),
+               "tiny": (1, 4, 2)}
+TILE_BATCHES = (1, 31, 37, 128, 1024, 4096, 8192)
+TILE_K_CHUNK = 64                  # mlp_tile_ref's chunk of input rows
+
+
+def tile_rows(B: int, dev) -> int:
+    """The rows of a tile the kernels take at B rows (``mt_config``): the
+    power of two covering B / (the card's SMs), at most TILE_ROWS."""
+    import torch
+
+    from repro_torch.kernels import fused_mlp as fm
+
+    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else 132)
+    rows = 1
+    while rows * n_sm < B and rows < fm.TILE_ROWS:
+        rows *= 2
+    return rows
+
+
+def tile_inputs(d0: int, B: int, X):
+    """B rows of width d0: the AD test set's for 7 features, else seeded
+    N(0, 4) rows."""
+    import numpy as np
+
+    if d0 == AD_FEATURES:
+        return X[:B]
+    return (np.random.default_rng(d0).normal(size=(B, d0)) * 2
+            ).astype(np.float32)
 
 
 def ad_test_set():
@@ -1486,7 +1548,8 @@ def kernels_check_dag(dev):
     FeatureSelect, full width) — its fold exact given the per-model K3
     verdicts, its verdicts under the margin rule against the plain
     ``fused_dag`` on CPU tensors (a row is excluded when any leaf's
-    top-two margin is within 1e-4).  -> max abs error per kernel."""
+    top-two margin is within 1e-4).  Then the tile kernels' cases
+    (``tile_checks``).  -> max abs error per kernel."""
     import numpy as np
     import torch
 
@@ -1548,19 +1611,102 @@ def kernels_check_dag(dev):
                       f"at B={B}")
                 err["fused_dag"] = max(err["fused_dag"], float(np.abs(
                     got.cpu().numpy() - plain)[~close].max(initial=0)))
+    tiles = tile_checks(dev, X, err)
     emit({"phase": "kernels_check_dag", "batches": list(sizes),
           "k5_models": {k: [int(w[0].shape[0])] + [int(a.shape[1])
                                                     for a in w]
                         for k, (w, _) in mlps.items()},
-          "k6_plans": plans, "max_abs_err": err})
+          "k6_plans": plans, "tile": tiles, "max_abs_err": err})
     return err
 
 
+def tile_checks(dev, X, err: dict) -> dict:
+    """K3, K5 and K6 at the tile kernels' edges: every model of
+    TILE_WIDTHS at every TILE_BATCHES size, and the DAGs ``ad_full > tc``
+    and two full-width models under "or" (neither staged whole).  K5's
+    logits within 1e-4 * (1 + |ref|) and K3's verdicts under the margin
+    rule, against the plain version and against ``mlp_tile_ref`` (the
+    kernels' schedule written out: tiles of the kernels' rows, chunks of
+    TILE_K_CHUNK input rows); K6's fold exact given the per-model K3
+    verdicts, its verdicts under the margin rule against the plain
+    ``fused_dag`` and against the fold of ``mlp_tile_ref``'s verdicts.
+    Updates K5's ``err``.  -> the cases and the rows within the margin
+    (excluded from the verdict checks)."""
+    import torch
+
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.testing import MARGIN, he_mlp, verdict_mismatches
+
+    out = {"models": {k: list(w) for k, w in TILE_WIDTHS.items()},
+           "batches": list(TILE_BATCHES), "cases": 0, "close_rows": 0}
+
+    def refs(x, ws, bs, B):
+        return (("plain", fm.mlp_ref(x, ws, bs)),
+                ("mlp_tile_ref", fm.mlp_tile_ref(x, ws, bs, tile_rows(B, dev),
+                                                 TILE_K_CHUNK)))
+
+    for key, widths in TILE_WIDTHS.items():
+        p = fm.pack_params(*he_mlp(widths, seed=len(widths)), device=dev)
+        ws, bs = p.layers()
+        for B in TILE_BATCHES:
+            x = torch.as_tensor(tile_inputs(widths[0], B, X), device=dev)
+            logits = fm.fused_mlp_launch(x, p)
+            v = fm.fused_mlp_classify_launch(x, p)
+            for what, ref in refs(x, ws, bs, B):
+                torch.cuda.synchronize()
+                check(bool(((logits - ref).abs()
+                            <= 1e-4 * (1 + ref.abs())).all()),
+                      f"K5 logits differ from {what} on {key} at B={B}")
+                bad, close = verdict_mismatches(v.cpu().numpy(),
+                                                ref.cpu().numpy())
+                check(bad == 0, f"K3: {bad} verdicts differ from {what} "
+                      f"on {key} at B={B}")
+                if what == "plain":
+                    err["fused_mlp"] = max(err["fused_mlp"],
+                                           max_abs(logits, ref))
+                    out["close_rows"] += close
+            out["cases"] += 1
+    full, tc = TILE_WIDTHS["full7"], (AD_FEATURES, 2)
+    dags = {"ad_full>tc": ([full, tc], ("seq", (("model", 0), ("model", 1)))),
+            "full|full": ([full, full], ("or", (("model", 0), ("model", 1))))}
+    for name, (widths, plan) in dags.items():
+        models = [he_mlp(w, seed=11 + i) for i, w in enumerate(widths)]
+        dag = fm.pack_dag(models, plan, device=dev)
+        check(fm.tiled(dag.w_flat.numel()), f"{name} must stream")
+        for B in TILE_BATCHES:
+            x = torch.as_tensor(X[:B], device=dev)
+            got = fm.fused_dag_launch(x, dag)
+            leaves = dag_leaf_verdicts(dag, x)
+            check(torch.equal(got, fm.eval_dag_program(dag.program, leaves)),
+                  f"K6 fold differs on {name} at B={B}")
+            mws = [(ws, bs) for ws, bs in dag.models()]
+            plain = [fm.mlp_ref(x, ws, bs) for ws, bs in mws]
+            tile = [fm.mlp_tile_ref(x, ws, bs, tile_rows(B, dev),
+                                    TILE_K_CHUNK) for ws, bs in mws]
+            close = torch.zeros(B, dtype=torch.bool, device=dev)
+            for lg in plain:
+                top = torch.topk(lg, 2, 1).values
+                close |= (top[:, 0] - top[:, 1]) <= MARGIN
+            for what, lgs in (("plain", plain), ("mlp_tile_ref", tile)):
+                want = fm.eval_dag_program(
+                    dag.program,
+                    [lg.argmax(1).to(torch.int32) for lg in lgs])
+                bad = int(((got != want) & ~close).sum())
+                check(bad == 0, f"K6: {bad} verdicts differ from {what} on "
+                      f"{name} at B={B}")
+            out["cases"] += 1
+            out["close_rows"] += int(close.sum())
+    out["dags"] = list(dags)
+    return out
+
+
 def dag_timing(dev):
-    """K5 and K6 (and K3 at full width) on a B = 1024 slice of the AD
-    test set, at the AD widths and at full width: wrapper ms over 50
-    calls (CUDA events), device ms (profiler, exact instance), the bound
-    and the plain version's ms.  -> {kernel: {config: numbers}}."""
+    """K5 and K6 (and K3 at full width) on slices of the AD test set, at
+    the AD widths (B = 1,024) and at full width (B = 128, 1,024 and
+    4,096, ``DAG_TIME_FULL``): wrapper ms over 50 calls (CUDA events),
+    device ms (profiler, exact instance), the bound and the plain
+    version's ms.  -> {kernel: {config: numbers}}, a config at B = 1,024
+    under its name, at another B under "name@B"."""
     import torch
 
     from repro_torch.core import cuda_backend
@@ -1568,8 +1714,6 @@ def dag_timing(dev):
     from repro_torch.testing import AD_FULL_WIDTHS, AD_WIDTHS, he_mlp
 
     X = ad_test_set()
-    x = torch.as_tensor(X[:DAG_TIME_B], device=dev)
-    B = DAG_TIME_B
     pipes, _ = dag_models(dev)
     nodes = dag_nodes()
 
@@ -1578,29 +1722,41 @@ def dag_timing(dev):
         return 4 * nparams, 2 * sum(a * b for a, b in zip(widths[:-1],
                                                           widths[1:]))
 
+    def key(name, B):
+        return name if B == DAG_TIME_B else f"{name}@{B}"
+
     out = {"fused_mlp": {}, "fused_dag": {}, "fused_mlp_classify": {}}
-    for name, widths, seed in (("ad", AD_WIDTHS, 0),
-                               ("ad_full", AD_FULL_WIDTHS, 2)):
+    for name, widths, seed, batches in (
+            ("ad", AD_WIDTHS, 0, (DAG_TIME_B,)),
+            ("ad_full", AD_FULL_WIDTHS, 2, DAG_TIME_FULL)):
         p = fm.pack_params(*he_mlp(widths, seed), device=dev)
         pbytes, flops = mlp_work(widths)
         ws, bs = p.layers()
-        k5 = lambda _p=p: fm.fused_mlp_launch(x, _p)
-        k3 = lambda _p=p: fm.fused_mlp_classify_launch(x, _p)
-        seen = kernel_device_ms({K5_INSTANCE: k5, K3_INSTANCE: k3})
-        out["fused_mlp"][name] = dict(
-            ms=time_ms(k5, TIMED_LAUNCHES), **kernel_fields(seen[K5_INSTANCE]),
-            plain_ms=time_ms(lambda: fm.mlp_ref(x, ws, bs), TIMED_LAUNCHES),
-            bound=bound(B * widths[0] * 4 + pbytes + B * widths[-1] * 4,
-                        B * flops), B=B, widths=list(widths))
-        if name == "ad_full":
-            out["fused_mlp_classify"][name] = dict(
-                ms=time_ms(k3, TIMED_LAUNCHES),
-                **kernel_fields(seen[K3_INSTANCE]),
-                plain_ms=time_ms(lambda: fm.mlp_classify_ref(x, ws, bs),
+        k3_name, k5_name, _ = mlp_kernel_names(p.w_flat.numel())
+        for B in batches:
+            x = torch.as_tensor(X[:B], device=dev)
+            k5 = lambda _p=p, _x=x: fm.fused_mlp_launch(_x, _p)
+            k3 = lambda _p=p, _x=x: fm.fused_mlp_classify_launch(_x, _p)
+            seen = kernel_device_ms({k5_name: k5, k3_name: k3})
+            out["fused_mlp"][key(name, B)] = dict(
+                ms=time_ms(k5, TIMED_LAUNCHES), **kernel_fields(seen[k5_name]),
+                plain_ms=time_ms(lambda _x=x: fm.mlp_ref(_x, ws, bs),
                                  TIMED_LAUNCHES),
-                bound=bound(B * widths[0] * 4 + pbytes + B * 4, B * flops),
-                B=B, widths=list(widths))
-    for text in ("ad>tc", "ad_full>tc"):
+                bound=bound(B * widths[0] * 4 + pbytes + B * widths[-1] * 4,
+                            B * flops), B=B, widths=list(widths),
+                kernel=k5_name)
+            if name == "ad_full":
+                out["fused_mlp_classify"][key(name, B)] = dict(
+                    ms=time_ms(k3, TIMED_LAUNCHES),
+                    **kernel_fields(seen[k3_name]),
+                    plain_ms=time_ms(
+                        lambda _x=x: fm.mlp_classify_ref(_x, ws, bs),
+                        TIMED_LAUNCHES),
+                    bound=bound(B * widths[0] * 4 + pbytes + B * 4,
+                                B * flops), B=B, widths=list(widths),
+                    kernel=k3_name)
+    for text, batches in (("ad>tc", (DAG_TIME_B,)),
+                          ("ad_full>tc", DAG_TIME_FULL)):
         plan, folded, _ = cuda_backend._prepare_dag(nodes[text], pipes, "or",
                                                     True)
         dag = fm.pack_dag(folded, plan, device=dev)
@@ -1608,14 +1764,18 @@ def dag_timing(dev):
                   for ws, bs in dag.models()]
         pbytes = 4 * (dag.w_flat.numel() + dag.b_flat.numel())
         flops = sum(mlp_work(w)[1] + w[-1] for w in dag.widths)
-        k6 = lambda _d=dag: fm.fused_dag_launch(x, _d)
-        out["fused_dag"][text] = dict(
-            ms=time_ms(k6, TIMED_LAUNCHES),
-            **kernel_fields(kernel_device_ms({K6_NAME: k6})[K6_NAME]),
-            plain_ms=time_ms(lambda: fm.fused_dag_ref(x, models, dag.program),
-                             TIMED_LAUNCHES),
-            bound=bound(B * dag.n_feat * 4 + pbytes + B * 4,
-                        B * flops), B=B, widths=[list(w) for w in dag.widths])
+        k6_name = mlp_kernel_names(dag.w_flat.numel())[2]
+        for B in batches:
+            x = torch.as_tensor(X[:B], device=dev)
+            k6 = lambda _d=dag, _x=x: fm.fused_dag_launch(_x, _d)
+            out["fused_dag"][key(text, B)] = dict(
+                ms=time_ms(k6, TIMED_LAUNCHES),
+                **kernel_fields(kernel_device_ms({k6_name: k6})[k6_name]),
+                plain_ms=time_ms(
+                    lambda _x=x: fm.fused_dag_ref(_x, models, dag.program),
+                    TIMED_LAUNCHES),
+                bound=bound(B * dag.n_feat * 4 + pbytes + B * 4, B * flops),
+                B=B, widths=[list(w) for w in dag.widths], kernel=k6_name)
     emit({"phase": "kernels_time_dag", **out, "nvidia_smi": nvidia_smi()})
     return out
 
@@ -3938,7 +4098,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     try:
         err, times = kernel_phase(dev)
-        err.update(kernels_check_dag(dev))
+        for k, v in kernels_check_dag(dev).items():
+            err[k] = max(err.get(k, 0.0), v)
         dag_times = dag_timing(dev)
         err.update(kernels_check_multi(dev))
         multi_times = multi_timing(dev)
@@ -4056,11 +4217,20 @@ def main() -> int:
                       "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
                 for cfg, m in bgemm_times.items()}
         if name in FULL_CONFIG:
-            full = dag_times[name][FULL_CONFIG[name]]
+            by_b = {B: dag_times[name][FULL_CONFIG[name] + (
+                    "" if B == DAG_TIME_B else f"@{B}")]
+                    for B in DAG_TIME_FULL}
+            full = by_b[DAG_TIME_B]
             entry["full_width"] = {
-                "widths": full["widths"], "ms": full["ms"],
-                "kernel_ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
-                "bound_ms": full["bound"][0], "bound_by": full["bound"][1]}
+                "widths": full["widths"], "kernel": full["kernel"],
+                "ms": full["ms"], "kernel_ms": full["kernel_ms"],
+                "plain_ms": full["plain_ms"], "bound_ms": full["bound"][0],
+                "bound_by": full["bound"][1],
+                "by_batch": {B: {"ms": m["ms"], "kernel_ms": m["kernel_ms"],
+                                 "plain_ms": m["plain_ms"],
+                                 "bound_ms": m["bound"][0],
+                                 "bound_by": m["bound"][1]}
+                             for B, m in by_b.items()}}
         if name in ("fused_flow_serve", "flow_update"):
             entry["chain"] = {
                 "device_ms_by_depth": {

@@ -128,7 +128,7 @@ void fused_dag(at::Tensor x, at::Tensor w_flat, at::Tensor b_flat,
   g.n_ops = (int)program.size() / 2;
   g.n_feat = (int)x.size(1);
   size_t at = 0;
-  int64_t w_off = 0, b_off = 0;
+  int64_t n_w = 0, n_b = 0;
   for (int i = 0; i < n_models; ++i) {
     TORCH_CHECK(at + n_layers[i] + 1 <= widths.size(), "DAG widths");
     std::vector<int64_t> wi(widths.begin() + at,
@@ -137,13 +137,11 @@ void fused_dag(at::Tensor x, at::Tensor w_flat, at::Tensor b_flat,
     g.m[i] = mlp_dims(wi);
     TORCH_CHECK(g.m[i].widths[0] == g.n_feat,
                 "every DAG model reads the whole input row");
-    g.w_off[i] = (int)w_off;
-    g.b_off[i] = (int)b_off;
-    w_off += g.m[i].n_w;
-    b_off += g.m[i].n_b;
+    n_w += g.m[i].n_w;
+    n_b += g.m[i].n_b;
   }
-  TORCH_CHECK(at == widths.size() && w_off == w_flat.numel() &&
-                  b_off == b_flat.numel(),
+  TORCH_CHECK(at == widths.size() && n_w == w_flat.numel() &&
+                  n_b == b_flat.numel(),
               "packed DAG does not match its widths");
   int depth = 0;
   for (int k = 0; k < g.n_ops; ++k) {

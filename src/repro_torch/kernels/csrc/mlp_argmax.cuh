@@ -1,8 +1,10 @@
-// mlp_argmax: the ReLU MLP (+ argmax) shared by K1 (fused_flow), K3 and
-// K5 (fused_mlp) and K6 (fused_dag).  Replaces the matmul chains of the
-// TPU's fused_mlp kernels (repro/kernels/fused_mlp/kernel.py:59 _kernel,
-// :71 _classify_kernel, :158 _dag_kernel) and of the "mlp" branch of
-// suffix_verdicts (fused_flow/kernel.py:199).
+// mlp_argmax: the ReLU MLP (+ argmax) one warp a row, shared by K1
+// (fused_flow) and by K3 and K5 (fused_mlp) and K6 (fused_dag) for models
+// that fit in one chunk of mlp_tile.cuh (larger ones run the tile path).
+// Replaces the matmul chains of the TPU's fused_mlp kernels
+// (repro/kernels/fused_mlp/kernel.py:59 _kernel, :71 _classify_kernel,
+// :158 _dag_kernel) and of the "mlp" branch of suffix_verdicts
+// (fused_flow/kernel.py:199).
 //
 // Weights: a block stages a model's weights and biases in shared memory
 // once when they fit beside the warps' activation rows (mlp_stage);

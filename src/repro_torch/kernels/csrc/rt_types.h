@@ -16,6 +16,12 @@
 #define RT_CHAIN_CHUNK 32      // slot-chain steps K1 and K2 stage at a time
 #define RT_DAG_MAX_MODELS 8    // distinct models in one fused DAG (K6)
 #define RT_DAG_MAX_OPS 32      // instructions of a DAG plan (K6)
+// K3, K5 and K6: a model (a DAG's models) of at most RT_MLP_CHUNK weights
+// is staged whole and runs one warp a row; a larger one streams its
+// weights in chunks of up to RT_MLP_CHUNK floats through tiles of up to
+// RT_MLP_TILE_ROWS rows a block (mlp_tile.cuh).
+#define RT_MLP_CHUNK 8192
+#define RT_MLP_TILE_ROWS 32
 // Flow tables of one K1 launch: their descriptors ride by
 // value in the kernel parameter space (32,764 bytes on Hopper from CUDA
 // 12.1 on), so the count is bounded by that space, not by the kernel.
@@ -63,21 +69,15 @@ struct MlpDims {
   int n_b;                // bias floats
 };
 
-// A Seq/Par DAG of MLP classifiers (K6).  Model i's weights and biases
-// start at w_off[i] / b_off[i] of the packed arrays; smem_off[i] >= 0
-// stages them at that float offset of the block's shared memory, -1 reads
-// them from device memory.  The plan is a postfix program of n_ops
-// (op, arg) pairs: DAG_MODEL i pushes model i's verdict; DAG_SEQ n,
-// DAG_OR n and DAG_AND n pop n verdicts and push their fold.
+// A Seq/Par DAG of MLP classifiers (K6): its models' widths (weights and
+// biases packed back to back in model order) and its plan, a postfix
+// program of n_ops (op, arg) pairs: DAG_MODEL i pushes model i's verdict;
+// DAG_SEQ n, DAG_OR n and DAG_AND n pop n verdicts and push their fold.
 enum { DAG_MODEL = 0, DAG_SEQ = 1, DAG_OR = 2, DAG_AND = 3 };
 
 struct DagArgs {
   int n_models, n_ops, n_feat;
   MlpDims m[RT_DAG_MAX_MODELS];
-  int w_off[RT_DAG_MAX_MODELS];
-  int b_off[RT_DAG_MAX_MODELS];
-  int smem_off[RT_DAG_MAX_MODELS];
-  int smem_floats;        // staged parameters in all
   int op[RT_DAG_MAX_OPS];
   int arg[RT_DAG_MAX_OPS];
 };

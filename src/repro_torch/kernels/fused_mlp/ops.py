@@ -14,13 +14,16 @@ Each launches its kernel for CUDA tensors and runs its plain version for
 CPU tensors.
 
 Packing: the weights are packed back to back at their true widths
-(``pack_params``, ``pack_dag``), no lane padding.  A kernel stages a
-model in shared memory when it fits and reads it from device memory
-otherwise, so the envelope on the H100 is the widths and the depth only:
-layer widths up to ``MAX_MLP_WIDTH`` and at most ``MAX_LAYERS`` layers
-(the JAX package's is widths up to 128 at any depth).  A fused DAG takes
-at most ``MAX_DAG_MODELS`` distinct models and a plan of at most
-``MAX_DAG_OPS`` instructions.
+(``pack_params``, ``pack_dag``), no lane padding, each packed array on a
+16-byte boundary (the kernels bring the weights in with bulk copies).  A
+model (a DAG's models) of at most ``MLP_CHUNK`` weights is staged whole
+and runs one warp a row; a larger one streams through shared memory a
+chunk at a time over tiles of rows (``tiled``, ``csrc/mlp_tile.cuh``).
+So the envelope on the H100 is the widths and the depth only: layer
+widths up to ``MAX_MLP_WIDTH`` and at most ``MAX_LAYERS`` layers (the JAX
+package's is widths up to 128 at any depth).  A fused DAG takes at most
+``MAX_DAG_MODELS`` distinct models and a plan of at most ``MAX_DAG_OPS``
+instructions.
 """
 
 from __future__ import annotations
@@ -41,6 +44,14 @@ MAX_MLP_WIDTH = 256
 MAX_LAYERS = 16
 MAX_DAG_MODELS = 8
 MAX_DAG_OPS = 32
+MLP_CHUNK = _ext.header_define("RT_MLP_CHUNK")
+TILE_ROWS = _ext.header_define("RT_MLP_TILE_ROWS")
+
+
+def tiled(n_weights: int) -> bool:
+    """Does a model (a DAG's models) of ``n_weights`` weights run the tile
+    kernel, its weights past one chunk, rather than one warp a row?"""
+    return n_weights > MLP_CHUNK
 
 
 class PackedMLP(NamedTuple):
@@ -100,11 +111,23 @@ def check_mlp(mlp: PackedMLP, device) -> None:
     reason = mlp_envelope_reason(mlp.widths)
     if reason is not None:
         raise ValueError(f"outside the MLP-kernel envelope: {reason}")
-    for t in (mlp.w_flat, mlp.b_flat):
+    check_packed(mlp.w_flat, mlp.b_flat, device, "MLP")
+
+
+def check_packed(w_flat, b_flat, device, what: str) -> None:
+    """Packed weights and biases: contiguous f32 on ``device``."""
+    for t in (w_flat, b_flat):
         if t.device != device or t.dtype != torch.float32 \
                 or not t.is_contiguous():
-            raise ValueError("packed MLP must be contiguous f32 on "
+            raise ValueError(f"packed {what} must be contiguous f32 on "
                              f"{device}, got {t.dtype} on {t.device}")
+
+
+def check_aligned(w_flat, b_flat, what: str) -> None:
+    """K3, K5 and K6 bring the weights in with bulk copies: each packed
+    array starts on a 16-byte boundary."""
+    if w_flat.data_ptr() % 16 or b_flat.data_ptr() % 16:
+        raise ValueError(f"packed {what} must start on a 16-byte boundary")
 
 
 def check_rows(x: torch.Tensor, width: int) -> None:
@@ -120,6 +143,7 @@ def fused_mlp_classify_launch(x: torch.Tensor, mlp: PackedMLP):
     """K3's wrapper: x [B, d_0] f32 contiguous CUDA -> [B] int32 ids, one
     launch on the current stream."""
     check_mlp(mlp, x.device)
+    check_aligned(mlp.w_flat, mlp.b_flat, "MLP")
     check_rows(x, mlp.widths[0])
     out = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
     _ext.extension().fused_mlp_classify(x, mlp.w_flat, mlp.b_flat,
@@ -149,6 +173,7 @@ def fused_mlp_launch(x: torch.Tensor, mlp: PackedMLP):
     """K5's wrapper: x [B, d_0] f32 contiguous CUDA -> logits [B, C] f32,
     one launch on the current stream."""
     check_mlp(mlp, x.device)
+    check_aligned(mlp.w_flat, mlp.b_flat, "MLP")
     check_rows(x, mlp.widths[0])
     out = torch.empty((x.shape[0], mlp.num_classes), dtype=torch.float32,
                       device=x.device)
@@ -249,11 +274,8 @@ def pack_dag(models, plan: tuple, device=None) -> PackedDag:
 def fused_dag_launch(x: torch.Tensor, dag: PackedDag):
     """K6's wrapper: x [B, F] f32 contiguous CUDA -> verdicts [B] int32,
     one launch on the current stream."""
-    for t in (dag.w_flat, dag.b_flat):
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("packed DAG must be contiguous f32 on "
-                             f"{x.device}, got {t.dtype} on {t.device}")
+    check_packed(dag.w_flat, dag.b_flat, x.device, "DAG")
+    check_aligned(dag.w_flat, dag.b_flat, "DAG")
     check_rows(x, dag.n_feat)
     out = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
     _ext.extension().fused_dag(

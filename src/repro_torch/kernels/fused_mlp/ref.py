@@ -18,6 +18,42 @@ def mlp_ref(x, weights, biases) -> torch.Tensor:
     return h
 
 
+def mlp_tile_ref(x, weights, biases, rows: int, k_chunk: int
+                 ) -> torch.Tensor:
+    """The tiled schedule of K3/K5/K6 (``csrc/mlp_tile.cuh``) written out
+    plainly -> logits [B, C] f32.  Rows go in tiles of ``rows`` (the last
+    one padded with zero rows, as a block pads it); each layer's weights
+    come in chunks of ``k_chunk`` input rows (the last one shorter); each
+    output is one chain over ascending input index from 0, a step adding
+    one product to the sum in f64 and rounding to f32 (the kernel's fmaf
+    rounds once, so the two differ only where that double rounding does),
+    then the f32 bias and ReLU on all but the last layer.  For the tests
+    and the smoke's checks; no serving path runs it."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    B, F = x.shape
+    n_tiles = -(-B // rows)
+    h = torch.zeros((n_tiles * rows, F), dtype=torch.float32,
+                    device=x.device)
+    h[:B] = x
+    h = h.view(n_tiles, rows, F)
+    L = len(weights)
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        w = torch.as_tensor(w, dtype=torch.float32).to(x.device,
+                                                        torch.float64)
+        d_in, d_out = w.shape
+        acc = torch.zeros((n_tiles, rows, d_out), dtype=torch.float32,
+                          device=x.device)
+        for k0 in range(0, d_in, k_chunk):
+            for k in range(k0, min(k0 + k_chunk, d_in)):
+                acc = (acc.to(torch.float64)
+                       + h[:, :, k, None].to(torch.float64) * w[k]
+                       ).to(torch.float32)
+        h = acc + torch.as_tensor(b, dtype=torch.float32).to(x.device)
+        if li < L - 1:
+            h = torch.relu(h)
+    return h.reshape(n_tiles * rows, -1)[:B]
+
+
 def mlp_classify_ref(x, weights, biases) -> torch.Tensor:
     """-> int32 class ids: argmax over the logits, ties to the lowest
     index (``torch.argmax`` returns the first maximum)."""

@@ -5,8 +5,10 @@ one run.
 
     python3 tools/compare_checkouts.py path_lm_serve build/parent . . build/parent
     python3 tools/compare_checkouts.py kernels_time build/variant . . build/variant
+    python3 tools/compare_checkouts.py mlp_bits,kernels_time_dag build/parent . . build/parent
 
-The first argument names the phase:
+The first argument names the phase, or several joined by commas (run in
+one process a checkout, after one build):
 
 - ``path_lm_serve``: Qwen3-1.7B served as the smoke serves it; prints the
   prefill ms per call and the decode ms per step on ``backend="cuda"``
@@ -14,7 +16,15 @@ The first argument names the phase:
 - ``kernels_time``: the one-table flow-ddos batch of ``kernels_time``
   (B = 512, deepest chain 135); prints each kernel's wrapper ms (``ms``,
   CUDA events around 50 back-to-back calls) and device ms
-  (``kernel_ms``, the profiler), and the same for K1's other modes.
+  (``kernel_ms``, the profiler), and the same for K1's other modes;
+- ``kernels_time_dag``: the smoke's ``dag_timing`` (K5 and K6 at the AD
+  widths, K3, K5 and K6 at full width, at the batch sizes that
+  checkout's smoke times); prints each one's ``ms`` and ``kernel_ms``;
+- ``mlp_bits``: K3, K5 and K6 on seeded inputs (``MLP_BITS_WIDTHS`` and
+  two DAGs at ``MLP_BITS_BATCHES`` rows); prints a SHA-256 of each
+  output's bytes, so two checkouts' kernels can be held bit for bit;
+- ``path_dag``: the smoke's ``path_dag`` phase; prints the pkt/s of each
+  configuration and batch size (median of the passes, and all of them).
 
 Each further argument is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -33,7 +43,13 @@ import os
 import subprocess
 import sys
 
-PHASES = ("path_lm_serve", "kernels_time")
+PHASES = ("path_lm_serve", "kernels_time", "kernels_time_dag", "mlp_bits",
+          "path_dag")
+MLP_BITS_WIDTHS = ((7,) + (128,) * 10 + (2,), (30,) + (128,) * 10 + (2,),
+                   (47,) + (128,) * 10 + (2,), (64, 256, 256, 10),
+                   (20,) + (48,) * 15 + (3,), (1, 4, 2), (7, 16, 8, 2),
+                   (28, 16, 8, 2))
+MLP_BITS_BATCHES = (1, 31, 37, 128, 1024, 4096, 8192)
 
 
 def lm_numbers(chip_smoke, dev) -> dict:
@@ -64,6 +80,60 @@ def kernel_numbers(chip_smoke, dev) -> dict:
     return out
 
 
+def dag_time_numbers(chip_smoke, dev) -> dict:
+    row = run_phase(chip_smoke, "kernels_time_dag",
+                    lambda: chip_smoke.dag_timing(dev))
+    return {k: {cfg: {"ms": m["ms"], "kernel_ms": m["kernel_ms"]}
+                for cfg, m in v.items()}
+            for k, v in row.items() if k.startswith("fused_")}
+
+
+def mlp_bits(chip_smoke, dev) -> dict:
+    """K3, K5 and K6 of this checkout on seeded inputs -> {case: SHA-256
+    of the output's bytes}."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.testing import he_mlp
+
+    def digest(t) -> str:
+        torch.cuda.synchronize()
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    out = {}
+    for widths in MLP_BITS_WIDTHS:
+        p = fm.pack_params(*he_mlp(widths, seed=len(widths)), device=dev)
+        for B in MLP_BITS_BATCHES:
+            x = torch.as_tensor(np.random.default_rng(B).normal(
+                size=(B, widths[0])).astype(np.float32) * 2, device=dev)
+            case = f"{'x'.join(map(str, widths))}@{B}"
+            out[f"K5 {case}"] = digest(fm.fused_mlp_launch(x, p))
+            out[f"K3 {case}"] = digest(fm.fused_mlp_classify_launch(x, p))
+    full, tc, ad = MLP_BITS_WIDTHS[0], (7, 2), (7, 16, 8, 2)
+    for name, widths, plan in (
+            ("ad_full>tc", (full, tc), ("seq", (("model", 0), ("model", 1)))),
+            ("full|full", (full, full), ("or", (("model", 0), ("model", 1)))),
+            ("ad>tc", (ad, tc), ("seq", (("model", 0), ("model", 1))))):
+        dag = fm.pack_dag([he_mlp(w, seed=11 + i)
+                           for i, w in enumerate(widths)], plan, device=dev)
+        for B in MLP_BITS_BATCHES:
+            x = torch.as_tensor(np.random.default_rng(B).normal(
+                size=(B, 7)).astype(np.float32) * 2, device=dev)
+            out[f"K6 {name}@{B}"] = digest(fm.fused_dag_launch(x, dag))
+    return out
+
+
+def path_dag_numbers(chip_smoke, dev) -> dict:
+    row = run_phase(chip_smoke, "path_dag",
+                    lambda: chip_smoke.path_dag_phase(dev))
+    return {f"{r['config']} {r['dag']} B={r['max_batch']}":
+            {"pkt_per_s": r["pkt_per_s"], "runs": r["pkt_per_s_runs"]}
+            for r in row["rows"]}
+
+
 def run_phase(chip_smoke, phase: str, fn) -> dict:
     """Call ``fn`` with the smoke's ``emit`` caught -> the row it emitted
     for ``phase``."""
@@ -92,18 +162,20 @@ def one(phase: str, root: str) -> None:
     _ext.extension()
     build_s = time.perf_counter() - t
     dev = torch.device("cuda", 0)
-    numbers = (lm_numbers if phase == "path_lm_serve"
-               else kernel_numbers)(chip_smoke, dev)
-    print(json.dumps({"phase": phase, "root": root, "build_s": build_s,
-                      "card": chip_smoke.nvidia_smi(), **numbers}),
-          flush=True)
+    runs = {"path_lm_serve": lm_numbers, "kernels_time": kernel_numbers,
+            "kernels_time_dag": dag_time_numbers, "mlp_bits": mlp_bits,
+            "path_dag": path_dag_numbers}
+    for name in phase.split(","):
+        print(json.dumps({"phase": name, "root": root, "build_s": build_s,
+                          "card": chip_smoke.nvidia_smi(),
+                          **runs[name](chip_smoke, dev)}), flush=True)
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--one"]:
         one(sys.argv[2], sys.argv[3])
         return 0
-    if len(sys.argv) < 3 or sys.argv[1] not in PHASES:
+    if len(sys.argv) < 3 or not set(sys.argv[1].split(",")) <= set(PHASES):
         print(f"usage: {sys.argv[0]} {{{','.join(PHASES)}}} ROOT...",
               file=sys.stderr)
         return 2
