@@ -132,7 +132,7 @@ bound; no PyTorch call computes the scan) and ``path_hybrid_serve``
 (``ServeEngine`` with Jamba-1.5-Large at full width, one 8-layer period,
 experts 0-7 of 16, seeded bf16 weights: four 512-token prompts with 32
 new tokens, then four of 160-192 tokens with 64; K8 launched 7 x (2 +
-96) = 686 times and K7 98; in bf16 the period's Mamba, attention and MoE
+96) = 686 times (since slice 11 its discretizing entry) and K7 98; in bf16 the period's Mamba, attention and MoE
 blocks against their plain versions on the path's own input; in f32,
 experts 0-1, against ``backend="interpret"`` and round 2 against teacher
 forcing on a drop-free rerun).
@@ -166,6 +166,23 @@ verdicts, against the decomposition the kernels walk by
 chains of 1, 135 and 512 packets and reports the slope, device ns per
 chain step, beside a model (not a measurement) of the chain's latency
 floor.
+
+Slice 11 redesigns K7's f32 instance and K8.  K7 in f32 takes the
+split-KV decode (``fa_decode_kernel<float, D>``, one template with the
+bf16 one) at Sq <= 4 and a register-tiled f32 prefill
+(``fa_prefill_f32_kernel<D>``) above; ``kernels_check_lm`` and
+``kernels_time_lm`` gain f32 at the Jamba shapes and decode at q_offset
+1,023 (and f32 decode edges), each beside SDPA.  K8 gains a discretizing
+entry (``selective_scan_discretized``: dt, A, B, C and x in, dA and dBx
+formed in registers), which the Mamba block runs; the TPU kernel's
+interface stays as another instance of one template.
+``kernels_check_scan`` runs every case through both: the discretizing
+entry's h_final bit for bit the eager discretization followed by the
+TPU-interface K8, and each entry's y bit for bit the kernel's own order
+written out (``selective_scan_channel_ref``) and within 1e-5 of the
+plain version; ``kernels_time_scan`` times the discretizing entry beside
+the eager passes plus the TPU-interface K8, its "before".
+``path_hybrid_serve`` counts the discretizing entry's launches.
 
 Slice 10 redesigns K3, K5 and K6 for Hopper (``csrc/mlp_tile.cuh``: a
 model past one weight chunk goes through a tile of rows per block, its
@@ -2725,23 +2742,26 @@ def k7_bound(B, Sq, H, K, D, itemsize, pairs, kv_rows):
 
 
 def k7_kernels(dtype: str, Sq: int, D: int) -> list:
-    """The kernels one K7 call launches, as the profiler names them: bf16
-    with Sq <= DECODE_MAX_SQ the split-KV decode and its combine, longer
-    bf16 the tensor-core prefill, f32 the SIMT kernel."""
+    """The kernels one K7 call launches, as the profiler names them: with
+    Sq <= DECODE_MAX_SQ the split-KV decode and its combine in the call's
+    dtype, longer bf16 the tensor-core prefill, longer f32 the f32
+    prefill."""
     from repro_torch.kernels.flash_attention import DECODE_MAX_SQ
 
-    if dtype == "float32":
-        return [f"fa_simt_kernel<{D}>"]
     if Sq <= DECODE_MAX_SQ:
-        return [f"fa_decode_kernel<{D}>", f"fa_combine_kernel<{D}>"]
+        t = "float" if dtype == "float32" else "__nv_bfloat16"
+        return [f"fa_decode_kernel<{t}, {D}>",
+                f"fa_combine_kernel<{t}, {D}>"]
+    if dtype == "float32":
+        return [f"fa_prefill_f32_kernel<{D}>"]
     return [f"fa_prefill_kernel<{D}>"]
 
 
 def k7_split_ref(dev, q, k, v, skv, **kw):
     """The plain decomposition (``attention_split_ref``) of the kernel a
-    call takes: the wrapper's decode plan in 32-key tiles, the prefill's
-    64-key tiles with P split into bf16 hi and lo, or the SIMT kernel's
-    32-key tiles."""
+    call takes: the wrapper's decode plan in 32-key tiles (either dtype),
+    the bf16 prefill's 64-key tiles with P split into bf16 hi and lo, or
+    the f32 prefill's 64-key tiles with P in f32."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -2752,10 +2772,9 @@ def k7_split_ref(dev, q, k, v, skv, **kw):
 
     B, Sq, H, _ = q.shape
     k, v = k[:, :skv], v[:, :skv]
-    if q.dtype == torch.float32:
-        return attention_split_ref(q, k, v, tile=32, **kw)
     if Sq > DECODE_MAX_SQ:
-        return attention_split_ref(q, k, v, tile=64, split_p=True, **kw)
+        return attention_split_ref(q, k, v, tile=64,
+                                   split_p=q.dtype == torch.bfloat16, **kw)
     lo, hi, chunk, _ = decode_plan(
         B, Sq, H, k.shape[2], skv, n_sm=torch.cuda.get_device_properties(
             dev).multi_processor_count, **kw)
@@ -2776,7 +2795,7 @@ def k7_inputs(dev, B, Sq, Skv, H, K, D, dtype, seed):
 # window, starcoder2's G = 12, the smoke width D = 16, every D instance
 # and f32, and the Jamba-1.5-Large shapes of path_hybrid_serve (64 query
 # heads over 8 KV heads: prefills at S = 512 and 192, decode at the last
-# index of each round)
+# index of each round), in bf16 and, for its f32 run, in f32
 K7_CASES = (
     ("prefill_512", 4, 512, 512, 16, 8, 128, "bfloat16", True, 0, 0, None),
     ("prefill_2048", 4, 2048, 2048, 16, 8, 128, "bfloat16", True, 0, 0,
@@ -2821,6 +2840,32 @@ K7_CASES = (
     ("d32_bf16", 2, 65, 97, 8, 2, 32, "bfloat16", False, 8, 5, None),
     ("d32_decode_bf16", 2, 2, 97, 8, 2, 32, "bfloat16", False, 0, 5, None),
     ("d64_bf16", 2, 200, 300, 4, 4, 64, "bfloat16", True, 0, 100, None),
+    # f32 through the split-KV decode and the f32 prefill: the Jamba
+    # shapes of path_hybrid_serve's f32 run, the Qwen3 decode at the
+    # cache's last key, a chunk edge at G = 8, a windowed decode at D =
+    # 16, Sq on both sides of DECODE_MAX_SQ, D = 32 and 64 decodes
+    ("jamba_prefill_512_f32", 4, 512, 512, 64, 8, 128, "float32", True, 0,
+     0, None),
+    ("jamba_prefill_192_f32", 4, 192, 192, 64, 8, 128, "float32", True, 0,
+     0, None),
+    ("jamba_decode_543_f32", 4, 1, 1024, 64, 8, 128, "float32", True, 0,
+     543, None),
+    ("decode_1023_f32", 4, 1, 1024, 16, 8, 128, "float32", True, 0, 1023,
+     None),
+    ("decode_511_f32", 4, 1, 1024, 16, 8, 128, "float32", True, 0, 511,
+     None),
+    ("decode_g8_63_f32", 4, 1, 1024, 64, 8, 128, "float32", True, 0, 63,
+     None),
+    ("d16_decode_f32", 2, 2, 130, 4, 2, 16, "float32", True, 8, 5, 120),
+    ("sq4_decode_f32", 2, 4, 300, 48, 4, 128, "float32", True, 0, 200,
+     None),
+    ("sq5_prefill_f32", 2, 5, 300, 48, 4, 128, "float32", True, 0, 200,
+     None),
+    ("d32_decode_f32", 2, 2, 97, 8, 2, 32, "float32", False, 0, 5, None),
+    ("d64_decode_f32", 2, 1, 300, 4, 4, 64, "float32", True, 40, 250,
+     None),
+    ("ragged_w256_f32", 2, 1000, 1000, 16, 8, 128, "float32", True, 256, 0,
+     None),
 )
 
 
@@ -2876,8 +2921,8 @@ def kernels_check_lm(dev):
 # Qwen3-1.7B heads (16 over 8) at prefill S = 512 (the path's first batch)
 # and 2,048 and decode against 1,024 keys at q_offset 511 (the path's cache
 # index is 512-543) and 1,023; the Jamba-1.5-Large heads (64 over 8) at
-# path_hybrid_serve's first prefill and last decode; the f32 SIMT kernel
-# at the Qwen3 prefill and decode
+# path_hybrid_serve's first prefill and last decode; the f32 kernels at
+# the same Qwen3 and Jamba shapes
 K7_TIMED = (("prefill_512", 4, 512, 512, 16, 8, 0, "bfloat16"),
             ("prefill_2048", 4, 2048, 2048, 16, 8, 0, "bfloat16"),
             ("decode_511", 4, 1, 1024, 16, 8, 511, "bfloat16"),
@@ -2885,7 +2930,10 @@ K7_TIMED = (("prefill_512", 4, 512, 512, 16, 8, 0, "bfloat16"),
             ("jamba_prefill_512", 4, 512, 512, 64, 8, 0, "bfloat16"),
             ("jamba_decode_543", 4, 1, 1024, 64, 8, 543, "bfloat16"),
             ("prefill_512_f32", 4, 512, 512, 16, 8, 0, "float32"),
-            ("decode_511_f32", 4, 1, 1024, 16, 8, 511, "float32"))
+            ("decode_511_f32", 4, 1, 1024, 16, 8, 511, "float32"),
+            ("decode_1023_f32", 4, 1, 1024, 16, 8, 1023, "float32"),
+            ("jamba_prefill_512_f32", 4, 512, 512, 64, 8, 0, "float32"),
+            ("jamba_decode_543_f32", 4, 1, 1024, 64, 8, 543, "float32"))
 K7_TIMED_D = 128
 
 
@@ -3146,10 +3194,15 @@ def path_lm_serve(dev):
 
 # ---------------------------------------- slice 6: hybrid LM serving (K8)
 
-K8_INSTANCE = "selective_scan_kernel<{N}>"
+# K8's template instances, as the profiler names them: the TPU kernel's
+# interface (dA and dBx in) and the discretizing entry (x in bf16 or f32)
+K8_INSTANCE = "selective_scan_kernel<{N}, false, false>"
+K8_DISC_INSTANCE = "selective_scan_kernel<{N}, true, {xbf}>"
 # K8 against its plain version: within 1e-5 x (1 + |plain|).  h is the
 # same f32 products and sums in the same order (no FMA on either side),
-# so it matches bit for bit; y sums its N products in another order
+# so it matches bit for bit; y sums its N products in another order.
+# Against the kernel's own order written out (selective_scan_channel_ref)
+# y matches bit for bit too
 K8_TOL = 1e-5
 # name, B, S, di, N, h0 (nonzero random or zero), dA ("uniform":
 # exp(-U(0, 2)); "dt": exp(dt * A), dt = softplus(N(0, 1)), A = -(1..N))
@@ -3214,74 +3267,190 @@ def scan_inputs(dev, B, S, di, N, h0_kind, dA_kind, seed):
 
 
 def k8_bound(B, S, di, N):
-    """dA and dBx read once, C and h0 read once, y and h_final written
-    once, over the HBM rate; 4 f32 operations per (t, d, n) (the step's
-    multiply and add, the readout's product and sum) over 67 TFLOP/s."""
+    """The TPU interface: dA and dBx read once, C and h0 read once, y and
+    h_final written once, over the HBM rate; 4 f32 operations per (t, d,
+    n) (the step's multiply and add, the readout's product and sum) over
+    67 TFLOP/s."""
     moved = 4 * (2 * B * S * di * N + B * S * N + 2 * B * di * N
                  + B * S * di)
     return bound(moved, 4.0 * B * S * di * N)
 
 
+def k8_disc_bound(B, S, di, N, x_itemsize=4):
+    """The discretizing entry: dt, x and y once, B and C once, A once, h0
+    and h_final once, over the HBM rate; 8 f32 operations per (t, d, n)
+    (dt A, its exp counted as one, dt B, times x, the step's multiply and
+    add, the readout's product and sum) over 67 TFLOP/s."""
+    moved = (4 * (2 * B * S * di + 2 * B * S * N + di * N + 2 * B * di * N)
+             + x_itemsize * B * S * di)
+    return bound(moved, 8.0 * B * S * di * N)
+
+
+def disc_inputs(dev, B, S, di, N, x_dtype, seed):
+    """The discretizing entry's operands from one generator: dt =
+    softplus(N(0, 1)) [B, S, di], A = -exp(N(0, 1)) [di, N], Bm and Cm
+    N(0, 1) [B, S, N], x N(0, 1) [B, S, di] in ``x_dtype``, h0 N(0, 1)
+    [B, di, N]."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    return (F.softplus(randn(B, S, di)), -torch.exp(randn(di, N)),
+            randn(B, S, N), randn(B, S, N), randn(B, S, di).to(x_dtype),
+            randn(B, di, N))
+
+
 def kernels_check_scan(dev):
-    """K8 against its plain version (``selective_scan_ref``) on the card
-    at every case of ``K8_CASES``: y and h_final within ``K8_TOL`` x (1 +
-    |plain|).  -> {"selective_scan": max abs error over the cases}."""
+    """K8 on the card at every case of ``K8_CASES``, through both entries.
+    The TPU kernel's interface on ``scan_inputs``: y and h_final within
+    ``K8_TOL`` x (1 + |plain|) of ``selective_scan_ref``, y bit for bit
+    ``selective_scan_channel_ref``.  The discretizing entry on
+    ``disc_inputs`` (x in bf16 at even cases, f32 at odd): h_final bit
+    for bit the eager discretization (``discretize``) followed by the
+    TPU-interface K8, y bit for bit the channel decomposition of the same
+    discretization and within ``K8_TOL`` x (1 + |plain|) of the plain
+    version.  -> {"selective_scan": max abs error over the cases,
+    "selective_scan_discretized": the same}."""
     import torch
 
     from repro_torch.kernels.selective_scan import (
+        discretize,
+        selective_scan_channel_ref,
+        selective_scan_discretized_launch,
         selective_scan_launch,
         selective_scan_ref,
     )
 
-    rows, worst = [], 0.0
+    def close(got, want, what):
+        diff = (got - want).abs()
+        err = float(diff.max())
+        check(bool((diff <= K8_TOL * (1 + want.abs())).all()),
+              f"K8 {what} max abs {err} beyond {K8_TOL} x (1 + |plain|)")
+        return err
+
+    def bits(got, want, what):
+        n = int((got != want).sum())
+        check(n == 0, f"K8 {what}: {n} values differ from the kernel's "
+              "order written out")
+
+    rows, worst, worst_disc = [], 0.0, 0.0
     for i, (name, B, S, di, N, h0_kind, dA_kind) in enumerate(K8_CASES):
         args = scan_inputs(dev, B, S, di, N, h0_kind, dA_kind, 100 + i)
         y, h = selective_scan_launch(*args)
         want_y, want_h = selective_scan_ref(*args)
+        chan_y, _ = selective_scan_channel_ref(*args)
         torch.cuda.synchronize()
         check(y.shape == (B, S, di) and h.shape == (B, di, N),
               f"K8 {name}: outputs {tuple(y.shape)}, {tuple(h.shape)}")
-        errs = {}
-        for part, got, want in (("y", y, want_y), ("h_final", h, want_h)):
-            diff = (got - want).abs()
-            errs[part] = float(diff.max())
-            check(bool((diff <= K8_TOL * (1 + want.abs())).all()),
-                  f"K8 {name}: {part} max abs {errs[part]} beyond "
-                  f"{K8_TOL} x (1 + |plain|)")
+        errs = {"y": close(y, want_y, f"{name} y"),
+                "h_final": close(h, want_h, f"{name} h_final")}
+        bits(y, chan_y, f"{name} y")
         worst = max(worst, *errs.values())
-        rows.append({"case": name, "shape": [B, S, di, N], "h0": h0_kind,
-                     "dA": dA_kind, "max_abs_err": errs,
-                     "max_abs_y": float(want_y.abs().max())})
-        del args, y, h, want_y, want_h
+        row = {"case": name, "shape": [B, S, di, N], "h0": h0_kind,
+               "dA": dA_kind, "max_abs_err": errs,
+               "max_abs_y": float(want_y.abs().max())}
+        del args, y, h, want_y, want_h, chan_y
+
+        x_dtype = torch.bfloat16 if i % 2 == 0 else torch.float32
+        dt, A, Bm, Cm, x, h0 = disc_inputs(dev, B, S, di, N, x_dtype,
+                                           200 + i)
+        y, h = selective_scan_discretized_launch(dt, A, Bm, Cm, x, h0)
+        dA, dBx = discretize(dt, A, Bm, x)
+        _, tpu_h = selective_scan_launch(dA, dBx, Cm, h0)
+        chan_y, _ = selective_scan_channel_ref(dA, dBx, Cm, h0)
+        want_y, want_h = selective_scan_ref(dA, dBx, Cm, h0)
+        torch.cuda.synchronize()
+        check(y.shape == (B, S, di) and h.shape == (B, di, N),
+              f"K8 {name} discretized: outputs {tuple(y.shape)}, "
+              f"{tuple(h.shape)}")
+        n_h = int((h != tpu_h).sum())
+        check(n_h == 0, f"K8 {name} discretized: h_final differs from the "
+              f"eager discretization and the TPU-interface K8 in {n_h} "
+              "values")
+        derr = {"y": close(y, want_y, f"{name} discretized y"),
+                "h_final": close(h, want_h, f"{name} discretized h_final")}
+        bits(y, chan_y, f"{name} discretized y")
+        worst_disc = max(worst_disc, *derr.values())
+        row["discretized"] = {"x_dtype": str(x_dtype).split(".")[1],
+                              "max_abs_err": derr}
+        rows.append(row)
+        del dt, A, Bm, Cm, x, h0, y, h, dA, dBx, tpu_h, chan_y, want_y, want_h
+        torch.cuda.empty_cache()
     emit({"phase": "kernels_check_scan", "tol": K8_TOL, "cases": rows})
-    return {"selective_scan": worst}
+    return {"selective_scan": worst, "selective_scan_discretized": worst_disc}
 
 
 def kernels_time_scan(dev):
     """K8 at the hybrid path's shapes: prefill B = 4, S = 512 and one
-    decode step S = 1, di = 16,384, N = 16.  Wrapper ms over 50 calls
-    (CUDA events), device ms (profiler), the plain version's ms and the
-    bound; no single PyTorch call computes the scan, so ``library_ms`` is
-    null.  -> {config: numbers}."""
+    decode step S = 1, di = 16,384, N = 16.  The discretizing entry
+    (x in bf16, as the path's bf16 run gives it, and in f32): wrapper ms
+    over 50 calls (CUDA events), device ms (profiler), the plain
+    version's ms and its bound; beside it the "before", the eager
+    discretization's device ms (``discretize``: its four passes, one
+    profiler run) plus the TPU-interface K8's, which the Mamba block ran
+    until the discretizing entry took its place.  The TPU interface on
+    its own inputs is timed the same way against its own bound.  No
+    single PyTorch call computes the scan, so ``library_ms`` is null.  ->
+    {"discretized": {config: numbers}, "tpu_interface": {config:
+    numbers}}."""
     import torch
 
     from repro_torch.kernels.selective_scan import (
+        discretize,
+        selective_scan_discretized_launch,
+        selective_scan_discretized_ref,
         selective_scan_launch,
         selective_scan_ref,
     )
 
-    out = {}
+    out = {"discretized": {}, "tpu_interface": {}}
     for name, B, S, di, N in K8_TIMED:
         args = scan_inputs(dev, B, S, di, N, "random", "dt", 7)
         k8 = lambda: selective_scan_launch(*args)  # noqa: E731
         seen = kernel_device_ms({K8_INSTANCE.format(N=N): k8})
-        out[name] = dict(
+        out["tpu_interface"][name] = dict(
             ms=time_ms(k8, TIMED_LAUNCHES), **kernel_fields(seen.popitem()[1]),
             plain_ms=time_ms(lambda: selective_scan_ref(*args), 5),
             library_ms=None, bound=k8_bound(B, S, di, N),
-            shape=[B, S, di, N])
-        del args
+            shape=[B, S, di, N], kernel=K8_INSTANCE.format(N=N))
+        del args, seen
         torch.cuda.empty_cache()
+        for xdt in ("bfloat16", "float32"):
+            dt, A, Bm, Cm, x, h0 = disc_inputs(dev, B, S, di, N,
+                                               getattr(torch, xdt), 8)
+            inst = K8_DISC_INSTANCE.format(
+                N=N, xbf="true" if xdt == "bfloat16" else "false")
+            disc = lambda: selective_scan_discretized_launch(  # noqa: E731
+                dt, A, Bm, Cm, x, h0)
+            dA, dBx = discretize(dt, A, Bm, x)
+            seen = kernel_device_ms({
+                inst: disc, K8_INSTANCE.format(N=N):
+                lambda: selective_scan_launch(dA, dBx, Cm, h0)})
+            before_k8 = seen[K8_INSTANCE.format(N=N)]["ms"]
+            del dA, dBx
+            torch.cuda.empty_cache()
+            eager = next((t for t in (call_device_ms(
+                lambda: discretize(dt, A, Bm, x), n=5) for _ in range(3))
+                if t), None)
+            row = dict(
+                ms=time_ms(disc, TIMED_LAUNCHES), **kernel_fields(seen[inst]),
+                plain_ms=time_ms(lambda: selective_scan_discretized_ref(
+                    dt, A, Bm, Cm, x, h0), 3),
+                library_ms=None,
+                bound=k8_disc_bound(B, S, di, N, x.element_size()),
+                before_eager_kernel_ms=eager,
+                before_k8_kernel_ms=before_k8,
+                before_kernel_ms=(eager + before_k8 if eager and before_k8
+                                  else None),
+                shape=[B, S, di, N], x_dtype=xdt, kernel=inst)
+            out["discretized"][name if xdt == "bfloat16"
+                               else f"{name}_x_f32"] = row
+            del dt, A, Bm, Cm, x, h0
+            torch.cuda.empty_cache()
     emit({"phase": "kernels_time_scan", **out, "nvidia_smi": nvidia_smi()})
     return out
 
@@ -3398,8 +3567,9 @@ def teacher_forcing(params, cfg, reqs, experts, dev) -> dict:
 
 
 def hybrid_serve(cfg, params, experts, dev) -> dict:
-    """Both rounds through ``serve_both``: K8 must launch once per Mamba
-    mixer per call, K7 once per call, nothing else; the plain path
+    """Both rounds through ``serve_both``: K8's discretizing entry must
+    launch once per Mamba mixer per call, K7 once per call, nothing else
+    (the TPU-interface K8 not at all); the plain path
     nothing; every request gets its tokens, in the vocabulary."""
     from repro_torch.kernels import _ext
 
@@ -3409,7 +3579,8 @@ def hybrid_serve(cfg, params, experts, dev) -> dict:
     cuda, plain = runs["cuda"], runs["interpret"]
     n_calls = cuda["calls"]["prefill_calls"] + cuda["calls"]["decode_calls"]
     want = dict.fromkeys(_ext.LAUNCHES, 0) | {
-        "selective_scan": n_mamba * n_calls, "flash_attention": n_calls}
+        "selective_scan_discretized": n_mamba * n_calls,
+        "flash_attention": n_calls}
     check(cuda["launches"] == want,
           f"path_hybrid_serve launched {cuda['launches']}, not {want}")
     check(sum(plain["launches"].values()) == 0,
@@ -3576,8 +3747,8 @@ def path_hybrid_serve(dev):
     experts top-2), one 8-layer period (7 Mamba mixers, attention at
     slot 4, MoE at slots 0, 2, 4, 6), weights from ``torch.Generator``
     seed 0, batch_slots 4, max_seq 1,024, the two rounds of ``HY_ROUNDS``
-    in one ``run`` per engine (``hybrid_serve``: K8 7 x (2 + 96) = 686
-    launches, K7 98), twice:
+    in one ``run`` per engine (``hybrid_serve``: K8's discretizing entry
+    7 x (2 + 96) = 686 launches, K7 98), twice:
 
     * bf16 with experts 0-7 (the deployment's share of a card, the main
       path the kernels line counts): timings and peak memory.  With
@@ -4051,6 +4222,9 @@ KERNELS = (
     ("selective_scan",
      "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
      "src/repro/kernels/selective_scan/kernel.py:35"),
+    ("selective_scan_discretized",
+     "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+     "src/repro/kernels/selective_scan/kernel.py:35"),
     ("binarized_gemm",
      "src/repro_torch/kernels/binarized_gemm/csrc/binarized_gemm.cu",
      "src/repro/kernels/binarized_gemm/kernel.py:29"),
@@ -4147,8 +4321,9 @@ def main() -> int:
                                                "fused_mlp_classify",
                                                "mat_lut_classify")),
                            ("path_lm_serve", ("flash_attention",)),
-                           ("path_hybrid_serve", ("selective_scan",
-                                                  "flash_attention")),
+                           ("path_hybrid_serve", (
+                               "selective_scan_discretized",
+                               "flash_attention")),
                            ("path_generate", ("fused_mlp_classify",
                                               "mat_lut_classify"))):
             for k in want:
@@ -4175,7 +4350,9 @@ def main() -> int:
         return 1
     kernels = []
     times["flash_attention"] = lm_times["prefill_512"]
-    times["selective_scan"] = scan_times["prefill_512"]
+    times["selective_scan"] = scan_times["tpu_interface"]["prefill_512"]
+    times["selective_scan_discretized"] = \
+        scan_times["discretized"]["prefill_512"]
     times["binarized_gemm"] = bgemm_times["4096^3"]
     for name, source, replaces in KERNELS:
         tm = (dag_times[name][MAIN_CONFIG[name]] if name in MAIN_CONFIG
@@ -4201,13 +4378,19 @@ def main() -> int:
                       "library_kernel_ms": m["library_kernel_ms"],
                       "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
                 for cfg, m in lm_times.items()}
-        if name == "selective_scan":
+        if name in ("selective_scan", "selective_scan_discretized"):
+            rows = scan_times["tpu_interface" if name == "selective_scan"
+                              else "discretized"]
+            entry["instances"] = sorted({m["kernel"] for m in rows.values()})
             entry["shapes"] = {
-                cfg: {"shape": m["shape"], "ms": m["ms"],
-                      "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
-                      "library_ms": None, "bound_ms": m["bound"][0],
-                      "bound_by": m["bound"][1]}
-                for cfg, m in scan_times.items()}
+                cfg: {"shape": m["shape"], "kernel": m["kernel"],
+                      "ms": m["ms"], "kernel_ms": m["kernel_ms"],
+                      "plain_ms": m["plain_ms"], "library_ms": None,
+                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+                      **{k: m[k] for k in ("x_dtype", "before_kernel_ms",
+                                           "before_eager_kernel_ms",
+                                           "before_k8_kernel_ms") if k in m}}
+                for cfg, m in rows.items()}
         if name == "binarized_gemm":
             entry["library"] = bgemm_times["4096^3"]["library"]
             entry["shapes"] = {

@@ -30,6 +30,7 @@ SOURCES = (
     _PKG / "mat_lut" / "csrc" / "mat_lut.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     _PKG / "flash_attention" / "csrc" / "flash_prefill.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_prefill_f32.cu",
     _PKG / "flash_attention" / "csrc" / "flash_decode.cu",
     _PKG / "selective_scan" / "csrc" / "selective_scan.cu",
     _PKG / "binarized_gemm" / "csrc" / "binarized_gemm.cu",
@@ -40,7 +41,8 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 # kernel and nowhere else (chip_smoke.py reads them around the main path)
 LAUNCHES = {"fused_flow_serve": 0, "flow_update": 0, "fused_mlp_classify": 0,
             "mat_lut_classify": 0, "fused_mlp": 0, "fused_dag": 0,
-            "flash_attention": 0, "selective_scan": 0, "binarized_gemm": 0}
+            "flash_attention": 0, "selective_scan": 0,
+            "selective_scan_discretized": 0, "binarized_gemm": 0}
 
 _EXT = None
 

@@ -327,10 +327,8 @@ void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
                   o.is_contiguous(),
               "K7 takes contiguous tensors");
   for (const at::Tensor* t : {&q, &k, &v, &o})
-    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) %
-                        (bf16 ? 16 : 8) ==
-                    0,
-                "K7's loads need ", bf16 ? 16 : 8, "-byte aligned tensors");
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "K7's loads need 16-byte aligned tensors");
   const int64_t D = q.size(3);
   TORCH_CHECK(k.size(0) == q.size(0) && k.size(3) == D,
               "q and k differ in batch or head width");
@@ -355,7 +353,7 @@ void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
   a.scale = (float)(1.0 / std::sqrt((double)D));
   a.kv_lo = a.kv_hi = a.chunk = a.n_chunks = 0;
   a.ws_acc = a.ws_ml = nullptr;
-  if (bf16 && a.Sq <= FA_DECODE_MAX_SQ && a.B > 0) {
+  if (a.Sq <= FA_DECODE_MAX_SQ && a.B > 0) {
     const int64_t R = q.size(1) * (q.size(2) / k.size(2));
     TORCH_CHECK(0 <= kv_lo && kv_lo < kv_hi && kv_hi <= skv && chunk >= 1 &&
                     n_chunks >= 1 && (n_chunks - 1) * chunk < kv_hi - kv_lo &&
@@ -406,6 +404,9 @@ void selective_scan(at::Tensor dA, at::Tensor dBx, at::Tensor C,
               "y [B, S, di]");
   TORCH_CHECK(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
               "N must be a power of two <= 32");
+  for (const at::Tensor* t : {&dA, &dBx, &h0, &h_out})
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "K8's row loads need 16-byte aligned dA, dBx, h0 and h_out");
   TORCH_CHECK(B <= 65535, "the batch indexes the grid's y");
   TORCH_CHECK(S < INT_MAX && di * N < INT_MAX, "sizes must fit an int");
   ScanArgs a;
@@ -417,6 +418,51 @@ void selective_scan(at::Tensor dA, at::Tensor dBx, at::Tensor C,
       dA.data_ptr<float>(), dBx.data_ptr<float>(), C.data_ptr<float>(),
       h0.data_ptr<float>(), y.data_ptr<float>(), h_out.data_ptr<float>(), a,
       stream_of(dA)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K8's discretizing entry: y, h_out = the selective scan of dA = exp(dt
+// A), dBx = dt Bm x and C from h0; the wrapper has checked the shapes,
+// dtypes, contiguity, alignment and N.
+void selective_scan_discretized(at::Tensor dt, at::Tensor A, at::Tensor Bm,
+                                at::Tensor C, at::Tensor x, at::Tensor h0,
+                                at::Tensor y, at::Tensor h_out) {
+  c10::cuda::CUDAGuard guard(dt.device());
+  for (const at::Tensor* t : {&dt, &A, &Bm, &C, &h0, &y, &h_out}) {
+    TORCH_CHECK(t->scalar_type() == at::kFloat && t->is_contiguous(),
+                "K8 takes contiguous float32 dt, A, Bm, C and h0");
+  }
+  const bool xbf = x.scalar_type() == at::kBFloat16;
+  TORCH_CHECK((xbf || x.scalar_type() == at::kFloat) && x.is_contiguous(),
+              "K8's x: contiguous float32 or bfloat16");
+  TORCH_CHECK(dt.dim() == 3 && x.sizes() == dt.sizes() &&
+                  y.sizes() == dt.sizes(),
+              "dt, x, y [B, S, di]");
+  const int64_t B = dt.size(0), S = dt.size(1), di = dt.size(2),
+                N = A.size(1);
+  TORCH_CHECK(A.dim() == 2 && A.size(0) == di, "A [di, N]");
+  TORCH_CHECK(Bm.dim() == 3 && Bm.size(0) == B && Bm.size(1) == S &&
+                  Bm.size(2) == N && C.sizes() == Bm.sizes(),
+              "Bm, C [B, S, N]");
+  TORCH_CHECK(h0.dim() == 3 && h0.size(0) == B && h0.size(1) == di &&
+                  h0.size(2) == N && h_out.sizes() == h0.sizes(),
+              "h0, h_out [B, di, N]");
+  TORCH_CHECK(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
+              "N must be a power of two <= 32");
+  for (const at::Tensor* t : {&A, &h0, &h_out})
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "K8's row loads need 16-byte aligned A, h0 and h_out");
+  TORCH_CHECK(B <= 65535, "the batch indexes the grid's y");
+  TORCH_CHECK(S < INT_MAX && di * N < INT_MAX, "sizes must fit an int");
+  ScanArgs a;
+  a.B = (int)B;
+  a.S = (int)S;
+  a.di = (int)di;
+  a.N = (int)N;
+  C10_CUDA_CHECK(launch_selective_scan_discretized(
+      dt.data_ptr<float>(), A.data_ptr<float>(), Bm.data_ptr<float>(),
+      C.data_ptr<float>(), x.data_ptr(), xbf ? 1 : 0, h0.data_ptr<float>(),
+      y.data_ptr<float>(), h_out.data_ptr<float>(), a, stream_of(dt)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -473,6 +519,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K7: online-softmax attention (causal, window, GQA, q offset)");
   m.def("selective_scan", &selective_scan,
         "K8: the Mamba S6 recurrence (y, h_final)");
+  m.def("selective_scan_discretized", &selective_scan_discretized,
+        "K8: the Mamba S6 recurrence, discretizing dt, A, B and x itself");
   m.def("binarized_gemm", &binarized_gemm,
         "K9: sign(x) @ sign(w), int32 (XNOR-popcount)");
 }

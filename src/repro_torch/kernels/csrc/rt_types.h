@@ -26,8 +26,9 @@
 // value in the kernel parameter space (32,764 bytes on Hopper from CUDA
 // 12.1 on), so the count is bounded by that space, not by the kernel.
 #define RT_MAX_TABLES 256
-// K7: bf16 calls with at most this many query rows take the split-KV
-// decode kernel, longer ones the tensor-core prefill kernel.
+// K7: calls with at most this many query rows take the split-KV decode
+// kernel, longer ones a prefill kernel (bf16: tensor cores; f32: CUDA
+// cores).
 #define FA_DECODE_MAX_SQ 4
 // K7's split-KV decode: query rows (Sq x the GQA group) per block, and
 // keys per staged tile (a chunk is a whole number of tiles).
@@ -138,8 +139,10 @@ struct FlashArgs {
   float* ws_ml;           // [B, K, n_chunks, R, 2] partial (m, l)
 };
 
-// K8 selective scan: dA and dBx [B, S, di, N], C [B, S, N], h0 and
-// h_final [B, di, N], y [B, S, di]; N a power of two <= 32.
+// K8 selective scan: C [B, S, N], h0 and h_final [B, di, N], y [B, S,
+// di]; N a power of two <= 32; the TPU interface takes dA and dBx [B, S,
+// di, N], the discretizing entry dt [B, S, di], A [di, N], Bm [B, S, N]
+// and x [B, S, di].
 struct ScanArgs {
   int B, S, di, N;
 };
@@ -169,8 +172,8 @@ cudaError_t launch_fused_flow(const TableArgs* tables, int nt, float* z,
                               int* verdicts, const MitArgs* mit,
                               cudaStream_t stream);
 // K7: D in {16, 32, 64, 128}; bf16 1 takes __nv_bfloat16 operands, 0 f32.
-// f32: the SIMT kernel; bf16: the split-KV decode (Sq <=
-// FA_DECODE_MAX_SQ, two launches) or the tensor-core prefill.
+// Sq <= FA_DECODE_MAX_SQ: the split-KV decode (two launches); longer:
+// the tensor-core prefill (bf16) or the f32 CUDA-core prefill.
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o,
                                    const FlashArgs& a, int D, int bf16,
@@ -178,14 +181,24 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
 cudaError_t launch_flash_prefill(const void* q, const void* k,
                                  const void* v, void* o, const FlashArgs& a,
                                  int D, cudaStream_t stream);
+cudaError_t launch_flash_prefill_f32(const void* q, const void* k,
+                                     const void* v, void* o,
+                                     const FlashArgs& a, int D,
+                                     cudaStream_t stream);
 cudaError_t launch_flash_decode(const void* q, const void* k, const void* v,
-                                void* o, const FlashArgs& a, int D,
+                                void* o, const FlashArgs& a, int D, int bf16,
                                 cudaStream_t stream);
 // K8: y and h_out from the f32 inputs; N in {1, 2, 4, 8, 16, 32}.
 cudaError_t launch_selective_scan(const float* dA, const float* dBx,
                                   const float* C, const float* h0, float* y,
                                   float* h_out, const ScanArgs& a,
                                   cudaStream_t stream);
+// K8's discretizing entry: dA = expf(dt * A) and dBx = dt * Bm * x formed
+// in registers; x f32 (x_bf16 0) or __nv_bfloat16 (1), the rest f32.
+cudaError_t launch_selective_scan_discretized(
+    const float* dt, const float* A, const float* Bm, const float* C,
+    const void* x, int x_bf16, const float* h0, float* y, float* h_out,
+    const ScanArgs& a, cudaStream_t stream);
 // K9: out [B, N] int32 = sign(x) @ sign(w); x [B, K] and w [K, N] each
 // f32 (0) or bf16 (1); xbits [ceil(K/32), B] and wbits [ceil(K/32), N]
 // are the caller's scratch for the packed signs.

@@ -1,6 +1,7 @@
-// Device helpers shared by K7's bf16 kernels (flash_prefill.cu,
-// flash_decode.cu): 16-byte asynchronous copies into shared memory and
-// the warp reductions of the online softmax.
+// Device helpers shared by K7's kernels (flash_prefill.cu,
+// flash_prefill_f32.cu, flash_decode.cu): 16-byte asynchronous copies
+// into shared memory, the warp reductions of the online softmax and the
+// element types' loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,5 +57,39 @@ __device__ __forceinline__ void unpack8(const uint4& x, float* f) {
     f[2 * e + 1] = t.y;
   }
 }
+
+// what the split-KV decode reads and writes of an element type: the
+// elements of a 16-byte chunk in f32, a column pair in f32, an output
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int PER16 = 8;
+  __device__ static __forceinline__ void unpack(const uint4& x, float* f) {
+    unpack8(x, f);
+  }
+  __device__ static __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ static __forceinline__ __nv_bfloat16 from_float(float x) {
+    return __float2bfloat16(x);
+  }
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int PER16 = 4;
+  __device__ static __forceinline__ void unpack(const uint4& x, float* f) {
+    f[0] = __uint_as_float(x.x);
+    f[1] = __uint_as_float(x.y);
+    f[2] = __uint_as_float(x.z);
+    f[3] = __uint_as_float(x.w);
+  }
+  __device__ static __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  __device__ static __forceinline__ float from_float(float x) { return x; }
+};
 
 }  // namespace fa

@@ -1,9 +1,11 @@
-// K7's bf16 split-KV decode (Sq <= FA_DECODE_MAX_SQ; see
-// flash_attention.cu for what K7 replaces and the numbers it keeps).
+// K7's split-KV decode (Sq <= FA_DECODE_MAX_SQ), one template over the
+// element type T, bf16 or f32 (see flash_attention.cu for what K7
+// replaces and the numbers it keeps).
 //
-// Bound: bytes.  Each live key brings 4 * D bytes of K and V for 4 * G *
-// Sq * D operations, far below the card's 295 operations per byte, so
-// the least time is the live K/V rows (plus Q and O) over 3.35 TB/s.
+// Bound: bytes.  Each live key brings 2 * sizeof(T) * D bytes of K and V
+// for 4 * G * Sq * D operations, far below the card's operations per
+// byte, so the least time is the live K/V rows (plus Q and O) over 3.35
+// TB/s.
 //
 // Design.  The products stay on the CUDA cores; the design is about
 // bytes and parallelism.  The wrapper splits the live keys [kv_lo,
@@ -13,17 +15,19 @@
 // computes all R = Sq * G query rows of the GQA group (up to
 // FA_DECODE_ROWS a block) from one read of its K/V chunk, streamed in
 // 32-key tiles through two shared-memory stages by 16-byte cp.async
-// copies.  Scores: lane j takes key j of the tile for the warp's rows
-// (rows w, w + 4, ...), reading its K row from shared memory (rows padded
-// by 16 bytes, free of bank conflicts) and the q rows as broadcasts; the
-// online softmax of the TPU kernel runs per row with warp shuffles.  The
-// product with V: each thread takes a column pair of some rows, p from
-// shared memory.  The block writes its partial (m, l, acc) to the
-// wrapper's workspace.  fa_combine_kernel merges a group's chunks with
-// the same expressions (alpha_c = exp(m_c - m), l = sum l_c alpha_c, acc
-// = sum acc_c alpha_c) and writes acc / max(l, 1e-30).  Keys past a
-// chunk's end take no part (p = 0); masked keys inside it take NEG_INF as
-// in the TPU kernel.
+// copies (8 bf16 or 4 floats each).  Scores: lane j takes key j of the
+// tile for the warp's rows (rows w, w + 4, ...), each one f32 FMA chain
+// over d in ascending order, reading its K row from shared memory (rows
+// padded by 16 bytes, free of bank conflicts) and the q rows, in f32, as
+// broadcasts; the online softmax of the TPU kernel runs per row with
+// warp shuffles.  The product with V: each thread takes a column pair of
+// some rows, p from shared memory.  The block writes its partial (m, l,
+// acc) to the wrapper's workspace.  fa_combine_kernel merges a group's
+// chunks with the same expressions (alpha_c = exp(m_c - m), l = sum l_c
+// alpha_c, acc = sum acc_c alpha_c) and writes acc / max(l, 1e-30) in T.
+// Keys past a chunk's end take no part (p = 0); masked keys inside it
+// take NEG_INF as in the TPU kernel.  An f32 call keeps every value in
+// f32, so it holds the f32 reference within 1e-5.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -39,21 +43,21 @@ constexpr int DC_THREADS = 128;
 constexpr int DC_TK = FA_DECODE_TILE;      // keys per tile: one a lane
 constexpr int DC_ROWS = FA_DECODE_ROWS;    // query rows per block
 constexpr int DC_PST = DC_TK + 1;          // P row in shared memory
-constexpr int DC_KPAD = 8;                 // K row padding: 16 bytes
 
 // shared memory of a block holding nrb query rows
-template <int D>
+template <typename T, int D>
 size_t decode_smem(int nrb) {
-  return sizeof(bf16) * 2 * DC_TK * (D + DC_KPAD + D) +
+  return sizeof(T) * 2 * DC_TK * (D + fa::Elem<T>::PER16 + D) +
          sizeof(float) * nrb * (D + DC_PST + 1);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(DC_THREADS)
-    fa_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, FlashArgs a) {
-  constexpr int KST = D + DC_KPAD;         // K row in shared memory
-  constexpr int CH = D / 8;                // 16-byte chunks per row
+    fa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, FlashArgs a) {
+  constexpr int EPC = fa::Elem<T>::PER16;  // elements per 16-byte chunk
+  constexpr int KST = D + EPC;             // K row, padded by 16 bytes
+  constexpr int CH = D / EPC;              // 16-byte chunks per row
   constexpr int RPW = DC_ROWS / 4;         // score rows per warp
   constexpr int PAIRS = D / 2;
   constexpr int NRG = DC_THREADS / PAIRS;  // row groups of the P V phase
@@ -75,25 +79,25 @@ __global__ void __launch_bounds__(DC_THREADS)
   const int c_lo = a.kv_lo + c * a.chunk;
   const int c_hi = min(c_lo + a.chunk, a.kv_hi);
 
-  bf16* Ks = reinterpret_cast<bf16*>(dc_smem);  // [2][TK][KST]
-  bf16* Vs = Ks + 2 * DC_TK * KST;              // [2][TK][D]
+  T* Ks = reinterpret_cast<T*>(dc_smem);        // [2][TK][KST]
+  T* Vs = Ks + 2 * DC_TK * KST;                 // [2][TK][D]
   float* Qs = reinterpret_cast<float*>(Vs + 2 * DC_TK * D);  // [nrb][D]
   float* Ps = Qs + nrb * D;                     // [nrb][PST]
   float* As = Ps + nrb * DC_PST;                // [nrb]
 
   const size_t q_rs = (size_t)a.H * D;
   const size_t kv_rs = (size_t)a.K * D;
-  const bf16* kb = k + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
-  const bf16* vb = v + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
+  const T* kb = k + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * a.Skv * kv_rs + (size_t)kvh * D;
 
   auto load = [&](int k0, int s) {
     for (int i = tid; i < DC_TK * CH; i += DC_THREADS) {
       const int r = i / CH, cc = i % CH, key = k0 + r;
       const bool ok = key < c_hi;
-      const size_t off = (size_t)(ok ? key : c_lo) * kv_rs + cc * 8;
-      fa::cp_async16(fa::smem_u32(Ks + (s * DC_TK + r) * KST + cc * 8),
+      const size_t off = (size_t)(ok ? key : c_lo) * kv_rs + cc * EPC;
+      fa::cp_async16(fa::smem_u32(Ks + (s * DC_TK + r) * KST + cc * EPC),
                      kb + off, ok);
-      fa::cp_async16(fa::smem_u32(Vs + (s * DC_TK + r) * D + cc * 8),
+      fa::cp_async16(fa::smem_u32(Vs + (s * DC_TK + r) * D + cc * EPC),
                      vb + off, ok);
     }
   };
@@ -106,8 +110,8 @@ __global__ void __launch_bounds__(DC_THREADS)
     const int r = i / CH, cc = i % CH;
     const int sq = (r0 + r) / G, hh = kvh * G + (r0 + r) % G;
     const uint4 x = *reinterpret_cast<const uint4*>(
-        q + ((size_t)b * a.Sq + sq) * q_rs + (size_t)hh * D + cc * 8);
-    fa::unpack8(x, Qs + r * D + cc * 8);
+        q + ((size_t)b * a.Sq + sq) * q_rs + (size_t)hh * D + cc * EPC);
+    fa::Elem<T>::unpack(x, Qs + r * D + cc * EPC);
   }
 
   float m[RPW], l[RPW];                    // rows warp + 4 i
@@ -138,28 +142,27 @@ __global__ void __launch_bounds__(DC_THREADS)
     float sc[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) sc[i] = 0.f;
-    const bf16* kr = Ks + (s * DC_TK + lane) * KST;
+    const T* kr = Ks + (s * DC_TK + lane) * KST;
 #pragma unroll 4
-    for (int d8 = 0; d8 < CH; ++d8) {
-      float kf[8];
-      fa::unpack8(*reinterpret_cast<const uint4*>(kr + d8 * 8), kf);
+    for (int dc = 0; dc < CH; ++dc) {
+      float kf[EPC];
+      fa::Elem<T>::unpack(*reinterpret_cast<const uint4*>(kr + dc * EPC),
+                          kf);
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
         const int r = warp + 4 * i;
         if (r >= nr) break;
-        const float4 q0 = *reinterpret_cast<const float4*>(Qs + r * D +
-                                                           d8 * 8);
-        const float4 q1 = *reinterpret_cast<const float4*>(Qs + r * D +
-                                                           d8 * 8 + 4);
         float x = sc[i];
-        x = fmaf(q0.x, kf[0], x);
-        x = fmaf(q0.y, kf[1], x);
-        x = fmaf(q0.z, kf[2], x);
-        x = fmaf(q0.w, kf[3], x);
-        x = fmaf(q1.x, kf[4], x);
-        x = fmaf(q1.y, kf[5], x);
-        x = fmaf(q1.z, kf[6], x);
-        sc[i] = fmaf(q1.w, kf[7], x);
+#pragma unroll
+        for (int e4 = 0; e4 < EPC / 4; ++e4) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              Qs + r * D + dc * EPC + 4 * e4);
+          x = fmaf(qv.x, kf[4 * e4], x);
+          x = fmaf(qv.y, kf[4 * e4 + 1], x);
+          x = fmaf(qv.z, kf[4 * e4 + 2], x);
+          x = fmaf(qv.w, kf[4 * e4 + 3], x);
+        }
+        sc[i] = x;
       }
     }
     const int key = k0 + lane;
@@ -184,7 +187,7 @@ __global__ void __launch_bounds__(DC_THREADS)
     __syncthreads();
 
     // acc = acc * alpha + P V
-    const bf16* vt = Vs + s * DC_TK * D + 2 * cp;
+    const T* vt = Vs + s * DC_TK * D + 2 * cp;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = prg + NRG * i;
@@ -194,8 +197,7 @@ __global__ void __launch_bounds__(DC_THREADS)
     }
 #pragma unroll 4
     for (int j = 0; j < DC_TK; ++j) {
-      const float2 vv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vt + j * D));
+      const float2 vv = fa::Elem<T>::load2(vt + j * D);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int r = prg + NRG * i;
@@ -230,9 +232,9 @@ __global__ void __launch_bounds__(DC_THREADS)
 }
 
 // one thread per output element (row r, column d) of a (kv head, batch)
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(DC_THREADS)
-    fa_combine_kernel(bf16* __restrict__ o, FlashArgs a) {
+    fa_combine_kernel(T* __restrict__ o, FlashArgs a) {
   const int G = a.H / a.K;
   const int R = a.Sq * G;
   const int idx = blockIdx.x * DC_THREADS + threadIdx.x;
@@ -251,43 +253,51 @@ __global__ void __launch_bounds__(DC_THREADS)
     acc += wacc[(size_t)c * R * D] * alpha;
   }
   o[((size_t)b * a.Sq + r / G) * a.H * D + (size_t)(kvh * G + r % G) * D +
-    d] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+    d] = fa::Elem<T>::from_float(acc / fmaxf(l, 1e-30f));
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           void* o, const FlashArgs& a, cudaStream_t stream) {
   const int R = a.Sq * (a.H / a.K);
   const int n_rg = (R + DC_ROWS - 1) / DC_ROWS;
-  const size_t smem = decode_smem<D>(R < DC_ROWS ? R : DC_ROWS);
+  const size_t smem = decode_smem<T, D>(R < DC_ROWS ? R : DC_ROWS);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fa_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  fa_decode_kernel<D>
+  fa_decode_kernel<T, D>
       <<<dim3(a.n_chunks, a.K * n_rg, a.B), DC_THREADS, smem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), a);
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  fa_combine_kernel<D>
+  fa_combine_kernel<T, D>
       <<<dim3((R * D + DC_THREADS - 1) / DC_THREADS, a.K, a.B), DC_THREADS,
-         0, stream>>>(static_cast<bf16*>(o), a);
+         0, stream>>>(static_cast<T*>(o), a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_decode_t(const void* q, const void* k, const void* v,
+                            void* o, const FlashArgs& a, int D,
+                            cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_decode<T, 16>(q, k, v, o, a, stream);
+    case 32: return launch_decode<T, 32>(q, k, v, o, a, stream);
+    case 64: return launch_decode<T, 64>(q, k, v, o, a, stream);
+    case 128: return launch_decode<T, 128>(q, k, v, o, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 cudaError_t launch_flash_decode(const void* q, const void* k, const void* v,
-                                void* o, const FlashArgs& a, int D,
+                                void* o, const FlashArgs& a, int D, int bf16,
                                 cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_decode<16>(q, k, v, o, a, stream);
-    case 32: return launch_decode<32>(q, k, v, o, a, stream);
-    case 64: return launch_decode<64>(q, k, v, o, a, stream);
-    case 128: return launch_decode<128>(q, k, v, o, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return bf16 ? launch_decode_t<__nv_bfloat16>(q, k, v, o, a, D, stream)
+              : launch_decode_t<float>(q, k, v, o, a, D, stream);
 }

@@ -3,13 +3,14 @@
 
 ``flash_attention`` launches CUDA kernel K7 for CUDA tensors and runs the
 plain version (``ref.attention_ref``) for CPU tensors.  There is no other
-switch and no fallback.  K7 picks its kernels by dtype and by Sq alone:
-bf16 with Sq <= ``DECODE_MAX_SQ`` the split-KV decode
+switch and no fallback.  K7 picks its kernels by Sq and dtype alone:
+Sq <= ``DECODE_MAX_SQ`` the split-KV decode in q's dtype
 (``csrc/flash_decode.cu``: two launches, its chunk plan from
 ``decode_plan``, its partials in a workspace allocated here), longer bf16
-calls the prefill (``csrc/flash_prefill.cu``: P V on the tensor cores),
-f32 the SIMT kernel (``csrc/flash_attention.cu``).
-``ref.attention_split_ref`` is the plain form of the two bf16 kernels'
+calls the tensor-core prefill (``csrc/flash_prefill.cu``: P V on
+``wgmma``), longer f32 calls the f32 prefill
+(``csrc/flash_prefill_f32.cu``: register-tiled FMA products).
+``ref.attention_split_ref`` is the plain form of the kernels'
 arithmetic.
 
 Semantics: q [B, Sq, H, D], k and v [B, Skv, K, D] with H % K == 0; the
@@ -31,14 +32,14 @@ from repro_torch.kernels.flash_attention.ref import attention_ref, live_keys
 # K7's head widths (a template parameter; the repo's configs use 16 and 128)
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
-# bf16 calls with at most this many query rows take the split-KV decode
+# calls with at most this many query rows take the split-KV decode
 DECODE_MAX_SQ = _ext.header_define("FA_DECODE_MAX_SQ")
 # query rows (Sq x the GQA group) per decode block; keys per staged tile
 DECODE_ROWS = _ext.header_define("FA_DECODE_ROWS")
 DECODE_TILE = _ext.header_define("FA_DECODE_TILE")
-# decode blocks to aim for on each SM (each streams 16 KiB of K and V a
-# 32-key tile through two stages): 2 ran the LM path's decode shapes
-# fastest of 2, 4, 8 and 16 on the H100
+# decode blocks to aim for on each SM (each streams 16 KiB of bf16 K and
+# V, or 32 KiB of f32, a 32-key tile through two stages): 2 ran the LM
+# path's bf16 decode shapes fastest of 2, 4, 8 and 16 on the H100
 DECODE_BLOCKS_PER_SM = 2
 
 
@@ -113,16 +114,14 @@ def flash_attention_launch(q, k, v, *, causal: bool, window: int,
         if not t.is_contiguous():
             raise ValueError("flash_attention_launch takes contiguous "
                              "tensors")
-        # the bf16 kernels load 16 bytes a thread, the f32 one pairs
-        align = 16 if q.dtype == torch.bfloat16 else 8
-        if t.data_ptr() % align:
+        if t.data_ptr() % 16:              # 16-byte loads a thread
             raise ValueError("flash_attention_launch needs tensors aligned "
-                             f"to {align} bytes")
+                             "to 16 bytes")
     out = torch.empty_like(q)
     B, Sq, H, D = q.shape
     K = k.shape[2]
     plan, ws = (0, 0, 0, 0), q.new_empty(0, dtype=torch.float32)
-    if q.dtype == torch.bfloat16 and Sq <= DECODE_MAX_SQ:
+    if Sq <= DECODE_MAX_SQ:
         plan = decode_plan(B, Sq, H, K, skv, causal=causal, window=window,
                            q_offset=q_offset, n_sm=_sm_count(q.device))
         ws = q.new_empty(B * K * plan[3] * Sq * (H // K) * (D + 2),

@@ -2,8 +2,9 @@
 ``repro.kernels.flash_attention.ref``).  ``attention_ref``: naive
 full-matrix softmax attention with causal masking, a sliding window, GQA
 (H % K == 0) and a q position offset.  ``attention_split_ref``: the same
-function by the arithmetic of K7's bf16 kernels (chunks of the live keys,
-tiles, the online softmax and the combine; P split into bf16 hi and lo).
+function by the arithmetic of K7's kernels (chunks of the live keys,
+tiles, the online softmax and the combine; in the bf16 prefill P split
+into bf16 hi and lo).
 The CPU tests hold both against the reference, and ``chip_smoke.py``
 holds the kernels against both on the card."""
 
@@ -69,14 +70,15 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         hi: int | None = None, chunk: int | None = None,
                         tile: int = 64, split_p: bool = False
                         ) -> torch.Tensor:
-    """The arithmetic of K7's bf16 kernels, in plain PyTorch: keys [lo,
+    """The arithmetic of K7's kernels, in plain PyTorch: keys [lo,
     hi) (default every key of k) in chunks of ``chunk`` keys (default one
     chunk), each walked in tiles of ``tile`` keys with the TPU kernel's
     online softmax — the scale after the dot, the masks to NEG_INF, alpha
     = exp(m_prev - m_new) — the chunks' partial (m, l, acc) merged with
     the same alpha, and acc / max(l, 1e-30).  The bf16 prefill is one
-    chunk of 64-key tiles with ``split_p`` (its P V on the tensor cores);
-    the split-KV decode is the wrapper's chunks of 32-key tiles.  Keys
+    chunk of 64-key tiles with ``split_p`` (its P V on the tensor cores),
+    the f32 prefill one chunk of 64-key tiles without; the split-KV
+    decode, bf16 or f32, is the wrapper's chunks of 32-key tiles.  Keys
     outside [lo, hi) take no part.
     q [B, Sq, H, D]; k, v [B, Skv, K, D] -> q's dtype, computed in f32."""
     B, Sq, H, D = q.shape

@@ -1,106 +1,231 @@
 // K8 selective_scan: the Mamba S6 recurrence over the sequence,
 //   h_t = dA_t * h_{t-1} + dBx_t        (elementwise over [di, N])
 //   y_t[d] = sum_n h_t[d, n] * C_t[n]
-// dA and dBx [B, S, di, N] f32, C [B, S, N] f32, h0 [B, di, N] f32 ->
-// y [B, S, di] f32 and h_final [B, di, N] f32.
+// C [B, S, N] f32, h0 [B, di, N] f32 -> y [B, S, di] f32 and h_final
+// [B, di, N] f32.  One kernel template, two entries:
 //
-// Replaces the TPU kernel repro/kernels/selective_scan/kernel.py:35
+//   selective_scan_kernel<N, false, false>: the TPU kernel's interface,
+//     dA and dBx [B, S, di, N] f32 as the caller discretized them;
+//   selective_scan_kernel<N, true, XBF>: the discretizing entry, dt [B,
+//     S, di] f32, A [di, N] f32, Bm [B, S, N] f32 and x [B, S, di] (bf16
+//     when XBF, else f32, widened in registers: exact), forming
+//       dA_t[d, n]  = expf(dt_t[d] * A[d, n])
+//       dBx_t[d, n] = (dt_t[d] * Bm_t[n]) * x_t[d]
+//     in registers, in the reference's expression order
+//     (repro/models/ssm.py:117-121), so that no [B, S, di, N] tensor
+//     exists.
+//
+// Both replace the TPU kernel repro/kernels/selective_scan/kernel.py:35
 // (_scan_kernel, launched by selective_scan_pallas :75), which computes
-// what kernels/selective_scan/ref.py computes.  The port's hybrid LM path
-// runs it in every Mamba mixer, for prefill and for each decode step
-// (S = 1).
+// what kernels/selective_scan/ref.py computes; the port's hybrid LM path
+// runs the discretizing entry in every Mamba mixer, for prefill and for
+// each decode step (S = 1).
 //
-// Bound: bytes.  dA and dBx are read once (2 * 4 * B * S * di * N), y
-// written once, h0 read and h_final written once, over 3.35 TB/s; the
-// 4 operations per (t, d, n) over 67 TFLOP/s take a tenth of that.
+// Bound: bytes.  The discretizing entry reads dt and x and writes y once
+// (3 * B * S * di words), reads B and C (2 * B * S * N), A (di * N) and
+// h0 and writes h_final (2 * B * di * N), over 3.35 TB/s; its 8
+// operations per (t, d, n), expf counted as one, take about half that
+// at the f32 rate, but expf without fast math issues several
+// instructions.  The TPU interface reads dA and dBx, 2 * B * S * di * N
+// words, instead of dt and x.
 //
 // Design.  The TPU kernel keeps h in VMEM scratch across a sequential
 // grid axis over chunks of time.  Here the time loop runs inside the
-// thread: one thread per (b, d, n) holds its h in a register for the
-// whole sequence, so h never touches device memory between steps.  A
-// block of 256 threads covers 256 / N consecutive channels d of one
-// batch row b, so at each step the block's loads of dA and dBx are one
-// contiguous run of 256 floats.  The loads of SS_UNROLL steps are issued
-// together before their recurrence steps, to keep enough bytes in flight
-// for the memory rate.  C for SS_TCHUNK steps is staged in shared
-// memory.  The readout over n is a butterfly of __shfl_xor_sync inside
-// each aligned group of N lanes (N a power of two <= 32, so a group
-// never straddles a warp); lane n = 0 stores y.  The step is written
-// with __fmul_rn / __fadd_rn so that nvcc does not contract dA * h + dBx
-// into an FMA that the reference's expression does not have.
+// thread: one thread per channel (b, d) holds its N states (and, to
+// discretize, its row of A) in registers for the whole sequence, so h
+// never touches device memory between steps and y_t[d] is summed in
+// registers, over n in ascending order.  A block of 128 threads covers
+// 128 consecutive channels of one batch row, so each warp's loads of dt
+// and x and its stores of y are 32 consecutive words; the loads of
+// SS_UNROLL steps are issued before their steps run.  B and C for
+// SS_TCHUNK steps are staged once a block in shared memory, behind one
+// barrier a chunk, and read as broadcasts.  h0, h_final, A and the dA /
+// dBx rows go by 16-byte vector loads and stores where N is a multiple
+// of 4.  Every product and sum is __fmul_rn / __fadd_rn, so that nvcc
+// contracts nothing into an FMA that the reference's expressions do not
+// have; expf is the IEEE-accurate one (no fast math).
+
+#include <cuda_bf16.h>
 
 #include "rt_types.h"
 
 namespace {
 
-constexpr int SS_THREADS = 256;
-constexpr int SS_TCHUNK = 32;  // steps of C staged in shared memory
-constexpr int SS_UNROLL = 8;   // steps whose loads are in flight together
+using bf16 = __nv_bfloat16;
+
+constexpr int SS_THREADS = 128;  // channels per block
+constexpr int SS_TCHUNK = 32;    // steps of B and C staged in shared memory
+constexpr int SS_UNROLL = 8;     // steps whose loads are in flight together
+
+// a row of N floats from global memory, by 16-byte loads where N allows
+template <int N>
+__device__ __forceinline__ void ldg_row(const float* p, float* r) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+      r[4 * i] = v.x;
+      r[4 * i + 1] = v.y;
+      r[4 * i + 2] = v.z;
+      r[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = __ldg(p + i);
+  }
+}
+
+// the same from shared memory (a broadcast: every thread reads one row)
+template <int N>
+__device__ __forceinline__ void lds_row(const float* p, float* r) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(p)[i];
+      r[4 * i] = v.x;
+      r[4 * i + 1] = v.y;
+      r[4 * i + 2] = v.z;
+      r[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = p[i];
+  }
+}
 
 template <int N>
+__device__ __forceinline__ void stg_row(float* p, const float* r) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(r[4 * i], r[4 * i + 1], r[4 * i + 2], r[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = r[i];
+  }
+}
+
+template <bool XBF>
+__device__ __forceinline__ float ld_x(const void* x, size_t i) {
+  if constexpr (XBF)
+    return __bfloat162float(static_cast<const bf16*>(x)[i]);
+  else
+    return __ldg(static_cast<const float*>(x) + i);
+}
+
+struct ScanPtrs {
+  const float* dA;    // TPU interface: [B, S, di, N]
+  const float* dBx;
+  const float* dt;    // discretizing: [B, S, di]
+  const float* A;     // [di, N]
+  const float* Bm;    // [B, S, N]
+  const void* x;      // [B, S, di], f32 or bf16
+  const float* C;     // [B, S, N]
+  const float* h0;    // [B, di, N]
+  float* y;           // [B, S, di]
+  float* h_out;       // [B, di, N]
+};
+
+template <int N, bool DISC, bool XBF>
 __global__ void __launch_bounds__(SS_THREADS)
-    selective_scan_kernel(const float* __restrict__ dA,
-                          const float* __restrict__ dBx,
-                          const float* __restrict__ C,
-                          const float* __restrict__ h0,
-                          float* __restrict__ y, float* __restrict__ h_out,
-                          int S, int di) {
-  constexpr int DPB = SS_THREADS / N;  // channels per block
-  __shared__ float Cs[SS_TCHUNK * N];
+    selective_scan_kernel(ScanPtrs p, int S, int di) {
+  // steps in flight: DISC holds a word or two a step, the TPU interface
+  // 2 N words, so it keeps about 64 words in flight
+  constexpr int U =
+      DISC || 32 / N > SS_UNROLL ? SS_UNROLL : 32 / N;
+  constexpr int NB = DISC ? N : 1;                  // operand words a step
+  constexpr int NA = DISC ? 1 : N;
+  __shared__ __align__(16) float Bs[DISC ? SS_TCHUNK * N : 4];
+  __shared__ __align__(16) float Cs[SS_TCHUNK * N];
   const int b = blockIdx.y;
-  const int n = threadIdx.x & (N - 1);
-  const int d = blockIdx.x * DPB + threadIdx.x / N;
-  // a whole N-lane group is live or not, so the shuffles stay inside
-  // live lanes' groups; dead lanes still take part in them
+  const int d = blockIdx.x * SS_THREADS + threadIdx.x;
+  // a thread past di reads channel di - 1's operands (so every address
+  // is valid) and stores nothing; it still stages B and C
   const bool live = d < di;
-  const size_t step = (size_t)di * N;  // stride of t in dA and dBx
-  const size_t col = (size_t)d * N + n;
-  const float* pa = dA + (size_t)b * S * step + col;
-  const float* pb = dBx + (size_t)b * S * step + col;
-  const float* pc = C + (size_t)b * S * N;
-  float* py = y + (size_t)b * S * di + d;
-  float h = live ? h0[(size_t)b * step + col] : 0.f;
+  const size_t dd = live ? d : di - 1;
+  const size_t row = (size_t)b * S * di + dd;       // (b, t = 0, d)
+  float h[N], a[NB];
+  ldg_row<N>(p.h0 + ((size_t)b * di + dd) * N, h);
+  if constexpr (DISC) ldg_row<N>(p.A + dd * N, a);
 
   for (int t0 = 0; t0 < S; t0 += SS_TCHUNK) {
     const int nt = min(SS_TCHUNK, S - t0);
-    __syncthreads();  // the last chunk's readers are done with Cs
-    for (int i = threadIdx.x; i < nt * N; i += SS_THREADS)
-      Cs[i] = pc[(size_t)t0 * N + i];
+    __syncthreads();  // the last chunk's readers are done with Bs and Cs
+    const size_t c0 = ((size_t)b * S + t0) * N;
+    for (int i = threadIdx.x; i < nt * N; i += SS_THREADS) {
+      Cs[i] = __ldg(p.C + c0 + i);
+      if constexpr (DISC) Bs[i] = __ldg(p.Bm + c0 + i);
+    }
     __syncthreads();
-    for (int u0 = 0; u0 < nt; u0 += SS_UNROLL) {
-      float ra[SS_UNROLL], rb[SS_UNROLL];
+    for (int u0 = 0; u0 < nt; u0 += U) {
+      // DISC: rd = dt, rx = x; TPU interface: rd = the dA row, rx dBx
+      float rd[U][NA], rx[U][NA];
 #pragma unroll
-      for (int u = 0; u < SS_UNROLL; ++u) {
-        const bool in = live && u0 + u < nt;
-        const size_t off = (size_t)(t0 + u0 + u) * step;
-        ra[u] = in ? __ldg(pa + off) : 0.f;
-        rb[u] = in ? __ldg(pb + off) : 0.f;
+      for (int u = 0; u < U; ++u) {
+        if (u0 + u < nt) {  // the same for every thread of the block
+          const size_t off = row + (size_t)(t0 + u0 + u) * di;
+          if constexpr (DISC) {
+            rd[u][0] = __ldg(p.dt + off);
+            rx[u][0] = ld_x<XBF>(p.x, off);
+          } else {
+            ldg_row<N>(p.dA + off * N, rd[u]);
+            ldg_row<N>(p.dBx + off * N, rx[u]);
+          }
+        }
       }
 #pragma unroll
-      for (int u = 0; u < SS_UNROLL; ++u) {
-        if (u0 + u < nt) {  // the same for every thread of the block
-          h = __fadd_rn(__fmul_rn(ra[u], h), rb[u]);
-          float v = __fmul_rn(h, Cs[(u0 + u) * N + n]);
+      for (int u = 0; u < U; ++u) {
+        if (u0 + u < nt) {
+          float c[N];
+          lds_row<N>(Cs + (u0 + u) * N, c);
+          float bm[NB];
+          if constexpr (DISC) lds_row<N>(Bs + (u0 + u) * N, bm);
+          float yv = 0.f;
 #pragma unroll
-          for (int o = N / 2; o > 0; o >>= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, o);
-          if (live && n == 0) py[(size_t)(t0 + u0 + u) * di] = v;
+          for (int n = 0; n < N; ++n) {
+            float dA, dBx;
+            if constexpr (DISC) {
+              dA = expf(__fmul_rn(rd[u][0], a[n]));
+              dBx = __fmul_rn(__fmul_rn(rd[u][0], bm[n]), rx[u][0]);
+            } else {
+              dA = rd[u][n];
+              dBx = rx[u][n];
+            }
+            h[n] = __fadd_rn(__fmul_rn(dA, h[n]), dBx);
+            const float hc = __fmul_rn(h[n], c[n]);
+            yv = n == 0 ? hc : __fadd_rn(yv, hc);
+          }
+          if (live) p.y[row + (size_t)(t0 + u0 + u) * di] = yv;
         }
       }
     }
   }
-  if (live) h_out[(size_t)b * step + col] = h;
+  if (live) stg_row<N>(p.h_out + ((size_t)b * di + dd) * N, h);
 }
 
-template <int N>
-cudaError_t launch_n(const float* dA, const float* dBx, const float* C,
-                     const float* h0, float* y, float* h_out,
-                     const ScanArgs& a, cudaStream_t stream) {
-  constexpr int DPB = SS_THREADS / N;
-  dim3 grid((a.di + DPB - 1) / DPB, a.B);
-  selective_scan_kernel<N><<<grid, SS_THREADS, 0, stream>>>(
-      dA, dBx, C, h0, y, h_out, a.S, a.di);
+template <int N, bool DISC, bool XBF>
+cudaError_t launch_n(const ScanPtrs& p, const ScanArgs& a,
+                     cudaStream_t stream) {
+  const dim3 grid((a.di + SS_THREADS - 1) / SS_THREADS, a.B);
+  selective_scan_kernel<N, DISC, XBF><<<grid, SS_THREADS, 0, stream>>>(
+      p, a.S, a.di);
   return cudaGetLastError();
+}
+
+template <bool DISC, bool XBF>
+cudaError_t launch_any(const ScanPtrs& p, const ScanArgs& a,
+                       cudaStream_t stream) {
+  if (a.B == 0 || a.di == 0) return cudaSuccess;
+  switch (a.N) {
+    case 1: return launch_n<1, DISC, XBF>(p, a, stream);
+    case 2: return launch_n<2, DISC, XBF>(p, a, stream);
+    case 4: return launch_n<4, DISC, XBF>(p, a, stream);
+    case 8: return launch_n<8, DISC, XBF>(p, a, stream);
+    case 16: return launch_n<16, DISC, XBF>(p, a, stream);
+    case 32: return launch_n<32, DISC, XBF>(p, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -109,14 +234,29 @@ cudaError_t launch_selective_scan(const float* dA, const float* dBx,
                                   const float* C, const float* h0, float* y,
                                   float* h_out, const ScanArgs& a,
                                   cudaStream_t stream) {
-  if (a.B == 0 || a.di == 0) return cudaSuccess;
-  switch (a.N) {
-    case 1: return launch_n<1>(dA, dBx, C, h0, y, h_out, a, stream);
-    case 2: return launch_n<2>(dA, dBx, C, h0, y, h_out, a, stream);
-    case 4: return launch_n<4>(dA, dBx, C, h0, y, h_out, a, stream);
-    case 8: return launch_n<8>(dA, dBx, C, h0, y, h_out, a, stream);
-    case 16: return launch_n<16>(dA, dBx, C, h0, y, h_out, a, stream);
-    case 32: return launch_n<32>(dA, dBx, C, h0, y, h_out, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  ScanPtrs p{};
+  p.dA = dA;
+  p.dBx = dBx;
+  p.C = C;
+  p.h0 = h0;
+  p.y = y;
+  p.h_out = h_out;
+  return launch_any<false, false>(p, a, stream);
+}
+
+cudaError_t launch_selective_scan_discretized(
+    const float* dt, const float* A, const float* Bm, const float* C,
+    const void* x, int x_bf16, const float* h0, float* y, float* h_out,
+    const ScanArgs& a, cudaStream_t stream) {
+  ScanPtrs p{};
+  p.dt = dt;
+  p.A = A;
+  p.Bm = Bm;
+  p.x = x;
+  p.C = C;
+  p.h0 = h0;
+  p.y = y;
+  p.h_out = h_out;
+  return x_bf16 ? launch_any<true, true>(p, a, stream)
+                : launch_any<true, false>(p, a, stream);
 }

@@ -1,15 +1,23 @@
-"""Public op: the Mamba selective scan (counterpart of
+"""Public ops: the Mamba selective scan (counterpart of
 ``repro.kernels.selective_scan.ops``).
 
-``selective_scan`` launches CUDA kernel K8 (``csrc/selective_scan.cu``)
-for CUDA tensors and runs the plain version (``ref.selective_scan_ref``)
-for CPU tensors.  There is no other switch and no fallback.
+Both launch CUDA kernel K8 (``csrc/selective_scan.cu``, one template) for
+CUDA tensors and run a plain version for CPU tensors.  There is no other
+switch and no fallback.
 
-It takes the discretized inputs, as the reference's kernel does: dA and
-dBx [B, S, di, N], C [B, S, N] and h0 [B, di, N], all f32, with N a
-power of two up to 32 (one warp's lanes hold a channel's states); ->
-(y [B, S, di], h_final [B, di, N]).  Any S works, 1 included: the chunk
-rule of the Mamba block (``models.ssm``) is the block's, not the scan's.
+* ``selective_scan(dA, dBx, C, h0)``: the TPU kernel's interface, the
+  discretized inputs dA and dBx [B, S, di, N], C [B, S, N] and h0 [B,
+  di, N], all f32 (plain version ``ref.selective_scan_ref``).
+* ``selective_scan_discretized(dt, A, Bm, Cm, x, h0)``: dt [B, S, di]
+  f32, A [di, N] f32 (already -exp(A_log)), Bm and Cm [B, S, N] f32, x
+  [B, S, di] f32 or bf16, h0 [B, di, N] f32; the kernel forms dA =
+  exp(dt A) and dBx = (dt Bm) x in registers, in the reference's order,
+  so no [B, S, di, N] tensor exists (plain version
+  ``ref.selective_scan_discretized_ref``).  The Mamba block's path.
+
+N is a power of two up to 32; both -> (y [B, S, di] f32, h_final [B,
+di, N] f32).  Any S works, 1 included: the chunk rule of the Mamba
+block (``models.ssm``) is the block's, not the scan's.
 """
 
 from __future__ import annotations
@@ -17,10 +25,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _ext
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (
+    selective_scan_discretized_ref,
+    selective_scan_ref,
+)
 
-# the state widths K8 takes (a template parameter): N lanes of a warp
+# the state widths K8 takes (a template parameter)
 STATE_WIDTHS = (1, 2, 4, 8, 16, 32)
+F32 = torch.float32
+
+
+def _check_n(N: int) -> None:
+    if N not in STATE_WIDTHS:
+        raise ValueError(f"state width N={N} is not one K8 takes "
+                         f"{STATE_WIDTHS}")
 
 
 def _check(deltaA, deltaBx, C, h0) -> None:
@@ -32,12 +50,44 @@ def _check(deltaA, deltaBx, C, h0) -> None:
         raise ValueError(f"C must be [B, S, N] = {(B, S, N)} and h0 [B, di, "
                          f"N] = {(B, di, N)}; got {tuple(C.shape)}, "
                          f"{tuple(h0.shape)}")
-    if N not in STATE_WIDTHS:
-        raise ValueError(f"state width N={N} is not one K8 takes "
-                         f"{STATE_WIDTHS}")
+    _check_n(N)
     for t in (deltaA, deltaBx, C, h0):
-        if t.dtype != torch.float32:
+        if t.dtype != F32:
             raise ValueError(f"the scan takes float32 tensors; got {t.dtype}")
+
+
+def _check_discretized(dt, A, Bm, Cm, x, h0) -> None:
+    if dt.dim() != 3 or A.dim() != 2:
+        raise ValueError("dt must be [B, S, di] and A [di, N]; got "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}")
+    B, S, di = dt.shape
+    N = A.shape[1]
+    want = {"A": (A, (di, N)), "Bm": (Bm, (B, S, N)), "Cm": (Cm, (B, S, N)),
+            "x": (x, (B, S, di)), "h0": (h0, (B, di, N))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} beside dt [B, S, di] = "
+                             f"{(B, S, di)} and A [di, N]; got "
+                             f"{tuple(t.shape)}")
+    _check_n(N)
+    for t in (dt, A, Bm, Cm, h0):
+        if t.dtype != F32:
+            raise ValueError("dt, A, Bm, Cm and h0 must be float32; got "
+                             f"{t.dtype}")
+    if x.dtype not in (F32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16; got {x.dtype}")
+
+
+def _check_cuda(name: str, tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} runs CUDA tensors of one device; got "
+                             f"{t.device} beside {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs tensors aligned to 16 bytes")
 
 
 def selective_scan(deltaA: torch.Tensor, deltaBx: torch.Tensor,
@@ -51,18 +101,37 @@ def selective_scan(deltaA: torch.Tensor, deltaBx: torch.Tensor,
 
 
 def selective_scan_launch(deltaA, deltaBx, C, h0):
-    """K8's wrapper: checked operands -> (y, h_final), one launch on the
-    current stream."""
+    """K8's wrapper, the TPU kernel's interface: checked operands -> (y,
+    h_final), one launch on the current stream."""
     _check(deltaA, deltaBx, C, h0)
-    for t in (deltaA, deltaBx, C, h0):
-        if t.device.type != "cuda" or t.device != deltaA.device:
-            raise ValueError("selective_scan_launch runs CUDA tensors of one "
-                             f"device; got {t.device} beside {deltaA.device}")
-        if not t.is_contiguous():
-            raise ValueError("selective_scan_launch takes contiguous tensors")
+    _check_cuda("selective_scan_launch", (deltaA, deltaBx, C, h0))
     B, S, di, _ = deltaA.shape
-    y = torch.empty((B, S, di), dtype=torch.float32, device=deltaA.device)
+    y = torch.empty((B, S, di), dtype=F32, device=deltaA.device)
     h = torch.empty_like(h0)
     _ext.extension().selective_scan(deltaA, deltaBx, C, h0, y, h)
     _ext.count_launch("selective_scan")
+    return y, h
+
+
+def selective_scan_discretized(dt: torch.Tensor, A: torch.Tensor,
+                               Bm: torch.Tensor, Cm: torch.Tensor,
+                               x: torch.Tensor, h0: torch.Tensor):
+    """-> (y [B, S, di], h_final [B, di, N]).  CUDA tensors: one K8
+    launch that discretizes in registers; CPU tensors: the eager
+    discretization, then the plain recurrence."""
+    if dt.device.type == "cpu":
+        _check_discretized(dt, A, Bm, Cm, x, h0)
+        return selective_scan_discretized_ref(dt, A, Bm, Cm, x, h0)
+    return selective_scan_discretized_launch(dt, A, Bm, Cm, x, h0)
+
+
+def selective_scan_discretized_launch(dt, A, Bm, Cm, x, h0):
+    """K8's wrapper, the discretizing entry: checked operands -> (y,
+    h_final), one launch on the current stream."""
+    _check_discretized(dt, A, Bm, Cm, x, h0)
+    _check_cuda("selective_scan_discretized_launch", (dt, A, Bm, Cm, x, h0))
+    y = torch.empty(dt.shape, dtype=F32, device=dt.device)
+    h = torch.empty_like(h0)
+    _ext.extension().selective_scan_discretized(dt, A, Bm, Cm, x, h0, y, h)
+    _ext.count_launch("selective_scan_discretized")
     return y, h

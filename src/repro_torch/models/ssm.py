@@ -6,9 +6,13 @@ scan at S = 1 from the carried (h, conv) state.
 
 Two scan engines, chosen by ``backend``:
 
-  * ``"cuda"``: K8 (``kernels.selective_scan``) for prefill and for every
-    decode step (S = 1).  On CPU tensors K8's plain version runs.
-  * ``"interpret"``: the plain sequential recurrence on any device.
+  * ``"cuda"``: K8's discretizing entry (``kernels.selective_scan.
+    selective_scan_discretized``) for prefill and for every decode step
+    (S = 1): it forms dA = exp(dt A) and dBx = dt B x in registers, so no
+    [B, S, di, N] tensor is allocated.  On CPU tensors its plain version
+    runs (the eager discretization, then the sequential recurrence).
+  * ``"interpret"``: the eager discretization and the plain sequential
+    recurrence on any device.
 
 The reference serves a sequence through ``_ssm_scan_chunked``, an
 associative scan over chunks of ``min(256, S)`` steps, which refuses an
@@ -26,8 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.selective_scan import (
-    selective_scan,
-    selective_scan_ref,
+    selective_scan_discretized,
+    selective_scan_discretized_ref,
 )
 from repro_torch.models.attention import BACKENDS
 
@@ -120,16 +124,16 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     proj = (xin @ p["x_proj"]).to(F32)           # [B, S, R + 2N]
     dt, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
     dt = _softplus(dt @ p["dt_proj"].to(F32) + p["dt_bias"])   # [B, S, di]
-    A = -torch.exp(p["A_log"])                   # [di, N], A_log's dtype
-    # [B, S, di, N] f32, 2.15 GB each at the Jamba width with B = 4 and
-    # S = 512: the second operation of each runs in place
-    deltaA = (dt[..., None] * A).exp_()
-    deltaBx = (dt[..., None] * Bm[:, :, None, :]).mul_(
-        xin.to(F32)[..., None])
+    # [di, N] in A_log's dtype, widened exactly: dt * A is f32 either way
+    A = (-torch.exp(p["A_log"])).to(F32)
     h0 = (state["h"] if state is not None
           else torch.zeros((B, di, N), dtype=F32, device=x.device))
-    scan = selective_scan if backend == "cuda" else selective_scan_ref
-    y, h_final = scan(deltaA, deltaBx, Cm.contiguous(), h0.contiguous())
+    # the eager path builds dA and dBx, [B, S, di, N] f32 (2.15 GB each at
+    # the Jamba width with B = 4 and S = 512); K8 forms them in registers
+    scan = (selective_scan_discretized if backend == "cuda"
+            else selective_scan_discretized_ref)
+    y, h_final = scan(dt, A.contiguous(), Bm.contiguous(), Cm.contiguous(),
+                      xin, h0.contiguous())
 
     y = y + p["D"] * xin.to(F32)
     y = y.to(x.dtype) * F.silu(z)

@@ -156,12 +156,13 @@ def test_launch_wrapper_takes_cuda_tensors_only():
                                skv=4)
 
 
-# ------------------------------------------- the bf16 kernels' arithmetic
+# ------------------------------------------------ the kernels' arithmetic
 #
-# ``attention_split_ref`` is the plain form of K7's two bf16 kernels: the
-# split-KV decode (the wrapper's chunks of the live keys, 32-key tiles,
-# partial (m, l, acc) merged with the TPU kernel's alpha) and the
-# prefill (64-key tiles, P V as p_hi V + p_lo V on the tensor cores).
+# ``attention_split_ref`` is the plain form of K7's kernels: the split-KV
+# decode, bf16 or f32 (the wrapper's chunks of the live keys, 32-key
+# tiles, partial (m, l, acc) merged with the TPU kernel's alpha), the
+# bf16 prefill (64-key tiles, P V as p_hi V + p_lo V on the tensor cores)
+# and the f32 prefill (64-key tiles, P V in f32).
 # Tolerance: f32 inputs within TOL of the reference (the same f32 math in
 # another order; the split P costs about 2^-16 of p); bf16 inputs within
 # K7_BF16_TOL * max(1, |ref|), chip_smoke.K7_TOL's rule: both compute in
@@ -233,6 +234,45 @@ def test_split_prefill_arithmetic_matches_reference(D, G):
     got = attention_split_ref(*map(torch.as_tensor, (q, k, v)), tile=64,
                               split_p=True, **kw)
     assert _max_abs(got, ref) <= TOL
+
+
+# K7's f32 kernels: the same split-KV decode plan (an f32 call takes it
+# for Sq <= DECODE_MAX_SQ as a bf16 one does) and the f32 prefill's
+# 64-key tiles with P in f32 (no hi/lo split: P V on the CUDA cores)
+
+
+@pytest.mark.parametrize("q_offset", (0, 31, 32, 63, 64, 255, 543, 1023))
+@pytest.mark.parametrize("G", (2, 8))
+def test_split_decode_f32_plan_matches_reference(G, q_offset):
+    """The f32 decode at the Qwen3 (G = 2) and Jamba (G = 8) groups, D =
+    128, 1,024 cached keys: the wrapper's plan and 32-key tiles, f32 in
+    and out, within TOL of the JAX ``attention_ref``."""
+    B, K, D, Skv = 1, 2, 128, 1024
+    q, k, v = _inputs(G * 7 + q_offset, B, 1, Skv, K * G, K, D)
+    kw = dict(causal=True, window=0, q_offset=q_offset)
+    ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)), **kw)
+    got = _split_decode(*map(torch.as_tensor, (q, k, v)), **kw)
+    assert got.shape == (B, 1, K * G, D) and got.dtype == torch.float32
+    assert _max_abs(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("D", (16, 32, 64, 128))
+@pytest.mark.parametrize("G", (1, 2, 8, 12))
+def test_split_prefill_f32_arithmetic_matches_reference(D, G):
+    """The f32 prefill's 64-key tiles, P kept in f32, ragged rows and
+    keys, causal with a window, against the JAX ``attention_ref`` and the
+    Pallas kernel in interpret mode."""
+    B, K, Sq = 1, 2, 70
+    kw = dict(causal=True, window=50, q_offset=9)
+    q, k, v = _inputs(D * 3 + G, B, Sq, Sq + 9, K * G, K, D)
+    ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)), **kw)
+    kernel = jax_flash(*map(jnp.asarray, (q, k, v)), block_q=16,
+                       block_k=16, interpret=True, **kw)
+    got = attention_split_ref(*map(torch.as_tensor, (q, k, v)), tile=64,
+                              split_p=False, **kw)
+    assert got.dtype == torch.float32
+    assert _max_abs(got, ref) <= TOL
+    assert _max_abs(got, kernel) <= TOL
 
 
 def _bf16(a):

@@ -146,7 +146,7 @@ def test_causal_conv_matches_the_reference():
 
 
 @pytest.mark.parametrize("backend", ("cuda", "interpret"))
-@pytest.mark.parametrize("S", (1, 16, 64))
+@pytest.mark.parametrize("S", (1, 16, 64, 256))
 def test_mamba_block_prefill_then_decode_matches(S, backend):
     cfg = jax_smoke(ARCH)
     jp, tp = _mamba_params(cfg)
@@ -171,6 +171,48 @@ def test_mamba_block_prefill_then_decode_matches(S, backend):
         assert _max_abs(jst["conv"], st["conv"]) <= 1e-6, i
     with pytest.raises(KeyError, match="backend"):
         TS.mamba_apply(tp, _t(x), cfg, backend="pallas")
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_mamba_block_cuda_backend_takes_the_discretizing_entry(monkeypatch,
+                                                              dtype):
+    """``backend="cuda"`` hands K8's discretizing entry dt [B, S, di], A
+    [di, N], Bm and Cm [B, S, N] (all f32), x in the block's dtype and h0
+    [B, di, N], so the block itself builds no [B, S, di, N] tensor; on
+    CPU tensors the entry is the eager discretization and the plain
+    recurrence, so both backends give the same bits, prefill then
+    decode."""
+    cfg = jax_smoke(ARCH)
+    _, tp = _mamba_params(cfg)
+    tp = {k: v.to(dtype) if v.dim() >= 2 else v for k, v in tp.items()}
+    di, N = cfg.d_inner, cfg.ssm_d_state
+    seen = []
+
+    def spy(dt, A, Bm, Cm, x, h0):
+        B, S = dt.shape[:2]
+        assert dt.shape == (B, S, di) and A.shape == (di, N)
+        assert Bm.shape == Cm.shape == (B, S, N) and x.shape == (B, S, di)
+        assert h0.shape == (B, di, N)
+        assert {t.dtype for t in (dt, A, Bm, Cm, h0)} == {torch.float32}
+        assert x.dtype == dtype
+        seen.append(S)
+        return TS.selective_scan_discretized_ref(dt, A, Bm, Cm, x, h0)
+
+    rng = np.random.default_rng(11)
+    x = _t(rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32))
+    xt = _t(rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32))
+    outs = {}
+    for backend in ("interpret", "cuda"):
+        if backend == "cuda":
+            monkeypatch.setattr(TS, "selective_scan_discretized", spy)
+        out, st = TS.mamba_apply(tp, x.to(dtype), cfg, return_state=True,
+                                 backend=backend)
+        dec, st2 = TS.mamba_apply(tp, xt.to(dtype), cfg, state=st,
+                                  return_state=True, backend=backend)
+        outs[backend] = (out, st["h"], dec, st2["h"])
+    assert seen == [16, 1]
+    for a, b in zip(outs["cuda"], outs["interpret"]):
+        assert torch.equal(a, b)
 
 
 def test_both_packages_refuse_lengths_the_chunked_scan_cannot_take():

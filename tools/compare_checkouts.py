@@ -6,6 +6,7 @@ one run.
     python3 tools/compare_checkouts.py path_lm_serve build/parent . . build/parent
     python3 tools/compare_checkouts.py kernels_time build/variant . . build/variant
     python3 tools/compare_checkouts.py mlp_bits,kernels_time_dag build/parent . . build/parent
+    python3 tools/compare_checkouts.py kernels_time_lm,kernels_time_scan,path_hybrid_serve build/parent . . build/parent
 
 The first argument names the phase, or several joined by commas (run in
 one process a checkout, after one build):
@@ -24,7 +25,19 @@ one process a checkout, after one build):
   two DAGs at ``MLP_BITS_BATCHES`` rows); prints a SHA-256 of each
   output's bytes, so two checkouts' kernels can be held bit for bit;
 - ``path_dag``: the smoke's ``path_dag`` phase; prints the pkt/s of each
-  configuration and batch size (median of the passes, and all of them).
+  configuration and batch size (median of the passes, and all of them);
+- ``kernels_time_lm``: the smoke's K7 timings at this tool's
+  ``K7_SHAPES`` (set on each checkout's smoke, so that every checkout
+  times the same shapes, f32 at the Qwen3 and Jamba shapes included);
+  prints each shape's ``ms``, ``kernel_ms`` (summed over the call's
+  kernels), the kernels' names and SDPA's device ms;
+- ``kernels_time_scan``: the smoke's K8 timings; prints ``ms`` and
+  ``kernel_ms`` of every row it emits (the discretizing entry with its
+  "before", the eager passes plus the TPU-interface K8, where the
+  checkout has it);
+- ``path_hybrid_serve``: Jamba-1.5-Large served as the smoke serves it
+  (bf16, then f32); prints each run's prefill ms per call, decode ms per
+  step, tok/s and peak GB on ``backend="cuda"``.
 
 Each further argument is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -44,7 +57,19 @@ import subprocess
 import sys
 
 PHASES = ("path_lm_serve", "kernels_time", "kernels_time_dag", "mlp_bits",
-          "path_dag")
+          "path_dag", "kernels_time_lm", "kernels_time_scan",
+          "path_hybrid_serve")
+# kernels_time_lm's shapes on every checkout: name, B, Sq, Skv, H, K,
+# q_offset, dtype (D = 128), as chip_smoke.K7_TIMED
+K7_SHAPES = (("prefill_512", 4, 512, 512, 16, 8, 0, "bfloat16"),
+             ("decode_511", 4, 1, 1024, 16, 8, 511, "bfloat16"),
+             ("jamba_prefill_512", 4, 512, 512, 64, 8, 0, "bfloat16"),
+             ("jamba_decode_543", 4, 1, 1024, 64, 8, 543, "bfloat16"),
+             ("prefill_512_f32", 4, 512, 512, 16, 8, 0, "float32"),
+             ("decode_511_f32", 4, 1, 1024, 16, 8, 511, "float32"),
+             ("decode_1023_f32", 4, 1, 1024, 16, 8, 1023, "float32"),
+             ("jamba_prefill_512_f32", 4, 512, 512, 64, 8, 0, "float32"),
+             ("jamba_decode_543_f32", 4, 1, 1024, 64, 8, 543, "float32"))
 MLP_BITS_WIDTHS = ((7,) + (128,) * 10 + (2,), (30,) + (128,) * 10 + (2,),
                    (47,) + (128,) * 10 + (2,), (64, 256, 256, 10),
                    (20,) + (48,) * 15 + (3,), (1, 4, 2), (7, 16, 8, 2),
@@ -134,6 +159,41 @@ def path_dag_numbers(chip_smoke, dev) -> dict:
             for r in row["rows"]}
 
 
+def lm_kernel_numbers(chip_smoke, dev) -> dict:
+    chip_smoke.K7_TIMED = K7_SHAPES
+    row = run_phase(chip_smoke, "kernels_time_lm",
+                    lambda: chip_smoke.kernels_time_lm(dev))
+    return {cfg: {k: m[k] for k in ("ms", "kernel_ms", "kernels",
+                                    "library_kernel_ms")}
+            for cfg, m in row.items() if isinstance(m, dict) and "ms" in m}
+
+
+def scan_numbers(chip_smoke, dev) -> dict:
+    row = run_phase(chip_smoke, "kernels_time_scan",
+                    lambda: chip_smoke.kernels_time_scan(dev))
+    out = {}
+
+    def walk(prefix, tree):
+        for key, m in tree.items():
+            if isinstance(m, dict) and "ms" in m:
+                out[prefix + key] = {k: m[k] for k in (
+                    "ms", "kernel_ms", "before_kernel_ms") if k in m}
+            elif isinstance(m, dict):
+                walk(f"{prefix}{key}/", m)
+
+    walk("", row)
+    return out
+
+
+def hybrid_numbers(chip_smoke, dev) -> dict:
+    row = run_phase(chip_smoke, "path_hybrid_serve",
+                    lambda: chip_smoke.path_hybrid_serve(dev))
+    return {run: {k: row[run][k] for k in ("prefill_ms",
+                                           "decode_ms_per_step",
+                                           "tok_per_s", "peak_gb")}
+            for run in ("bf16", "f32")}
+
+
 def run_phase(chip_smoke, phase: str, fn) -> dict:
     """Call ``fn`` with the smoke's ``emit`` caught -> the row it emitted
     for ``phase``."""
@@ -164,7 +224,10 @@ def one(phase: str, root: str) -> None:
     dev = torch.device("cuda", 0)
     runs = {"path_lm_serve": lm_numbers, "kernels_time": kernel_numbers,
             "kernels_time_dag": dag_time_numbers, "mlp_bits": mlp_bits,
-            "path_dag": path_dag_numbers}
+            "path_dag": path_dag_numbers,
+            "kernels_time_lm": lm_kernel_numbers,
+            "kernels_time_scan": scan_numbers,
+            "path_hybrid_serve": hybrid_numbers}
     for name in phase.split(","):
         print(json.dumps({"phase": name, "root": root, "build_s": build_s,
                           "card": chip_smoke.nvidia_smi(),
