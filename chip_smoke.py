@@ -196,6 +196,22 @@ and 8,192, and K6 on ``ad_full > tc`` and on two full-width models under
 times the full-width K3, K5 and K6 at B = 128, 1,024 and 4,096, which the
 kernels line carries under ``full_width``.
 
+Slice 12 redesigns K4 and K9.  K4 (``mat_lut_kernel<split, cpl>``)
+stages the edges and tables by bulk copies on two mbarriers, takes 8
+rows a warp (4 when it splits a feature's edge count across the warp,
+above 32 edges) and issues a chunk's table loads before its adds;
+``kernels_check_mat`` holds it against ``mat_classify_ref`` and
+``mat_classify_split_ref`` (its schedule written out) at the Tofino
+shape of ``path_generate`` (7 features, 512 bins, 2 classes: 511 edges)
+with edge values, NaN, +-inf, -0.0 and 0.0 planted and one unsorted edge
+row, and at the mat-fused shape, and ``kernels_time`` times it at both
+shapes beside the launch floor (a one-element ``torch.zeros`` fill).
+K9 is two launches: the int8 signs of both operands
+(``bgemm_sign_pack``, w's transposed) and their product on the int8
+tensor cores (``bgemm_wgmma_kernel``: wgmma with TMA loads);
+``kernels_time_bgemm`` times ``torch._int_mm`` with its second operand
+row-major and column-major, each checked equal to K9's result.
+
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 exits 1; a missing GPU, torch or ``src/repro_torch`` exits 2 and prints
@@ -518,6 +534,8 @@ def kernel_phase(dev):
                                   if not c[5]],
           "max_abs_err": err})
     err.update(suffix_kernel_phase(dev))
+    err["mat_lut_classify"] = max(err["mat_lut_classify"],
+                                  kernels_check_mat(dev))
     kw = dict(n_counters=spec.n_counters, n_ewma=spec.n_ewma,
               alpha=spec.ewma_alpha)
     return err, timing(dev, stages, table_plan(spec, "all"),
@@ -755,12 +773,144 @@ def suffix_kernel_phase(dev):
     return err
 
 
+# K4's template instance, as the profiler names it: whether the edge
+# count is split across the warp (E > 32) and the classes per lane
+K4_INSTANCE = "mat_lut_kernel<{split}, {cpl}>"
+# path_generate's Tofino MAT: the quickstart's 7 features, stageir.MAT_BINS
+# = 512 bins (511 edges) and 2 classes
+K4_TOFINO = (7, 512, 2)
+K4_TOFINO_BATCHES = (1, 37, 1024, 2048)
+K4_TOFINO_TIMED = (1024, 2048)
+
+
+def k4_instance(mat) -> str:
+    E, C = mat.edges.shape[1], mat.num_classes
+    return K4_INSTANCE.format(split=str(E > 32).lower(),
+                              cpl=1 if C <= 32 else 4)
+
+
+def tofino_mat(dev, seed: int, unsorted: bool = True):
+    """A MAT of the Tofino shape: per feature the codegen's evenly spaced
+    edges over a symmetric range, with 0.0 exactly at the middle edge,
+    feature 3's edges shuffled (``unsorted``), seeded normal tables."""
+    import numpy as np
+
+    from repro_torch.kernels import mat_lut as ml
+
+    F, bins, C = K4_TOFINO
+    rng = np.random.default_rng(seed)
+    hi = rng.random(F) * 4 + 1
+    edges = np.stack([np.linspace(-h, h, bins + 1)[1:-1] for h in hi]
+                     ).astype(np.float32)
+    edges[:, (bins - 2) // 2] = 0.0
+    if unsorted:
+        rng.shuffle(edges[3])
+    tables = rng.normal(size=(F, bins, C)).astype(np.float32)
+    return ml.pack_mat(edges, tables, device=dev)
+
+
+def planted_rows(rng, B: int, edges):
+    """Normal rows with 20 % of the values set to edge values exactly and
+    3 % each to NaN, +inf, -inf, -0.0 and 0.0."""
+    import numpy as np
+
+    F, E = edges.shape
+    x = (rng.normal(size=(B, F)) * 2).astype(np.float32)
+    u = rng.random((B, F))
+    hit = u < 0.2
+    x[hit] = edges[np.nonzero(hit)[1], rng.integers(0, E, int(hit.sum()))]
+    for i, v in enumerate((np.nan, np.inf, -np.inf, -0.0, 0.0)):
+        x[(u >= 0.2 + 0.03 * i) & (u < 0.23 + 0.03 * i)] = v
+    return x
+
+
+def kernels_check_mat(dev) -> float:
+    """K4 against ``mat_classify_ref`` and ``mat_classify_split_ref`` (its
+    schedule written out), exactly: the Tofino shape (split count) at B =
+    1, 37, 1,024 and 2,048 with planted rows, sorted and with one
+    unsorted edge row, argmax and argmin; the mat-fused shape (one lane a
+    feature) with planted rows; a MAT of 100 classes (four a lane).
+    -> max abs error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import mat_lut as ml
+    from repro_torch.testing import mat_stages
+
+    rng = np.random.default_rng(24)
+    mst = mat_stages(28)
+    wide_e = np.sort(rng.normal(size=(9, 40)), 1).astype(np.float32)
+    mats = {"tofino": tofino_mat(dev, 1, unsorted=False),
+            "tofino_unsorted": tofino_mat(dev, 2),
+            "mat_fused": ml.pack_mat(mst[0].edges, mst[1].tables,
+                                     mst[3].table, device=dev),
+            "classes_100": ml.pack_mat(
+                wide_e, rng.normal(size=(9, 41, 100)).astype(np.float32),
+                device=dev)}
+    rows, worst = [], 0.0
+    for name, mat in mats.items():
+        for use_min in (False, True):
+            m = mat._replace(use_min=use_min)
+            for B in K4_TOFINO_BATCHES:
+                x = torch.as_tensor(planted_rows(
+                    rng, B, mat.edges.cpu().numpy()), device=dev)
+                got = ml.mat_classify_launch(x, m)
+                want = ml.mat_classify_ref(x, m.edges, m.tables, m.lmap,
+                                           use_min=use_min)
+                split = ml.mat_classify_split_ref(x, m.edges, m.tables,
+                                                  m.lmap, use_min=use_min)
+                torch.cuda.synchronize()
+                check(torch.equal(split, want), f"K4's schedule written out "
+                      f"differs from the plain version on {name} B={B}")
+                check(torch.equal(got, want),
+                      f"K4 differs on {name} use_min={use_min} B={B}")
+                worst = max(worst, max_abs(got, want))
+        rows.append({"mat": name, "shape": [*mat.edges.shape,
+                                            mat.num_classes],
+                     "kernel": k4_instance(mat)})
+    emit({"phase": "kernels_check_mat", "batches": list(K4_TOFINO_BATCHES),
+          "planted": ["edge values", "nan", "inf", "-inf", "-0.0", "0.0"],
+          "mats": rows, "max_abs_err": worst})
+    return worst
+
+
+def launch_floor(dev) -> dict:
+    """A one-element ``torch.zeros`` on the card: its wrapper ms (CUDA
+    events over 50 calls) and the device ms of its fill kernel."""
+    import torch
+
+    fill = lambda: torch.zeros(1, device=dev)  # noqa: E731
+    return {"ms": time_ms(fill, TIMED_LAUNCHES),
+            "kernel_ms": call_device_ms(fill)}
+
+
+def mat_timing(dev, mat, x) -> dict:
+    """K4 on x: wrapper ms, device ms, the plain version's ms, the bound."""
+    from repro_torch.kernels import mat_lut as ml
+
+    (B, F), E = x.shape, mat.edges.shape[1]
+    C = mat.num_classes
+    mat_bytes = 4 * (mat.edges.numel() + mat.tables.numel()
+                     + mat.lmap.numel())
+    k4 = lambda: ml.mat_classify_launch(x, mat)  # noqa: E731
+    name = k4_instance(mat)
+    return dict(
+        ms=time_ms(k4, TIMED_LAUNCHES),
+        **kernel_fields(kernel_device_ms({name: k4})[name]),
+        plain_ms=time_ms(lambda: ml.mat_classify_ref(
+            x, mat.edges, mat.tables, mat.lmap), TIMED_LAUNCHES),
+        bound=bound(B * F * 4 + mat_bytes + B * 4, B * F * (E + C)),
+        kernel=name, B=B, features=F, edges=E, classes=C)
+
+
 def timing(dev, stages, tp, sp, mlp, kw):
     """Each kernel's wrapper and its plain version on one flow-ddos batch
     (the stream's packets 4096..4607 against the table the first 4096
     packets leave).  The timed K1/K2 launches update one copy of that
     table in place, each applying the same batch again: the same
-    segments and chains every launch."""
+    segments and chains every launch.  K4 also runs at the Tofino shape
+    (B = 1,024 and 2,048), beside the launch floor."""
+    import numpy as np
     import torch
 
     from repro_torch.data import traffic
@@ -768,7 +918,6 @@ def timing(dev, stages, tp, sp, mlp, kw):
     from repro_torch.kernels import flow_update as fu
     from repro_torch.kernels import fused_flow as ff
     from repro_torch.kernels import fused_mlp as fm
-    from repro_torch.kernels import mat_lut as ml
 
     fk, ru = stages[:2]
     spec = ru.spec
@@ -843,19 +992,15 @@ def timing(dev, stages, tp, sp, mlp, kw):
     out["fused_flow_serve"]["modes"] = suffix_timing(
         dev, stages, ops, seg, tp, z, rows, batch, upd_flops, live, n_seg)
     mat = out["fused_flow_serve"]["modes"].pop("_mat")
-    F, E = mat.edges.shape
-    C = mat.num_classes
-    mat_bytes = 4 * (mat.edges.numel() + mat.tables.numel()
-                     + mat.lmap.numel())
-    k4 = lambda: ml.mat_classify_launch(z, mat)
-    out["mat_lut_classify"] = dict(
-        ms=time_ms(k4, TIMED_LAUNCHES),
-        **kernel_fields(kernel_device_ms({"mat_lut_kernel": k4}
-                                        )["mat_lut_kernel"]),
-        plain_ms=time_ms(lambda: ml.mat_classify_ref(
-            z, mat.edges, mat.tables, mat.lmap), TIMED_LAUNCHES),
-        bound=bound(B * F * 4 + mat_bytes + B * 4, B * F * (E + C)),
-        B=B, features=F, edges=E, classes=C)
+    out["mat_lut_classify"] = mat_timing(dev, mat, z)
+    tofino = tofino_mat(dev, 1, unsorted=False)
+    rng = np.random.default_rng(7)
+    out["mat_lut_classify"]["tofino"] = {
+        f"B={n}": mat_timing(dev, tofino, torch.as_tensor(
+            (rng.normal(size=(n, K4_TOFINO[0])) * 2).astype(np.float32),
+            device=dev))
+        for n in K4_TOFINO_TIMED}
+    out["mat_lut_classify"]["launch_floor"] = launch_floor(dev)
     emit({"phase": "kernels_time", **{
         k: {kk: vv for kk, vv in v.items()} for k, v in out.items()}})
     return out
@@ -3882,7 +4027,7 @@ def path_hybrid_serve(dev):
 
 # ------------------------------- slice 7: the compiler and K9 (bgemm)
 
-K9_NAMES = ("bgemm_pack_rows<{x}>", "bgemm_pack_cols<{w}>", "bgemm_xor_popc")
+K9_NAMES = ("bgemm_sign_pack<{x}, {w}>", "bgemm_wgmma_kernel")
 INT8_OPS_PER_S = 1979e12            # H100 SXM int8 dense (data sheet)
 # name, B, K, N, dtype, whether 0 / -0.0 / NaN are planted in x and w
 K9_CASES = (
@@ -3942,12 +4087,17 @@ def kernels_check_bgemm(dev):
     """K9 against its plain version (``binarized_gemm_ref``) on the card,
     int for int, at every case of ``K9_CASES`` (ragged B, K, N; 0, -0.0
     and NaN planted; bf16; 1,024 x 128 x 128; 4,096^3); the result has
-    K's parity.  -> {"binarized_gemm": max abs error (0)}."""
+    K's parity.  The sign launch's int8 scratch is held against
+    ``sign_pack_ref`` byte for byte in the same call.  -> {"binarized_gemm":
+    max abs error (0)}."""
     import torch
 
+    from repro_torch.kernels import _ext
     from repro_torch.kernels.binarized_gemm import (
+        K_TILE,
         binarized_gemm_launch,
         binarized_gemm_ref,
+        sign_pack_ref,
     )
 
     rows, worst = [], 0.0
@@ -3955,9 +4105,14 @@ def kernels_check_bgemm(dev):
         x, w = bgemm_inputs(dev, B, K, N, dtype, planted, 300 + i)
         got = binarized_gemm_launch(x, w)
         want = binarized_gemm_ref(x, w)
+        xs_want, wt_want = sign_pack_ref(x, w, K_TILE)
+        xs, wt = torch.empty_like(xs_want), torch.empty_like(wt_want)
+        _ext.extension().binarized_gemm(x, w, xs, wt, torch.empty_like(got))
         torch.cuda.synchronize()
         check(got.dtype == torch.int32 and tuple(got.shape) == (B, N),
               f"K9 {name}: {got.dtype} {tuple(got.shape)}")
+        check(torch.equal(xs, xs_want) and torch.equal(wt, wt_want),
+              f"K9 {name}: the int8 signs differ from sign_pack_ref")
         err = max_abs(got, want)
         check(torch.equal(got, want.to(torch.int32)),
               f"K9 {name}: differs from the plain version by {err}")
@@ -3965,19 +4120,21 @@ def kernels_check_bgemm(dev):
         worst = max(worst, err)
         rows.append({"case": name, "shape": [B, K, N], "dtype": dtype,
                      "planted": planted, "max_abs_err": err,
+                     "kp": int(xs.shape[1]),
                      "nan_in_x": int(torch.isnan(x.float()).sum())})
-        del x, w, got, want
+        del x, w, got, want, xs, wt, xs_want, wt_want
     emit({"phase": "kernels_check_bgemm", "tol": "exact int32", "cases": rows})
     return {"binarized_gemm": worst}
 
 
 def kernels_time_bgemm(dev):
     """K9 at 1,024 x 128 x 128 and 4,096^3 (f32): wrapper ms over 50
-    calls (CUDA events), device ms (profiler: the two pack kernels and
-    the XNOR-popcount product, summed per call), the plain version's ms
-    and the bound; ``library_ms``: ``torch._int_mm`` on pre-signed int8
-    operands, which leaves out the sign pass K9 includes (and is checked
-    equal to K9's result).  -> {config: numbers}."""
+    calls (CUDA events), device ms (profiler: the sign launch and the
+    product, summed per call), the plain version's ms and the bound;
+    ``library_ms``: ``torch._int_mm`` on pre-signed int8 operands, which
+    leaves out the sign pass K9 includes, the faster of its second
+    operand row-major and column-major (both timed, both checked equal
+    to K9's result).  -> {config: numbers}."""
     import torch
 
     from repro_torch.kernels.binarized_gemm import (
@@ -3995,19 +4152,27 @@ def kernels_time_bgemm(dev):
                                                   for n in names[1:]}})
         parts = {n: seen[n]["ms"] for n in names}
         xs = sign_pm1(x).to(torch.int8)
-        ws = sign_pm1(w).to(torch.int8)
-        lib = torch._int_mm(xs, ws)
-        check(torch.equal(lib, k9()), f"K9 {name}: torch._int_mm differs")
+        layouts = {"row_major": sign_pm1(w).to(torch.int8)}
+        layouts["column_major"] = layouts["row_major"].t().contiguous().t()
+        got = k9()
+        lib = {}
+        for lay, ws in layouts.items():
+            check(torch.equal(torch._int_mm(xs, ws), got),
+                  f"K9 {name}: torch._int_mm ({lay}) differs")
+            lib[lay] = time_ms(lambda: torch._int_mm(xs, ws),
+                               TIMED_LAUNCHES)
+        fast = min(lib, key=lib.get)
         out[name] = dict(
             ms=time_ms(k9, TIMED_LAUNCHES),
             kernel_ms=(sum(parts.values()) if None not in parts.values()
                        else None),
             kernel_parts_ms=parts,
             plain_ms=time_ms(lambda: binarized_gemm_ref(x, w), 5),
-            library_ms=time_ms(lambda: torch._int_mm(xs, ws), TIMED_LAUNCHES),
-            library="torch._int_mm on pre-signed int8 (no sign pass)",
+            library_ms=lib[fast], library_layouts_ms=lib,
+            library=f"torch._int_mm on pre-signed int8 (no sign pass), "
+                    f"second operand {fast.replace('_', '-')}",
             bound=k9_bound(B, K, N, 4), shape=[B, K, N])
-        del x, w, xs, ws, lib
+        del x, w, xs, layouts, got
         torch.cuda.empty_cache()
     emit({"phase": "kernels_time_bgemm", **out, "nvidia_smi": nvidia_smi()})
     return out
@@ -4391,12 +4556,30 @@ def main() -> int:
                                            "before_eager_kernel_ms",
                                            "before_k8_kernel_ms") if k in m}}
                 for cfg, m in rows.items()}
+        if name == "mat_lut_classify":
+            entry["kernels"] = sorted({tm["kernel"]} | {
+                m["kernel"] for m in tm["tofino"].values()})
+            entry["launch_floor"] = tm["launch_floor"]
+            entry["shapes"] = {
+                cfg: {k: m[k] for k in ("kernel", "B", "features", "edges",
+                                        "classes", "ms", "kernel_ms",
+                                        "plain_ms")}
+                | {"bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+                   "library_ms": None}
+                for cfg, m in {"mat_fused": tm,
+                               **{f"tofino_{b}": v for b, v in
+                                  tm["tofino"].items()}}.items()}
         if name == "binarized_gemm":
+            entry["kernels"] = [n.format(x="float", w="float")
+                                for n in K9_NAMES]
             entry["library"] = bgemm_times["4096^3"]["library"]
             entry["shapes"] = {
                 cfg: {"shape": m["shape"], "ms": m["ms"],
-                      "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+                      "kernel_ms": m["kernel_ms"],
+                      "kernel_parts_ms": m["kernel_parts_ms"],
+                      "plain_ms": m["plain_ms"],
                       "library_ms": m["library_ms"],
+                      "library_layouts_ms": m["library_layouts_ms"],
                       "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
                 for cfg, m in bgemm_times.items()}
         if name in FULL_CONFIG:

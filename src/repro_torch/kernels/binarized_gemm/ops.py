@@ -7,10 +7,13 @@ for CPU tensors.  There is no other switch and no fallback.
 
 x [B, K] and w [K, N], each f32 or bf16, -> int32 [B, N], the exact
 integer dot products of the +-1 sign vectors (sign(v) = +1 where v >= 0).
-Any B, K and N of at least 1 work: the kernel masks the ragged edges
-itself, with no padded copy of x or w (the JAX op pads K with -1e-9 and
-subtracts the padding's contribution afterwards).  No path runs it: the
-JAX package has no stage that lowers onto it.
+Any B, K and N of at least 1 work.  One call is two launches: the
+signs of both operands as int8 (x's [B, Kp], w's transposed to [N, Kp],
+Kp = K rounded up to ``K_TILE`` with zeros past K, so the padding adds
+nothing; the JAX op pads K with -1e-9 and subtracts the padding's
+contribution afterwards), then their product on the int8 tensor cores;
+``ref.sign_pack_ref`` is the first launch's plain version.  No path runs
+it: the JAX package has no stage that lowers onto it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from repro_torch.kernels import _ext
 from repro_torch.kernels.binarized_gemm.ref import binarized_gemm_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+K_TILE = _ext.header_define("BG_KTILE")
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -46,9 +50,9 @@ def binarized_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def binarized_gemm_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K9's wrapper: checked operands -> int32 [B, N].  One call packs
-    both operands' signs into scratch words and runs the XNOR-popcount
-    product, on the current stream."""
+    """K9's wrapper: checked operands -> int32 [B, N].  One call writes
+    both operands' signs into int8 scratch and multiplies them on the
+    tensor cores, on the current stream."""
     _check(x, w)
     for t in (x, w):
         if t.device.type != "cuda" or t.device != x.device:
@@ -57,10 +61,10 @@ def binarized_gemm_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError("binarized_gemm_launch takes contiguous tensors")
     (B, K), N = x.shape, w.shape[1]
-    kw = (K + 31) // 32
-    xbits = torch.empty((kw, B), dtype=torch.int32, device=x.device)
-    wbits = torch.empty((kw, N), dtype=torch.int32, device=x.device)
+    kp = -(-K // K_TILE) * K_TILE
+    xs = torch.empty((B, kp), dtype=torch.int8, device=x.device)
+    wt = torch.empty((N, kp), dtype=torch.int8, device=x.device)
     out = torch.empty((B, N), dtype=torch.int32, device=x.device)
-    _ext.extension().binarized_gemm(x, w, xbits, wbits, out)
+    _ext.extension().binarized_gemm(x, w, xs, wt, out)
     _ext.count_launch("binarized_gemm")
     return out

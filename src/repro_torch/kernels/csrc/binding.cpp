@@ -179,15 +179,42 @@ MatDims mat_dims(const at::Tensor& edges, const at::Tensor& tables,
   return m;
 }
 
-void mat_lut_classify(at::Tensor x, at::Tensor edges, at::Tensor tables,
+// K4 stages its edges and the tables with 16-byte bulk copies: each
+// buffer starts 16-byte aligned and its storage runs on to a multiple of
+// 4 floats (pack_mat pads the end of each).
+void check_bulk_padded(const at::Tensor& t, const char* what) {
+  const int64_t n4 = (t.numel() + 3) & ~int64_t(3);
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0 &&
+                  (int64_t)t.storage().nbytes() >=
+                      (t.storage_offset() + n4) * (int64_t)t.element_size(),
+              "K4 takes MAT ", what, " packed by pack_mat (16-byte "
+              "aligned, storage padded to 4 floats)");
+}
+
+// K4: k4_edges [F, ep] is pack_mat's copy of the edges for K4 (the edges
+// themselves at most RT_MAT_SPLIT_EDGES wide, else rows padded with +inf
+// to a multiple of 32); E comes from the tables.
+void mat_lut_classify(at::Tensor x, at::Tensor k4_edges, at::Tensor tables,
                       at::Tensor lmap, at::Tensor out, bool use_min) {
   c10::cuda::CUDAGuard guard(x.device());
-  MatDims m = mat_dims(edges, tables, lmap, use_min);
+  TORCH_CHECK(tables.dim() == 3 && k4_edges.dim() == 2 &&
+                  k4_edges.size(0) == tables.size(0),
+              "MAT tables do not fit the edges");
+  MatDims m;
+  m.F = (int)tables.size(0);
+  m.E = (int)tables.size(1) - 1;
+  m.C = (int)tables.size(2);
+  m.use_min = use_min ? 1 : 0;
+  TORCH_CHECK(m.F >= 1 && m.F <= RT_MAT_MAX_FEATURES, "MAT features");
+  TORCH_CHECK(m.C >= 1 && m.C <= 32 * RT_CLS_PER_LANE, "MAT classes");
+  TORCH_CHECK(lmap.numel() >= m.C, "label map shorter than the classes");
   TORCH_CHECK(x.size(1) == m.F, "x width != MAT features");
+  check_bulk_padded(k4_edges, "edges");
+  check_bulk_padded(tables, "tables");
   C10_CUDA_CHECK(launch_mat_lut_classify(
-      x.data_ptr<float>(), (int)x.size(0), m, edges.data_ptr<float>(),
-      tables.data_ptr<float>(), lmap.data_ptr<int>(), out.data_ptr<int>(),
-      stream_of(x)));
+      x.data_ptr<float>(), (int)x.size(0), m, k4_edges.data_ptr<float>(),
+      (int)k4_edges.size(1), tables.data_ptr<float>(), lmap.data_ptr<int>(),
+      out.data_ptr<int>(), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -466,40 +493,42 @@ void selective_scan_discretized(at::Tensor dt, at::Tensor A, at::Tensor Bm,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// K9: out = sign(x) @ sign(w) in int32; xbits and wbits are the packed
-// signs' scratch; the wrapper has checked shapes, dtypes and contiguity.
-void binarized_gemm(at::Tensor x, at::Tensor w, at::Tensor xbits,
-                    at::Tensor wbits, at::Tensor out) {
+// K9: out = sign(x) @ sign(w) in int32; xs [B, Kp] and wt [N, Kp] int8
+// are the signs' scratch; the wrapper has checked shapes, dtypes and
+// contiguity.
+void binarized_gemm(at::Tensor x, at::Tensor w, at::Tensor xs,
+                    at::Tensor wt, at::Tensor out) {
   c10::cuda::CUDAGuard guard(x.device());
   for (const at::Tensor* t : {&x, &w}) {
     TORCH_CHECK(t->scalar_type() == at::kFloat ||
                     t->scalar_type() == at::kBFloat16,
                 "K9 takes f32 or bf16 operands");
   }
-  for (const at::Tensor* t : {&x, &w, &xbits, &wbits, &out}) {
+  for (const at::Tensor* t : {&x, &w, &xs, &wt, &out}) {
     TORCH_CHECK(t->is_contiguous(), "K9 takes contiguous tensors");
   }
   TORCH_CHECK(x.dim() == 2 && w.dim() == 2 && x.size(1) == w.size(0),
               "x [B, K], w [K, N]");
   const int64_t B = x.size(0), K = x.size(1), N = w.size(1);
   TORCH_CHECK(B >= 1 && K >= 1 && N >= 1, "B, K and N must be >= 1");
-  TORCH_CHECK(B < INT_MAX && K < INT_MAX && N < INT_MAX &&
-                  (B + 63) / 64 <= 65535,
-              "sizes must fit an int and B / 64 the grid's y");
-  const int64_t KW = (K + 31) / 32;
-  TORCH_CHECK(xbits.scalar_type() == at::kInt && xbits.numel() == KW * B &&
-                  wbits.scalar_type() == at::kInt &&
-                  wbits.numel() == KW * N,
-              "xbits [ceil(K/32), B] and wbits [ceil(K/32), N] int32");
+  const int64_t Kp = (K + BG_KTILE - 1) / BG_KTILE * BG_KTILE;
+  TORCH_CHECK(B < INT_MAX && Kp < INT_MAX && N < INT_MAX &&
+                  (B + 127) / 128 <= 65535,
+              "sizes must fit an int and B / 128 the grid's y");
+  TORCH_CHECK(xs.scalar_type() == at::kChar && xs.dim() == 2 &&
+                  xs.size(0) == B && xs.size(1) == Kp &&
+                  wt.scalar_type() == at::kChar && wt.dim() == 2 &&
+                  wt.size(0) == N && wt.size(1) == Kp,
+              "xs [B, Kp] and wt [N, Kp] int8, Kp = K rounded up to ",
+              BG_KTILE);
   TORCH_CHECK(out.scalar_type() == at::kInt && out.dim() == 2 &&
                   out.size(0) == B && out.size(1) == N,
               "out [B, N] int32");
   C10_CUDA_CHECK(launch_binarized_gemm(
       x.data_ptr(), x.scalar_type() == at::kBFloat16 ? 1 : 0, w.data_ptr(),
-      w.scalar_type() == at::kBFloat16 ? 1 : 0,
-      reinterpret_cast<uint32_t*>(xbits.data_ptr<int>()),
-      reinterpret_cast<uint32_t*>(wbits.data_ptr<int>()),
-      out.data_ptr<int>(), (int)B, (int)K, (int)N, stream_of(x)));
+      w.scalar_type() == at::kBFloat16 ? 1 : 0, xs.data_ptr<int8_t>(),
+      wt.data_ptr<int8_t>(), out.data_ptr<int>(), (int)B, (int)K, (int)N,
+      stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -522,5 +551,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("selective_scan_discretized", &selective_scan_discretized,
         "K8: the Mamba S6 recurrence, discretizing dt, A, B and x itself");
   m.def("binarized_gemm", &binarized_gemm,
-        "K9: sign(x) @ sign(w), int32 (XNOR-popcount)");
+        "K9: sign(x) @ sign(w), int32 (int8 signs on wgmma)");
 }

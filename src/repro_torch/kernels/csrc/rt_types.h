@@ -10,7 +10,9 @@
 #define RT_MAX_LAYERS 16       // MLP layers the kernels take
 #define RT_MAX_MLP_WIDTH 256   // widest MLP layer the kernels take
 #define RT_CLS_PER_LANE 4      // MAT classes / centroids per lane: <= 128
-#define RT_MAT_MAX_FEATURES 64 // MAT features (K4's per-warp row buffer)
+#define RT_MAT_MAX_FEATURES 64 // MAT features
+#define RT_MAT_MAX_BINS 1024   // MAT bins: edges + 1 per feature
+#define RT_MAT_SPLIT_EDGES 32  // K4 splits a count over the warp above this
 #define RT_MAX_HISTS 8         // bins columns of a flow table
 #define RT_MITIGATED (-1)      // verdict of a packet the action table drops
 #define RT_CHAIN_CHUNK 32      // slot-chain steps K1 and K2 stage at a time
@@ -34,6 +36,9 @@
 // keys per staged tile (a chunk is a whole number of tiles).
 #define FA_DECODE_ROWS 64
 #define FA_DECODE_TILE 32
+// K9: the int8 product's K tile (one 128-byte swizzled row of int8 signs);
+// the sign scratch's rows are K rounded up to it, zero past K.
+#define BG_KTILE 128
 
 // One flow table and one slot-segmented batch.  ``keys``/``regs`` are
 // updated in place; only the batch's slots are read and written.
@@ -159,10 +164,12 @@ cudaError_t launch_fused_mlp(const float* x, int B, const MlpDims& d,
 cudaError_t launch_fused_dag(const float* x, int B, const DagArgs& g,
                              const float* w, const float* b, int* out,
                              cudaStream_t stream);
+// K4: edges [F, ep], ep = E (E <= RT_MAT_SPLIT_EDGES) or E rounded up to
+// 32 with +inf past E; each buffer's storage padded to 4 floats.
 cudaError_t launch_mat_lut_classify(const float* x, int B, const MatDims& m,
-                                    const float* edges, const float* tables,
-                                    const int* lmap, int* out,
-                                    cudaStream_t stream);
+                                    const float* edges, int ep,
+                                    const float* tables, const int* lmap,
+                                    int* out, cudaStream_t stream);
 // K1: nt (1..RT_MAX_TABLES) tables over one batch, the post-update rows
 // in the scratch z [B, zw] (table t's at its ``col``), the classifier row
 // n_in wide; one cooperative launch, the action table (``mit`` not null)
@@ -200,9 +207,9 @@ cudaError_t launch_selective_scan_discretized(
     const void* x, int x_bf16, const float* h0, float* y, float* h_out,
     const ScanArgs& a, cudaStream_t stream);
 // K9: out [B, N] int32 = sign(x) @ sign(w); x [B, K] and w [K, N] each
-// f32 (0) or bf16 (1); xbits [ceil(K/32), B] and wbits [ceil(K/32), N]
-// are the caller's scratch for the packed signs.
+// f32 (0) or bf16 (1); xs [B, Kp] and wt [N, Kp] int8 are the caller's
+// scratch for the signs, Kp = K rounded up to BG_KTILE.
 cudaError_t launch_binarized_gemm(const void* x, int x_bf16, const void* w,
-                                  int w_bf16, uint32_t* xbits,
-                                  uint32_t* wbits, int* out, int B, int K,
-                                  int N, cudaStream_t stream);
+                                  int w_bf16, int8_t* xs, int8_t* wt,
+                                  int* out, int B, int K, int N,
+                                  cudaStream_t stream);

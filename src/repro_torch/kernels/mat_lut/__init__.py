@@ -13,5 +13,6 @@ from repro_torch.kernels.mat_lut.ref import (
     arg_reduce,
     mat_buckets,
     mat_classify_ref,
+    mat_classify_split_ref,
     mat_scores_ref,
 )

@@ -19,9 +19,11 @@ from repro.kernels.binarized_gemm import binarized_gemm as jax_bgemm
 from repro.kernels.binarized_gemm import binarized_gemm_ref as jax_ref
 from repro.kernels.binarized_gemm import sign_pm1 as jax_sign
 from repro_torch.kernels.binarized_gemm import (
+    K_TILE,
     binarized_gemm,
     binarized_gemm_launch,
     binarized_gemm_ref,
+    sign_pack_ref,
     sign_pm1,
 )
 
@@ -113,3 +115,46 @@ def test_launch_refuses_cpu_tensors():
     """The kernel's wrapper never runs the plain version."""
     with pytest.raises(ValueError, match="CUDA"):
         binarized_gemm_launch(torch.zeros(2, 3), torch.zeros(3, 4))
+
+
+@pytest.mark.parametrize("b,k,n", [(37, 200, 45), (1, 1, 1), (8, 128, 7),
+                                   (5, 129, 3), (16, 300, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sign_pack_matches_kernel_signs(b, k, n, dtype):
+    """K9's first launch written out: xs [B, Kp] and wt [N, Kp] hold the
+    JAX kernel's own signs, ``jnp.where(v >= 0, 1, -1).astype(int8)``
+    (x's as they are, w's transposed), and zeros past K up to Kp, K
+    rounded up to the product's K tile."""
+    x, w = _planted(np.random.default_rng(b + k + n), b, k, n)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    jw = jnp.asarray(w).astype(getattr(jnp, dtype))
+    xs, wt = sign_pack_ref(tx, tw, K_TILE)
+    kp = -(-k // K_TILE) * K_TILE
+    assert xs.dtype == wt.dtype == torch.int8
+    assert tuple(xs.shape) == (b, kp) and tuple(wt.shape) == (n, kp)
+    np.testing.assert_array_equal(
+        xs[:, :k].numpy(), np.asarray(jnp.where(jx >= 0, 1, -1)
+                                      .astype(jnp.int8)))
+    np.testing.assert_array_equal(
+        wt[:, :k].numpy(), np.asarray(jnp.where(jw >= 0, 1, -1)
+                                      .astype(jnp.int8)).T)
+    assert not xs[:, k:].any() and not wt[:, k:].any()
+
+
+@pytest.mark.parametrize("k", [1, 37, 127, 128, 129, 256, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_product_of_packed_signs_matches_reference(k, dtype):
+    """The product K9's second launch forms, ``xs @ wt^T`` over the padded
+    K in int32, equals the JAX op (its Pallas kernel in interpret mode):
+    the zero padding adds nothing, for ragged K and both dtypes."""
+    x, w = _planted(np.random.default_rng(k), 19, k, 11)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    xs, wt = sign_pack_ref(tx, tw, K_TILE)
+    got = (xs.to(torch.int32) @ wt.to(torch.int32).T).numpy()
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    jw = jnp.asarray(w).astype(getattr(jnp, dtype))
+    np.testing.assert_array_equal(got, np.asarray(jax_bgemm(jx, jw,
+                                                            block=16)))

@@ -147,6 +147,116 @@ def test_envelope_reasons(shape, reason):
     assert tml.mat_envelope_reason(28, 7, 8, 4, 4) is None
 
 
+# ---------------------------------- K4's own schedule and the Tofino shape
+
+TOFINO = (7, 512, 2)       # path_generate's Tofino MAT: F, bins, classes
+
+
+def _tofino(seed, *, unsorted):
+    """The codegen's evenly spaced edges over a symmetric range (0.0
+    exactly at the middle edge), one row shuffled with ``unsorted``."""
+    F, bins, C = TOFINO
+    rng = np.random.default_rng(seed)
+    hi = rng.random(F) * 4 + 1
+    edges = np.stack([np.linspace(-h, h, bins + 1)[1:-1] for h in hi]
+                     ).astype(np.float32)
+    edges[:, (bins - 2) // 2] = 0.0
+    if unsorted:
+        rng.shuffle(edges[3])
+    tables = rng.normal(size=(F, bins, C)).astype(np.float32)
+    return edges, tables
+
+
+def _planted(B, edges, seed):
+    """Rows with edge values exactly, NaN, +inf, -inf, -0.0 and 0.0."""
+    F = edges.shape[0]
+    x = (_x(B, F, edges, seed) if edges.shape[1] else
+         np.random.default_rng(seed).normal(size=(B, F)).astype(np.float32))
+    u = np.random.default_rng(seed + 1).random(x.shape)
+    for i, v in enumerate((np.nan, np.inf, -np.inf, -0.0, 0.0)):
+        x[(u >= 0.03 * i) & (u < 0.03 * (i + 1))] = v
+    return x
+
+
+@pytest.mark.parametrize("unsorted", [False, True])
+@pytest.mark.parametrize("use_min", [False, True])
+def test_tofino_shape_matches_pallas_kernel(unsorted, use_min):
+    """7 features, 512 bins (511 edges, so K4 splits each count across the
+    warp), 2 classes: the Pallas kernel (interpret mode) against the
+    port's plain version and K4's schedule written out, exactly."""
+    edges, tables = _tofino(5, unsorted=unsorted)
+    x = _planted(96, edges, seed=7)
+    lmap = np.asarray([1, 0], np.int32)
+    jv = np.asarray(jml.mat_classify(jnp.asarray(x), jnp.asarray(edges),
+                                     jnp.asarray(tables), jnp.asarray(lmap),
+                                     use_min=use_min))
+    mat = tml.pack_mat(edges, tables, lmap, use_min=use_min)
+    xt = torch.as_tensor(x)
+    tv = tml.mat_classify(xt, mat).numpy()
+    np.testing.assert_array_equal(tv, jv)
+    sv = tml.mat_classify_split_ref(xt, mat.edges, mat.tables, mat.lmap,
+                                    use_min=use_min).numpy()
+    np.testing.assert_array_equal(sv, jv)
+
+
+@pytest.mark.parametrize("F,bins,C", [
+    (7, 512, 2), (28, 8, 4), (3, 33, 3), (3, 34, 5), (9, 41, 100),
+    (64, 2, 128), (2, 1, 3), (5, 1024, 1)])
+@pytest.mark.parametrize("use_min", [False, True])
+def test_split_schedule_matches_plain_version(F, bins, C, use_min):
+    """``mat_classify_split_ref`` (the bucket count split over 32 lanes of
+    a row padded with +inf, the scores from loads fetched a chunk ahead)
+    equals ``mat_classify_ref`` bit for bit: either side of the split at
+    32 edges, one bin, the most bins, one and 128 classes."""
+    edges, tables, _ = _mat(F, bins, C, seed=F * bins)
+    x = torch.as_tensor(_planted(64, edges, seed=C))
+    e, t = torch.as_tensor(edges), torch.as_tensor(tables)
+    lmap = torch.arange(C, dtype=torch.int32).flip(0)
+    np.testing.assert_array_equal(
+        tml.mat_classify_split_ref(x, e, t, lmap, use_min=use_min).numpy(),
+        tml.mat_classify_ref(x, e, t, lmap, use_min=use_min).numpy())
+
+
+@pytest.mark.parametrize("F,bins,C", [(7, 512, 2), (28, 8, 4), (3, 34, 5),
+                                      (6, 33, 2)])
+def test_pack_mat_pads_for_k4(F, bins, C):
+    """K4's operands: each buffer's storage padded to 4 floats (16-byte bulk
+    copies) behind the views K1 reads, and past 32 edges K4's own copy of
+    the edges with rows padded by +inf to a multiple of 32."""
+    edges, tables, _ = _mat(F, bins, C, seed=3)
+    mat = tml.pack_mat(edges, tables)
+    np.testing.assert_array_equal(mat.edges.numpy(), edges)
+    np.testing.assert_array_equal(mat.tables.numpy(), tables)
+    for t in (mat.edges, mat.tables, mat.k4_edges):
+        assert t.is_contiguous()
+        assert t.untyped_storage().nbytes() % 16 == 0
+        assert t.untyped_storage().nbytes() >= 4 * t.numel()
+    E = bins - 1
+    if E > tml.ops.SPLIT_EDGES:
+        assert mat.k4_edges.shape == (F, -(-E // 32) * 32)
+        np.testing.assert_array_equal(mat.k4_edges[:, :E].numpy(), edges)
+        assert bool(torch.isinf(mat.k4_edges[:, E:]).all())
+    else:
+        assert mat.k4_edges is mat.edges
+
+
+@pytest.mark.parametrize("shape,reason", [
+    ((65, 8, 2), "features"),
+    ((4, 1025, 2), "bins"),
+    ((4, 8, 129), "classes"),
+    ((64, 128, 8), "shared memory"),
+])
+def test_pack_mat_refuses_outside_the_envelope(shape, reason):
+    """The envelope and operand checks run once, at packing: K4's wrapper
+    checks only the rows."""
+    F, bins, C = shape
+    edges, tables, _ = _mat(F, bins, C, seed=1)
+    with pytest.raises(ValueError, match=reason):
+        tml.pack_mat(edges, tables)
+    with pytest.raises(ValueError, match="do not fit"):
+        tml.pack_mat(edges[:2], tables[:3])
+
+
 # ------------------------------------------- K1's "mat" suffix (fused)
 
 

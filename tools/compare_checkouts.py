@@ -7,6 +7,7 @@ one run.
     python3 tools/compare_checkouts.py kernels_time build/variant . . build/variant
     python3 tools/compare_checkouts.py mlp_bits,kernels_time_dag build/parent . . build/parent
     python3 tools/compare_checkouts.py kernels_time_lm,kernels_time_scan,path_hybrid_serve build/parent . . build/parent
+    python3 tools/compare_checkouts.py kernels_time_mat,kernels_time_bgemm build/parent . . build/parent
 
 The first argument names the phase, or several joined by commas (run in
 one process a checkout, after one build):
@@ -37,7 +38,19 @@ one process a checkout, after one build):
   checkout has it);
 - ``path_hybrid_serve``: Jamba-1.5-Large served as the smoke serves it
   (bf16, then f32); prints each run's prefill ms per call, decode ms per
-  step, tok/s and peak GB on ``backend="cuda"``.
+  step, tok/s and peak GB on ``backend="cuda"``;
+- ``kernels_time_mat``: K4 at the mat-fused shape (B = 512) and at the
+  Tofino shape of ``path_generate`` (7 features, 512 bins, 2 classes) at
+  ``MAT_BATCHES`` rows, on tables and rows made here from seeds (so every
+  checkout gets the same); prints each one's wrapper ms (the least of 5
+  CUDA-event timings of 100 back-to-back calls), device ms (the
+  profiler, every kernel of the call), a SHA-256 of the verdicts, and
+  the launch floor: a one-element ``torch.zeros`` fill's wrapper and
+  device ms;
+- ``kernels_time_bgemm``: K9 on seeded f32 operands at ``BGEMM_SHAPES``;
+  prints wrapper ms (as above), device ms (every kernel of the call), a
+  SHA-256 of the result and ``torch._int_mm``'s ms on the pre-signed
+  operands with the second one row-major and column-major.
 
 Each further argument is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -58,7 +71,9 @@ import sys
 
 PHASES = ("path_lm_serve", "kernels_time", "kernels_time_dag", "mlp_bits",
           "path_dag", "kernels_time_lm", "kernels_time_scan",
-          "path_hybrid_serve")
+          "path_hybrid_serve", "kernels_time_mat", "kernels_time_bgemm")
+MAT_BATCHES = (1, 1024, 2048, 8192)
+BGEMM_SHAPES = ((1024, 128, 128), (4096, 4096, 4096))
 # kernels_time_lm's shapes on every checkout: name, B, Sq, Skv, H, K,
 # q_offset, dtype (D = 128), as chip_smoke.K7_TIMED
 K7_SHAPES = (("prefill_512", 4, 512, 512, 16, 8, 0, "bfloat16"),
@@ -194,6 +209,85 @@ def hybrid_numbers(chip_smoke, dev) -> dict:
             for run in ("bf16", "f32")}
 
 
+def _digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    torch.cuda.synchronize()
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def best_ms(chip_smoke, fn, rounds: int = 5, n: int = 100) -> float:
+    """A host-bound call's time: the least of ``rounds`` CUDA-event timings
+    of n back-to-back calls (the host's noise only ever adds)."""
+    return min(chip_smoke.time_ms(fn, n) for _ in range(rounds))
+
+
+def mat_numbers(chip_smoke, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import mat_lut as ml
+    from repro_torch.testing import mat_stages
+
+    def timed(mat, x) -> dict:
+        k4 = lambda: ml.mat_classify_launch(x, mat)  # noqa: E731
+        return {"ms": best_ms(chip_smoke, k4),
+                "kernel_ms": chip_smoke.call_device_ms(k4),
+                "verdicts": _digest(k4())}
+
+    rng = np.random.default_rng(24)
+    mst = mat_stages(28)
+    fused = ml.pack_mat(mst[0].edges, mst[1].tables, mst[3].table,
+                        device=dev)
+    x = np.concatenate([rng.integers(1, 12, (512, 1)),
+                        rng.random((512, 27)) * 2], 1).astype(np.float32)
+    out = {"mat_fused_512": timed(fused, torch.as_tensor(x, device=dev))}
+    hi = rng.random(7) * 4 + 1
+    edges = np.stack([np.linspace(-h, h, 513)[1:-1] for h in hi]
+                     ).astype(np.float32)
+    tofino = ml.pack_mat(edges, rng.normal(size=(7, 512, 2)).astype(
+        np.float32), device=dev)
+    for B in MAT_BATCHES:
+        x = (rng.normal(size=(B, 7)) * 2).astype(np.float32)
+        out[f"tofino_{B}"] = timed(tofino, torch.as_tensor(x, device=dev))
+    fill = lambda: torch.zeros(1, device=dev)  # noqa: E731
+    out["launch_floor"] = {"ms": best_ms(chip_smoke, fill),
+                           "kernel_ms": chip_smoke.call_device_ms(fill)}
+    return out
+
+
+def bgemm_numbers(chip_smoke, dev) -> dict:
+    import torch
+
+    from repro_torch.kernels.binarized_gemm import (
+        binarized_gemm_launch,
+        sign_pm1,
+    )
+
+    out = {}
+    for B, K, N in BGEMM_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randn((B, K), generator=g, device=dev)
+        w = torch.randn((K, N), generator=g, device=dev)
+        k9 = lambda: binarized_gemm_launch(x, w)  # noqa: E731
+        xs = sign_pm1(x).to(torch.int8)
+        ws = sign_pm1(w).to(torch.int8)
+        wc = ws.t().contiguous().t()
+        out[f"{B}x{K}x{N}"] = {
+            "ms": best_ms(chip_smoke, k9),
+            "kernel_ms": chip_smoke.call_device_ms(k9),
+            "result": _digest(k9()),
+            "int_mm_row_major_ms": chip_smoke.time_ms(
+                lambda: torch._int_mm(xs, ws), 50),
+            "int_mm_column_major_ms": chip_smoke.time_ms(
+                lambda: torch._int_mm(xs, wc), 50)}
+        del x, w, xs, ws, wc
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_phase(chip_smoke, phase: str, fn) -> dict:
     """Call ``fn`` with the smoke's ``emit`` caught -> the row it emitted
     for ``phase``."""
@@ -227,7 +321,9 @@ def one(phase: str, root: str) -> None:
             "path_dag": path_dag_numbers,
             "kernels_time_lm": lm_kernel_numbers,
             "kernels_time_scan": scan_numbers,
-            "path_hybrid_serve": hybrid_numbers}
+            "path_hybrid_serve": hybrid_numbers,
+            "kernels_time_mat": mat_numbers,
+            "kernels_time_bgemm": bgemm_numbers}
     for name in phase.split(","):
         print(json.dumps({"phase": name, "root": root, "build_s": build_s,
                           "card": chip_smoke.nvidia_smi(),
