@@ -212,6 +212,30 @@ tensor cores (``bgemm_wgmma_kernel``: wgmma with TMA loads);
 ``kernels_time_bgemm`` times ``torch._int_mm`` with its second operand
 row-major and column-major, each checked equal to K9's result.
 
+Slice 13 adds the online loop, fusion and Table 3's accounting, after
+the other paths.  ``path_online`` (``examples/hot_swap.py`` on the card:
+concept_drift streams of 24,000 packets, 2,048 slots, chunks of 512,
+depth 2) trains the initial model from a K2 replay of phase A
+(``traffic.stream_feature_dataset``, bit for bit its plain version on
+the CPU) and ``dse.retrain_model`` on the card, serves it fused (K1),
+and lets a ``DriftDetector`` / ``HotSwapController`` retrain on a worker
+thread (its own CUDA stream, the trainer's graph captured thread-local)
+while serving goes on; a probe engine serves while the retrain still
+runs.  It holds the example's gates (one episode, no errors, the swap
+installed at the next flush, keys and registers bit-identical across
+it, one verdict per packet, F1 > 0.85 / < 0.5 / > 0.85) and reports the
+retrain's wall seconds, the swap latency and the serving pkt/s and p99
+before the drift, during the retrain and after the swap.
+``path_fusion`` (``benchmarks/table4_fusion.py``: the AD data at 7
+features, 8,192 / 4,096 rows, in halves) trains two separate DNNs and
+one fused model on the card, holds Table 4's CU gate (fused < 0.7 x
+separate), both F1 > 0.6 and within 0.1, serves each task's pipeline on
+K3 (verdicts equal to ``FusedModel.predict`` under the margin rule), and
+runs ``strategy_table`` over path_dag's ``ad > tc`` strategies (a
+repeated model counted once).  ``telemetry`` also reports each
+recording site's host cost per batch (``hook_costs``) and the host
+dispatch time per batch with telemetry off and on, in turns.
+
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 exits 1; a missing GPU, torch or ``src/repro_torch`` exits 2 and prints
@@ -225,6 +249,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2758,6 +2783,87 @@ def two_table_swaps(dev):
     return out
 
 
+def hook_costs(eng, chunks, passes: int) -> dict:
+    """Host time of every telemetry recording site of ``eng`` over
+    ``passes`` ``serve_stream`` passes of ``chunks()`` -> {site: {"batch":
+    us a batch on the dispatch/fetch path, "flush": us a batch spent at
+    flush boundaries}}.  The sites are the engine's metric handles
+    (counters, the backend label child, the two per-batch histograms),
+    ``tracer.record`` by span ("dispatch", "batch"), the sampled
+    segmentation (``apply_keys_np``, ``hash_slot_np``,
+    ``batch_segmentation`` and the max-chain gauge), the health scan,
+    and the whole ``_record_dispatch`` and (where the engine has it)
+    ``_record_fetch`` methods, which contain the sites they call (timed
+    nested, with the wrappers' own cost of about 0.2 us a call).  It
+    wraps only handles and functions that every version of the engine
+    has, so one checkout's smoke can time another's engine (``tools/compare_checkouts.py
+    telemetry_hooks``)."""
+    import collections
+    import sys
+
+    pe = sys.modules[type(eng).__module__]
+    spent = collections.defaultdict(float)
+
+    def timed(site, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[site] += time.perf_counter() - t
+        return run
+
+    class Handle:
+        """A metric child whose recording calls are timed as ``site``."""
+
+        def __init__(self, child, site):
+            for name in ("inc", "observe", "set"):
+                if hasattr(child, name):
+                    setattr(self, name, timed(site, getattr(child, name)))
+
+    tm = eng._tm
+    for k in ("packets", "batches", "pad", "lockstep", "drain",
+              "deep_pkts", "swaps"):
+        tm[k] = Handle(tm[k], "counters")
+    tm["mitigated"] = Handle(tm["mitigated"], "counter_mitigated")
+    tm["max_chain"] = Handle(tm["max_chain"], "segmentation")
+    tm["dispatch_ms"] = Handle(tm["dispatch_ms"], "histogram_dispatch")
+    tm["batch_lat_ms"] = Handle(tm["batch_lat_ms"], "histogram_batch")
+    eng._backend_children[eng.backend] = Handle(
+        eng._backend_counter.labels(backend=eng.backend), "label_child")
+    tracer = eng.telemetry().tracer
+    rec = {"dispatch": timed("tracer_dispatch", tracer.record),
+           "batch": timed("tracer_batch", tracer.record)}
+    tracer.record = lambda name, *a, **kw: rec.get(
+        name, rec["batch"])(name, *a, **kw)
+    fk = eng._tel_flowkey
+    fk.apply_keys_np = timed("segmentation", fk.apply_keys_np)
+    patched = [(pe, "hash_slot_np"), (pe.T, "batch_segmentation")]
+    saved = [getattr(m, n) for m, n in patched]
+    for m, n in patched:
+        setattr(m, n, timed("segmentation", getattr(m, n)))
+    eng._scan_flow_health = timed("health_scan", eng._scan_flow_health)
+    eng._record_dispatch = timed("record_dispatch", eng._record_dispatch)
+    if hasattr(eng, "_record_fetch"):
+        eng._record_fetch = timed("record_fetch", eng._record_fetch)
+    b0 = eng.stats_.batches
+    try:
+        for _ in range(passes):
+            for _ in eng.serve_stream(chunks()):
+                pass
+    finally:
+        for (m, n), f in zip(patched, saved):
+            setattr(m, n, f)
+        del fk.apply_keys_np
+    n = max(eng.stats_.batches - b0, 1)
+    out = {}
+    for site, sec in sorted(spent.items()):
+        # the health scan runs at flush boundaries by design
+        w = "flush" if site == "health_scan" else "batch"
+        out[site] = {"batch": 0.0, "flush": 0.0, w: sec / n * 1e6}
+    return {"batches": n, "us_per_batch": out}
+
+
 def telemetry_phase(dev, mitigated_counts):
     """The flow-ddos fused path at B = 512 through two engines, telemetry
     off and on (the default), rounds interleaved off, on, off, on (as
@@ -2765,14 +2871,14 @@ def telemetry_phase(dev, mitigated_counts):
     passes of the stream: verdicts bit-identical, the packet counter
     equal to the packets served, the best adjacent-pair on/off pkt/s
     ratio at least the reference's 0.97; the median pair and their
-    spread beside it.  The on engine's dispatch hook and flush-time
-    health scan are also timed directly (host clock), as a share of its
-    serving span: the plane's host cost without the round-to-round
-    noise (the fetch-side histogram and span records are not in it).
-    ``mitigated_counts`` are (counter, MITIGATED verdicts) of the
-    path_mitigate_fused engines."""
-    import time
-
+    spread beside it.  Each round also reports, per batch, the engine's
+    host ``dispatch_s`` and the pass's whole host time (serve_stream to
+    its closing flush, the hooks included) for each engine.  The on
+    engine's hooks (``_record_dispatch``, ``_record_fetch`` and the
+    flush-time health scan) are also timed directly (host clock), as a share of its serving span; then a
+    third engine serves ``TEL_PASSES`` passes with every recording site
+    timed (``hook_costs``).  ``mitigated_counts`` are (counter,
+    MITIGATED verdicts) of the path_mitigate_fused engines."""
     import numpy as np
 
     from repro_torch.data import traffic
@@ -2795,23 +2901,33 @@ def telemetry_phase(dev, mitigated_counts):
                 hook_s[0] += time.perf_counter() - t
         return run
 
-    on._record_dispatch = timed(on._record_dispatch)
-    on._scan_flow_health = timed(on._scan_flow_health)
+    for name in ("_record_dispatch", "_record_fetch", "_scan_flow_health"):
+        if hasattr(on, name):
+            setattr(on, name, timed(getattr(on, name)))
     for eng in engines.values():                 # one warm pass each
         for _ in eng.serve_stream(stream.chunks(512)):
             pass
     rates = {"off": [], "on": []}
+    dispatch_us = {"off": [], "on": []}
+    host_us = {"off": [], "on": []}
     hook_share = []
     verdicts = {}
     for _ in range(TEL_ROUNDS):
         for mode in ("off", "on"):
             eng = engines[mode]
-            p0, w0, h0 = eng.stats_.packets, eng.stats_.wall_s, hook_s[0]
+            st = eng.stats_
+            p0, w0, h0 = st.packets, st.wall_s, hook_s[0]
+            b0, d0 = st.batches, st.dispatch_s
+            t0 = time.perf_counter()
             for _ in range(TEL_PASSES):
                 verdicts[mode] = np.concatenate(list(eng.serve_stream(
                     stream.chunks(512))))
-            wall = max(eng.stats_.wall_s - w0, 1e-9)
-            rates[mode].append((eng.stats_.packets - p0) / wall)
+            host = time.perf_counter() - t0
+            wall = max(st.wall_s - w0, 1e-9)
+            rates[mode].append((st.packets - p0) / wall)
+            nb = max(st.batches - b0, 1)
+            dispatch_us[mode].append((st.dispatch_s - d0) / nb * 1e6)
+            host_us[mode].append(host / nb * 1e6)
             if mode == "on":
                 hook_share.append((hook_s[0] - h0) / wall)
     check(np.array_equal(verdicts["on"], verdicts["off"]),
@@ -2825,6 +2941,8 @@ def telemetry_phase(dev, mitigated_counts):
               "verdicts on path_mitigate_fused")
     pairs = [a / b for a, b in zip(rates["on"], rates["off"])]
     ratio = max(pairs)
+    sites = hook_costs(serve_engine(stages, "cuda", True, 512, dev),
+                       lambda: stream.chunks(512), TEL_PASSES)
     emit({"phase": "telemetry", "max_batch": 512, "rounds": TEL_ROUNDS,
           "passes_per_round": TEL_PASSES,
           "packets_per_round": TEL_PASSES * N_PACKETS,
@@ -2832,8 +2950,11 @@ def telemetry_phase(dev, mitigated_counts):
           "pkt_per_s_on": rates["on"], "pair_ratios": pairs,
           "overhead_ratio": ratio, "median_pair_ratio": float(
               np.median(pairs)), "pair_spread": max(pairs) - min(pairs),
+          "dispatch_us_per_batch": dispatch_us,
+          "host_us_per_batch": host_us,
           "hook_share_of_span": hook_share,
           "hook_ms_per_batch": 1e3 * hook_s[0] / on.stats_.batches,
+          "hook_sites": sites,
           "gate": TEL_GATE, "mitigated_counts": mitigated_counts,
           "metrics": sorted(snap), "spans": len(on.telemetry().tracer),
           "nvidia_smi": nvidia_smi()})
@@ -4355,6 +4476,426 @@ def path_generate(dev):
 
 
 
+# -------------------------- slice 13: the online loop, fusion, Table 3
+
+# examples/hot_swap.py's configuration
+ONLINE_PACKETS, ONLINE_CHUNK, ONLINE_SLOTS, ONLINE_SPAN_S = \
+    24_000, 512, 2048, 120.0
+ONLINE_SEEDS = {"train": 0, "serve": 1, "recovery": 2}
+ONLINE_SEARCH = dict(algorithms=["dnn"], budget=6, n_init=3, seed=0)
+ONLINE_DETECTOR = dict(alpha=0.25, threshold=1.9, patience=3)
+ONLINE_BUFFER = 24
+ONLINE_WAIT_S = 600
+ONLINE_F1 = {"pre_drift": 0.85, "post_drift": 0.5, "post_swap": 0.85}
+# benchmarks/table4_fusion.py's configuration
+FUSION_DATA = dict(features=7, n_train=8192, n_test=4096)
+FUSION_HIDDEN, FUSION_EPOCHS, FUSION_BATCH = [24, 16], 10, 1024
+
+
+def serving_row(lat_s: list, rows: list) -> dict:
+    """Per-flush host latencies (submit to verdicts) and their packet
+    counts -> batches, pkt/s over their sum, p50 / p99 ms."""
+    import numpy as np
+
+    if not lat_s:
+        return {"batches": 0, "pkt_per_s": None, "lat_p50_ms": None,
+                "lat_p99_ms": None}
+    lat = np.asarray(lat_s)
+    return {"batches": len(lat), "pkt_per_s": float(sum(rows) / lat.sum()),
+            "lat_p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "lat_p99_ms": float(np.percentile(lat, 99) * 1e3)}
+
+
+def plain_online_twin(pipes, packets, offset):
+    """The plain twin of path_online's served stream, on CPU tensors: the
+    flow table walked in arrival order over every packet the engine
+    served (``flow_update_ref``; batching does not change it), then K1's
+    plain classifier (``suffix_scores``) of ``pipes[0]`` on the rows
+    before the install ``offset`` and of ``pipes[1]`` from it on ->
+    (keys, regs, scores [N, classes] numpy)."""
+    import torch
+
+    from repro_torch.kernels import fused_flow as ff
+    from repro_torch.kernels.flow_update import flow_update_ref
+
+    cpu = torch.device("cpu")
+    lowered = [multi_lowered(p.stages, cpu) for p in pipes]
+    tp = lowered[0][0][0]
+    check(all(lw[0][0][:5] == tp[:5] for lw in lowered), "path_online: the "
+          "served pipelines update their tables differently")
+    fk, ru = pipes[0].groups[0][:2]
+    x = torch.as_tensor(packets)
+    upd, bins = ru.prepare(x)
+    keys, regs, f = flow_update_ref(
+        torch.full((ru.spec.n_slots,), -1, dtype=torch.int32),
+        torch.zeros((ru.spec.n_slots, ru.spec.width)), fk.apply_keys(x),
+        upd, bins, torch.ones(len(x), dtype=torch.int32),
+        n_counters=tp.n_counters, n_ewma=tp.n_ewma, alpha=tp.alpha)
+    scores = []
+    for ((tpk,), sp, params, _), rows in zip(
+            lowered, (slice(0, offset), slice(offset, None))):
+        # each model reads the table out as its own lowering does
+        sc = ff.suffix_scores(ff.suffix_readout(f[rows], tpk), params, sp)
+        scores.append(sc[:, :sp.num_classes] if sp.kind == "mlp" else sc)
+    return keys, regs, torch.cat(scores, 0).numpy()
+
+
+def path_online(dev):
+    """The online loop on the card at ``examples/hot_swap.py``'s
+    configuration: concept_drift streams of 24,000 packets (seed 0 to
+    train, on phase A only; 1 to serve; 2, from its drift on, for the
+    recovery), 2,048 slots, chunks of 512, depth 2.  Each model comes from
+    ``stream_feature_dataset`` (the register replay on K2) and
+    ``dse.retrain_model`` (Taurus 16 x 16, dnn, budget 6, n_init 3, seed
+    0; trained on the card), its pipeline checked by ``mismatches`` (K3)
+    and served fused (K1).  A ``DriftDetector(alpha 0.25, threshold 1.9,
+    patience 3)`` on the packet-length column against the phase-A
+    snapshot drives a ``HotSwapController(buffer_windows=24)`` whose
+    retrain runs on a worker thread (its own CUDA stream) while the
+    serving thread goes on; while the retrain still runs after the
+    stream, a probe engine (the initial pipeline, telemetry off) serves
+    the stream again so that serving under a retrain is measured.
+    The retrain is held from parking until the drifting stream is served
+    (the example's gates assume a retrain that outlasts the stream; the
+    held time is reported, zero while the search is the slower).  Gates,
+    the example's: one episode, no errors, ``wait(600)``; the swap
+    installs at the next ``flush()``; keys and registers bit-identical
+    across the install; one verdict per packet on both sides of the
+    swap; F1 > 0.85 before the drift, < 0.5 on drifted traffic up to the
+    install, > 0.85 after the swap.
+    Also: the phase-A replay on K2 gives the same feature rows, bit for
+    bit, as the plain version on the CPU; and every verdict K1 served,
+    both models', is held under the margin rule against the plain twin
+    (``plain_online_twin``: the sequential table walk and K1's plain
+    classifier, switched at the install's packet offset), the engine's
+    final keys and registers equal to the twin's bit for bit.
+    -> launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import codegen, dse, mlalgos
+    from repro_torch.core.alchemy import Platforms
+    from repro_torch.core.traincache import CandidateCache
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import (
+        DriftDetector,
+        DriftSnapshot,
+        StatefulPipeline,
+    )
+    from repro_torch.kernels import _ext
+    from repro_torch.serve import HotSwapController, PacketServeEngine
+    from repro_torch.testing import verdict_mismatches
+
+    platform = Platforms.Taurus()
+    platform.constrain(resources={"rows": 16, "cols": 16})
+    stages, names = traffic.flow_feature_stages(n_slots=ONLINE_SLOTS)
+    cache = CandidateCache()
+    info, pipes = {}, {}
+
+    def drift_index(stream) -> int:
+        return int(np.searchsorted(stream.times,
+                                   ONLINE_SPAN_S * traffic.DRIFT_FRAC))
+
+    def search_pipeline(stream, tag):
+        t0 = time.perf_counter()
+        ds, mu, sd = traffic.stream_feature_dataset(
+            stream, stages, names, sample_every=2, device=dev.type)
+        t1 = time.perf_counter()
+        res = dse.retrain_model(platform, ds, name=tag, cache=cache,
+                                device=dev.type, **ONLINE_SEARCH)
+        outside, near = res.pipeline.mismatches(ds.test_x)
+        check(outside == 0, f"{tag}: {outside} verdicts of the generated "
+              "pipeline differ from its model outside the 1e-4 margin")
+        suffix = traffic.fold_input_standardization(
+            codegen.taurus_stages(res.trained), mu, sd)
+        pipe = StatefulPipeline(list(stages) + suffix, backend="cuda",
+                                device=dev.type)
+        info[tag] = {"rows": len(ds.train_x) + len(ds.test_x),
+                     "replay_s": t1 - t0, "dse_s": res.wall_s,
+                     "algorithm": res.algorithm, "f1": res.value,
+                     "widths": res.trained.topology.get("widths"),
+                     "verify_within_margin": near,
+                     "thread": threading.current_thread().name,
+                     "stream": (str(torch.cuda.current_stream(dev))
+                                if dev.type == "cuda" else None),
+                     "wall_s": time.perf_counter() - t0}
+        pipes[tag] = pipe
+        return pipe
+
+    def windows_to_stream(windows, flow_labels):
+        pkts = np.concatenate(windows, 0)
+        fids = pkts[:, traffic.COL_FLOW].astype(np.int32)
+        labels = np.array([flow_labels.get(int(f), 0) for f in fids],
+                          np.int32)
+        return traffic.PacketStream("concept_drift-retrain", pkts, labels,
+                                    fids, dict(flow_labels))
+
+    def serve_chunk(eng, chunk, lat, rows):
+        t = time.perf_counter()
+        eng.submit(chunk)
+        v = eng.flush()
+        lat.append(time.perf_counter() - t)
+        rows.append(len(chunk))
+        return v
+
+    train = traffic.make_stream("concept_drift", n_packets=ONLINE_PACKETS,
+                                seed=ONLINE_SEEDS["train"])
+    phase_a = train.slice(0, drift_index(train))
+    # the replay on K2 against its plain version on the CPU, bit for bit
+    on_card = traffic.stream_feature_dataset(phase_a, stages, names,
+                                             device=dev.type)
+    plain = traffic.stream_feature_dataset(phase_a, stages, names,
+                                           device="cpu")
+    for a, b in zip((on_card[0].train_x, on_card[0].test_x, *on_card[1:]),
+                    (plain[0].train_x, plain[0].test_x, *plain[1:])):
+        check(a.shape == b.shape and np.array_equal(
+            a.view(np.uint32), b.view(np.uint32)),
+            "path_online: the K2 replay's feature rows differ from the "
+            "plain version's")
+
+    _ext.reset_launches()
+    initial = search_pipeline(phase_a, "phase-a")
+    snapshot = DriftSnapshot.from_packets(
+        phase_a.packets, cols=(traffic.COL_LEN,), window=ONLINE_CHUNK)
+    serve = traffic.make_stream("concept_drift", n_packets=ONLINE_PACKETS,
+                                seed=ONLINE_SEEDS["serve"])
+    ev_drift = drift_index(serve)
+    rec = traffic.make_stream("concept_drift", n_packets=ONLINE_PACKETS,
+                              seed=ONLINE_SEEDS["recovery"])
+    rec = rec.slice(drift_index(rec))
+    engine = PacketServeEngine(initial, feature_dim=len(traffic.COLUMNS),
+                               max_batch=ONLINE_CHUNK, depth=2,
+                               device=dev.type)
+    probe = PacketServeEngine(initial, feature_dim=len(traffic.COLUMNS),
+                              max_batch=ONLINE_CHUNK, depth=2,
+                              device=dev.type, telemetry=False)
+    detector = DriftDetector(snapshot, **ONLINE_DETECTOR)
+    served = threading.Event()       # the drifting stream is served
+
+    def retrain(windows):
+        """The search, then a hold until the drifting stream is served:
+        the example's gates (one episode, the install at the flush after
+        the stream) assume a retrain that outlasts the stream, which a
+        faster one would not; the held time is reported."""
+        pipe = search_pipeline(windows_to_stream(windows, serve.flow_labels),
+                               "retrain")
+        t = time.perf_counter()
+        served.wait(ONLINE_WAIT_S)
+        info["retrain"]["held_s"] = time.perf_counter() - t
+        return pipe
+
+    ctrl = HotSwapController(engine, detector, retrain,
+                             buffer_windows=ONLINE_BUFFER)
+    seg = {k: ([], []) for k in ("before", "during", "held", "after")}
+    verdicts, fired_at, t_fire = [], None, None
+    for i, chunk in enumerate(serve.chunks(ONLINE_CHUNK)):
+        ctrl.observe(chunk)
+        if ctrl.episodes and fired_at is None:
+            fired_at, t_fire = i, time.perf_counter()
+        part = ("before" if fired_at is None else
+                "during" if "retrain" not in info else "held")
+        verdicts.append(serve_chunk(engine, chunk, *seg[part]))
+    verdicts = np.concatenate(verdicts)
+    served.set()
+    probe_chunks = list(serve.chunks(ONLINE_CHUNK))
+    k = 0
+    while ctrl.retraining and time.perf_counter() - t_fire < ONLINE_WAIT_S:
+        serve_chunk(probe, probe_chunks[k % len(probe_chunks)],
+                    *seg["during"])
+        k += 1
+    check(ctrl.episodes == 1, f"path_online: {ctrl.episodes} drift "
+          f"episodes, not 1 ({detector.report()})")
+    check(ctrl.wait(ONLINE_WAIT_S), "path_online: the retrain did not "
+          f"finish within {ONLINE_WAIT_S} s")
+    retrain_s = time.perf_counter() - t_fire
+    check(not ctrl.errors, f"path_online: retrain errors {ctrl.errors}")
+    pre_state = (engine.state.keys.clone(), engine.state.regs.clone())
+    swaps_before = engine.stats_.swaps
+    engine.flush()
+    check(engine.stats_.swaps == swaps_before + 1,
+          "path_online: the swap did not install at the next flush")
+    check(torch.equal(pre_state[0], engine.state.keys)
+          and torch.equal(pre_state[1], engine.state.regs),
+          "path_online: keys or registers changed across the install")
+    rec_verdicts = np.concatenate([
+        serve_chunk(engine, c, *seg["after"])
+        for c in rec.chunks(ONLINE_CHUNK)])
+    check(len(verdicts) == serve.n_packets
+          and len(rec_verdicts) == rec.n_packets,
+          "path_online: a verdict was dropped across the swap")
+    launches = dict(_ext.LAUNCHES)
+    stats = engine.stats()
+    off = min(stats["swap_pkt_offsets"][0], serve.n_packets)
+    # K1's verdicts, both models', and the tables against the plain twin
+    keys, regs, plain = plain_online_twin(
+        (pipes["phase-a"], pipes["retrain"]),
+        np.concatenate([serve.packets, rec.packets]),
+        stats["swap_pkt_offsets"][0])
+    bad, near = verdict_mismatches(
+        np.concatenate([verdicts, rec_verdicts]), plain)
+    check(bad == 0, f"path_online: {bad} served verdicts differ from the "
+          "plain twin's outside the 1e-4 margin")
+    check(torch.equal(keys, engine.state.keys.cpu())
+          and torch.equal(regs.view(torch.int32),
+                          engine.state.regs.cpu().view(torch.int32)),
+          "path_online: the served tables differ from the plain twin's")
+    f1 = mlalgos.f1_score
+    scores = {"pre_drift": f1(serve.labels[:ev_drift], verdicts[:ev_drift]),
+              "post_drift": f1(serve.labels[ev_drift:off],
+                               verdicts[ev_drift:off]),
+              "post_swap": f1(rec.labels, rec_verdicts)}
+    emit({"phase": "path_online", "packets": ONLINE_PACKETS,
+          "chunk": ONLINE_CHUNK, "slots": ONLINE_SLOTS,
+          "backend": engine.backend, "f1": scores,
+          "drift_fired_at_window": fired_at,
+          "drift_index": ev_drift, "models": info,
+          "twin_within_margin": near,
+          "retrain_wall_s": ctrl.report()["retrain_wall_s"],
+          "fire_to_parked_s": retrain_s,
+          "swap_lat_ms": stats["swap_lat_ms"],
+          "swap_pkt_offsets": stats["swap_pkt_offsets"],
+          "serving": {k: serving_row(*v) for k, v in seg.items()},
+          "probe_batches": k, "controller": ctrl.report(),
+          "journal": [e["kind"] for e in
+                      engine.telemetry().journal.events()],
+          "launches": launches, "nvidia_smi": nvidia_smi()})
+    check(scores["pre_drift"] > ONLINE_F1["pre_drift"]
+          and scores["post_drift"] < ONLINE_F1["post_drift"]
+          and scores["post_swap"] > ONLINE_F1["post_swap"],
+          f"path_online: F1 {scores} outside the example's gates "
+          f"{ONLINE_F1}")
+    return launches
+
+
+def strategy_result(dev):
+    """path_dag's seeded models "ad", "tc" and "ad_full" as a result the
+    Table-3 accounting reads: each leaf's trained model (``dnn_model``,
+    ``svm_model`` on the same weights) and its feasibility on Taurus 16 x
+    16, beside the pipeline path_dag serves."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import mlalgos
+    from repro_torch.core.alchemy import Platforms
+    from repro_torch.testing import AD_FULL_WIDTHS, AD_WIDTHS, he_mlp
+
+    platform = Platforms.Taurus()
+    platform.constrain(resources={"rows": 16, "cols": 16})
+    pipes = dag_models(dev)[0]
+    svm_w, svm_b = he_mlp((7, 2), 1)
+    trained = {
+        "ad": mlalgos.dnn_model(
+            [{"w": w, "b": b} for w, b in zip(*he_mlp(AD_WIDTHS, 0))],
+            list(AD_WIDTHS), 2, {}, device=dev),
+        "tc": mlalgos.svm_model(svm_w[0], svm_b[0], {}),
+        "ad_full": mlalgos.dnn_model(
+            [{"w": w, "b": b} for w, b in zip(*he_mlp(AD_FULL_WIDTHS, 2))],
+            list(AD_FULL_WIDTHS), 2, {}, device=dev)}
+    return {name: SimpleNamespace(
+                trained=tm, pipeline=pipes[name],
+                report=platform.check(tm.algorithm, tm.topology))
+            for name, tm in trained.items()}
+
+
+def path_fusion(dev):
+    """Paper Table 4 on the card at ``benchmarks/table4_fusion.py``'s
+    configuration: ``make_ad_dataset(features=7, n_train=8192,
+    n_test=4096)`` split in halves, two separate DNNs (``train_dnn``,
+    hidden [24, 16], 10 epochs) and one fused model (``fusion.fuse``,
+    the same), all trained on the card.  Gates: ``should_fuse``; the
+    fused CU under 0.7 x the separate sum (``TaurusModel``); both tasks'
+    F1 > 0.6 and within 0.1 of each other (``tests/test_alchemy_dse.py:
+    176-179``); each task's ``task_pipeline`` served through
+    ``PacketServeEngine`` at B = 1,024 on K3, its verdicts equal to
+    ``FusedModel.predict`` under the margin rule (1e-4).  Then Table 3:
+    ``strategy_table`` over path_dag's ``ad > tc``, ``ad | tc``, ``ad >
+    (tc | ad)`` and ``ad_full > tc``, the repeated model counted once
+    (its row equals ``ad > tc``'s) and ``ad > tc`` the sum of its two
+    models.  -> launches."""
+    import numpy as np
+
+    from repro_torch.core import chaining, fusion, mlalgos
+    from repro_torch.core.alchemy import Model
+    from repro_torch.core.feasibility import TaurusModel
+    from repro_torch.data import netdata
+    from repro_torch.kernels import _ext
+    from repro_torch.serve import PacketServeEngine
+
+    d = netdata.make_ad_dataset(**FUSION_DATA)
+    parts = d.split_half()
+    tm = TaurusModel()
+    want_backend = "cuda" if dev.type == "cuda" else "cpu-ref"
+    _ext.reset_launches()
+    rows = []
+    for name, part in zip(("AD: Part 1", "AD: Part 2"), parts):
+        t = time.perf_counter()
+        m = mlalgos.train_dnn(part, hidden=FUSION_HIDDEN,
+                              epochs=FUSION_EPOCHS, seed=0, device=dev.type)
+        est = tm.estimate("dnn", m.topology)["options"][0]
+        rows.append({"model": name, "pcu": est["cu"], "pmu": est["mu"],
+                     "f1": mlalgos.f1_score(part.test_y,
+                                            m.predict(part.test_x)),
+                     "train_s": time.perf_counter() - t})
+    check(fusion.should_fuse(*parts), "path_fusion: the halves should fuse")
+    t = time.perf_counter()
+    fused = fusion.fuse(list(parts), hidden=FUSION_HIDDEN,
+                        epochs=FUSION_EPOCHS, device=dev.type)
+    fuse_s = time.perf_counter() - t
+    est = tm.estimate("dnn", fused.fused_topology())["options"][0]
+    f1s = [fused.f1(0), fused.f1(1)]
+    rows.append({"model": "AD: Fused", "pcu": est["cu"], "pmu": est["mu"],
+                 "f1": f1s, "train_s": fuse_s})
+    sum_cu = rows[0]["pcu"] + rows[1]["pcu"]
+    served = []
+    for task in (0, 1):
+        pipe = fused.task_pipeline(task)
+        check(pipe.compiled_backend == want_backend,
+              f"path_fusion: task {task} serves on {pipe.compiled_backend}")
+        X = fused.datasets[task].test_x
+        eng = PacketServeEngine(pipe, feature_dim=X.shape[1],
+                                max_batch=FUSION_BATCH, depth=2,
+                                device=dev.type)
+        v = np.concatenate(list(eng.serve_stream(
+            X[i:i + FUSION_BATCH] for i in range(0, len(X), FUSION_BATCH))))
+        top = np.sort(fused.logits(task, X).astype(np.float64), 1)
+        near = top[:, -1] - top[:, -2] <= 1e-4
+        differ = v != fused.predict(task, X)
+        check(len(v) == len(X) and not (differ & ~near).any(),
+              f"path_fusion: task {task}'s K3 verdicts differ from "
+              "FusedModel.predict outside the 1e-4 margin")
+        served.append(dict(row_of(eng), task=task,
+                           within_margin=int((differ & near).sum())))
+    launches = dict(_ext.LAUNCHES)
+    result = strategy_result(dev)
+    ad, tc, full = (Model(n) for n in ("ad", "tc", "ad_full"))
+    strategies = {"ad > tc": ad > tc, "ad | tc": ad | tc,
+                  "ad > (tc | ad)": ad > (tc | ad),
+                  "ad_full > tc": full > tc}
+    table = chaining.strategy_table(strategies, result)
+    summary = {k: chaining.dag_stage_summary(n, result)["params"]
+               for k, n in strategies.items()}
+    by = {r["strategy"]: r for r in table}
+    emit({"phase": "path_fusion", "data": FUSION_DATA,
+          "hidden": FUSION_HIDDEN, "epochs": FUSION_EPOCHS, "table4": rows,
+          "fused_cu_over_separate": est["cu"] / sum_cu, "served": served,
+          "table3": table, "table3_params": summary,
+          "launches": launches, "nvidia_smi": nvidia_smi()})
+    check(est["cu"] < 0.7 * sum_cu, f"path_fusion: fused CU {est['cu']} "
+          f"not under 0.7 x {sum_cu}")
+    check(min(f1s) > 0.6 and abs(f1s[0] - f1s[1]) < 0.1,
+          f"path_fusion: fused F1 {f1s}")
+    check({k: v for k, v in by["ad > (tc | ad)"].items() if k != "strategy"}
+          == {k: v for k, v in by["ad > tc"].items() if k != "strategy"},
+          "path_fusion: the repeated model was counted twice")
+    check(by["ad > tc"]["cu"] == result["ad"].report.resources["cu"]
+          + result["tc"].report.resources["cu"],
+          "path_fusion: ad > tc is not the sum of its models")
+    check(summary["ad > (tc | ad)"] == summary["ad > tc"]
+          == result["ad"].trained.param_count
+          + result["tc"].trained.param_count,
+          f"path_fusion: Table-3 params {summary}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4465,6 +5006,8 @@ def main() -> int:
         by_path["path_lm_serve"] = path_lm_serve(dev)
         by_path["path_hybrid_serve"] = path_hybrid_serve(dev)
         by_path["path_generate"] = path_generate(dev)
+        by_path["path_online"] = path_online(dev)
+        by_path["path_fusion"] = path_fusion(dev)
         launches = {k: sum(p[k] for p in by_path.values())
                     for k, _, _ in KERNELS}
         for path, want in (("path_flow_ddos", ("fused_flow_serve",
@@ -4490,7 +5033,11 @@ def main() -> int:
                                "selective_scan_discretized",
                                "flash_attention")),
                            ("path_generate", ("fused_mlp_classify",
-                                              "mat_lut_classify"))):
+                                              "mat_lut_classify")),
+                           ("path_online", ("fused_flow_serve",
+                                            "flow_update",
+                                            "fused_mlp_classify")),
+                           ("path_fusion", ("fused_mlp_classify",))):
             for k in want:
                 check(by_path[path][k] > 0, f"{k} never launched on {path}")
         telemetry_phase(dev, mitigated_counts)

@@ -11,7 +11,12 @@ files) across as numpy arrays, and ``mitigation_from_numpy`` /
 ``dag_from_reference`` and ``pipelines_from_reference`` carry a model
 DAG and the pipelines it names; ``lm_params_from_reference`` an LM's
 parameter tree; ``trained_from_reference`` a trained model (its numpy
-parameters, topology and config) into the port's ``TrainedModel``.
+parameters, topology and config) into the port's ``TrainedModel``;
+``fused_from_reference`` a fused multi-task model (``core.fusion``) and
+``result_from_reference`` a whole ``GenerationResult``, its trained
+models, pipelines and ``FeasibilityReport``s, one port object for each
+reference object, so the Table-3 dedup (``chaining.dag_resources``)
+counts a shared model once in both packages.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import alchemy, mlalgos, stageir
+from repro_torch.data.netdata import Dataset
 from repro_torch.device import resolve_device
 from repro_torch.flowstate.mitigation import (
     MitigatedFlowState,
@@ -264,3 +270,84 @@ def trained_from_reference(trained, *, n_inputs: int | None = None,
                                   int(topo["depth"]),
                                   int(trained.num_classes), config)
     raise NotImplementedError(f"algorithm {algo!r}")
+
+
+def dataset_from_reference(d) -> Dataset:
+    """A reference ``netdata.Dataset`` (read by its fields) -> the
+    port's, the arrays as numpy."""
+    return Dataset(str(d.name), np.asarray(d.train_x),
+                   np.asarray(d.train_y), np.asarray(d.test_x),
+                   np.asarray(d.test_y), list(d.feature_names),
+                   int(d.num_classes))
+
+
+def fused_from_reference(fused, *, device="cuda"):
+    """A reference ``fusion.FusedModel`` -> the port's, with its numpy
+    params (trunk and heads) and its datasets carried across."""
+    from repro_torch.core.fusion import FusedModel
+
+    params = {part: [{"w": _f32(l["w"]), "b": _f32(l["b"])}
+                     for l in fused.params[part]]
+              for part in ("trunk", "heads")}
+    return FusedModel([int(w) for w in fused.trunk_widths],
+                      [int(h) for h in fused.heads], params,
+                      [dataset_from_reference(d) for d in fused.datasets],
+                      device=device)
+
+
+def report_from_reference(rep):
+    """A reference ``FeasibilityReport`` -> the port's."""
+    from repro_torch.core.feasibility import FeasibilityReport
+
+    return FeasibilityReport(bool(rep.feasible), list(rep.reasons),
+                             dict(rep.resources), float(rep.latency_ns),
+                             float(rep.throughput_pps))
+
+
+def result_from_reference(result, *, device="cuda"):
+    """A reference ``dse.GenerationResult`` -> the port's.  Each
+    reference object (``ModelResult``, trained model, pipeline, report)
+    maps to ONE port object, so leaves that share a trained model or a
+    pipeline in the reference share it in the port too.  Pipelines
+    compile for ``"cuda"`` (a reference ``"pallas"`` pipeline) or
+    ``"interpret"`` on ``device``; a result's BO history keeps each
+    observation's config, value and feasibility."""
+    from repro_torch.core import bo, codegen, dse
+
+    memo: dict[int, object] = {}
+
+    def once(obj, make):
+        if id(obj) not in memo:
+            memo[id(obj)] = make(obj)
+        return memo[id(obj)]
+
+    def trained(t):
+        return trained_from_reference(t, device=device)
+
+    def pipeline(p):
+        return codegen.Pipeline(
+            str(p.name), str(p.backend), str(p.algorithm),
+            stages_from_reference(p.stages), str(p.source),
+            once(p.report, report_from_reference), once(p.model, trained),
+            exec_backend="interpret" if p.exec_backend == "interpret"
+            else "cuda", device=device)
+
+    def model_result(r):
+        return dse.ModelResult(
+            name=str(r.name), algorithm=str(r.algorithm),
+            trained=once(r.trained, trained),
+            pipeline=once(r.pipeline, pipeline),
+            report=once(r.report, report_from_reference),
+            value=float(r.value), metric=str(r.metric),
+            history=[bo.Observation(dict(o.config), float(o.value),
+                                    bool(o.feasible), {})
+                     for o in r.history],
+            regret=[float(x) for x in r.regret], wall_s=float(r.wall_s))
+
+    return dse.GenerationResult(
+        platform_kind=str(result.platform_kind),
+        models={name: once(r, model_result)
+                for name, r in result.models.items()},
+        dag_report=(None if result.dag_report is None
+                    else report_from_reference(result.dag_report)),
+        schedule=str(result.schedule))

@@ -17,9 +17,18 @@ next model's.  A ``Par`` runs every child and merges the verdicts:
 
 The result is ``{name: pipeline}`` where a pipeline has ``.stages`` (and
 is callable for ``run_dag``), as ``convert.pipelines_from_reference``
-builds it, or a ``dse.GenerationResult``.  The resource accounting of
-the JAX module (``dag_resources``, ``dag_stage_summary``,
-``strategy_table``) is not ported yet.
+builds it, or a ``dse.GenerationResult``.
+
+The Table-3 accounting reads the result's reports and stage lists, with
+the reference's identical-model dedup (a model counted once however many
+leaves name it):
+
+  ``dag_resources``      the leaves' ``FeasibilityReport``s merged, one
+                         per distinct trained model (``id(r.trained)``);
+  ``dag_stage_summary``  stages, params and MACs summed over the distinct
+                         pipelines (``id(pipe)``);
+  ``strategy_table``     one row per chaining strategy: resources,
+                         latency and throughput.
 """
 
 from __future__ import annotations
@@ -187,3 +196,51 @@ def compile_dag(node, result, *, combine: str = "or", fuse: bool = True,
 
     return CompiledDag(lower(node), describe, n_models, model_backends, dev,
                        backend, rebuild, fallback_reason=reason)
+
+
+# ----------------------------------------------------------- accounting
+
+
+def dag_resources(node, result):
+    """Table-3 accounting: identical models counted once (shared
+    weights) -> the merged ``FeasibilityReport``."""
+    seen: set[int] = set()
+    rep = None
+    for m in node.leaves():
+        r = result[m.name]
+        if id(r.trained) in seen:
+            continue
+        seen.add(id(r.trained))
+        rep = r.report if rep is None else rep.merge(r.report)
+    if rep is None:
+        raise ValueError("a DAG without leaves has no resources")
+    return rep
+
+
+def dag_stage_summary(node, result) -> dict:
+    """Stage metadata over the DAG with identical-model dedup — the same
+    dedup rule as dag_resources, read off the pipelines' stage lists."""
+    seen: set[int] = set()
+    total = {"stages": [], "params": 0, "macs": 0}
+    for m in node.leaves():
+        pipe = pipeline_of(result, m.name)
+        if id(pipe) in seen:
+            continue
+        seen.add(id(pipe))
+        s = stageir.stage_summary(pipe.stages)
+        total["stages"] += s["stages"]
+        total["params"] += s["params"]
+        total["macs"] += s["macs"]
+    return total
+
+
+def strategy_table(strategies: dict, result) -> list[dict]:
+    """One row per chaining strategy: {strategy, cu/mu or mats, ...}."""
+    rows = []
+    for name, node in strategies.items():
+        rep = dag_resources(node, result)
+        row = {"strategy": name, **rep.resources}
+        row["latency_ns"] = round(rep.latency_ns, 1)
+        row["throughput_pps"] = rep.throughput_pps
+        rows.append(row)
+    return rows

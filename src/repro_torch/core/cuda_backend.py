@@ -235,9 +235,11 @@ def stages_decline_reason(stages, *, verdicts: bool = False) -> str | None:
 
 def suffix_in_plain_walk(stages) -> bool:
     """True for a split suffix the JAX package has no kernel for either
-    (a centroid classifier): it is walked in its plain form, reported
-    ``"interpret"``, as the JAX package reports it."""
-    return _match_centroid(_split_prelude(stages)[1]) is not None
+    (a centroid classifier, or no classifier at all: a features-only
+    pipeline, whose suffix is its readout): it is walked in its plain
+    form, reported ``"interpret"``, as the JAX package reports it."""
+    body = _split_prelude(stages)[1]
+    return not body or _match_centroid(body) is not None
 
 
 def stages_in_plain_walk(stages) -> bool:

@@ -205,19 +205,11 @@ def mlp_train(params: list[dict], masks: list[dict] | None,
             for layer in params for k in ("w", "b")]
     mflat = None if masks is None else \
         [layer[k] for layer in masks for k in ("w", "b")]
-    m = [torch.zeros_like(q) for q in flat]
-    v = [torch.zeros_like(q) for q in flat]
     # each tensor's lane learning rates, expanded to its shape once so the
     # update runs as whole-list (foreach) launches
     lr = [lrs.reshape((-1,) + (1,) * (q.dim() - 1)).expand_as(q).contiguous()
           for q in flat]
-    # bias corrections 1 - beta**t, computed in f32 as the JAX loop does
-    t = np.arange(1, idx.shape[0] + 1, dtype=np.float32)
-    bcs = torch.from_numpy(np.stack(
-        [np.float32(1) - np.float32(0.9) ** t,
-         np.float32(1) - np.float32(0.999) ** t], 1)).to(x.device)
-    rows = torch.empty_like(idx[0])              # this step's minibatch
-    bc = torch.empty_like(bcs[0])                # this step's corrections
+    m, v, bcs, rows, bc = adam_buffers(flat, idx)
     p = [{"w": flat[2 * k], "b": flat[2 * k + 1]} for k in range(n_layers)]
 
     def step():
@@ -231,24 +223,56 @@ def mlp_train(params: list[dict], masks: list[dict] | None,
         with torch.no_grad():
             if mflat is not None:
                 g = torch._foreach_mul(g, mflat)
-            torch._foreach_mul_(m, 0.9)
-            torch._foreach_add_(m, torch._foreach_mul(g, 0.1))
-            torch._foreach_mul_(v, 0.999)
-            torch._foreach_add_(
-                v, torch._foreach_mul(torch._foreach_mul(g, 0.001), g))
-            mh = torch._foreach_div(m, bc[0])
-            vh = torch._foreach_div(v, bc[1])
-            torch._foreach_sub_(flat, torch._foreach_div(
-                torch._foreach_mul(lr, mh),
-                torch._foreach_add(torch._foreach_sqrt(vh), 1e-8)))
+            adam_update(flat, g, m, v, bc, lr)
 
-    run = _Replayed(step) if x.device.type == "cuda" else step
+    run_steps(step, idx, bcs, rows, bc)
+    return [{"w": flat[2 * k].detach(), "b": flat[2 * k + 1].detach()}
+            for k in range(n_layers)]
+
+
+def adam_buffers(flat: list, idx: torch.Tensor) -> tuple:
+    """Adam's state for the tensors ``flat`` over the schedule ``idx``
+    ([nsteps, batch]) -> (m, v, bcs, rows, bc): zero moments, every
+    step's bias corrections 1 - beta**t ([nsteps, 2], in f32 as the JAX
+    loops compute them) and the two buffers one step reads its minibatch
+    rows and its corrections from, on ``idx``'s device."""
+    m = [torch.zeros_like(q) for q in flat]
+    v = [torch.zeros_like(q) for q in flat]
+    t = np.arange(1, idx.shape[0] + 1, dtype=np.float32)
+    bcs = torch.from_numpy(np.stack(
+        [np.float32(1) - np.float32(0.9) ** t,
+         np.float32(1) - np.float32(0.999) ** t], 1)).to(idx.device)
+    return m, v, bcs, torch.empty_like(idx[0]), torch.empty_like(bcs[0])
+
+
+def adam_update(flat: list, g: list, m: list, v: list, bc: torch.Tensor,
+                lr) -> None:
+    """One Adam update in place, in the JAX loops' expression order:
+    m = 0.9 m + 0.1 g, v = 0.999 v + 0.001 g g, p -= lr * (m / bc[0]) /
+    (sqrt(v / bc[1]) + 1e-8).  ``lr``: a float or one tensor per entry
+    of ``flat``."""
+    torch._foreach_mul_(m, 0.9)
+    torch._foreach_add_(m, torch._foreach_mul(g, 0.1))
+    torch._foreach_mul_(v, 0.999)
+    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 0.001),
+                                              g))
+    mh = torch._foreach_div(m, bc[0])
+    vh = torch._foreach_div(v, bc[1])
+    torch._foreach_sub_(flat, torch._foreach_div(
+        torch._foreach_mul(mh, lr),
+        torch._foreach_add(torch._foreach_sqrt(vh), 1e-8)))
+
+
+def run_steps(step, idx: torch.Tensor, bcs: torch.Tensor,
+              rows: torch.Tensor, bc: torch.Tensor) -> None:
+    """Run ``step`` once per row of ``idx``, its minibatch rows and bias
+    corrections copied into ``rows`` and ``bc`` first: eagerly on the
+    CPU, replayed as one CUDA graph on the card (``_Replayed``)."""
+    run = _Replayed(step) if rows.device.type == "cuda" else step
     for i in range(idx.shape[0]):
         rows.copy_(idx[i])
         bc.copy_(bcs[i])
         run()
-    return [{"w": flat[2 * k].detach(), "b": flat[2 * k + 1].detach()}
-            for k in range(n_layers)]
 
 
 class _Replayed:
@@ -256,7 +280,12 @@ class _Replayed:
     place) run eagerly for its first ``WARMUP`` calls on a side stream, as
     CUDA graph capture requires, then captured once; that call and every
     later one replay the graph: the same kernels in the same order, so
-    the same bits as the eager calls."""
+    the same bits as the eager calls.
+
+    The capture is ``capture_error_mode="thread_local"``: a retrain
+    worker (``serve.online``) captures while the serving thread waits on
+    events and allocates, which the default "global" mode would make
+    illegal calls that fail the capture."""
 
     WARMUP = 3
 
@@ -275,7 +304,8 @@ class _Replayed:
         else:
             if self.graph is None:
                 self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
+                with torch.cuda.graph(self.graph,
+                                      capture_error_mode="thread_local"):
                     self.fn()
             self.graph.replay()
         self.calls += 1

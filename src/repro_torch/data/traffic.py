@@ -11,11 +11,21 @@ Packet record (float32 row, ``COLUMNS`` order):
   ``dst_port``  destination port (bucketed small int)
 
 ``make_stream`` is deterministic in (scenario, seed, sizes) and gives the
-same packets as the reference for the same arguments.
+same packets as the reference for the same arguments; ``PacketStream.slice``
+cuts a packet-index window out of one.
 ``flow_feature_stages`` builds the port's stateful prefix,
-``fold_input_standardization`` folds an input standardisation into the
-port's first dense layer, and ``reaction_report`` measures detection and
-mitigation per attack flow from a verdict stream.
+``stream_feature_dataset`` replays a stream through it on the card (K2)
+into a standardised training set, ``fold_input_standardization`` folds
+that standardisation into the port's first dense layer, and
+``reaction_report`` measures detection and mitigation per attack flow
+from a verdict stream.
+
+Topology-aware serving (``switch_of_flow``, ``switch_streams``,
+``compose_streams``) pins every flow to an ingress switch and slices one
+stream into per-switch arrival-ordered views, and composes them back;
+``windowed_flow_stats`` collects per-window per-flow aggregates and
+``auto_label`` derives heuristic labels from them.  These are numpy
+copies of the reference's arithmetic.
 """
 
 from __future__ import annotations
@@ -64,6 +74,18 @@ class PacketStream:
         """Replayable chunk iterator (fresh, identical sequence per call)."""
         for s in range(0, len(self.packets), size):
             yield self.packets[s:s + size]
+
+    def slice(self, start: int, stop: int | None = None) -> "PacketStream":
+        """A contiguous packet-index window as its own stream (flow_labels
+        keep only flows that appear — reaction metrics stay per-segment)."""
+        sl = slice(start, stop)
+        fids = self.flow_ids[sl]
+        present = set(int(f) for f in np.unique(fids))
+        return PacketStream(
+            self.scenario, self.packets[sl], self.labels[sl], fids,
+            {f: l for f, l in self.flow_labels.items() if f in present},
+            None if self.times is None else self.times[sl],
+        )
 
 
 # ------------------------------------------------------------- flow shapes
@@ -304,6 +326,66 @@ def flow_feature_stages(*, n_slots: int = 2048, pl_bins: int = 16,
     return (fk, ru, ws), names
 
 
+def stream_feature_dataset(stream: PacketStream, stages, names, *,
+                           sample_every: int = 2, test_frac: float = 0.3,
+                           chunk: int = 1024, seed: int = 0,
+                           device="cuda"):
+    """Replay a stream through the register file and collect per-packet
+    (WindowStats features, flow label) pairs as a standardised
+    ``netdata.Dataset`` -> (dataset, mu, sd).
+
+    The replay is the port's own serving path on ``device``:
+    ``StatefulPipeline(stages, backend="cuda", fuse=False)`` behind a
+    ``PacketServeEngine``, so on the card the register update is K2
+    (Exact: the same feature rows, bit for bit, as the reference's
+    ``interpret`` replay) and the WindowStats readout the split path's
+    own.  ``mu``/``sd`` are the training split's feature moments; fold
+    them into the classifier's first layer
+    (``fold_input_standardization``) so the served pipeline takes raw
+    register rows."""
+    from repro_torch.data.netdata import Dataset
+    from repro_torch.flowstate.pipeline import StatefulPipeline
+    from repro_torch.serve.packet_engine import PacketServeEngine
+
+    sp = StatefulPipeline(list(stages), backend="cuda", fuse=False,
+                          device=device)
+    eng = PacketServeEngine(sp, feature_dim=len(COLUMNS), max_batch=chunk,
+                            device=device)
+    feats = []
+    for c in stream.chunks(chunk):
+        eng.submit(c)
+        feats.append(eng.flush())
+    X = (np.concatenate(feats, 0).astype(np.float32) if feats
+         else np.zeros((0, len(list(names))), np.float32))
+    y = stream.labels.astype(np.int32)
+    X, y = X[::sample_every], y[::sample_every]
+
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(len(X))
+    # degenerate guards: a stream shorter than one window still yields a
+    # usable dataset — both splits non-empty whenever >= 2 rows exist, a
+    # single row serves as its own train AND test, zero rows standardize
+    # with identity moments (never NaN)
+    if len(X) >= 2:
+        n_test = min(max(1, int(len(X) * test_frac)), len(X) - 1)
+        te, tr = perm[:n_test], perm[n_test:]
+    else:
+        te = tr = perm
+    if len(tr):
+        mu = X[tr].mean(0)
+        sd = X[tr].std(0) + 1e-6
+    else:
+        mu = np.zeros(X.shape[1], np.float32)
+        sd = np.ones(X.shape[1], np.float32)
+    ds = Dataset(
+        name=f"flowstats-{stream.scenario}",
+        train_x=((X[tr] - mu) / sd).astype(np.float32), train_y=y[tr],
+        test_x=((X[te] - mu) / sd).astype(np.float32), test_y=y[te],
+        feature_names=list(names), num_classes=2,
+    )
+    return ds, mu.astype(np.float32), sd.astype(np.float32)
+
+
 def fold_input_standardization(stages, mu: np.ndarray, sd: np.ndarray):
     """Fold ``(x - mu) / sd`` into the first dense layer of a classifier
     suffix so the served pipeline takes raw register rows:
@@ -333,6 +415,133 @@ def fold_input_standardization(stages, mu: np.ndarray, sd: np.ndarray):
     if not done:
         raise ValueError("no dense layer to fold the standardization into")
     return out
+
+
+# -------------------------------------------------- topology-aware streams
+
+
+def switch_of_flow(flow_ids: np.ndarray, n_switches: int) -> np.ndarray:
+    """Deterministic flow -> ingress-switch pinning (Knuth multiplicative
+    mix, so consecutive flow ids spread across switches)."""
+    h = np.asarray(flow_ids, np.int64).astype(np.uint32) * np.uint32(2654435761)
+    h ^= h >> np.uint32(16)
+    return (h % np.uint32(n_switches)).astype(np.int64)
+
+
+def switch_streams(stream: PacketStream, n_switches: int) -> list:
+    """Slice one stream into ``n_switches`` per-switch views: every flow is
+    pinned whole to one ingress switch, so per-flow inter-arrival gaps in
+    the packet records stay valid and each view is itself arrival-ordered.
+    A multi-switch deployment serves each view through its own engine."""
+    if n_switches < 1:
+        raise ValueError("n_switches must be >= 1")
+    sw = switch_of_flow(stream.flow_ids, n_switches)
+    out = []
+    for s in range(n_switches):
+        mask = sw == s
+        fids = stream.flow_ids[mask]
+        present = set(int(f) for f in np.unique(fids))
+        out.append(PacketStream(
+            f"{stream.scenario}@sw{s}", stream.packets[mask],
+            stream.labels[mask], fids,
+            {f: l for f, l in stream.flow_labels.items() if f in present},
+            None if stream.times is None else stream.times[mask],
+        ))
+    return out
+
+
+def compose_streams(streams, *, scenario: str | None = None) -> PacketStream:
+    """Merge time-stamped streams back into one arrival-ordered stream
+    (the inverse of ``switch_streams`` up to same-timestamp cross-flow
+    ties).  Flow labels merge with attack (1) winning on collision."""
+    streams = list(streams)
+    if not streams:
+        raise ValueError("need at least one stream to compose")
+    if any(s.times is None for s in streams):
+        raise ValueError("compose_streams requires timestamped streams")
+    packets = np.concatenate([s.packets for s in streams])
+    labels = np.concatenate([s.labels for s in streams])
+    fids = np.concatenate([s.flow_ids for s in streams])
+    times = np.concatenate([s.times for s in streams])
+    order = np.argsort(times, kind="stable")
+    flow_labels: dict = {}
+    for s in streams:
+        for f, l in s.flow_labels.items():
+            flow_labels[f] = max(flow_labels.get(f, 0), l)
+    name = scenario or streams[0].scenario.split("@", 1)[0]
+    return PacketStream(name, packets[order], labels[order], fids[order],
+                        flow_labels, times=times[order])
+
+
+# ------------------------------------- windowed stats + heuristic labeling
+
+
+def windowed_flow_stats(stream: PacketStream, *,
+                        window_s: float = 1.0) -> dict:
+    """Ryu-controller-style stat collection: aggregate the stream into
+    per-(time-window, flow) rows.  Returns a dict of equal-length arrays:
+    ``window``, ``flow_id``, ``pkt_count``, ``byte_count``, ``mean_len``,
+    ``mean_ipt`` (gap sum / packet count, first-packet gap counted as 0).
+    Requires timestamps and flow ids < 2^21 (``make_stream`` guarantees
+    both)."""
+    if stream.times is None:
+        raise ValueError("windowed_flow_stats requires timestamped streams")
+    if stream.n_packets == 0:
+        z = np.zeros(0)
+        return {"window": z.astype(np.int64), "flow_id": z.astype(np.int64),
+                "pkt_count": z.astype(np.int64), "byte_count": z,
+                "mean_len": z, "mean_ipt": z}
+    t = stream.times
+    win = np.floor((t - t[0]) / float(window_s)).astype(np.int64)
+    fid = stream.flow_ids.astype(np.int64)
+    if fid.max() >= (1 << 21):
+        raise ValueError("flow ids must be < 2^21 for windowed aggregation")
+    code = win * (1 << 21) + fid
+    uniq, inv = np.unique(code, return_inverse=True)
+    count = np.bincount(inv)
+    byte = np.bincount(inv, weights=stream.packets[:, COL_LEN].astype(np.float64))
+    iptsum = np.bincount(inv, weights=stream.packets[:, COL_IPT].astype(np.float64))
+    return {
+        "window": uniq >> 21,
+        "flow_id": uniq & ((1 << 21) - 1),
+        "pkt_count": count.astype(np.int64),
+        "byte_count": byte,
+        "mean_len": byte / count,
+        "mean_ipt": iptsum / count,
+    }
+
+
+def auto_label(stats: dict, *, flood_ipt_s: float = 4e-3,
+               flood_min_pkts: int = 10, volume_min_pkts: int = 450,
+               scan_max_pkts: int = 3, scan_max_len: float = 80.0) -> dict:
+    """Heuristic ground-truth labeling from windowed flow stats -> dict of
+    flow_id -> {0, 1}.  Three rules, each with analytic margin against the
+    benign generators in ``_benign_flows``:
+
+      flood   mean gap < ``flood_ipt_s`` over >= ``flood_min_pkts``
+              packets (benign bulk floors at ~10 ms gaps, floods run
+              <= 2.7 ms)
+      volume  total packets >= ``volume_min_pkts`` (benign bulk tops out
+              at 300; elephants and stealth-drift flows start at 500)
+      scan    <= ``scan_max_pkts`` packets of <= ``scan_max_len`` bytes
+              (benign flows all run >= 8 packets)
+    """
+    fid = np.asarray(stats["flow_id"])
+    count = np.asarray(stats["pkt_count"], np.float64)
+    byte = np.asarray(stats["byte_count"], np.float64)
+    iptsum = np.asarray(stats["mean_ipt"], np.float64) * count
+    flows, inv = np.unique(fid, return_inverse=True)
+    total = np.bincount(inv, weights=count)
+    mean_len = np.bincount(inv, weights=byte) / total
+    mean_ipt = np.bincount(inv, weights=iptsum) / total
+    is_flood = (mean_ipt < flood_ipt_s) & (total >= flood_min_pkts)
+    is_volume = total >= volume_min_pkts
+    is_scan = (total <= scan_max_pkts) & (mean_len <= scan_max_len)
+    label = (is_flood | is_volume | is_scan).astype(np.int64)
+    return {int(f): int(l) for f, l in zip(flows, label)}
+
+
+# -------------------------------------------------------- reaction metrics
 
 
 def reaction_report(stream: PacketStream, verdicts: np.ndarray) -> dict:

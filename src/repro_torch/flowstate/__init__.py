@@ -1,5 +1,7 @@
-"""Per-flow register file, the mitigation action table and the stateful
-serving pipeline."""
+"""Per-flow register file, the mitigation action table, the stateful
+serving pipeline and the drift detector of the online loop."""
+
+from repro_torch.flowstate.drift import DriftDetector, DriftSnapshot
 
 from repro_torch.flowstate.mitigation import (
     MITIGATED,

@@ -26,8 +26,9 @@ Backends, reported by ``backend`` as what actually serves:
   ``backend="cuda", fuse=False``  K2 per table, then K3 (MLP) or
                                   K4 (MAT) for the classifier
                                   (``"cuda"``).  Where the JAX package
-                                  has no kernel either — the action table
-                                  and a centroid classifier on the split
+                                  has no kernel either — the action table,
+                                  a centroid classifier and the readout of
+                                  a features-only pipeline on the split
                                   path — the part runs its plain version
                                   on the pipeline's device (the action
                                   table as whole-batch tensor operations

@@ -15,6 +15,7 @@ A failed build raises.  Nothing here hands over to a plain version.
 from __future__ import annotations
 
 import os
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -45,6 +46,10 @@ LAUNCHES = {"fused_flow_serve": 0, "flow_update": 0, "fused_mlp_classify": 0,
             "selective_scan_discretized": 0, "binarized_gemm": 0}
 
 _EXT = None
+# the online loop builds, launches and counts from a retrain worker while
+# the serving thread does the same: one build, and no lost count
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def header_define(name: str) -> int:
@@ -58,27 +63,32 @@ def header_define(name: str) -> int:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def extension():
-    """The loaded extension module, built on first call."""
+    """The loaded extension module, built on first call (once, whichever
+    threads ask)."""
     global _EXT
     if _EXT is None:
-        from torch.utils.cpp_extension import load
+        with _BUILD_LOCK:
+            if _EXT is None:
+                from torch.utils.cpp_extension import load
 
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        _EXT = load(
-            name="repro_torch_kernels",
-            sources=[str(s) for s in SOURCES],
-            build_directory=str(BUILD_DIR),
-            extra_include_paths=[str(_PKG / "csrc")],
-            extra_cuda_cflags=list(CUDA_FLAGS),
-            verbose=False,
-        )
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                _EXT = load(
+                    name="repro_torch_kernels",
+                    sources=[str(s) for s in SOURCES],
+                    build_directory=str(BUILD_DIR),
+                    extra_include_paths=[str(_PKG / "csrc")],
+                    extra_cuda_cflags=list(CUDA_FLAGS),
+                    verbose=False,
+                )
     return _EXT

@@ -165,6 +165,10 @@ class _InFlight:
     event: Any                     # CUDA event after the copy, or None
     ready: float | None            # completion time when known at dispatch
     mitigated: bool = False        # served by a pipeline with Mitigate
+    # the pipeline that served it, alive until its verdicts are fetched:
+    # one a swap retires is freed only after the card has finished with
+    # it, whichever stream its tensors were allocated on
+    pipeline: Any = None
 
 
 class _Callable:
@@ -423,6 +427,16 @@ class PacketServeEngine:
                 tm["deep_pkts"].inc(seg["n_deep"])
             tm["max_chain"].set(seg["max_chain"])
 
+    def _record_fetch(self, t0: float, end: float, n: int,
+                      dropped: int) -> None:
+        """A fetched batch: its latency, its span, its mitigated
+        packets."""
+        self._tm["batch_lat_ms"].observe((end - t0) * 1e3)
+        self._tel.tracer.record("batch", t0, end,
+                                args={"backend": self.backend, "rows": n})
+        if dropped:
+            self._tm["mitigated"].inc(dropped)
+
     def _scan_flow_health(self) -> None:
         """Flush-boundary scan of the live table (table 0's keys and the
         action table, copied to the host): occupancy, inserts and
@@ -568,6 +582,7 @@ class PacketServeEngine:
             flight = _InFlight(n, out, t0, None, time.perf_counter())
         flight.mitigated = getattr(self.pipeline, "mitigation",
                                    None) is not None
+        flight.pipeline = self.pipeline
         t1 = time.perf_counter()
         self.stats_.dispatch_s += t1 - t0
         self.stats_.count_batch(self.backend, n, pad)
@@ -590,12 +605,7 @@ class PacketServeEngine:
             self.stats_.wall_s += max(0.0, end - self._mark)
             self._mark = max(self._mark, end) if self._inflight else None
         if self._tel is not None:
-            self._tm["batch_lat_ms"].observe((end - f.t0) * 1e3)
-            self._tel.tracer.record(
-                "batch", f.t0, end,
-                args={"backend": self.backend, "rows": f.n})
-            if dropped:
-                self._tm["mitigated"].inc(dropped)
+            self._record_fetch(f.t0, end, f.n, dropped)
         return out
 
     def flush(self) -> np.ndarray:
@@ -637,9 +647,11 @@ class PacketServeEngine:
     def swap(self, pipeline, *, backend: str | None = None) -> None:
         """Install ``pipeline`` at the next dispatch-ring boundary.  It is
         recompiled for this engine's device (and for ``backend`` when
-        given) and warmed here, on the caller's thread; the serving path
-        only adopts it.  A swap that changes statefulness raises: that is
-        a different engine, not a new model."""
+        given) and warmed here, on the caller's thread and current
+        stream; the serving path only adopts it, its stream first waiting
+        on the card for what the caller's stream wrote.  A swap that
+        changes statefulness raises: that is a different engine, not a
+        new model."""
         t_req = time.perf_counter()
         if hasattr(pipeline, "init_state") != self._stateful:
             old, new = (("stateful", "stateless") if self._stateful
@@ -648,13 +660,20 @@ class PacketServeEngine:
                              f"is {old}, new pipeline is {new}")
         pipeline = self._compiled(pipeline, backend)
         ring = self._prepare_swap(pipeline)
+        ready = None
+        if self.device.type == "cuda":
+            # the hand-off: the install makes the serving stream wait for
+            # this point of the stream the caller built and warmed the
+            # pipeline on (a retrain worker's own)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
         if self._tel is not None:
             self._tel.tracer.record(
                 "swap_prepare", t_req, time.perf_counter(), cat="swap",
                 args={"backend": pipeline.backend})
             self._journal_fallback(pipeline, backend, during="swap")
         with self._swap_lock:
-            self._pending_swap = (pipeline, ring, t_req)
+            self._pending_swap = (pipeline, ring, t_req, ready)
 
     @property
     def swap_pending(self) -> bool:
@@ -673,9 +692,11 @@ class PacketServeEngine:
             pending, self._pending_swap = self._pending_swap, None
         if pending is None:
             return
-        pipeline, ring, t_req = pending
+        pipeline, ring, t_req, ready = pending
         old_backend = self.backend
         t0 = time.perf_counter()
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
         self._install_swap(pipeline, ring)
         t1 = time.perf_counter()
         lat_s = t1 - t_req

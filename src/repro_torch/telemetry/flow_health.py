@@ -95,7 +95,12 @@ def batch_segmentation(slots: np.ndarray, *,
     deeper than ``par_rounds`` (the drain set), and the drain-heavy
     flag ``n_deep * 8 > n_live * 7`` — the drain-dominated traffic
     shape (the reference's kernel serves it by its compacted drain; the
-    port's K1 walks every chain, so here it describes traffic only)."""
+    port's K1 walks every chain, so here it describes traffic only).
+
+    A slot's packets take ranks 0 .. count - 1, so the statistics follow
+    from the per-slot counts alone: ``n_deep`` is the sum of
+    ``max(0, count - par_rounds)`` and ``max_chain`` the largest count —
+    the reference's values without its sort."""
     if par_rounds is None:
         par_rounds = PAR_ROUNDS
     slots = np.asarray(slots)
@@ -103,18 +108,11 @@ def batch_segmentation(slots: np.ndarray, *,
     if n_live == 0:
         return {"n_live": 0, "n_deep": 0, "max_chain": 0,
                 "drain_heavy": False}
-    order = np.argsort(slots, kind="stable")
-    ss = slots[order]
-    new_seg = np.empty(n_live, bool)
-    new_seg[0] = True
-    new_seg[1:] = ss[1:] != ss[:-1]
-    seg_id = np.cumsum(new_seg) - 1
-    seg_start = np.flatnonzero(new_seg)
-    rank = np.arange(n_live) - seg_start[seg_id]
-    n_deep = int(np.sum(rank >= par_rounds))
+    counts = np.bincount(slots)          # slots are table indices, >= 0
+    n_deep = int(np.maximum(counts - par_rounds, 0).sum())
     return {
         "n_live": n_live,
         "n_deep": n_deep,
-        "max_chain": int(rank.max()) + 1,
+        "max_chain": int(counts.max()),
         "drain_heavy": bool(n_deep * 8 > n_live * 7),
     }

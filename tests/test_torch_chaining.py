@@ -13,7 +13,14 @@ logits within ``testing.MARGIN`` (1e-4), and exact where no MLP leaf
 decides (the centroid and tree leaves and the gating are exact).  The
 reported backends map ``pallas`` -> ``cpu-ref`` (``cuda`` on the card),
 ``pallas-fused-dag`` -> ``cpu-ref-fused-dag``, and ``interpret`` and
-``mixed`` unchanged."""
+``mixed`` unchanged.
+
+The Table-3 accounting (``dag_resources``, ``dag_stage_summary``,
+``strategy_table``) runs over a JAX ``GenerationResult`` and its
+``convert.result_from_reference``: resources, latency, throughput and
+stage sums equal (Exact), with the identical-model dedup — a name
+aliased to one result, and two results sharing one trained model and
+pipeline, count once in both packages."""
 
 import numpy as np
 import pytest
@@ -163,3 +170,93 @@ def test_compile_dag_rejects_unknown_options(tpipes):
         chaining.compile_dag(node, tpipes, combine="xor", device="cpu")
     with pytest.raises(KeyError):
         chaining.run_dag(node, tpipes, np.zeros((2, 7)), combine="xor")
+
+
+# ------------------------------------------------------------ accounting
+
+
+@pytest.fixture(scope="module")
+def jresult(jpipes):
+    """A JAX ``GenerationResult`` on Taurus 16 x 16: "dnn" and "svm" with
+    their own reports, "dnn_copy" the same ``ModelResult`` as "dnn" (as
+    ``generate`` aliases chained copies), "dnn_twin" another result
+    sharing the DNN's trained model and pipeline, and "km"."""
+    from homunculus.alchemy import Platforms as JPlatforms
+    from repro.core import dse as jdse
+
+    p = JPlatforms.Taurus()
+    p.constrain(resources={"rows": 16, "cols": 16})
+
+    def result(name, pipe, value):
+        tm = pipe.model
+        return jdse.ModelResult(
+            name=name, algorithm=tm.algorithm, trained=tm, pipeline=pipe,
+            report=p.check(tm.algorithm, tm.topology), value=value,
+            metric="f1", history=[], regret=[value], wall_s=0.5)
+
+    models = {"dnn": result("dnn", jpipes["dnn"], 0.8),
+              "svm": result("svm", jpipes["svm"], 0.7),
+              "km": result("km", jpipes["km"], 0.6)}
+    models["dnn_copy"] = models["dnn"]
+    twin = result("dnn_twin", jpipes["dnn"], 0.8)
+    twin.report = models["dnn"].report
+    models["dnn_twin"] = twin
+    return jdse.GenerationResult(p.kind, models, None, "dnn > svm")
+
+
+def _strategies(model):
+    return {"seq": model("dnn") > model("svm"),
+            "copies": (model("dnn") > model("dnn_copy")) > model("dnn"),
+            "twin": model("dnn") | model("dnn_twin"),
+            "mixed": (model("dnn") > (model("svm") | model("dnn_copy")))
+            > model("km"),
+            "one": model("svm")}
+
+
+def test_result_from_reference_keeps_sharing(jresult):
+    tr = convert.result_from_reference(jresult, device="cpu")
+    assert set(tr.models) == set(jresult.models)
+    assert tr["dnn_copy"] is tr["dnn"]
+    assert tr["dnn_twin"] is not tr["dnn"]
+    assert tr["dnn_twin"].trained is tr["dnn"].trained
+    assert tr["dnn_twin"].pipeline is tr["dnn"].pipeline
+    for name, r in jresult.models.items():
+        t = tr[name]
+        assert t.report.resources == r.report.resources
+        assert t.report.latency_ns == r.report.latency_ns
+        assert t.trained.param_count == r.trained.param_count
+        assert t.pipeline.stage_summary() == r.pipeline.stage_summary()
+        assert t.summary() == r.summary()
+
+
+def test_accounting_matches_reference(jresult):
+    tr = convert.result_from_reference(jresult, device="cpu")
+    js, ts = _strategies(_m), _strategies(alchemy.Model)
+    for k in js:
+        a = jchaining.dag_resources(js[k], jresult)
+        b = chaining.dag_resources(ts[k], tr)
+        assert (b.feasible, b.reasons, b.resources, b.latency_ns,
+                b.throughput_pps) == (a.feasible, a.reasons, a.resources,
+                                      a.latency_ns, a.throughput_pps), k
+        assert chaining.dag_stage_summary(ts[k], tr) == \
+            jchaining.dag_stage_summary(js[k], jresult), k
+    assert chaining.strategy_table(ts, tr) == \
+        jchaining.strategy_table(js, jresult)
+    # the dedup: copies and a shared trained model count once
+    one = chaining.dag_resources(alchemy.Model("dnn"), tr).resources
+    for k in ("copies", "twin"):
+        assert chaining.dag_resources(ts[k], tr).resources == one
+    assert chaining.dag_stage_summary(ts["copies"], tr)["params"] == \
+        tr["dnn"].trained.param_count
+
+
+def test_accounting_over_bare_pipelines(tpipes):
+    """``dag_stage_summary`` reads a ``{name: pipeline}`` result too
+    (``tests/test_stageir_chaining.py:343``)."""
+    from repro_torch.core import stageir
+
+    a = alchemy.Model("dnn")
+    s = chaining.dag_stage_summary((a > a) > a, tpipes)
+    assert s == stageir.stage_summary(tpipes["dnn"].stages)
+    with pytest.raises(ValueError):
+        chaining.dag_resources(alchemy.Par([]), {})

@@ -36,7 +36,9 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.core.designspace", "repro_torch.core.surrogate",
         "repro_torch.core.bo", "repro_torch.core.traincache",
         "repro_torch.core.feasibility", "repro_torch.core.codegen",
-        "repro_torch.core.dse", "repro_torch.facade"} <= set(names), names
+        "repro_torch.core.dse", "repro_torch.facade",
+        "repro_torch.flowstate.drift", "repro_torch.serve.online",
+        "repro_torch.core.fusion"} <= set(names), names
 """
 
 

@@ -50,7 +50,14 @@ one process a checkout, after one build):
 - ``kernels_time_bgemm``: K9 on seeded f32 operands at ``BGEMM_SHAPES``;
   prints wrapper ms (as above), device ms (every kernel of the call), a
   SHA-256 of the result and ``torch._int_mm``'s ms on the pre-signed
-  operands with the second one row-major and column-major.
+  operands with the second one row-major and column-major;
+- ``telemetry_hooks``: the smoke's flow-ddos fused engine at B = 512
+  (``TEL_HOOK_PASSES`` passes of its stream): telemetry off and on in
+  turns (``TEL_HOOK_ROUNDS`` rounds: pkt/s, the engine's ``dispatch_s``
+  and the pass's whole host time per batch), then every recording site
+  timed on a third engine by THIS tree's ``chip_smoke.hook_costs``
+  (which wraps only what every version of the engine has), so that the
+  sites of two checkouts' engines are timed by one instrument.
 
 Each further argument is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -68,10 +75,13 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 PHASES = ("path_lm_serve", "kernels_time", "kernels_time_dag", "mlp_bits",
           "path_dag", "kernels_time_lm", "kernels_time_scan",
-          "path_hybrid_serve", "kernels_time_mat", "kernels_time_bgemm")
+          "path_hybrid_serve", "kernels_time_mat", "kernels_time_bgemm",
+          "telemetry_hooks")
+TEL_HOOK_ROUNDS, TEL_HOOK_PASSES = 4, 5
 MAT_BATCHES = (1, 1024, 2048, 8192)
 BGEMM_SHAPES = ((1024, 128, 128), (4096, 4096, 4096))
 # kernels_time_lm's shapes on every checkout: name, B, Sq, Skv, H, K,
@@ -288,6 +298,56 @@ def bgemm_numbers(chip_smoke, dev) -> dict:
     return out
 
 
+def telemetry_hook_numbers(chip_smoke, dev) -> dict:
+    """Telemetry off and on in turns, then each recording site, on this
+    checkout's engine, timed by this tool's tree's ``hook_costs``."""
+    import importlib.util
+
+    import numpy as np
+
+    from repro_torch.data import traffic
+
+    spec = importlib.util.spec_from_file_location(
+        "tool_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    tool = importlib.util.module_from_spec(spec)
+    path = list(sys.path)
+    spec.loader.exec_module(tool)       # it puts its own src/ first: undo
+    sys.path[:] = path
+    stages = chip_smoke.flow_ddos_stages(chip_smoke.S_KERNEL)
+    stream = traffic.make_stream("ddos_burst", n_packets=chip_smoke.N_PACKETS,
+                                 seed=chip_smoke.STREAM_SEED)
+    engines = {mode: chip_smoke.serve_engine(stages, "cuda", True, 512, dev,
+                                             telemetry=tel)
+               for mode, tel in (("off", False), ("on", None))}
+    out = {m: {"pkt_per_s": [], "dispatch_us": [], "host_us": []}
+           for m in engines}
+    for eng in engines.values():
+        for _ in eng.serve_stream(stream.chunks(512)):
+            pass
+    for _ in range(TEL_HOOK_ROUNDS):
+        for mode, eng in engines.items():
+            st = eng.stats_
+            p0, w0, b0, d0 = st.packets, st.wall_s, st.batches, st.dispatch_s
+            t = time.perf_counter()
+            for _ in range(TEL_HOOK_PASSES):
+                for _ in eng.serve_stream(stream.chunks(512)):
+                    pass
+            host = time.perf_counter() - t
+            nb = st.batches - b0
+            out[mode]["pkt_per_s"].append((st.packets - p0)
+                                          / (st.wall_s - w0))
+            out[mode]["dispatch_us"].append((st.dispatch_s - d0) / nb * 1e6)
+            out[mode]["host_us"].append(host / nb * 1e6)
+    out["pair_ratios"] = [a / b for a, b in zip(out["on"]["pkt_per_s"],
+                                                out["off"]["pkt_per_s"])]
+    out["median_pair_ratio"] = float(np.median(out["pair_ratios"]))
+    out["hook_sites"] = tool.hook_costs(
+        chip_smoke.serve_engine(stages, "cuda", True, 512, dev),
+        lambda: stream.chunks(512), TEL_HOOK_PASSES)
+    return out
+
+
 def run_phase(chip_smoke, phase: str, fn) -> dict:
     """Call ``fn`` with the smoke's ``emit`` caught -> the row it emitted
     for ``phase``."""
@@ -323,7 +383,8 @@ def one(phase: str, root: str) -> None:
             "kernels_time_scan": scan_numbers,
             "path_hybrid_serve": hybrid_numbers,
             "kernels_time_mat": mat_numbers,
-            "kernels_time_bgemm": bgemm_numbers}
+            "kernels_time_bgemm": bgemm_numbers,
+            "telemetry_hooks": telemetry_hook_numbers}
     for name in phase.split(","):
         print(json.dumps({"phase": name, "root": root, "build_s": build_s,
                           "card": chip_smoke.nvidia_smi(),
