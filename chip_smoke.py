@@ -236,6 +236,30 @@ repeated model counted once).  ``telemetry`` also reports each
 recording site's host cost per batch (``hook_costs``) and the host
 dispatch time per batch with telemetry off and on, in turns.
 
+Slice 14 adds sharded packet serving and the MoE family.
+``path_sharded`` (after ``path_two_table``) serves flow-ddos (K1, or K2 +
+K3) and mitigate-fused (K1, or K2 + K4 and the graphed action table),
+16,000 ddos_burst packets, B = 512, depth 2, through
+``ShardedPacketServeEngine`` with the card listed 1, 2 and 4 times (each
+entry a shard with its own table): each shard's tables and verdicts bit
+for bit those of a single-device ``backend="cuda"`` engine fed that
+shard's rows in arrival order; its tables bit for bit the plain walk's,
+MAT and mitigated verdicts exact against ``interpret``, MLP verdicts
+under the margin rule; ``serve_route_overflow_total`` equal to the
+push-backs ``route_prefix`` gives replayed on the host; ``shards == n``;
+the routed dispatch silent under ``set_sync_debug_mode("error")``; a
+mid-stream swap at n = 4 to twice the slots, each shard's table then
+``migrate_state`` of its own; ``ad > tc`` on K6 over 4 shards row for row
+the single-device engine's.  pkt/s and p50 / p99 per n are reported, not
+gated.  ``path_moe_serve`` (after ``path_hybrid_serve``, whose weights
+it frees first) serves Moonshot-v1-16B-A3B through ``ServeEngine``: in
+bf16 at full width and depth (48 layers, 56.1 GB), K7 48 x (prefill +
+decode calls) launches, with per-block gates (layer 0's attention on K7,
+its MoE FFN against a plain per-expert gather); in f32 at 8 layers,
+prefill logits within 0.1 of ``interpret``, tokens under the 0.2
+margin, teacher forcing on a drop-free rerun.  A ``{"phase": "total"}``
+line gives the smoke's seconds.
+
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 exits 1; a missing GPU, torch or ``src/repro_torch`` exits 2 and prints
@@ -3721,17 +3745,18 @@ def kernels_time_scan(dev):
     return out
 
 
-def hybrid_requests(vocab: int):
-    """Round 1 then round 2 of ``HY_ROUNDS``, four requests each, seeded:
-    the first three prompts of a round draw their lengths, the last takes
-    the round's longest."""
+def hybrid_requests(vocab: int, rounds=HY_ROUNDS):
+    """Round 1 then round 2 of ``rounds`` (lowest and longest prompt
+    length, new tokens), four requests each, seeded: the first three
+    prompts of a round draw their lengths, the last takes the round's
+    longest."""
     import numpy as np
 
     from repro_torch.serve.engine import Request
 
     rng = np.random.default_rng(HY_SEED + 1)
     reqs = []
-    for lo, hi, new in HY_ROUNDS:
+    for lo, hi, new in rounds:
         lens = [int(n) for n in rng.integers(lo, hi + 1, LM_SLOTS - 1)]
         for n in lens + [hi]:
             reqs.append(Request(rid=len(reqs), prompt=rng.integers(
@@ -3804,12 +3829,13 @@ def first_diffs(params, cfg, reqs, preqs, experts, dev):
     return out
 
 
-def teacher_forcing(params, cfg, reqs, experts, dev) -> dict:
+def teacher_forcing(params, cfg, reqs, experts, dev,
+                    backend: str = "cuda") -> dict:
     """One lockstep batch of served requests against a teacher-forced
-    forward over its prompts and new tokens: per request the share of
-    new tokens equal to that forward's argmax, each miss with the
-    forward's margin between its argmax and the served token, and the
-    forward's MoE drop fraction (summed over the layers)."""
+    forward (on ``backend``) over its prompts and new tokens: per request
+    the share of new tokens equal to that forward's argmax, each miss
+    with the forward's margin between its argmax and the served token,
+    and the forward's MoE drop fraction (summed over the layers)."""
     import torch
 
     from repro_torch.models.transformer import forward
@@ -3817,7 +3843,7 @@ def teacher_forcing(params, cfg, reqs, experts, dev) -> dict:
     (S, toks, group), = lm_batches(reqs)
     with torch.no_grad():
         tf, _, aux = forward(params, cfg, tokens=torch.as_tensor(
-            toks, device=dev), mode="train", backend="cuda",
+            toks, device=dev), mode="train", backend=backend,
             experts=experts)
     tf = tf[:, S - 1:-1].float()
     pred = tf.argmax(-1)
@@ -3892,25 +3918,33 @@ def block_input(params, cfg, layer: int, norm: str, toks, dev):
     return rmsnorm(p[norm], embed(params["embed"], x), cfg.norm_eps)
 
 
-def bf16_close(got, want, what: str) -> float:
-    """Finite, and within ``K7_TOL["bfloat16"]`` of max(1, |plain|), as
-    K7's bf16 cases: one bf16 step of each value (the attention outputs
-    reach 32 and more, the reference's init scaling wk and wv by their
-    K dim) -> the max abs difference."""
+def block_close(got, want, what: str, spread: float = 0.0) -> float:
+    """Finite, and in bf16 within ``K7_TOL["bfloat16"]`` of max(1,
+    |plain|), as K7's bf16 cases: one bf16 step of each value (the
+    attention outputs reach 32 and more, the reference's init scaling wk
+    and wv by their K dim); in f32 within ``K7_TOL["float32"]`` of the
+    block output's scale, max(1, max |plain|) (K7's f32 cases hold 1e-5
+    on unit-scale inputs), plus twice ``spread``, how far the plain
+    version itself moves when it takes the kernel's summation order ->
+    the max abs difference."""
     import torch
 
     d = (got.float() - want.float()).abs()
     err = float(d.max())
-    check(bool(torch.isfinite(got).all()) and bool(
-        (d <= K7_TOL["bfloat16"] * want.float().abs().clamp_min(1.0)).all()),
-        f"{what}: differs from its plain version by {err}")
+    if got.dtype == torch.bfloat16:
+        bound = K7_TOL["bfloat16"] * want.float().abs().clamp_min(1.0)
+    else:
+        bound = K7_TOL["float32"] * max(1.0, float(want.abs().max())) \
+            + 2 * spread
+    check(bool(torch.isfinite(got).all()) and bool((d <= bound).all()),
+          f"{what}: differs from its plain version by {err}")
     return err
 
 
 def mamba_block_check(params, cfg, toks, dev) -> dict:
     """Layer 0's Mamba mixer on K8 against its plain scan: a prefill of
     toks[:, :-1], then one decode step from each one's state; outputs by
-    ``bf16_close``, states within ``K8_TOL`` x (1 + |plain|), the conv
+    ``block_close``, states within ``K8_TOL`` x (1 + |plain|), the conv
     state exact."""
     import torch
 
@@ -3930,60 +3964,89 @@ def mamba_block_check(params, cfg, toks, dev) -> dict:
             check(bool((dh <= K8_TOL * (1 + pst["h"].abs())).all())
                   and torch.equal(st["conv"], pst["conv"]),
                   f"Mamba block {step}: states differ by {float(dh.max())}")
-            errs[step] = {"out": bf16_close(o, po, f"Mamba block {step}"),
+            errs[step] = {"out": block_close(o, po, f"Mamba block {step}"),
                           "h": float(dh.max())}
     return errs
 
 
-def attention_block_check(params, cfg, toks, dev) -> dict:
-    """Layer P // 2's attention on K7 against plain attention: the causal
-    prefill of toks[:, :-1], then one decode step at index S against the
-    [B, max_seq] cache that prefill wrote, as the engine calls them; the
-    attention outputs (before the output projection) by
-    ``bf16_close``."""
+def attention_block_check(params, cfg, toks, dev, *, layer=None,
+                          h=None) -> dict:
+    """Layer P // 2's (or ``layer``'s) attention on K7 against plain
+    attention: the causal prefill of toks[:, :-1], then one decode step at
+    index S against the [B, max_seq] cache that prefill wrote, as the
+    engine calls them; the attention outputs (before the output
+    projection) by ``block_close``.  In f32 the ``spread`` it allows is
+    the distance from the plain attention of the plain decomposition of
+    the kernel the call takes (``k7_split_ref``; reported, with the
+    kernel's own distance from it): at the path's score magnitudes, a
+    few hundred, the summation order alone moves f32 outputs by about
+    2e-5 of their scale.  ``h``: the block's normed input when the caller has it
+    (else the tokens embedded and normed)."""
     import torch
 
     from repro_torch.models import attention as attn
     from repro_torch.serve.steps import init_cache
 
-    i = cfg.attn_period // 2
+    i = cfg.attn_period // 2 if layer is None else layer
     p = params["layers"][i]["attn"]
-    h = block_input(params, cfg, i, "ln1", toks, dev)
+    if h is None:
+        h = block_input(params, cfg, i, "ln1", toks, dev)
     B, S = h.shape[0], h.shape[1] - 1
     kv = {name: t[0] for name, t in init_cache(
-        cfg, B, LM_MAX_SEQ, device=dev)[f"slot{i}"]["kv"].items()}
+        cfg, B, LM_MAX_SEQ, device=dev)[f"slot{i % max(1, cfg.attn_period)}"][
+        "kv"].items()}
     with torch.no_grad():
         pos = torch.arange(S, device=dev)
         q = attn.project_q(p, h[:, :S], cfg, pos)
         k, v = attn.project_kv(p, h[:, :S], cfg, pos)
         pre = {b: attn.prefill_attention(q, k, v, backend=b)
                for b in ("cuda", "interpret")}
+        pre["qkv"] = (q, k, v)
         attn.cache_update_tree(kv, k, v, 0)
         q = attn.project_q(p, h[:, S:], cfg, pos[-1:] + 1)
         k, v = attn.project_kv(p, h[:, S:], cfg, pos[-1:] + 1)
         attn.cache_update_tree(kv, k, v, S)
         dec = {b: attn.decode_attention_tree(q, kv, S, backend=b)
                for b in ("cuda", "interpret")}
-    return {"prefill": bf16_close(pre["cuda"], pre["interpret"],
-                                  "attention block prefill"),
-            "decode": bf16_close(dec["cuda"], dec["interpret"],
-                                 "attention block decode")}
+        if h.dtype == torch.float32:
+            kc, vc = attn._materialize_kv(kv)
+            split = {"prefill": k7_split_ref(dev, *pre["qkv"], pre[
+                "qkv"][1].shape[1], causal=True, window=0, q_offset=0),
+                "decode": k7_split_ref(dev, q, kc, vc, kc.shape[1],
+                                       causal=True, window=0, q_offset=S)}
+    out = {}
+    for step, got in (("prefill", pre), ("decode", dec)):
+        what = f"layer {i} attention block {step}"
+        if h.dtype != torch.float32:
+            out[step] = block_close(got["cuda"], got["interpret"], what)
+            continue
+        spread = float((split[step].float() - got["interpret"].float())
+                       .abs().max())
+        out[step] = block_close(got["cuda"], got["interpret"], what,
+                                spread)
+        out[f"{step}_split_spread"] = spread
+        out[f"{step}_vs_split"] = float(
+            (got["cuda"].float() - split[step].float()).abs().max())
+    return out
 
 
-def moe_block_check(params, cfg, toks, experts, dev) -> dict:
+def moe_block_check(params, cfg, toks, experts, dev, *, layer: int = 0,
+                    x=None) -> dict:
     """Layer 0's MoE FFN (``moe_apply``: capacity dispatch, the held
     experts' batched SwiGLU, combine) against a plain gather: each held
     expert's SwiGLU on the tokens its routing keeps, weighted by their
-    gates and summed in f32, by ``bf16_close``, over the prefill's
-    tokens toks[:, :-1].  The routing is the layer's own ``route``, held
+    gates and summed in f32, by ``block_close``, over the prefill's
+    tokens toks[:, :-1] (or ``layer``'s, on its normed input ``x`` when
+    the caller has it).  The routing is the layer's own ``route``, held
     to the reference's on the CPU."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.models import moe
 
-    p = params["layers"][0]["ffn"]
-    x = block_input(params, cfg, 0, "ln2", toks[:, :-1], dev)
+    p = params["layers"][layer]["ffn"]
+    if x is None:
+        x = block_input(params, cfg, layer, "ln2", toks[:, :-1], dev)
     B, S, d = x.shape
     T, k = B * S, cfg.num_experts_per_tok
     lo, hi = moe.expert_range(experts, cfg.num_experts)
@@ -4000,8 +4063,8 @@ def moe_block_check(params, cfg, toks, experts, dev) -> dict:
             y = (F.silu(xe @ p["wg"][e - lo]) * (xe @ p["wu"][e - lo])
                  ) @ p["wd"][e - lo]
             want.index_add_(0, tok, gates[tok, slot, None] * y.float())
-    return {"out": bf16_close(got, want.to(x.dtype).reshape(B, S, d),
-                              "MoE block"),
+    return {"out": block_close(got, want.to(x.dtype).reshape(B, S, d),
+                               f"layer {layer} MoE block"),
             "drop_frac": float(aux["moe_drop_frac"]),
             "held_slots": int(((ids >= lo) & (ids < hi) & keep).sum())}
 
@@ -4896,6 +4959,644 @@ def path_fusion(dev):
     return launches
 
 
+# --------------------------------- slice 14: sharded packet serving
+
+SHARD_COUNTS = (1, 2, 4)
+SHARD_B = 512                       # max_batch: the sub-batch is B / n
+SHARD_AD_B = 1024                   # the stateless split of ad > tc
+
+
+def shard_devices(dev, n: int) -> list:
+    """The one card listed n times: n shards, each with its own table."""
+    return [str(dev)] * n
+
+
+def shard_ids(stages, X, n: int):
+    """Each packet's shard: its flow key (``FlowKey.apply_keys_np``) then
+    ``shard_of_key``, as the engine routes it."""
+    from repro_torch.serve.sharded import shard_of_key
+
+    return shard_of_key(stages[0].apply_keys_np(X), n)
+
+
+def route_pushbacks(ids, n: int, batch: int) -> int:
+    """The rows the routing pushes back to the queue head when every
+    packet is queued at once and each dispatch takes up to ``batch``
+    rows, replayed on the host with ``route_prefix``."""
+    from repro_torch.serve.sharded import route_prefix
+
+    pushed = pos = 0
+    while pos < len(ids):
+        take = ids[pos:pos + batch]
+        m, _ = route_prefix(take, n, batch // n)
+        pushed += len(take) - m
+        pos += m
+    return pushed
+
+
+def metric_value(eng, name: str) -> float:
+    return eng.telemetry().snapshot()[name]["values"][0]["value"]
+
+
+def shard_references(dev, stages, X, ids, n: int, mlp: bool) -> dict:
+    """Per shard s, the rows ``X[ids == s]`` in arrival order through
+    single-device engines: ``backend="cuda"`` fused and split, and the
+    plain walk (``plain_stream``, with its logits, for an MLP suffix;
+    else a ``backend="interpret"`` engine).  -> {"cuda": {fuse: [(verdicts,
+    tables)]}, "plain": [(verdicts or logits, tables)]}."""
+    import numpy as np
+
+    from repro_torch.testing import plain_stream
+
+    b = SHARD_B // n
+    out = {"cuda": {True: [], False: []}, "plain": []}
+    for s in range(n):
+        rows = X[ids == s]
+        chunks = [rows[i:i + b] for i in range(0, len(rows), b)]
+        for fuse in (True, False):
+            eng = serve_engine(stages, "cuda", fuse, b, dev)
+            v = np.concatenate(list(eng.serve_stream(chunks))) \
+                if len(rows) else np.zeros((0,), np.int32)
+            out["cuda"][fuse].append((v, state_arrays(eng.state)))
+        if mlp:
+            keys, regs, logits = plain_stream(stages, rows, b, dev)
+            out["plain"].append((logits, [keys, regs.view(np.int32)]))
+        else:
+            eng = serve_engine(stages, "interpret", True, b, dev)
+            v = np.concatenate(list(eng.serve_stream(chunks)))
+            out["plain"].append((v, state_arrays(eng.state)))
+    return out
+
+
+def sharded_run(dev, name: str, stages, fuse: bool, n: int, stream, ids,
+                refs, mlp: bool) -> dict:
+    """One configuration at n shards: a ``ShardedPacketServeEngine``
+    serving the whole stream with every dispatch under
+    ``set_sync_debug_mode("error")`` (``sync_checked_serve``), its tables
+    and verdicts held to the per-shard references (gates 1-5 of
+    ``path_sharded``), then a timed ``serve_stream`` pass in chunks of B
+    whose verdicts must equal the first's.  -> the phase row."""
+    import numpy as np
+
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import StatefulPipeline
+    from repro_torch.serve import ShardedPacketServeEngine
+    from repro_torch.testing import verdict_mismatches
+
+    def engine():
+        return ShardedPacketServeEngine(
+            StatefulPipeline(stages, backend="cuda", fuse=fuse,
+                             device=dev.type),
+            feature_dim=len(traffic.COLUMNS), max_batch=SHARD_B, depth=2,
+            devices=shard_devices(dev, n), min_shards=1)
+
+    tag = f"{name} fuse={fuse} n={n}"
+    X = stream.packets
+    eng = engine()
+    check(eng.sharded and eng.stats()["shards"] == n,
+          f"{tag}: stats {eng.stats()['shards']} shards")
+    v = sync_checked_serve(eng, X, SHARD_B)
+    check(len(v) == len(X), f"{tag}: {len(v)} verdicts for {len(X)}")
+    margin_rows = 0
+    for s, table in enumerate(eng.state.tables):
+        got = state_arrays(table)
+        want_v, want_t = refs["cuda"][fuse][s]
+        check(np.array_equal(v[ids == s], want_v) and all(
+            np.array_equal(a, b) for a, b in zip(got, want_t)),
+            f"{tag}: shard {s} differs from its single-device engine")
+        plain_v, plain_t = refs["plain"][s]
+        check(all(np.array_equal(a, b) for a, b in zip(got, plain_t)),
+              f"{tag}: shard {s}'s tables differ from the plain walk")
+        if mlp:
+            bad, close = verdict_mismatches(v[ids == s], plain_v)
+            check(bad == 0, f"{tag}: shard {s}: {bad} verdicts outside "
+                  "the margin of the plain walk")
+            margin_rows += close
+        else:
+            check(np.array_equal(v[ids == s], plain_v),
+                  f"{tag}: shard {s}'s verdicts differ from interpret")
+    pushed = route_pushbacks(ids, n, SHARD_B)
+    overflow = metric_value(eng, "serve_route_overflow_total")
+    check(overflow == pushed, f"{tag}: overflow counter {overflow}, the "
+          f"host replay pushes back {pushed}")
+    batches = eng.stats()["batches"]
+    timed = engine()
+    tv = np.concatenate(list(timed.serve_stream(stream.chunks(SHARD_B))))
+    check(np.array_equal(tv, v), f"{tag}: the streamed pass differs")
+    st = timed.stats()
+    return {"config": name, "fuse": fuse, "shards": n,
+            "sub_batch": SHARD_B // n, "backend": st["backend"],
+            "pkt_per_s": st["pkt_per_s"], "lat_p50_ms": st["lat_p50_ms"],
+            "lat_p99_ms": st["lat_p99_ms"], "dispatch_s": st["dispatch_s"],
+            "wall_s": st["wall_s"], "batches": st["batches"],
+            "pad_packets": st["pad_packets"], "pushed_back": pushed,
+            "overflow_counter": overflow, "margin_rows": margin_rows,
+            "mitigated": st["mitigated"],
+            "launch_batches": batches + st["batches"]}
+
+
+def sharded_swap(dev, stream, n: int) -> dict:
+    """Gate 6: mitigate-fused, fused, n shards; half the stream, then a
+    hot swap to the same pipeline at twice the slots, installed at the
+    flush: each shard's detection table must equal ``migrate_state`` of
+    its pre-swap table and its action table (same spec) carry bit for
+    bit; then the rest of the stream; every verdict returned, one swap."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import FlowState, StatefulPipeline
+    from repro_torch.flowstate.registers import migrate_state
+    from repro_torch.serve import ShardedPacketServeEngine
+
+    X = stream.packets
+    half = len(X) // 2
+    eng = ShardedPacketServeEngine(
+        StatefulPipeline(mat_fused_stages(S_KERNEL, True), backend="cuda",
+                         device=dev.type),
+        feature_dim=len(traffic.COLUMNS), max_batch=SHARD_B, depth=2,
+        devices=shard_devices(dev, n), min_shards=1)
+    eng.submit(X[:half])
+    first = eng.flush()
+    before = [(t.spec, t.keys.clone(), t.regs.clone(), state_arrays(t)[2:])
+              for t in eng.state.tables]
+    new = mat_fused_stages(2 * S_KERNEL, True)
+    eng.swap(StatefulPipeline(new, backend="cuda", device=dev.type))
+    eng.flush()                            # the boundary installs it
+    check(eng.stats()["swaps"] == 1 and not eng.swap_pending,
+          f"sharded swap: {eng.stats()['swaps']} swaps installed")
+    for s, (t, (spec, k, r, mit)) in enumerate(zip(eng.state.tables,
+                                                    before)):
+        want = migrate_state(FlowState(spec, k, r), new[1].spec)
+        got = state_arrays(t)
+        check(t.spec == new[1].spec and np.array_equal(
+            got[0], want.keys.cpu().numpy()) and np.array_equal(
+            got[1], want.regs.cpu().numpy().view(np.int32)),
+            f"sharded swap: shard {s}'s table is not migrate_state's")
+        check(all(np.array_equal(a, b) for a, b in zip(got[2:], mit)),
+              f"sharded swap: shard {s}'s action table did not carry")
+    eng.submit(X[half:])
+    rest = eng.flush()
+    torch.cuda.synchronize()
+    check(len(first) + len(rest) == len(X) and eng.stats()["swaps"] == 1,
+          f"sharded swap: {len(first) + len(rest)} verdicts for {len(X)}")
+    st = eng.stats()
+    return {"config": "mitigate-fused", "shards": n,
+            "slots": [S_KERNEL, 2 * S_KERNEL], "swaps": st["swaps"],
+            "swap_lat_ms": st["swap_lat_ms"],
+            "swap_pkt_offsets": st["swap_pkt_offsets"],
+            "verdicts": len(first) + len(rest),
+            # n a batch, one warm-up each for the engine and the swap
+            "launches_expected": n * st["batches"] + 2}
+
+
+def sharded_stateless(dev, n: int) -> dict:
+    """Gate 7: ``ad > tc`` fused (K6) over n shards of B = 1,024, each
+    shard its contiguous quarter of every batch, dispatched under
+    ``set_sync_debug_mode("error")``: row for row the single-device
+    engine's verdicts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import chaining
+    from repro_torch.serve import ShardedPacketServeEngine
+    from repro_torch.serve.packet_engine import PacketServeEngine
+
+    X = ad_test_set()
+    dag = chaining.compile_dag(dag_nodes()["ad>tc"], dag_models(dev)[0],
+                               backend="cuda", device=dev.type)
+    single = PacketServeEngine(dag, feature_dim=AD_FEATURES,
+                               max_batch=SHARD_AD_B, depth=2,
+                               device=dev.type)
+    single.submit(X)
+    want = single.flush()
+    eng = ShardedPacketServeEngine(dag, feature_dim=AD_FEATURES,
+                                   max_batch=SHARD_AD_B, depth=2,
+                                   devices=shard_devices(dev, n),
+                                   min_shards=1)
+    eng.submit(X)
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while eng.pending:
+            while eng.pending and eng.in_flight < eng.depth:
+                eng._dispatch_batch(eng._take(min(SHARD_AD_B, eng.pending)))
+            torch.cuda.set_sync_debug_mode(0)
+            while eng.in_flight:
+                got.append(eng._fetch_one())
+            torch.cuda.set_sync_debug_mode("error")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = np.concatenate(got)
+    check(np.array_equal(got, want),
+          f"ad>tc over {n} shards differs from the single-device engine "
+          f"on {int((got != want).sum())} rows")
+    st = eng.stats()
+    check(st["shards"] == n and st["backend"].endswith("fused-dag"),
+          f"ad>tc sharded stats {st['shards']} {st['backend']}")
+    return {"config": "ad>tc", "shards": n, "max_batch": SHARD_AD_B,
+            "rows": len(X), "backend": st["backend"],
+            "pkt_per_s": st["pkt_per_s"], "lat_p50_ms": st["lat_p50_ms"],
+            "lat_p99_ms": st["lat_p99_ms"], "batches": st["batches"],
+            # n a batch; the single-device engine's one; a warm-up each
+            "launches_expected": n * st["batches"]
+            + single.stats()["batches"] + 2}
+
+
+def path_sharded(dev):
+    """Sharded packet serving (``ShardedPacketServeEngine``) on the one
+    card listed 1, 2 and 4 times (each entry a shard with its own table):
+    flow-ddos (K1, or K2 + K3) and mitigate-fused (K1, or K2 + K4 with
+    the graphed action table) on 16,000 ddos_burst packets (seed 1), B =
+    512, depth 2.  Gates, per configuration, fuse and n: (1) each shard's
+    tables and verdicts bit for bit those of a single-device
+    ``PacketServeEngine(backend="cuda")`` fed that shard's rows
+    (``shard_of_key`` of the flow key) in arrival order; (2) the tables
+    bit for bit the plain walk's of those rows, MAT and mitigated
+    verdicts exact against ``backend="interpret"``, MLP verdicts under
+    the margin rule; (3) ``serve_route_overflow_total`` equal to the
+    push-backs ``route_prefix`` gives replayed on the host; (4)
+    ``stats()["shards"] == n``; (5) every dispatch silent under
+    ``set_sync_debug_mode("error")``; then (6) a mid-stream swap to
+    twice the slots at n = 4 (``sharded_swap``) and (7) ``ad > tc`` on
+    K6 over 4 shards (``sharded_stateless``).  Launches held to n per
+    batch plus one warm-up per engine.  Also: the default engine
+    (``devices`` every visible card, ``min_shards=2``) on a one-card
+    machine degrades with ``shards == 1``, and ``backend="cuda"`` on a
+    pipeline K1 cannot take raises its decline reason.  pkt/s and p50 /
+    p99 per n are reported, not gated: n shards on one card cost n
+    times the launches of a batch.  -> launches per kernel."""
+    import torch
+
+    from repro_torch.data import traffic
+    from repro_torch.flowstate import StatefulPipeline
+    from repro_torch.kernels import _ext
+    from repro_torch.serve import ShardedPacketServeEngine
+
+    t0 = time.perf_counter()
+    stream = traffic.make_stream("ddos_burst", n_packets=N_PACKETS,
+                                 seed=STREAM_SEED)
+    X = stream.packets
+    configs = {"flow-ddos": (flow_ddos_stages(S_KERNEL), True,
+                             ("fused_mlp_classify",)),
+               "mitigate-fused": (mat_fused_stages(S_KERNEL, True), False,
+                                  ("mat_lut_classify",))}
+    rows, launches = [], dict.fromkeys(_ext.LAUNCHES, 0)
+    for name, (stages, mlp, classify) in configs.items():
+        for n in SHARD_COUNTS:
+            ids = shard_ids(stages, X, n)
+            refs = shard_references(dev, stages, X, ids, n, mlp)
+            for fuse in (True, False):
+                _ext.reset_launches()
+                row = sharded_run(dev, name, stages, fuse, n, stream, ids,
+                                  refs, mlp)
+                torch.cuda.synchronize()
+                got = dict(_ext.LAUNCHES)
+                k = n * row.pop("launch_batches") + 2   # + two warm-ups
+                want = dict.fromkeys(got, 0) | (
+                    {"fused_flow_serve": k} if fuse else
+                    {"flow_update": k, **dict.fromkeys(classify, k)})
+                check(got == want, f"{name} fuse={fuse} n={n}: launches "
+                      f"{got} != {want}")
+                row["launches"] = {a: b for a, b in got.items() if b}
+                for a, b in got.items():
+                    launches[a] += b
+                rows.append(row)
+    for kernel, run in (("fused_flow_serve", lambda: sharded_swap(
+            dev, stream, 4)), ("fused_dag", lambda: sharded_stateless(dev, 4))):
+        _ext.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = dict(_ext.LAUNCHES)
+        want = dict.fromkeys(got, 0) | {
+            kernel: out.pop("launches_expected")}
+        check(got == want, f"{out['config']} sharded launches {got} != "
+              f"{want}")
+        for a, b in got.items():
+            launches[a] += b
+        if kernel == "fused_dag":
+            stateless = out
+        else:
+            swap = out
+    # the default engine (every visible card, min_shards=2), and no
+    # fallback
+    cards = torch.cuda.device_count()
+    default = {"cards": cards}
+    if dev.type == "cuda":
+        eng = ShardedPacketServeEngine(
+            StatefulPipeline(flow_ddos_stages(S_KERNEL), backend="cuda",
+                             device=dev.type),
+            feature_dim=len(traffic.COLUMNS), max_batch=SHARD_B)
+        default.update(sharded=eng.sharded, shards=eng.stats()["shards"])
+        check(eng.sharded == (cards >= 2) and default["shards"] == (
+            cards if cards >= 2 else 1),
+            f"default engine on {cards} cards: {default['shards']} shards")
+    (fk, ru, ws), _ = traffic.flow_feature_stages(n_slots=S_KERNEL)
+    try:
+        ShardedPacketServeEngine(
+            StatefulPipeline([fk, ru, ws], device=dev.type),
+            feature_dim=len(traffic.COLUMNS), max_batch=SHARD_B,
+            backend="cuda", devices=shard_devices(dev, 2), min_shards=1)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "cannot serve" in refused,
+          f"backend='cuda' on a features-only pipeline: {refused}")
+    emit({"phase": "path_sharded", "n_packets": len(X), "max_batch": SHARD_B,
+          "depth": 2, "rows": rows, "swap": swap, "stateless": stateless,
+          "default_engine": default,
+          "no_fallback": refused, "launches": {
+              a: b for a, b in launches.items() if b},
+          "sync_debug": "error, no raise",
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    return launches
+
+
+# --------------------------- slice 14: the MoE family (Moonshot, K7)
+
+MOE_ARCH, MOE_SEED, MOE_F32_LAYERS = "moonshot-v1-16b-a3b", 0, 8
+# round 1: four 512-token prompts; round 2: four of 17-32 tokens (left-
+# padded to 32); 32 new tokens each.  Every prefill takes the MoE
+# grouping (B * S <= 256 or a multiple of 256), and so does round 2's
+# teacher-forced forward over 32 + 32 positions
+MOE_ROUNDS = ((512, 512, 32), (17, 32, 32))
+
+
+# the f32 run's routing rule: where the two attention engines' prefills
+# first choose different experts for a token, the plain run's gap between
+# that token's k-th and (k+1)-th expert probabilities must be within this
+# (the engines part only at a near-tie, as rounding can make them)
+ROUTE_MARGIN = 1e-4
+
+
+def moe_requests(vocab: int):
+    return hybrid_requests(vocab, MOE_ROUNDS)
+
+
+def layer_trace(params, cfg, toks, backend: str, dev) -> dict:
+    """A prefill of toks on one attention engine (``"cuda"``: K7;
+    ``"interpret"``: the plain attention) -> {"inputs": each layer's
+    residual-stream input, "moe_inputs": each MoE FFN's normed input,
+    "routes": each MoE FFN's (top-k expert ids [T, k], probabilities
+    [T, E]), "logits": the last position's logits, f32}."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.steps import init_cache
+
+    out = {"inputs": [], "moe_inputs": [], "routes": []}
+    real_slot, real_apply, real_route = tf._apply_slot, moe.moe_apply, \
+        moe.route
+
+    def slot(p, s, x, *a, **kw):
+        out["inputs"].append(x)
+        return real_slot(p, s, x, *a, **kw)
+
+    def apply(p, x, *a, **kw):
+        out["moe_inputs"].append(x)
+        return real_apply(p, x, *a, **kw)
+
+    def route(*a, **kw):
+        r = real_route(*a, **kw)
+        out["routes"].append((r["experts"].flatten(0, -2),
+                              r["probs"].flatten(0, -2)))
+        return r
+
+    tf._apply_slot, tf.moe_mod.moe_apply, moe.route = slot, apply, route
+    try:
+        cache = init_cache(cfg, toks.shape[0], LM_MAX_SEQ, device=dev)
+        with torch.no_grad():
+            out["logits"] = tf.forward(
+                params, cfg, tokens=torch.as_tensor(toks, device=dev),
+                mode="prefill", caches=cache, logits_slice_last=True,
+                backend=backend)[0][:, -1].float()
+    finally:
+        tf._apply_slot, tf.moe_mod.moe_apply, moe.route = \
+            real_slot, real_apply, real_route
+    return out
+
+
+def routing_divergence(a: dict, b: dict, k: int) -> dict:
+    """Trace a against trace b (the plain run), layer by layer: the
+    largest difference of the layer's input against its largest
+    magnitude, the tokens whose top-k expert set differs, and the
+    smallest gaps (k-th against (k+1)-th probability, in b) among them;
+    the first layer where a set differs, and the logits' difference."""
+    import torch
+
+    layers, first = [], None
+    for i, ((xa, (ea, _)), (xb, (eb, pb))) in enumerate(zip(
+            zip(a["inputs"], a["routes"]), zip(b["inputs"], b["routes"]))):
+        flip = (torch.sort(ea, -1).values != torch.sort(eb, -1).values
+                ).any(-1)
+        top = torch.sort(pb, -1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        n = int(flip.sum())
+        if n and first is None:
+            first = i
+        layers.append({
+            "input_rel_diff": float((xa.float() - xb.float()).abs().max()
+                                    / xb.float().abs().max()),
+            "flipped_tokens": n,
+            "flip_gaps": sorted(float(g) for g in gap[flip])[:8],
+            "max_flip_gap": float(gap[flip].max()) if n else None,
+            "median_gap": float(gap.median())})
+    return {"layers": layers, "first_flip_layer": first,
+            "first_flip_max_gap": (layers[first]["max_flip_gap"]
+                                   if first is not None else None),
+            "logit_err": float((a["logits"] - b["logits"]).abs().max())}
+
+
+def path_moe_serve(dev):
+    """``ServeEngine`` with Moonshot-v1-16B-A3B (every layer attention on
+    K7 and an MoE FFN: d_model 2,048, 16 heads of 128, 64 experts top-6
+    of d_ff 1,408, vocab 163,840), weights from ``torch.Generator`` seed
+    0 on the card, batch_slots 4, max_seq 1,024, the 8 requests of
+    ``MOE_ROUNDS`` in one ``run`` per engine, ``backend="cuda"`` against
+    ``"interpret"``; K7 must launch num_layers x (prefill + decode calls)
+    times and nothing else.  The earlier LM phases' weights are freed
+    first.  Twice:
+
+    * bf16, full depth (48 layers, 56.1 GB): per-block gates on the
+      path's own input (round 1's prompts embedded and normed), as
+      ``path_hybrid_serve``'s bf16 run has them: layer 0's attention on
+      K7 (prefill and one decode step) and layer 0's MoE FFN against a
+      plain per-expert gather, each within 8e-3 of max(1, |plain|).
+      Logits, tokens, teacher forcing, tok/s, prefill ms and decode ms
+      reported.
+    * f32, 8 of the 48 layers (about 21 GB).  Each of the 8 layers'
+      blocks on the plain run's own inputs (round 1's prefill traced on
+      ``interpret``): its attention on K7 (prefill and a decode step)
+      and its MoE FFN against the per-expert gather, within 1e-5 of the
+      block output's scale.  Each round's prefill traced on both
+      engines: where no token's experts differ, the logits within
+      ``LM_LOGIT_TOL``; where they do, the first layer that differs
+      must differ only at near-ties (``ROUTE_MARGIN``).  At this width
+      and seed the plain path's own logits move O(1) under a change of
+      its attention's summation order alone (``tools/moe_probe.py``: 64
+      experts top-6 over 8 layers amplify f32 rounding to a routing flip
+      by layer 2, and the flips cascade), so no implementation holds
+      the dense family's end-to-end gates: the logits against
+      ``interpret``, the first differing tokens with their margins, and
+      decode against teacher forcing on a drop-free rerun
+      (``capacity_factor`` = E / k), on K7 and on the plain path alone,
+      are reported.
+
+    -> the bf16 run's launches per kernel."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import _ext
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.registry import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    full = configs.get_config(MOE_ARCH)
+    n_new = sum(new for _, _, new in MOE_ROUNDS)
+    report, gates = {}, []
+    for dtype, layers in ((torch.bfloat16, full.num_layers),
+                          (torch.float32, MOE_F32_LAYERS)):
+        cfg = dataclasses.replace(full, num_layers=layers)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params = init_params(cfg, generator=torch.Generator(device=dev)
+                             .manual_seed(MOE_SEED), device=dev, dtype=dtype)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        runs = serve_both(cfg, params, moe_requests, n_new, dev)
+        cuda, plain = runs["cuda"], runs["interpret"]
+        n_calls = (cuda["calls"]["prefill_calls"]
+                   + cuda["calls"]["decode_calls"])
+        want = dict.fromkeys(_ext.LAUNCHES, 0) | {
+            "flash_attention": cfg.num_layers * n_calls}
+        check(cuda["launches"] == want,
+              f"path_moe_serve launched {cuda['launches']}, not {want}")
+        check(sum(plain["launches"].values()) == 0,
+              f"backend='interpret' launched kernels: {plain['launches']}")
+        for run in runs.values():
+            check(run["stats"]["requests"] == 2 * LM_SLOTS
+                  and run["calls"]["tokens"] == LM_SLOTS * n_new
+                  and all(len(r.out) == r.max_new_tokens
+                          and 0 <= min(r.out) <= max(r.out) < cfg.vocab_size
+                          for r in run["reqs"]),
+                  f"stats {run['stats']}, {run['calls']['tokens']} tokens")
+        rep = dict(num_layers=layers, weights_gb=sum(
+            x.numel() * x.element_size() for x in _leaves(params)) / 1e9,
+            init_s=init_s, **run_fields(runs))
+        batches = lm_batches(cuda["reqs"])
+        errs, drops = [], {}
+        for i, (S, toks, _) in enumerate(batches):
+            lg, aux = prefill_logits(params, cfg, toks[:, :S], "cuda",
+                                     None, dev)
+            plg, _ = prefill_logits(params, cfg, toks[:, :S], "interpret",
+                                    None, dev)
+            check(bool(torch.isfinite(lg).all()), "non-finite logits")
+            errs.append(max_abs(lg, plg))
+            drops[f"prefill_round_{i + 1}"] = float(aux["moe_drop_frac"])
+        rep["prefill_logit_err"] = errs
+        diffs = first_diffs(params, cfg, cuda["reqs"], plain["reqs"], None,
+                            dev)
+        rep["requests_differing"], rep["first_diffs"] = len(diffs), diffs
+        published = teacher_forcing(params, cfg, cuda["reqs"][LM_SLOTS:],
+                                    None, dev)
+        rep["published_capacity"] = {
+            "capacity_factor": cfg.capacity_factor,
+            "teacher_forcing_agree": float(np.mean(published["agree"])),
+            "teacher_forcing_miss_margins": [
+                m["margin"] for m in published["misses"]],
+            "moe_drop_frac_sum": dict(
+                drops, teacher_forcing=published["drop_frac_sum"])}
+        if dtype == torch.bfloat16:
+            main_launches = cuda["launches"]
+            S, toks, _ = batches[0]
+            toks = toks[:, :S + 1]
+            rep["block_err"] = {
+                "attention": attention_block_check(params, cfg, toks, dev),
+                "moe": moe_block_check(params, cfg, toks, None, dev)}
+        else:
+            rep["routing"], rep["block_err"] = [], []
+            for i, (S, toks, _) in enumerate(batches):
+                traces = {b: layer_trace(params, cfg, toks[:, :S], b, dev)
+                          for b in ("cuda", "interpret")}
+                div = routing_divergence(traces["cuda"],
+                                         traces["interpret"],
+                                         cfg.num_experts_per_tok)
+                rep["routing"].append(div)
+                if i == 0:
+                    # every layer's blocks on the plain run's own inputs
+                    plain = traces["interpret"]
+                    for layer in range(cfg.num_layers):
+                        h = rmsnorm(params["layers"][layer]["ln1"],
+                                    plain["inputs"][layer], cfg.norm_eps)
+                        rep["block_err"].append({
+                            "layer": layer,
+                            "attention": attention_block_check(
+                                params, cfg, None, dev, layer=layer, h=h),
+                            "moe": moe_block_check(
+                                params, cfg, None, None, dev, layer=layer,
+                                x=plain["moe_inputs"][layer])})
+                del traces
+                first, gap = div["first_flip_layer"], \
+                    div["first_flip_max_gap"]
+                gates.append((
+                    div["logit_err"] <= LM_LOGIT_TOL if first is None
+                    else gap <= ROUTE_MARGIN,
+                    f"f32 round {i + 1}: logits differ by "
+                    f"{div['logit_err']}, routing first differs at layer "
+                    f"{first} with a gap of {gap} > {ROUTE_MARGIN}"))
+            # decode against teacher forcing, drop-free, on each engine
+            # alone: reported (see the docstring)
+            free = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts
+                / cfg.num_experts_per_tok)
+            rep["teacher_forcing"] = {"capacity_factor":
+                                      free.capacity_factor}
+            for backend in ("cuda", "interpret"):
+                eng = ServeEngine(free, params, batch_slots=LM_SLOTS,
+                                  max_seq=LM_MAX_SEQ, backend=backend,
+                                  device=dev)
+                free_reqs = moe_requests(cfg.vocab_size)[LM_SLOTS:]
+                for r in free_reqs:
+                    eng.submit(r)
+                eng.run(max_steps=MOE_ROUNDS[1][2])
+                del eng
+                tf = teacher_forcing(params, free, free_reqs, None, dev,
+                                     backend)
+                rep["teacher_forcing"][backend] = {
+                    "agree": float(np.mean(tf["agree"])),
+                    "agree_by_request": tf["agree"],
+                    "miss_margins": [m["margin"] for m in tf["misses"]],
+                    "moe_drop_frac_sum": tf["drop_frac_sum"]}
+        # serve_both resets the peak before each run: the cuda run's, then
+        # everything since the interpret run began
+        rep["phase_peak_gb"] = max(
+            cuda["peak_gb"], torch.cuda.max_memory_allocated(dev) / 1e9)
+        report["bf16" if dtype == torch.bfloat16 else "f32"] = rep
+        del params, runs, cuda, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "path_moe_serve", "arch": MOE_ARCH,
+          "params": full.param_count(), "batch_slots": LM_SLOTS,
+          "max_seq": LM_MAX_SEQ, "held_gb_before": held_gb,
+          "prompt_lens": [len(r.prompt) for r in moe_requests(
+              full.vocab_size)],
+          "max_new_tokens": [new for _, _, new in MOE_ROUNDS],
+          "logit_tol": LM_LOGIT_TOL, **report,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
+    return main_launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4970,6 +5671,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     t = time.perf_counter()
     _ext.extension()
@@ -5003,8 +5705,10 @@ def main() -> int:
             "path_dag": path_dag_phase(dev),
         }
         by_path["path_two_table"], _ = path_two_table_phase(dev)
+        by_path["path_sharded"] = path_sharded(dev)
         by_path["path_lm_serve"] = path_lm_serve(dev)
         by_path["path_hybrid_serve"] = path_hybrid_serve(dev)
+        by_path["path_moe_serve"] = path_moe_serve(dev)
         by_path["path_generate"] = path_generate(dev)
         by_path["path_online"] = path_online(dev)
         by_path["path_fusion"] = path_fusion(dev)
@@ -5028,7 +5732,13 @@ def main() -> int:
                                                "flow_update",
                                                "fused_mlp_classify",
                                                "mat_lut_classify")),
+                           ("path_sharded", ("fused_flow_serve",
+                                             "flow_update",
+                                             "fused_mlp_classify",
+                                             "mat_lut_classify",
+                                             "fused_dag")),
                            ("path_lm_serve", ("flash_attention",)),
+                           ("path_moe_serve", ("flash_attention",)),
                            ("path_hybrid_serve", (
                                "selective_scan_discretized",
                                "flash_attention")),
@@ -5166,6 +5876,7 @@ def main() -> int:
                     "bound_by": m["bound"][1], "max_chain": m["max_chain"]}
                     for mode, m in multi_times.items()}}
         kernels.append(entry)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,8 @@ port's stage; nothing here imports ``repro`` or ``jax``, so the port can
 serve pipelines the reference compiler generated.  ``state_from_numpy`` /
 ``state_to_numpy`` move a register file (or a multi-table pipeline's
 files) across as numpy arrays, and ``mitigation_from_numpy`` /
-``mitigation_to_numpy`` the action table.
+``mitigation_to_numpy`` the action table, ``sharded_state_from_reference``
+a sharded engine's stacked tables into one table per shard.
 ``dag_from_reference`` and ``pipelines_from_reference`` carry a model
 DAG and the pipelines it names; ``lm_params_from_reference`` an LM's
 parameter tree; ``trained_from_reference`` a trained model (its numpy
@@ -197,6 +198,30 @@ def mitigation_to_numpy(state) -> tuple[np.ndarray, np.ndarray]:
     """-> (mit_keys [Sm] int32, mit_regs [Sm, 2] f32) on the host."""
     return (state.mit_keys.cpu().numpy().astype(np.int32),
             state.mit_regs.cpu().numpy().astype(np.float32))
+
+
+def sharded_state_from_reference(state, *, devices):
+    """A reference ``ShardedFlowState`` (stacked [D, S] keys, [D, S, W]
+    regs and, when mitigated, the stacked action tables) -> the port's
+    ``ShardedFlowState``, table d on ``devices[d]`` (a device may repeat),
+    for ``ShardedPacketServeEngine(..., state=)`` to resume."""
+    from repro_torch.serve.sharded import ShardedFlowState
+
+    keys, regs = np.asarray(state.keys), np.asarray(state.regs)
+    if len(devices) != len(keys):
+        raise ValueError(f"{len(keys)} shards, {len(devices)} devices")
+    spec = spec_from_reference(state.spec)
+    mit = state.mit_spec
+    tables = []
+    for d, dev in enumerate(devices):
+        t = state_from_numpy(keys[d], regs[d], spec, device=dev)
+        if mit is not None:
+            t = mitigation_from_numpy(
+                t, np.asarray(state.mit_keys)[d],
+                np.asarray(state.mit_regs)[d],
+                mitigation_spec_from_reference(mit))
+        tables.append(t)
+    return ShardedFlowState(tables)
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:

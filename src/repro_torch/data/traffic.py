@@ -41,6 +41,11 @@ SCENARIOS = ("benign", "ddos_burst", "port_scan", "elephant_mice",
              "concept_drift", "syn_flood", "udp_flood", "icmp_flood",
              "slow_scan", "coordinated_ddos")
 
+# scenarios whose attack flows a rate-style detector should catch (used by
+# the replay harness to pick what the closed loop is exercised on)
+FLOOD_SCENARIOS = ("ddos_burst", "syn_flood", "udp_flood", "icmp_flood",
+                   "coordinated_ddos")
+
 # verdict of a packet the action table dropped (the port's
 # ``flowstate.mitigation.MITIGATED``; mirrored so this module stays
 # numpy only)

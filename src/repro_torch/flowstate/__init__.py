@@ -20,4 +20,5 @@ from repro_torch.flowstate.registers import (
     hash_slot_np,
     init_state,
     migrate_state,
+    update_flows,
 )

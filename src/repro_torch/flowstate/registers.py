@@ -86,6 +86,10 @@ class FlowState:
     keys: torch.Tensor     # [S] int32 stored flow key, -1 = empty slot
     regs: torch.Tensor     # [S, W] f32 register rows
 
+    @property
+    def occupied(self) -> int:
+        return int((self.keys >= 0).sum())
+
 
 @dataclasses.dataclass
 class MultiFlowState:
@@ -182,3 +186,38 @@ def migrate_state(state: FlowState, new_spec: FlowStateSpec) -> FlowState:
         out_r[s, n_cols] = regs[i, o_cols]
     return FlowState(new_spec, torch.as_tensor(out_k, device=dev),
                      torch.as_tensor(out_r, device=dev))
+
+
+def update_flows(state: FlowState, pkt_keys, upd, bins=None, valid=None, *,
+                 backend: str = "interpret"):
+    """One batched register update over a ``FlowState`` -> (new state,
+    per-packet feature rows [B, W]) in arrival order.
+
+    ``pkt_keys`` [B] int32 flow keys (>= 0); ``upd`` [B, C+E] counter
+    increments ++ EWMA values; ``bins`` [B, H] absolute histogram columns
+    (-1 = none; None: no histogram hit); ``valid`` [B] (0 = padding, never
+    touches the table; None: every row).  ``backend="cuda"`` runs the
+    ``flow_update`` op (K2 on CUDA tensors, which updates the state's
+    tensors in place; its plain version on CPU tensors), ``"interpret"``
+    the plain sequential version, which never writes its inputs.  Both
+    are bit-identical."""
+    from repro_torch.kernels import flow_update as fu
+
+    if backend not in ("interpret", "cuda"):
+        raise KeyError("backend must be 'interpret' or 'cuda'")
+    spec, dev = state.spec, state.keys.device
+    pkt_keys = torch.as_tensor(pkt_keys, dtype=torch.int32, device=dev)
+    B = int(pkt_keys.shape[0])
+    if bins is None:
+        bins = torch.full((B, 1), -1, dtype=torch.int32, device=dev)
+    if valid is None:
+        valid = torch.ones((B,), dtype=torch.int32, device=dev)
+    fn = fu.flow_update if backend == "cuda" else fu.flow_update_ref
+    keys, regs, feats = fn(
+        state.keys, state.regs, pkt_keys,
+        torch.as_tensor(upd, dtype=torch.float32, device=dev),
+        torch.as_tensor(bins, dtype=torch.int32, device=dev),
+        torch.as_tensor(valid, dtype=torch.int32, device=dev),
+        n_counters=spec.n_counters, n_ewma=spec.n_ewma,
+        alpha=spec.ewma_alpha)
+    return FlowState(spec, keys, regs), feats

@@ -34,7 +34,7 @@ from repro_torch.models.layers import apply_rope, rmsnorm
 
 BACKENDS = ("cuda", "interpret")
 WINDOW_REASON = ("sliding-window attention needs the rolling KV cache, "
-                 "which the MoE slice ports (ROADMAP Queue 1 item 6)")
+                 "which the Mixtral slice ports (ROADMAP Queue 1 item 6)")
 
 # ------------------------------------------------------------ projections
 

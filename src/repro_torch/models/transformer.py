@@ -1,10 +1,12 @@
 """Model assembly (counterpart of ``repro.models.transformer``) for the
-dense and hybrid families: ``n_periods`` identical periods of slots, each
-slot a mixer (attention or Mamba) and an FFN (dense MLP or MoE), run as
-a Python loop over the layers' parameter dicts where the reference
-scans a stacked tree per slot.
+dense, MoE and hybrid families: ``n_periods`` identical periods of
+slots, each slot a mixer (attention or Mamba) and an FFN (dense MLP or
+MoE), run as a Python loop over the layers' parameter dicts where the
+reference scans a stacked tree per slot.
 
   dense   period = 1 layer [attn + dense]              x num_layers
+  moe     period = 1 layer [attn + MoE]                x num_layers
+          (and a dense-family config with num_experts > 0)
   hybrid  period = [mamba*, attn at P // 2, mamba*]    x num_layers / P
           (P = attn_period; MoE FFN where i % moe_period == moe_offset)
 
@@ -37,7 +39,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import embed, mlp_apply, rmsnorm, unembed
 
 MODES = ("train", "prefill", "decode")
-FAMILY_REASON = ("the port runs the dense and hybrid families; {family} "
+FAMILY_REASON = ("the port runs the dense, MoE and hybrid families; {family} "
                  "(experts: {experts}) comes with its slice (ROADMAP Queue 1 "
                  "item 6)")
 MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
@@ -54,8 +56,9 @@ def decoder_layout(cfg: ModelConfig) -> tuple[int, list[Slot]]:
     what the port does not run yet."""
     if cfg.sliding_window:
         raise NotImplementedError(attn.WINDOW_REASON)
-    if cfg.family == "dense" and not cfg.num_experts:
-        return cfg.num_layers, [Slot("attn", ffn="dense")]
+    if cfg.family in ("dense", "moe"):
+        return cfg.num_layers, [Slot("attn", ffn="moe" if cfg.num_experts
+                                     else "dense")]
     if cfg.family == "hybrid":
         P = cfg.attn_period
         if P < 1 or cfg.num_layers % P:

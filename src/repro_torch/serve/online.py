@@ -99,8 +99,8 @@ class BackgroundRetrainer:
                 # boundary, its stream waiting on the event
                 self.engine.swap(pipeline)
             self.result = pipeline
-        except Exception as e:           # reported; the old model serves on
-            self.error = e
+        except BaseException as e:       # noqa: BLE001 — reported; the old
+            self.error = e               # model serves on
         finally:
             self.wall_s = time.perf_counter() - t0
             if self.on_done is not None:

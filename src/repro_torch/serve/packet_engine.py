@@ -82,6 +82,7 @@ class ServeStats:
     backend: str = "interpret"     # engine the pipeline actually runs on
     depth: int = 1                 # in-flight cap
     mitigated: int = 0             # MITIGATED verdicts returned
+    shards: int = 1                # shards serving (ShardedPacketServeEngine)
     # hot swaps: latency (request -> install) and the packet offset of
     # each boundary (packets before it served by the old pipeline)
     swaps: int = 0
@@ -148,6 +149,7 @@ class ServeStats:
             "backend": self.backend,
             "backend_batches": self.backend_batches,
             "depth": self.depth,
+            "shards": self.shards,
             "mitigated": self.mitigated,
             "swaps": self.swaps,
             "swap_lat_ms": [s * 1e3 for s in self.swap_lat_s],
@@ -162,13 +164,14 @@ class _InFlight:
     n: int                         # real (non-padding) rows
     out: torch.Tensor              # host tensor the verdicts land in
     t0: float                      # dispatch start
-    event: Any                     # CUDA event after the copy, or None
+    event: Any                     # waits for the copy (``synchronize()``)
     ready: float | None            # completion time when known at dispatch
     mitigated: bool = False        # served by a pipeline with Mitigate
     # the pipeline that served it, alive until its verdicts are fetched:
     # one a swap retires is freed only after the card has finished with
     # it, whichever stream its tensors were allocated on
     pipeline: Any = None
+    perm: Any = None               # sharded routing: per-shard row indices
 
 
 class _Callable:
@@ -260,6 +263,9 @@ class PacketServeEngine:
         dev = resolve_device(device)
         self._stateful = state is not None or hasattr(pipeline, "init_state")
         self.device = dev
+        # the devices whose current streams serve (a swap's hand-off
+        # event is recorded and waited on each)
+        self._serve_devices = [dev] if dev.type == "cuda" else []
         self.pipeline = self._compiled(pipeline, backend)
         self.backend = self.pipeline.backend
         self.feature_dim = int(feature_dim)
@@ -351,8 +357,6 @@ class PacketServeEngine:
                 "flow_batch_max_chain",
                 "deepest same-slot chain of the last dispatched batch"
             ).default,
-            # kept for the reference's metric set: stays 0, the port has
-            # no sharded routing
             "overflow": m.counter(
                 "serve_route_overflow_total",
                 "rows pushed back to the queue head because their "
@@ -401,10 +405,13 @@ class PacketServeEngine:
             or self.TELEMETRY_SEG_SAMPLE == 1
 
     def _record_dispatch(self, rows: np.ndarray, n: int, pad: int,
-                         t0: float, t1: float) -> None:
+                         t0: float, t1: float, slots=None) -> None:
         """Per-batch recording from host data: counters, the dispatch
         span and, on sampled batches of a stateful pipeline, the slot
-        segmentation of the real rows."""
+        segmentation of the real rows.  ``slots``: the real rows' slots
+        when the caller has them (sharded routing holds the keys), None
+        to compute them here on sampled batches, or False when the caller
+        sampled the batch out."""
         tm = self._tm
         tm["packets"].inc(n)
         tm["batches"].inc(1)
@@ -419,13 +426,18 @@ class PacketServeEngine:
         self._tel.tracer.record(
             "dispatch", t0, t1,
             args={"backend": self.backend, "rows": n, "pad": pad})
-        if self._tel_flowkey is not None and self._seg_tick():
-            seg = T.batch_segmentation(hash_slot_np(
-                self._tel_flowkey.apply_keys_np(rows), self._tel_slots))
-            (tm["drain"] if seg["drain_heavy"] else tm["lockstep"]).inc(1)
-            if seg["n_deep"]:
-                tm["deep_pkts"].inc(seg["n_deep"])
-            tm["max_chain"].set(seg["max_chain"])
+        if self._tel_flowkey is None or slots is False:
+            return
+        if slots is None:
+            if not self._seg_tick():
+                return
+            slots = hash_slot_np(self._tel_flowkey.apply_keys_np(rows),
+                                 self._tel_slots)
+        seg = T.batch_segmentation(slots)
+        (tm["drain"] if seg["drain_heavy"] else tm["lockstep"]).inc(1)
+        if seg["n_deep"]:
+            tm["deep_pkts"].inc(seg["n_deep"])
+        tm["max_chain"].set(seg["max_chain"])
 
     def _record_fetch(self, t0: float, end: float, n: int,
                       dropped: int) -> None:
@@ -482,16 +494,17 @@ class PacketServeEngine:
         return [torch.zeros(shape, dtype=dtype, pin_memory=pinned)
                 for _ in range(self.depth + 1)]
 
-    def _compiled(self, pipeline, backend):
-        """``pipeline`` compiled for this engine's device (and ``backend``
-        when given); a bare callable as given."""
+    def _compiled(self, pipeline, backend, device=None):
+        """``pipeline`` compiled for ``device`` (default: this engine's;
+        and for ``backend`` when given); a bare callable as given."""
+        dev = self.device if device is None else device
         if not _is_program(pipeline):
             return _bare(pipeline, backend)
         if not self._stateful:
-            return _stateless(pipeline, backend, self.device)
-        if backend is not None or pipeline.device != self.device:
+            return _stateless(pipeline, backend, dev)
+        if backend is not None or pipeline.device != dev:
             return pipeline.with_backend(
-                backend or pipeline.requested_backend, device=self.device)
+                backend or pipeline.requested_backend, device=dev)
         return pipeline
 
     def _warm_up(self, pipeline, state) -> list:
@@ -553,33 +566,43 @@ class PacketServeEngine:
         self._pending -= n
         return taken[0] if len(taken) == 1 else np.concatenate(taken, 0)
 
+    def _requeue_front(self, rows: np.ndarray) -> None:
+        """Push rows back to the queue head (the sharded overflow path):
+        the next batch starts with them, so arrival order holds."""
+        self._queue.appendleft(rows)
+        self._pending += len(rows)
+
+    def _next_staging(self) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """-> (rows buffer, valid buffer, ring index) of the next staging
+        slot; the verdict ring's slot of the same index goes with it."""
+        i = self._staging_i
+        self._staging_i = (i + 1) % len(self._staging)
+        return self._staging[i], self._valid_staging[i], i
+
     def _dispatch_batch(self, rows: np.ndarray) -> int:
         self._maybe_install_swap()            # dispatch-ring boundary
         n = len(rows)
-        pad = self.max_batch - n
-        i = self._staging_i
-        self._staging_i = (i + 1) % len(self._staging)
-        buf, valid = self._staging[i], self._valid_staging[i]
+        buf, valid, i = self._next_staging()
         b, v = buf.numpy(), valid.numpy()
         b[:n] = rows
         b[n:] = 0.0
         v[:n] = 1
         v[n:] = 0
+        return self._dispatch_staged(rows, n, buf, valid, i)
+
+    def _dispatch_staged(self, rows: np.ndarray, n: int, buf, valid, i: int,
+                         *, perm=None, slots=None) -> int:
+        """Launch a staged batch of ``n`` real rows and account for it;
+        ``perm`` and ``slots`` as ``_InFlight.perm`` and
+        ``_record_dispatch``'s."""
+        pad = self.max_batch - n
         t0 = time.perf_counter()
         if not self._inflight:
             self._mark = t0
-        if self._stateful:
-            self.state, out = self.pipeline.dispatch(self.state, buf, valid)
-        else:
-            out = self.pipeline.dispatch(buf)
-        if self.device.type == "cuda":
-            host = self._out_staging[i]
-            host.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            flight = _InFlight(n, host, t0, event, None)
-        else:
-            flight = _InFlight(n, out, t0, None, time.perf_counter())
+        host, event = self._launch(buf, valid, i)
+        flight = _InFlight(n, host, t0, event,
+                           None if event is not None else time.perf_counter(),
+                           perm=perm)
         flight.mitigated = getattr(self.pipeline, "mitigation",
                                    None) is not None
         flight.pipeline = self.pipeline
@@ -587,16 +610,39 @@ class PacketServeEngine:
         self.stats_.dispatch_s += t1 - t0
         self.stats_.count_batch(self.backend, n, pad)
         if self._tel is not None:
-            self._record_dispatch(rows, n, pad, t0, t1)
+            self._record_dispatch(rows, n, pad, t0, t1, slots=slots)
         self._inflight.append(flight)
         return n
+
+    def _launch(self, buf, valid, i: int):
+        """One staged batch through the pipeline -> (the host tensor its
+        verdicts land in, the event to wait on, or None when they are
+        there already).  On the card the copy back goes into slot ``i``
+        of the verdict ring behind an event; no host sync."""
+        if self._stateful:
+            self.state, out = self.pipeline.dispatch(self.state, buf, valid)
+        else:
+            out = self.pipeline.dispatch(buf)
+        if self.device.type != "cuda":
+            return out, None
+        host = self._out_staging[i]
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _unshard(self, v: np.ndarray, f: _InFlight) -> np.ndarray:
+        raise NotImplementedError      # ShardedPacketServeEngine only
 
     def _fetch_one(self) -> np.ndarray:
         """Materialise the oldest in-flight batch (FIFO: arrival order)."""
         f = self._inflight.popleft()
         if f.event is not None:
             f.event.synchronize()
-        out = f.out.numpy()[:f.n].copy()
+        if f.perm is not None:
+            out = self._unshard(f.out.numpy(), f)
+        else:
+            out = f.out.numpy()[:f.n].copy()
         dropped = int((out == MITIGATED).sum()) if f.mitigated else 0
         self.stats_.mitigated += dropped
         end = f.ready if f.ready is not None else time.perf_counter()
@@ -660,13 +706,14 @@ class PacketServeEngine:
                              f"is {old}, new pipeline is {new}")
         pipeline = self._compiled(pipeline, backend)
         ring = self._prepare_swap(pipeline)
-        ready = None
-        if self.device.type == "cuda":
-            # the hand-off: the install makes the serving stream wait for
-            # this point of the stream the caller built and warmed the
-            # pipeline on (a retrain worker's own)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
+        # the hand-off: the install makes each serving stream wait for
+        # this point of the stream the caller built and warmed the
+        # pipeline on (a retrain worker's own), device by device
+        ready = []
+        for dev in self._serve_devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            ready.append((dev, ev))
         if self._tel is not None:
             self._tel.tracer.record(
                 "swap_prepare", t_req, time.perf_counter(), cat="swap",
@@ -695,8 +742,8 @@ class PacketServeEngine:
         pipeline, ring, t_req, ready = pending
         old_backend = self.backend
         t0 = time.perf_counter()
-        if ready is not None:
-            torch.cuda.current_stream(self.device).wait_event(ready)
+        for dev, ev in ready:
+            torch.cuda.current_stream(dev).wait_event(ev)
         self._install_swap(pipeline, ring)
         t1 = time.perf_counter()
         lat_s = t1 - t_req

@@ -38,7 +38,8 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.core.feasibility", "repro_torch.core.codegen",
         "repro_torch.core.dse", "repro_torch.facade",
         "repro_torch.flowstate.drift", "repro_torch.serve.online",
-        "repro_torch.core.fusion"} <= set(names), names
+        "repro_torch.core.fusion", "repro_torch.serve.sharded",
+        "repro_torch.configs.moonshot_v1_16b_a3b"} <= set(names), names
 """
 
 
@@ -70,6 +71,7 @@ def test_cuda_entry_points_raise_without_a_gpu():
     from repro_torch.models.registry import init_params
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.packet_engine import PacketServeEngine
+    from repro_torch.serve.sharded import ShardedPacketServeEngine
     from repro_torch.serve.steps import init_cache
 
     cfg = get_smoke_config("qwen3-1.7b")
@@ -81,6 +83,8 @@ def test_cuda_entry_points_raise_without_a_gpu():
         lambda: StatefulPipeline(list(stages)),
         lambda: init_state(stages[1].spec),
         lambda: PacketServeEngine(
+            StatefulPipeline(list(stages), device="cpu"), feature_dim=4),
+        lambda: ShardedPacketServeEngine(
             StatefulPipeline(list(stages), device="cpu"), feature_dim=4),
         lambda: stageir.compile_stages([stageir.Reduce("argmax")]),
         lambda: chaining.compile_dag(Model("a") > Model("b"), {}),

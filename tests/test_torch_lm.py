@@ -53,7 +53,7 @@ from repro_torch.serve.steps import (
 )
 
 DENSE = ("qwen3-1.7b", "qwen2-7b", "starcoder2-15b", "qwen1.5-32b")
-ARCHS = DENSE + ("jamba-1.5-large-398b",)
+ARCHS = DENSE + ("jamba-1.5-large-398b", "moonshot-v1-16b-a3b")
 TOL = 1e-5
 
 
@@ -92,7 +92,6 @@ def test_other_families_and_windows_raise_with_their_roadmap_item():
     base = configs.get_smoke_config("qwen3-1.7b")
     for cfg in (dataclasses.replace(base, family="moe", num_experts=4,
                                     sliding_window=8),
-                dataclasses.replace(base, family="moe", num_experts=4),
                 dataclasses.replace(base, family="ssm", slstm_period=8),
                 dataclasses.replace(base, family="vlm", cross_attn_period=2),
                 dataclasses.replace(base, family="encdec",
@@ -103,6 +102,15 @@ def test_other_families_and_windows_raise_with_their_roadmap_item():
             decoder_layout(cfg)
         with pytest.raises(NotImplementedError):
             TR.cache_defs(cfg, 1, 8)
+    # the MoE family serves now (tests/test_torch_moonshot.py): one
+    # attention slot with an MoE FFN, the reference's layout
+    moe = dataclasses.replace(base, family="moe", num_experts=4)
+    n_p, slots = decoder_layout(moe)
+    jn_p, jslots = JT.decoder_layout(moe)
+    assert n_p == jn_p == moe.num_layers
+    assert [(s.mixer, s.ffn) for s in slots] == [
+        (s.mixer, s.ffn) for s in jslots] == [("attn", "moe")]
+    assert set(TR.cache_defs(moe, 1, 8)) == {"slot0"}
     # the hybrid family serves now (tests/test_torch_hybrid.py)
     hybrid = configs.get_smoke_config("jamba-1.5-large-398b")
     assert decoder_layout(hybrid)[0] == 2

@@ -13,7 +13,8 @@ threading repairs the loop needs on the card.
   (carried across by ``convert``), give the same episodes, swaps,
   journal kinds in order and ``report()`` keys, and the same verdicts;
   a raising ``retrain_fn`` lands in ``errors`` and serving goes on with
-  the old model (``:354-400``).
+  the old model (``:354-400``), a ``SystemExit`` or ``KeyboardInterrupt``
+  too, as the reference's worker catches ``BaseException``.
 * the engine under the loop: its batch metrics are live before any
   flush, and a flush-per-batch engine ends the stream with the same
   snapshot; a pipeline a swap retires lives until the verdicts of its
@@ -249,6 +250,47 @@ def test_controller_captures_retrain_errors_and_serving_goes_on():
     assert kinds[-3:] == ["drift", "retrain_start", "retrain_done"]
     (done,) = eng.telemetry().journal.events("retrain_done")
     assert done["ok"] is False and "search exploded" in done["error"]
+
+
+@pytest.mark.parametrize("exc", [SystemExit, KeyboardInterrupt])
+def test_a_base_exception_in_the_retrain_is_an_error_not_a_swap(exc):
+    """A ``SystemExit`` or ``KeyboardInterrupt`` raised in ``retrain_fn``
+    ends the episode as an error, as the reference records it: no swap
+    counted or parked, one error, ``retrain_done`` with ``ok=False`` and
+    the detector left fired (not re-armed)."""
+    def run(pipe, make_engine, snapshot_cls, detector_cls, controller_cls):
+        eng = make_engine(pipe)
+        snap = snapshot_cls.from_packets(np.zeros((200, 4), np.float32),
+                                         cols=(1,), window=100)
+        det = detector_cls(snap, alpha=1.0, threshold=0.5, patience=1)
+
+        def stop(_ws):
+            raise exc("retrain stopped")
+
+        ctrl = controller_cls(eng, det, stop)
+        ctrl.observe(np.full((50, 4), 9.0, np.float32))
+        assert ctrl.wait(60)
+        return ctrl, eng
+
+    j = run(JPipeline(_stages(0)),
+            lambda p: JEngine(p, feature_dim=4, max_batch=64),
+            JSnapshot, JDetector, JController)
+    t = run(StatefulPipeline(convert.stages_from_reference(_stages(0)),
+                             backend="cuda", device="cpu"),
+            lambda p: PacketServeEngine(p, feature_dim=4, max_batch=64,
+                                        device="cpu"),
+            DriftSnapshot, DriftDetector, HotSwapController)
+    for ctrl, eng in (j, t):
+        assert ctrl.episodes == 1 and ctrl.swapped == 0
+        assert len(ctrl.errors) == 1 and isinstance(ctrl.errors[0], exc)
+        assert not eng.swap_pending and ctrl.detector.fired
+        (done,) = eng.telemetry().journal.events("retrain_done")
+        assert done["ok"] is False and "retrain stopped" in done["error"]
+    assert t[0].report()["errors"] == j[0].report()["errors"]
+    assert t[0].report()["swapped"] == j[0].report()["swapped"] == 0
+    rows = _drift_stream(seed=3, n=300).packets
+    t[1].submit(rows)
+    assert len(t[1].flush()) == 300 and t[1].stats_.swaps == 0
 
 
 def test_retrainer_runs_on_a_worker_and_swaps():
