@@ -257,8 +257,33 @@ bf16 at full width and depth (48 layers, 56.1 GB), K7 48 x (prefill +
 decode calls) launches, with per-block gates (layer 0's attention on K7,
 its MoE FFN against a plain per-expert gather); in f32 at 8 layers,
 prefill logits within 0.1 of ``interpret``, tokens under the 0.2
-margin, teacher forcing on a drop-free rerun.  A ``{"phase": "total"}``
-line gives the smoke's seconds.
+margin, teacher forcing on a drop-free rerun.
+
+Slice 15 adds the remaining LM families after ``path_moe_serve``, each
+at full width on ``backend="cuda"`` against ``"interpret"``, K7
+launching once per attention and cross-attention layer a call and
+nothing else (``k7_per_run``), each phase's seconds printed.
+``path_mixtral_serve``: Mixtral-8x7B, 32 layers with experts 0-3 in
+bf16 (48.3 GB), 2 slots of max_seq 4,352 (a rolling cache of 4,096),
+two 4,096-token prompts whose 128 new tokens wrap the ring, then two
+short ones; per-block gates (layer 0's windowed prefill where S >
+window and its ring decode steps on K7, its MoE FFN against a per-expert
+gather), and in f32 at 4 layers with all 8 experts every layer's blocks,
+the routing near-tie rule and the dense family's token and
+teacher-forcing gates on a drop-free rerun.  ``path_vlm_serve``:
+Llama-3.2-Vision-11B, 40 layers (8 gated cross-attentions over 6,404
+image tokens), and ``path_encdec_serve``: SeamlessM4T-large-v2, 12 + 12
+layers; each serves the engine's zero stubs for tok/s, then a run with
+the gates drawn non-zero and seeded memories (``gated_serve``) whose
+cross-attention, self-attention (and encoder) blocks are gated on K7
+against the plain attention in bf16 and f32, with the dense family's
+end-to-end gates in f32.  ``path_xlstm_serve``: xLSTM-1.3B, 48 blocks,
+no kernel launches, decode through the recurrent state against teacher
+forcing in bf16 and f32.  ``kernels_check_lm`` adds those call forms of
+K7 (``K7_CASES``: a windowed prefill past the window, ring decodes,
+non-causal cross and encoder calls, bf16 and f32) and
+``kernels_time_lm`` times them (``K7_TIMED_FORMS``).  A ``{"phase":
+"total"}`` line gives the smoke's seconds.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -3156,6 +3181,27 @@ K7_CASES = (
      None),
     ("ragged_w256_f32", 2, 1000, 1000, 16, 8, 128, "float32", True, 256, 0,
      None),
+    # slice 15's call forms, each in bf16 and f32 (``K7_FORMS``)
+    *((c[0] + ("_f32" if dt == "float32" else ""),) + c[1:7] + (dt,)
+      + c[7:] for c in (
+        # Mixtral: a windowed prefill where the window binds (S > W), the
+        # ring decode over a full ring and a partly written one
+        ("mixtral_prefill_w4096", 1, 4352, 4352, 32, 8, 128, True, 4096, 0,
+         None),
+        ("mixtral_ring_decode", 2, 1, 4096, 32, 8, 128, False, 0, 0, None),
+        ("mixtral_ring_decode_1000", 2, 1, 4096, 32, 8, 128, False, 0, 0,
+         1000),
+        # Llama-3.2-Vision's cross-attention over 6,404 image tokens
+        # (ragged against the 32- and 64-key tiles)
+        ("vlm_cross_prefill", 1, 512, 6404, 32, 8, 128, False, 0, 0, None),
+        ("vlm_cross_decode", 4, 1, 6404, 32, 8, 128, False, 0, 0, None),
+        # SeamlessM4T: the encoder's self-attention, the cross-attention
+        ("seamless_encoder", 2, 512, 512, 16, 16, 64, False, 0, 0, None),
+        ("seamless_cross_prefill", 4, 32, 512, 16, 16, 64, False, 0, 0,
+         None),
+        ("seamless_cross_decode", 4, 1, 512, 16, 16, 64, False, 0, 0,
+         None))
+      for dt in ("bfloat16", "float32")),
 )
 
 
@@ -3225,17 +3271,32 @@ K7_TIMED = (("prefill_512", 4, 512, 512, 16, 8, 0, "bfloat16"),
             ("jamba_prefill_512_f32", 4, 512, 512, 64, 8, 0, "float32"),
             ("jamba_decode_543_f32", 4, 1, 1024, 64, 8, 543, "float32"))
 K7_TIMED_D = 128
+# slice 15's call forms, timed as K7_TIMED is: name, B, Sq, Skv, H, K, D,
+# dtype, causal, window, q_offset, skv (None: Skv)
+K7_TIMED_FORMS = tuple(
+    (c[0] + ("_f32" if dt == "float32" else ""),) + c[1:7] + (dt,) + c[7:]
+    for c in (
+        ("mixtral_prefill_w4096", 1, 4352, 4352, 32, 8, 128, True, 4096, 0,
+         None),
+        ("mixtral_ring_decode", 2, 1, 4096, 32, 8, 128, False, 0, 0, None),
+        ("vlm_cross_prefill", 4, 512, 6404, 32, 8, 128, False, 0, 0, None),
+        ("vlm_cross_decode", 4, 1, 6404, 32, 8, 128, False, 0, 0, None),
+        ("seamless_encoder", 4, 512, 512, 16, 16, 64, False, 0, 0, None),
+        ("seamless_cross_decode", 4, 1, 512, 16, 16, 64, False, 0, 0,
+         None))
+    for dt in ("bfloat16", "float32"))
 
 
 def kernels_time_lm(dev):
-    """K7 at the shapes of ``K7_TIMED``: wrapper ms over 50 calls (CUDA
-    events), device ms (profiler: the call's kernels, ``k7_kernels``,
-    summed per call), the plain version's ms,
+    """K7 at the shapes of ``K7_TIMED`` and ``K7_TIMED_FORMS``: wrapper
+    ms over 50 calls (CUDA events), device ms (profiler: the call's
+    kernels, ``k7_kernels``, summed per call), the plain version's ms,
     ``scaled_dot_product_attention``'s ms on the same inputs (prefill:
-    causal, GQA; decode: the first q_offset + 1 keys, unmasked: the same
-    function) as ``library_ms`` (CUDA events) and ``library_kernel_ms``
-    (its kernels' device time, profiler), and the bound.  -> {config:
-    numbers}."""
+    causal, GQA; causal decode: the first q_offset + 1 keys, unmasked;
+    a non-causal call: the first skv keys, unmasked; a window: its band
+    as a boolean mask: the same function) as ``library_ms`` (CUDA
+    events) and ``library_kernel_ms`` (its kernels' device time,
+    profiler), and the bound.  -> {config: numbers}."""
     import torch
     import torch.nn.functional as F
 
@@ -3243,13 +3304,17 @@ def kernels_time_lm(dev):
         attention_ref,
         flash_attention_launch,
     )
+    from repro_torch.kernels.flash_attention.ref import live_keys
 
-    D = K7_TIMED_D
     out = {}
-    for name, B, Sq, Skv, H, K, q_offset, dt in K7_TIMED:
+    forms = [(name, B, Sq, Skv, H, K, K7_TIMED_D, dt, True, 0, q_offset,
+              None) for name, B, Sq, Skv, H, K, q_offset, dt in K7_TIMED]
+    for (name, B, Sq, Skv, H, K, D, dt, causal, window, q_offset,
+         skv) in forms + list(K7_TIMED_FORMS):
+        skv = Skv if skv is None else skv
         q, k, v = k7_inputs(dev, B, Sq, Skv, H, K, D, getattr(torch, dt), 7)
-        kw = dict(causal=True, window=0, q_offset=q_offset)
-        k7 = lambda: flash_attention_launch(q, k, v, skv=Skv, **kw)  # noqa
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        k7 = lambda: flash_attention_launch(q, k, v, skv=skv, **kw)  # noqa
         names = k7_kernels(dt, Sq, D)
         calls = {names[0]: k7, **{n: lambda: None for n in names[1:]}}
         # the profiler now and then drops a run's events: read it again
@@ -3259,17 +3324,28 @@ def kernels_time_lm(dev):
                 break
         parts = {n: seen[n]["ms"] for n in names}
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if Sq == 1:
+        mask = None
+        if causal and Sq == 1:
             kt, vt = kt[:, :, :q_offset + 1], vt[:, :, :q_offset + 1]
+        elif not causal:
+            kt, vt = kt[:, :, :skv], vt[:, :, :skv]
+        elif window:
+            # the band K7's window keeps, as SDPA's boolean mask
+            i = torch.arange(Sq, device=dev)[:, None] + q_offset
+            j = torch.arange(Skv, device=dev)[None, :]
+            mask = (j <= i) & (j > i - window)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=Sq > 1, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask,
+            is_causal=causal and Sq > 1 and mask is None, enable_gqa=True)
         got = k7()
         # the yardstick must compute K7's function (a mask aligned
         # elsewhere would differ by O(1)); it rounds P to bf16 for P V
         check(max_abs(got, lib().transpose(1, 2)) <= 0.1,
               f"K7 {name} and SDPA compute different functions")
-        pairs = live_pairs(Sq, Skv, True, 0, q_offset)
-        kv_rows = min(Skv, q_offset + Sq)
+        pairs = live_pairs(Sq, skv, causal, window, q_offset)
+        lo, hi = live_keys(Sq, skv, causal=causal, window=window,
+                           q_offset=q_offset)
+        kv_rows = hi - lo
         out[name] = dict(
             ms=time_ms(k7, TIMED_LAUNCHES),
             kernel_ms=(sum(parts.values()) if None not in parts.values()
@@ -3283,7 +3359,8 @@ def kernels_time_lm(dev):
                 None),
             bound=k7_bound(B, Sq, H, K, D, q.element_size(), pairs, kv_rows),
             shape=[B, Sq, Skv, H, K, D], q_offset=q_offset, dtype=dt,
-            pairs=pairs, kernels=names)
+            causal=causal, window=window, skv=skv, pairs=pairs,
+            kernels=names)
         keys = [key for n in names for key in seen[n]["keys"]]
         if keys:
             out[name]["kernel_keys"] = keys
@@ -3305,17 +3382,17 @@ def lm_requests(vocab: int):
                     max_new_tokens=LM_NEW) for i, n in enumerate(lens)]
 
 
-def lm_batches(reqs):
-    """The engine's lockstep batches: (S, [4, S + new] left-padded
+def lm_batches(reqs, slots: int = LM_SLOTS):
+    """The engine's lockstep batches: (S, [slots, S + new] left-padded
     prompts followed by each request's tokens, the requests)."""
     import numpy as np
 
     out = []
-    for i in range(0, len(reqs), LM_SLOTS):
-        group = reqs[i:i + LM_SLOTS]
+    for i in range(0, len(reqs), slots):
+        group = reqs[i:i + slots]
         S = max(len(r.prompt) for r in group)
         new = max(r.max_new_tokens for r in group)
-        toks = np.zeros((LM_SLOTS, S + new), np.int32)
+        toks = np.zeros((slots, S + new), np.int32)
         for j, r in enumerate(group):
             toks[j, S - len(r.prompt):S] = r.prompt
             toks[j, S:S + len(r.out)] = r.out
@@ -3324,7 +3401,8 @@ def lm_batches(reqs):
 
 
 def serve_both(cfg, params, make_requests, max_steps: int, dev,
-               experts=None) -> dict:
+               experts=None, slots: int = LM_SLOTS,
+               max_seq: int = LM_MAX_SEQ) -> dict:
     """The requests of ``make_requests(vocab)`` through ``ServeEngine`` on
     ``backend="cuda"`` and on ``"interpret"`` (a warm-up request first),
     the launch counts set to 0 just before each ``run`` and read just
@@ -3338,9 +3416,8 @@ def serve_both(cfg, params, make_requests, max_steps: int, dev,
 
     runs = {}
     for backend in ("cuda", "interpret"):
-        eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
-                          max_seq=LM_MAX_SEQ, backend=backend, device=dev,
-                          experts=experts)
+        eng = ServeEngine(cfg, params, batch_slots=slots, max_seq=max_seq,
+                          backend=backend, device=dev, experts=experts)
         eng.submit(Request(rid=-1, prompt=np.arange(16, dtype=np.int32),
                            max_new_tokens=2))
         eng.run()                                   # warm-up
@@ -3745,11 +3822,11 @@ def kernels_time_scan(dev):
     return out
 
 
-def hybrid_requests(vocab: int, rounds=HY_ROUNDS):
+def hybrid_requests(vocab: int, rounds=HY_ROUNDS, slots: int = LM_SLOTS):
     """Round 1 then round 2 of ``rounds`` (lowest and longest prompt
-    length, new tokens), four requests each, seeded: the first three
-    prompts of a round draw their lengths, the last takes the round's
-    longest."""
+    length, new tokens), ``slots`` requests each, seeded: all but the
+    last prompt of a round draw their lengths, the last takes the
+    round's longest."""
     import numpy as np
 
     from repro_torch.serve.engine import Request
@@ -3757,30 +3834,32 @@ def hybrid_requests(vocab: int, rounds=HY_ROUNDS):
     rng = np.random.default_rng(HY_SEED + 1)
     reqs = []
     for lo, hi, new in rounds:
-        lens = [int(n) for n in rng.integers(lo, hi + 1, LM_SLOTS - 1)]
+        lens = [int(n) for n in rng.integers(lo, hi + 1, slots - 1)]
         for n in lens + [hi]:
             reqs.append(Request(rid=len(reqs), prompt=rng.integers(
                 0, vocab, n).astype(np.int32), max_new_tokens=new))
     return reqs
 
 
-def replay_logits(params, cfg, toks, S, n, backend, experts, dev):
+def replay_logits(params, cfg, toks, S, n, backend, experts, dev,
+                  max_seq: int = LM_MAX_SEQ, memory=None):
     """The serving path's last-position logits along given tokens: a
-    prefill of toks[:, :S], then n - 1 decode steps fed toks[:, S + t] ->
-    [n, B, V] f32 (step t's logits choose token S + t)."""
+    prefill of toks[:, :S] (over ``memory``, a vlm's or encdec's memory
+    embeddings), then n - 1 decode steps fed toks[:, S + t] -> [n, B, V]
+    f32 (step t's logits choose token S + t)."""
     import torch
 
     from repro_torch.models.transformer import forward
     from repro_torch.serve.steps import init_cache
 
-    cache = init_cache(cfg, LM_SLOTS, LM_MAX_SEQ, device=dev)
+    cache = init_cache(cfg, toks.shape[0], max_seq, device=dev)
     x = torch.as_tensor(toks, device=dev)
     kw = dict(caches=cache, logits_slice_last=True, backend=backend,
               experts=experts)
     out = []
     with torch.no_grad():
         out.append(forward(params, cfg, tokens=x[:, :S], mode="prefill",
-                           **kw)[0][:, -1].float())
+                           memory_embeds=memory, **kw)[0][:, -1].float())
         for t in range(n - 1):
             out.append(forward(params, cfg, tokens=x[:, S + t:S + t + 1],
                                mode="decode", index=S + t,
@@ -3788,39 +3867,44 @@ def replay_logits(params, cfg, toks, S, n, backend, experts, dev):
     return torch.stack(out)
 
 
-def prefill_logits(params, cfg, toks, backend, experts, dev):
-    """-> (last-position logits [B, V] f32, MoE aux) of a prefill."""
+def prefill_logits(params, cfg, toks, backend, experts, dev,
+                   max_seq: int = LM_MAX_SEQ, memory=None):
+    """-> (last-position logits [B, V] f32, MoE aux) of a prefill (over
+    ``memory``)."""
     import torch
 
     from repro_torch.models.transformer import forward
     from repro_torch.serve.steps import init_cache
 
     x = torch.as_tensor(toks, device=dev)
-    cache = init_cache(cfg, x.shape[0], LM_MAX_SEQ, device=dev)
+    cache = init_cache(cfg, x.shape[0], max_seq, device=dev)
     with torch.no_grad():
         lg, _, aux = forward(params, cfg, tokens=x, mode="prefill",
                              caches=cache, logits_slice_last=True,
-                             backend=backend, experts=experts)
+                             backend=backend, experts=experts,
+                             memory_embeds=memory)
     return lg[:, -1].float(), aux
 
 
-def first_diffs(params, cfg, reqs, preqs, experts, dev):
+def first_diffs(params, cfg, reqs, preqs, experts, dev,
+                slots: int = LM_SLOTS, max_seq: int = LM_MAX_SEQ,
+                memories=None):
     """Each request whose served tokens differ from the plain path's: the
     first differing step and the plain path's own logit margin there
     between its token and the served one (its logits along its tokens,
-    ``replay_logits``)."""
+    ``replay_logits``; batch i over ``memories[i]``)."""
     import numpy as np
 
     out = []
-    for (S, _, group), (_, ptoks, pgroup) in zip(lm_batches(reqs),
-                                                 lm_batches(preqs)):
+    for i, ((S, _, group), (_, ptoks, pgroup)) in enumerate(zip(
+            lm_batches(reqs, slots), lm_batches(preqs, slots))):
         diffs = [np.flatnonzero(np.asarray(r.out) != np.asarray(pr.out))
                  for r, pr in zip(group, pgroup)]
         if not any(d.size for d in diffs):
             continue
         n = 1 + max(int(d[0]) for d in diffs if d.size)
         lg = replay_logits(params, cfg, ptoks, S, n, "interpret", experts,
-                           dev)
+                           dev, max_seq, memories and memories[i])
         for j, (r, pr, d) in enumerate(zip(group, pgroup, diffs)):
             if d.size:
                 t = int(d[0])
@@ -3830,21 +3914,23 @@ def first_diffs(params, cfg, reqs, preqs, experts, dev):
 
 
 def teacher_forcing(params, cfg, reqs, experts, dev,
-                    backend: str = "cuda") -> dict:
+                    backend: str = "cuda", slots: int = LM_SLOTS,
+                    memory=None) -> dict:
     """One lockstep batch of served requests against a teacher-forced
-    forward (on ``backend``) over its prompts and new tokens: per request
-    the share of new tokens equal to that forward's argmax, each miss
-    with the forward's margin between its argmax and the served token,
-    and the forward's MoE drop fraction (summed over the layers)."""
+    forward (on ``backend``, over ``memory``) over its prompts and new
+    tokens: per request the share of new tokens equal to that forward's
+    argmax, each miss with the forward's margin between its argmax and
+    the served token, and the forward's MoE drop fraction (summed over
+    the layers; 0 without MoE)."""
     import torch
 
     from repro_torch.models.transformer import forward
 
-    (S, toks, group), = lm_batches(reqs)
+    (S, toks, group), = lm_batches(reqs, slots)
     with torch.no_grad():
         tf, _, aux = forward(params, cfg, tokens=torch.as_tensor(
             toks, device=dev), mode="train", backend=backend,
-            experts=experts)
+            experts=experts, memory_embeds=memory)
     tf = tf[:, S - 1:-1].float()
     pred = tf.argmax(-1)
     agree, misses = [], []
@@ -3855,7 +3941,7 @@ def teacher_forcing(params, cfg, reqs, experts, dev,
             misses.append({"rid": r.rid, "step": t, "margin": float(
                 tf[j, t, pred[j, t]] - tf[j, t, out[t]])})
     return {"agree": agree, "misses": misses,
-            "drop_frac_sum": float(aux["moe_drop_frac"])}
+            "drop_frac_sum": float(aux.get("moe_drop_frac", 0.0))}
 
 
 def hybrid_serve(cfg, params, experts, dev) -> dict:
@@ -3969,64 +4055,71 @@ def mamba_block_check(params, cfg, toks, dev) -> dict:
     return errs
 
 
-def attention_block_check(params, cfg, toks, dev, *, layer=None,
-                          h=None) -> dict:
-    """Layer P // 2's (or ``layer``'s) attention on K7 against plain
-    attention: the causal prefill of toks[:, :-1], then one decode step at
-    index S against the [B, max_seq] cache that prefill wrote, as the
-    engine calls them; the attention outputs (before the output
-    projection) by ``block_close``.  In f32 the ``spread`` it allows is
-    the distance from the plain attention of the plain decomposition of
-    the kernel the call takes (``k7_split_ref``; reported, with the
-    kernel's own distance from it): at the path's score magnitudes, a
-    few hundred, the summation order alone moves f32 outputs by about
-    2e-5 of their scale.  ``h``: the block's normed input when the caller has it
-    (else the tokens embedded and normed)."""
+def attn_close(got: dict, dev, what: str, call=None) -> dict:
+    """K7 (``got["cuda"]``) against the plain attention
+    (``got["interpret"]``) by ``block_close``; in f32 with the spread of
+    the plain decomposition of the kernel's call (``call`` = (q, k, v,
+    skv, kw), ``k7_split_ref``) -> {"err"[, "split_spread",
+    "vs_split"]}."""
+    import torch
+
+    if got["cuda"].dtype != torch.float32:
+        return {"err": block_close(got["cuda"], got["interpret"], what)}
+    q, k, v, skv, kw = call
+    split = k7_split_ref(dev, q.float(), k.float(), v.float(), skv,
+                         **kw).float()
+    spread = float((split - got["interpret"].float()).abs().max())
+    return {"err": block_close(got["cuda"], got["interpret"], what, spread),
+            "split_spread": spread,
+            "vs_split": float((got["cuda"].float() - split).abs().max())}
+
+
+def self_block_check(p, h, cfg, dev, what: str, *, causal: bool = True,
+                     n_decode: int = 1, max_seq: int = LM_MAX_SEQ) -> dict:
+    """A self-attention block's attention (before the output projection)
+    on K7 against the plain attention, on its normed input ``h`` [B, S +
+    n_decode, d], as the serving path calls them: the prefill of the
+    first S positions (causal with the config's window, or the encoder's
+    non-causal call), its last T keys written to slots 0..T-1 of a [B,
+    T] cache (T = min(max_seq, window) with a window), then ``n_decode``
+    decode steps, each writing its key (at index % T with a window) and
+    attending the cache: non-causal over the min(index + 1, T) written
+    slots with a window, else causal at q_offset = index.  Each call by
+    ``attn_close``."""
     import torch
 
     from repro_torch.models import attention as attn
-    from repro_torch.serve.steps import init_cache
 
-    i = cfg.attn_period // 2 if layer is None else layer
-    p = params["layers"][i]["attn"]
-    if h is None:
-        h = block_input(params, cfg, i, "ln1", toks, dev)
-    B, S = h.shape[0], h.shape[1] - 1
-    kv = {name: t[0] for name, t in init_cache(
-        cfg, B, LM_MAX_SEQ, device=dev)[f"slot{i % max(1, cfg.attn_period)}"][
-        "kv"].items()}
+    window = cfg.sliding_window
+    B, S = h.shape[0], h.shape[1] - n_decode
+    T = min(max_seq, window) if window else max_seq
+    kv = {n: torch.zeros((B, T, cfg.num_kv_heads, cfg.head_dim),
+                         dtype=torch.bfloat16, device=dev) for n in "kv"}
+    out = {}
     with torch.no_grad():
         pos = torch.arange(S, device=dev)
         q = attn.project_q(p, h[:, :S], cfg, pos)
         k, v = attn.project_kv(p, h[:, :S], cfg, pos)
-        pre = {b: attn.prefill_attention(q, k, v, backend=b)
+        got = {b: attn.prefill_attention(q, k, v, backend=b, causal=causal,
+                                          window=window)
                for b in ("cuda", "interpret")}
-        pre["qkv"] = (q, k, v)
-        attn.cache_update_tree(kv, k, v, 0)
-        q = attn.project_q(p, h[:, S:], cfg, pos[-1:] + 1)
-        k, v = attn.project_kv(p, h[:, S:], cfg, pos[-1:] + 1)
-        attn.cache_update_tree(kv, k, v, S)
-        dec = {b: attn.decode_attention_tree(q, kv, S, backend=b)
-               for b in ("cuda", "interpret")}
-        if h.dtype == torch.float32:
-            kc, vc = attn._materialize_kv(kv)
-            split = {"prefill": k7_split_ref(dev, *pre["qkv"], pre[
-                "qkv"][1].shape[1], causal=True, window=0, q_offset=0),
-                "decode": k7_split_ref(dev, q, kc, vc, kc.shape[1],
-                                       causal=True, window=0, q_offset=S)}
-    out = {}
-    for step, got in (("prefill", pre), ("decode", dec)):
-        what = f"layer {i} attention block {step}"
-        if h.dtype != torch.float32:
-            out[step] = block_close(got["cuda"], got["interpret"], what)
-            continue
-        spread = float((split[step].float() - got["interpret"].float())
-                       .abs().max())
-        out[step] = block_close(got["cuda"], got["interpret"], what,
-                                spread)
-        out[f"{step}_split_spread"] = spread
-        out[f"{step}_vs_split"] = float(
-            (got["cuda"].float() - split[step].float()).abs().max())
+        out["prefill"] = attn_close(got, dev, f"{what} prefill", (
+            q, k, v, S, dict(causal=causal, window=window, q_offset=0)))
+        attn.cache_update_tree(kv, k[:, -T:], v[:, -T:], 0)
+        for t in range(n_decode):
+            i = S + t
+            pos = torch.arange(i, i + 1, device=dev)
+            q = attn.project_q(p, h[:, i:i + 1], cfg, pos)
+            k, v = attn.project_kv(p, h[:, i:i + 1], cfg, pos)
+            attn.cache_update_tree(kv, k, v, i, window=window)
+            got = {b: attn.decode_attention_tree(q, kv, i, backend=b,
+                                                 window=window)
+                   for b in ("cuda", "interpret")}
+            kw, skv = ((dict(causal=False, window=0, q_offset=0),
+                        min(i + 1, T)) if window else
+                       (dict(causal=True, window=0, q_offset=i), T))
+            out[f"decode_{i}"] = attn_close(got, dev, f"{what} decode {i}",
+                                            (q, kv["k"], kv["v"], skv, kw))
     return out
 
 
@@ -4160,9 +4253,13 @@ def path_hybrid_serve(dev):
             main_launches = runs["cuda"]["launches"]
             S, toks, _ = batches[0]
             toks = toks[:, :S + 1]
+            i = cfg.attn_period // 2
             rep["block_err"] = {
                 "mamba": mamba_block_check(params, cfg, toks, dev),
-                "attention": attention_block_check(params, cfg, toks, dev),
+                "attention": self_block_check(
+                    params["layers"][i]["attn"],
+                    block_input(params, cfg, i, "ln1", toks, dev), cfg, dev,
+                    f"layer {i} attention"),
                 "moe": moe_block_check(params, cfg, toks, experts, dev)}
         else:
             free = dataclasses.replace(
@@ -5333,25 +5430,35 @@ def moe_requests(vocab: int):
     return hybrid_requests(vocab, MOE_ROUNDS)
 
 
-def layer_trace(params, cfg, toks, backend: str, dev) -> dict:
-    """A prefill of toks on one attention engine (``"cuda"``: K7;
-    ``"interpret"``: the plain attention) -> {"inputs": each layer's
-    residual-stream input, "moe_inputs": each MoE FFN's normed input,
-    "routes": each MoE FFN's (top-k expert ids [T, k], probabilities
-    [T, E]), "logits": the last position's logits, f32}."""
+def layer_trace(params, cfg, toks, backend: str, dev,
+                max_seq: int = LM_MAX_SEQ, memory=None) -> dict:
+    """A prefill of toks (over ``memory``) on one attention engine
+    (``"cuda"``: K7; ``"interpret"``: the plain attention) -> {"inputs":
+    each layer's residual-stream input (an encdec's encoder layers
+    first), "layers": each layer's (slot, parameters), "cross": each
+    cross-attention's (parameters, residual-stream input, memory),
+    "moe_inputs": each MoE FFN's normed input, "routes": each MoE FFN's
+    (top-k expert ids [T, k], probabilities [T, E]), "logits": the last
+    position's logits, f32}."""
     import torch
 
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
     from repro_torch.serve.steps import init_cache
 
-    out = {"inputs": [], "moe_inputs": [], "routes": []}
-    real_slot, real_apply, real_route = tf._apply_slot, moe.moe_apply, \
-        moe.route
+    out = {"inputs": [], "layers": [], "cross": [], "moe_inputs": [],
+           "routes": []}
+    real_slot, real_apply, real_route, real_cross = \
+        tf._apply_slot, moe.moe_apply, moe.route, tf._cross
 
     def slot(p, s, x, *a, **kw):
         out["inputs"].append(x)
+        out["layers"].append((s, p))
         return real_slot(p, s, x, *a, **kw)
+
+    def cross(p, x, *a, **kw):
+        out["cross"].append((p, x, kw["memory"]))
+        return real_cross(p, x, *a, **kw)
 
     def apply(p, x, *a, **kw):
         out["moe_inputs"].append(x)
@@ -5363,17 +5470,18 @@ def layer_trace(params, cfg, toks, backend: str, dev) -> dict:
                               r["probs"].flatten(0, -2)))
         return r
 
-    tf._apply_slot, tf.moe_mod.moe_apply, moe.route = slot, apply, route
+    tf._apply_slot, tf.moe_mod.moe_apply, moe.route, tf._cross = \
+        slot, apply, route, cross
     try:
-        cache = init_cache(cfg, toks.shape[0], LM_MAX_SEQ, device=dev)
+        cache = init_cache(cfg, toks.shape[0], max_seq, device=dev)
         with torch.no_grad():
             out["logits"] = tf.forward(
                 params, cfg, tokens=torch.as_tensor(toks, device=dev),
                 mode="prefill", caches=cache, logits_slice_last=True,
-                backend=backend)[0][:, -1].float()
+                backend=backend, memory_embeds=memory)[0][:, -1].float()
     finally:
-        tf._apply_slot, tf.moe_mod.moe_apply, moe.route = \
-            real_slot, real_apply, real_route
+        tf._apply_slot, tf.moe_mod.moe_apply, moe.route, tf._cross = \
+            real_slot, real_apply, real_route, real_cross
     return out
 
 
@@ -5451,7 +5559,6 @@ def path_moe_serve(dev):
     import torch
 
     from repro_torch import configs
-    from repro_torch.kernels import _ext
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.registry import init_params
     from repro_torch.serve.engine import ServeEngine
@@ -5474,21 +5581,7 @@ def path_moe_serve(dev):
         init_s = time.perf_counter() - t
         runs = serve_both(cfg, params, moe_requests, n_new, dev)
         cuda, plain = runs["cuda"], runs["interpret"]
-        n_calls = (cuda["calls"]["prefill_calls"]
-                   + cuda["calls"]["decode_calls"])
-        want = dict.fromkeys(_ext.LAUNCHES, 0) | {
-            "flash_attention": cfg.num_layers * n_calls}
-        check(cuda["launches"] == want,
-              f"path_moe_serve launched {cuda['launches']}, not {want}")
-        check(sum(plain["launches"].values()) == 0,
-              f"backend='interpret' launched kernels: {plain['launches']}")
-        for run in runs.values():
-            check(run["stats"]["requests"] == 2 * LM_SLOTS
-                  and run["calls"]["tokens"] == LM_SLOTS * n_new
-                  and all(len(r.out) == r.max_new_tokens
-                          and 0 <= min(r.out) <= max(r.out) < cfg.vocab_size
-                          for r in run["reqs"]),
-                  f"stats {run['stats']}, {run['calls']['tokens']} tokens")
+        check_serve_runs("path_moe_serve", cfg, runs, LM_SLOTS, n_new)
         rep = dict(num_layers=layers, weights_gb=sum(
             x.numel() * x.element_size() for x in _leaves(params)) / 1e9,
             init_s=init_s, **run_fields(runs))
@@ -5520,7 +5613,10 @@ def path_moe_serve(dev):
             S, toks, _ = batches[0]
             toks = toks[:, :S + 1]
             rep["block_err"] = {
-                "attention": attention_block_check(params, cfg, toks, dev),
+                "attention": self_block_check(
+                    params["layers"][0]["attn"],
+                    block_input(params, cfg, 0, "ln1", toks, dev), cfg, dev,
+                    "layer 0 attention"),
                 "moe": moe_block_check(params, cfg, toks, None, dev)}
         else:
             rep["routing"], rep["block_err"] = [], []
@@ -5539,8 +5635,9 @@ def path_moe_serve(dev):
                                     plain["inputs"][layer], cfg.norm_eps)
                         rep["block_err"].append({
                             "layer": layer,
-                            "attention": attention_block_check(
-                                params, cfg, None, dev, layer=layer, h=h),
+                            "attention": self_block_check(
+                                params["layers"][layer]["attn"], h, cfg,
+                                dev, f"layer {layer} attention"),
                             "moe": moe_block_check(
                                 params, cfg, None, None, dev, layer=layer,
                                 x=plain["moe_inputs"][layer])})
@@ -5590,6 +5687,703 @@ def path_moe_serve(dev):
           "prompt_lens": [len(r.prompt) for r in moe_requests(
               full.vocab_size)],
           "max_new_tokens": [new for _, _, new in MOE_ROUNDS],
+          "logit_tol": LM_LOGIT_TOL, **report,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
+    return main_launches
+
+
+# ----------- slice 15: Mixtral's window and ring, vision and encdec cross-
+# attention (K7), xLSTM
+
+MX_ARCH, MX_SEED = "mixtral-8x7b", 0
+# this card's share of the 8 experts (ep = 2): 24.15 B parameters, 48.3
+# GB in bf16 (all 8 would be 93.4 GB)
+MX_EXPERTS = range(0, 4)
+MX_F32_LAYERS = 4                 # f32 with all 8 experts: about 24 GB
+MX_SLOTS, MX_MAX_SEQ = 2, 4352    # the cache holds T = min(4,352, 4,096)
+# round 1: two 4,096-token prompts and 128 new tokens (the decode wraps
+# the ring: slots 0-127 take positions 4,096-4,223); round 2: two of
+# 17-32 tokens (left-padded to 32), 32 new.  Prefills of 8,192 and 64
+# tokens and teacher-forced forwards of 8,448 and 128 take the MoE
+# grouping (a multiple of 256, or at most 256)
+MX_ROUNDS = ((4096, 4096, 128), (17, 32, 32))
+# the block gates' input: round 1's 4,224 tokens and 128 seeded ones, a
+# 4,350-token windowed prefill (the window binds) then 2 ring decode
+# steps (8,704 tokens for the MoE block: 34 groups of 256)
+MX_BLOCK_S, MX_RING_STEPS = 4352, 2
+VL_ARCH, ED_ARCH, XL_ARCH, LM15_SEED = (
+    "llama-3.2-vision-11b", "seamless-m4t-large-v2", "xlstm-1.3b", 0)
+# xLSTM: round 1 four 512-token prompts and 128 new tokens, round 2 four
+# of 17-32 and 32 new; every prefill and teacher-forced forward (512,
+# 640, 32, 64 positions) keeps the mLSTM's chunk rule, S % min(128, S)
+XL_ROUNDS = ((512, 512, 128), (17, 32, 32))
+# memory embeddings (image patches, audio frames) as the reference's
+# batch defs draw them: normal, std 0.02
+MEM_STD = 0.02
+MEM_KEY = {"vlm": "image_embeds", "encdec": "frames"}
+# which of the dense family's end-to-end gates each path's f32 run holds
+# (``end_to_end``); the rest are reported.  With seeded weights the
+# reference's init gives attention scores with a spread of about 100 at
+# these widths (no QK-norm), so near-ties decide which key a query takes
+# and each layer amplifies a rounding difference: the plain attention
+# alone moves the logits by O(1) when only its summation order changes
+# (``plain_reorder_logit_err``) over Llama-3.2-Vision's 40 layers and
+# SeamlessM4T's 24, and the bf16 KV cache's rounding does the same to
+# decode against teacher forcing on both engines, Mixtral's 4 layers
+# included (``teacher_forcing_plain``).  Mixtral's 4 layers keep K7's
+# tokens within the margin of the plain path's; its logits are held by
+# the routing rule.  Every path gates its attention blocks instead.
+E2E_GATED = {MX_ARCH: ("tokens",), VL_ARCH: (), ED_ARCH: ()}
+
+
+def mixtral_requests(vocab: int):
+    return hybrid_requests(vocab, MX_ROUNDS, MX_SLOTS)
+
+
+def xlstm_requests(vocab: int):
+    return hybrid_requests(vocab, XL_ROUNDS)
+
+
+def k7_per_run(cfg, prefill_calls: int, decode_calls: int) -> int:
+    """K7 calls of a serving run: one per attention and per cross-
+    attention layer a call, and an encdec's encoder layers once a
+    prefill."""
+    from repro_torch.models.transformer import decoder_layout, encoder_layout
+
+    n_p, slots = decoder_layout(cfg)
+    per_call = n_p * sum((s.mixer == "attn") + s.cross for s in slots)
+    enc = encoder_layout(cfg)[0] if cfg.family == "encdec" else 0
+    return per_call * (prefill_calls + decode_calls) + enc * prefill_calls
+
+
+def check_serve_runs(name, cfg, runs, slots: int, n_new: int) -> dict:
+    """K7 launched ``k7_per_run`` times on ``backend="cuda"`` and nothing
+    else, nothing on ``"interpret"``, every request served its tokens
+    -> the cuda run's launches."""
+    from repro_torch.kernels import _ext
+
+    cuda, plain = runs["cuda"], runs["interpret"]
+    want = dict.fromkeys(_ext.LAUNCHES, 0) | {"flash_attention": k7_per_run(
+        cfg, cuda["calls"]["prefill_calls"], cuda["calls"]["decode_calls"])}
+    check(cuda["launches"] == want,
+          f"{name} launched {cuda['launches']}, not {want}")
+    check(sum(plain["launches"].values()) == 0,
+          f"backend='interpret' launched kernels: {plain['launches']}")
+    for run in runs.values():
+        check(len(run["reqs"]) == 2 * slots
+              and run["calls"]["tokens"] == slots * n_new
+              and all(len(r.out) == r.max_new_tokens
+                      and 0 <= min(r.out) <= max(r.out) < cfg.vocab_size
+                      for r in run["reqs"]),
+              f"{name}: {run['calls']['tokens']} tokens")
+    return cuda["launches"]
+
+
+def gated_serve(cfg, params, make_requests, memories, backend, dev,
+                slots: int = LM_SLOTS, max_seq: int = LM_MAX_SEQ) -> dict:
+    """The engine's lockstep loop through ``make_prefill_step`` and
+    ``make_decode_step`` with batch i's memory ``memories[i]`` (seeded
+    image embeddings or frames where ``ServeEngine`` feeds the
+    reference's zero stubs), the launch counts set to 0 just before and
+    read just after -> {"reqs", "launches", "calls" (with host seconds
+    and tokens), "stats"}, as ``serve_both`` reports a run."""
+    import torch
+
+    from repro_torch.kernels import _ext
+    from repro_torch.serve.steps import (
+        init_cache,
+        make_decode_step,
+        make_prefill_step,
+    )
+
+    reqs = make_requests(cfg.vocab_size)
+    prefill = make_prefill_step(cfg, backend)
+    decode = make_decode_step(cfg, backend)
+    cache = init_cache(cfg, slots, max_seq, device=dev)
+    tm = {"prefill_calls": 0, "prefill_s": 0.0, "decode_calls": 0,
+          "decode_s": 0.0, "tokens": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i, (S, toks, group) in enumerate(lm_batches(reqs, slots)):
+            t = time.perf_counter()
+            cur, cache = prefill(params, cache, {
+                "tokens": torch.as_tensor(toks[:, :S], device=dev),
+                MEM_KEY[cfg.family]: memories[i]})
+            host = cur.cpu()
+            tm["prefill_calls"] += 1
+            tm["prefill_s"] += time.perf_counter() - t
+            n = max(r.max_new_tokens for r in group)
+            t = time.perf_counter()
+            for step in range(n):
+                for j, r in enumerate(group):
+                    if len(r.out) < r.max_new_tokens:
+                        r.out.append(int(host[j]))
+                        tm["tokens"] += 1
+                cur, cache = decode(params, cache, cur[:, None], S + step)
+                host = cur.cpu()
+            tm["decode_calls"] += n
+            tm["decode_s"] += time.perf_counter() - t
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"reqs": reqs, "launches": dict(_ext.LAUNCHES), "calls": tm,
+            "stats": {"wall_s": wall, "tok_per_s": tm["tokens"] / wall},
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "backend": backend}
+
+
+def end_to_end(params, cfg, reqs, preqs, dev, *, slots: int, max_seq: int,
+               memories=None, experts=None):
+    """The dense family's end-to-end values of a served run (``reqs`` on
+    K7, ``preqs`` on the plain attention): each round's prefill logits
+    against ``interpret``, the first differing tokens with the plain
+    path's own margins, and decode against a teacher-forced forward
+    (``teacher_forcing_rounds``); beside them how far the plain path's
+    prefill logits move when only its attention's summation order
+    changes -> (report, {"logits": logits within ``LM_LOGIT_TOL``,
+    "tokens": margins within twice it, "teacher_forcing": its gates},
+    each a list of (ok, message))."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_split_ref
+    from repro_torch.models import attention as attn
+
+    errs, reorder = [], []
+    real_ref = attn.attention_ref
+    for i, (S, toks, _) in enumerate(lm_batches(reqs, slots)):
+        mem = memories and memories[i]
+        lg, _ = prefill_logits(params, cfg, toks[:, :S], "cuda", experts,
+                               dev, max_seq, mem)
+        plg, _ = prefill_logits(params, cfg, toks[:, :S], "interpret",
+                                experts, dev, max_seq, mem)
+        check(bool(torch.isfinite(lg).all()), "non-finite logits")
+        errs.append(max_abs(lg, plg))
+        # the plain path against itself, its attention's sums in 64-key
+        # tiles
+        attn.attention_ref = lambda q, k, v, **kw: attention_split_ref(
+            q, k, v, tile=64, **kw)
+        try:
+            rlg, _ = prefill_logits(params, cfg, toks[:, :S], "interpret",
+                                    experts, dev, max_seq, mem)
+        finally:
+            attn.attention_ref = real_ref
+        reorder.append(max_abs(rlg, plg))
+    diffs = first_diffs(params, cfg, reqs, preqs, experts, dev, slots,
+                        max_seq, memories)
+    tf, tf_gates = teacher_forcing_rounds(
+        params, cfg, reqs, dev, slots=slots, memories=memories,
+        experts=experts, preqs=preqs)
+    rep = {"prefill_logit_err": errs, "plain_reorder_logit_err": reorder,
+           "requests_differing": len(diffs), "first_diffs": diffs, **tf}
+    gates = {
+        "logits": [(max(errs) <= LM_LOGIT_TOL,
+                    f"prefill logits differ by {errs} > {LM_LOGIT_TOL}")],
+        "tokens": [(all(abs(d["margin"]) <= 2 * LM_LOGIT_TOL for d in diffs),
+                    f"tokens first differ outside the margin: {diffs}")],
+        "teacher_forcing": tf_gates}
+    return rep, gates
+
+
+def teacher_forcing_rounds(params, cfg, reqs, dev, *, slots: int,
+                           memories=None, experts=None, preqs=None):
+    """Decode through the cache against a teacher-forced forward, round
+    by round: the K7 run's tokens (``reqs``) against a forward on K7,
+    and, given the plain run's tokens (``preqs``), those against a
+    forward on the plain attention -> (report, gates on the K7 one:
+    agreement on at least ``LM_AGREE`` of the positions, each miss where
+    the forward's top two lie within 2 x ``LM_LOGIT_TOL``)."""
+    import numpy as np
+
+    rep = {}
+    for key, backend, rq in (("teacher_forcing", "cuda", reqs),
+                             ("teacher_forcing_plain", "interpret", preqs)):
+        if rq is None:
+            continue
+        agree, misses, drops = [], [], 0.0
+        for i in range(len(rq) // slots):
+            tf = teacher_forcing(params, cfg, rq[i * slots:(i + 1) * slots],
+                                 experts, dev, backend, slots,
+                                 memories and memories[i])
+            agree += tf["agree"]
+            misses += [m["margin"] for m in tf["misses"]]
+            drops += tf["drop_frac_sum"]
+        rep[key] = {"agree": float(np.mean(agree)), "agree_by_request": agree,
+                    "miss_margins": misses, "moe_drop_frac_sum": drops}
+    r = rep["teacher_forcing"]
+    gates = [(all(m <= 2 * LM_LOGIT_TOL for m in r["miss_margins"]),
+              f"decode misses teacher forcing outside the margin: "
+              f"{r['miss_margins']}"),
+             (r["agree"] >= LM_AGREE,
+              f"decode against teacher forcing agrees on {r['agree']}")]
+    return rep, gates
+
+
+def cross_block_check(p, x, memory, cfg, dev, what: str) -> dict:
+    """A cross-attention block's attention on K7 against the plain
+    attention on its own inputs (the residual stream ``x``, normed by
+    ``ln_cross``, and the memory): the prefill's non-causal call over
+    every memory key, then the decode's, the last position's query
+    against the keys and values in the cache's bf16.  Each call by
+    ``attn_close``."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rmsnorm
+
+    c = p["cross"]
+    with torch.no_grad():
+        q = attn.project_q(c, rmsnorm(p["ln_cross"], x, cfg.norm_eps), cfg)
+        k, v = attn.project_kv(c, memory, cfg)
+        got = {b: attn.prefill_attention(q, k, v, backend=b, causal=False)
+               for b in ("cuda", "interpret")}
+        kw = dict(causal=False, window=0, q_offset=0)
+        out = {"prefill": attn_close(got, dev, f"{what} prefill",
+                                     (q, k, v, k.shape[1], kw))}
+        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        qd = q[:, -1:].contiguous()
+        got = {b: attn.prefill_attention(qd, kb, vb, backend=b,
+                                         causal=False)
+               for b in ("cuda", "interpret")}
+        out["decode"] = attn_close(got, dev, f"{what} decode",
+                                   (qd, kb, vb, kb.shape[1], kw))
+    return out
+
+
+def free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def seeded_params(cfg, dtype, dev, seed, experts=None):
+    """-> (parameters from ``torch.Generator`` ``seed`` on the card, init
+    seconds, GB)."""
+    import torch
+
+    from repro_torch.models.registry import init_params
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(seed), device=dev, dtype=dtype,
+                         experts=experts)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t, sum(
+        x.numel() * x.element_size() for x in _leaves(params)) / 1e9
+
+
+def path_mixtral_serve(dev):
+    """``ServeEngine`` with Mixtral-8x7B at every published width and
+    depth (32 layers, d_model 4,096, 32 query heads over 8 KV heads of
+    128, a 4,096-key sliding window, 8 experts top-2 of d_ff 14,336,
+    vocab 32,000), weights from ``torch.Generator`` seed 0 on the card,
+    batch_slots 2, max_seq 4,352 (the rolling cache holds T = 4,096),
+    the two rounds of ``MX_ROUNDS`` in one ``run`` per engine,
+    ``backend="cuda"`` against ``"interpret"``: K7 32 x (prefill +
+    decode calls) launches and nothing else; round 1's decode wraps the
+    ring.  The earlier phases' weights are freed first.  Twice:
+
+    * bf16 with experts 0-3 (this card's share, 48.3 GB; the kernels
+      line counts this run): per-block gates on the path's own input
+      (round 1's 4,224 tokens and 128 seeded ones, embedded and normed):
+      layer 0's attention on K7 (a 4,350-token windowed prefill where
+      the window binds, then 2 ring decode steps) and layer 0's MoE FFN
+      against a plain per-expert gather, each within 8e-3 of max(1,
+      |plain|).  The dense family's end-to-end values are reported.
+    * f32 at 4 layers with all 8 experts (about 24 GB): every layer's
+      attention (the same windowed prefill and ring steps) and MoE FFN
+      on the plain run's own inputs within 1e-5 of the block's scale
+      (attention plus twice the plain decomposition's spread), each
+      round's routing on K7 first differing from ``interpret``'s at a
+      near-tie (``ROUTE_MARGIN``), else the logits within
+      ``LM_LOGIT_TOL``; tokens against ``interpret`` within the margin;
+      teacher forcing over round 1's 4,224 and round 2's 64 positions
+      on a drop-free rerun (``capacity_factor`` = E / k) on both
+      engines, reported (``E2E_GATED``).
+
+    -> the bf16 run's launches per kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    held_gb = free_card()
+    full = configs.get_config(MX_ARCH)
+    n_new = sum(new for _, _, new in MX_ROUNDS)
+    report, gates = {}, []
+    for dtype, layers, experts in ((torch.bfloat16, full.num_layers,
+                                    MX_EXPERTS),
+                                   (torch.float32, MX_F32_LAYERS, None)):
+        cfg = dataclasses.replace(full, num_layers=layers)
+        params, init_s, gb = seeded_params(cfg, dtype, dev, MX_SEED, experts)
+        runs = serve_both(cfg, params, mixtral_requests, n_new, dev, experts,
+                          MX_SLOTS, MX_MAX_SEQ)
+        launches = check_serve_runs("path_mixtral_serve", cfg, runs,
+                                    MX_SLOTS, n_new)
+        rep = dict(num_layers=layers, experts=None if experts is None else
+                   [experts.start, experts.stop - 1], weights_gb=gb,
+                   init_s=init_s, **run_fields(runs))
+        reqs, preqs = runs["cuda"]["reqs"], runs["interpret"]["reqs"]
+        e2e, e2e_gates = end_to_end(params, cfg, reqs, preqs, dev,
+                                    slots=MX_SLOTS, max_seq=MX_MAX_SEQ,
+                                    experts=experts)
+        rep["published_capacity"] = e2e
+        batches = lm_batches(reqs, MX_SLOTS)
+        _, toks, _ = batches[0]
+        extra = np.random.default_rng(MX_SEED).integers(
+            0, cfg.vocab_size, (MX_SLOTS, MX_BLOCK_S - toks.shape[1]))
+        long_toks = np.concatenate([toks, extra.astype(np.int32)], 1)
+        if dtype == torch.bfloat16:
+            main_launches = launches
+            h = block_input(params, cfg, 0, "ln1", long_toks, dev)
+            x = block_input(params, cfg, 0, "ln2", long_toks, dev)
+            rep["block_err"] = {
+                "attention": self_block_check(
+                    params["layers"][0]["attn"], h, cfg, dev,
+                    "layer 0 attention", n_decode=MX_RING_STEPS,
+                    max_seq=MX_MAX_SEQ),
+                "moe": moe_block_check(params, cfg, None, experts, dev, x=x)}
+        else:
+            rep["routing"] = []
+            for i, (S, toks, _) in enumerate(batches):
+                traces = {b: layer_trace(params, cfg, toks[:, :S], b, dev,
+                                         MX_MAX_SEQ)
+                          for b in ("cuda", "interpret")}
+                div = routing_divergence(traces["cuda"],
+                                         traces["interpret"],
+                                         cfg.num_experts_per_tok)
+                del traces
+                rep["routing"].append(div)
+                first, gap = div["first_flip_layer"], \
+                    div["first_flip_max_gap"]
+                gates.append((
+                    div["logit_err"] <= LM_LOGIT_TOL if first is None
+                    else gap <= ROUTE_MARGIN,
+                    f"f32 round {i + 1}: logits differ by "
+                    f"{div['logit_err']}, routing first differs at layer "
+                    f"{first} with a gap of {gap} > {ROUTE_MARGIN}"))
+            plain = layer_trace(params, cfg, long_toks, "interpret", dev,
+                                MX_MAX_SEQ)
+            rep["block_err"] = []
+            for layer in range(cfg.num_layers):
+                lp = params["layers"][layer]
+                h = rmsnorm(lp["ln1"], plain["inputs"][layer], cfg.norm_eps)
+                rep["block_err"].append({
+                    "layer": layer,
+                    "attention": self_block_check(
+                        lp["attn"], h, cfg, dev, f"layer {layer} attention",
+                        n_decode=MX_RING_STEPS, max_seq=MX_MAX_SEQ),
+                    "moe": moe_block_check(params, cfg, None, None, dev,
+                                           layer=layer,
+                                           x=plain["moe_inputs"][layer])})
+            del plain
+            # the dense family's gates on a drop-free rerun on K7
+            free = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts
+                / cfg.num_experts_per_tok)
+            free_reqs = {}
+            for backend in ("cuda", "interpret"):
+                eng = ServeEngine(free, params, batch_slots=MX_SLOTS,
+                                  max_seq=MX_MAX_SEQ, backend=backend,
+                                  device=dev)
+                free_reqs[backend] = mixtral_requests(cfg.vocab_size)
+                for r in free_reqs[backend]:
+                    eng.submit(r)
+                eng.run(max_steps=n_new)
+                del eng
+            rep["drop_free"], free_gates = teacher_forcing_rounds(
+                params, free, free_reqs["cuda"], dev, slots=MX_SLOTS,
+                preqs=free_reqs["interpret"])
+            rep["drop_free"]["capacity_factor"] = free.capacity_factor
+            # tokens against interpret at the published capacity and
+            # teacher forcing on the drop-free rerun, where E2E_GATED
+            # says so
+            e2e_gates["teacher_forcing"] = free_gates
+            for k in E2E_GATED[MX_ARCH]:
+                gates += e2e_gates[k]
+        rep["phase_peak_gb"] = max(runs["cuda"]["peak_gb"],
+                                   torch.cuda.max_memory_allocated(dev) / 1e9)
+        report["bf16" if dtype == torch.bfloat16 else "f32"] = rep
+        del params, runs
+        free_card()
+    emit({"phase": "path_mixtral_serve", "arch": MX_ARCH,
+          "params": full.param_count(), "batch_slots": MX_SLOTS,
+          "max_seq": MX_MAX_SEQ, "window": full.sliding_window,
+          "held_gb_before": held_gb,
+          "prompt_lens": [len(r.prompt) for r in mixtral_requests(
+              full.vocab_size)],
+          "max_new_tokens": [new for _, _, new in MX_ROUNDS],
+          "logit_tol": LM_LOGIT_TOL, **report,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
+    return main_launches
+
+
+def set_gates(params, dev, seed: int) -> list:
+    """Every gated cross-attention's tanh gate drawn from [0.3, 1.0)
+    (the init's 0 hides the cross-attention) -> the gates."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for layer in params["layers"]:
+        if "gate" in layer.get("cross", {}):
+            layer["cross"]["gate"].copy_(0.3 + 0.7 * torch.rand(
+                (), generator=g, device=dev))
+            out.append(float(layer["cross"]["gate"]))
+    return out
+
+
+def seeded_memories(cfg, reqs, dev, seed: int, slots: int = LM_SLOTS):
+    """Each lockstep batch's memory, bf16, ``MEM_STD`` x normal from
+    ``seed``: a vlm's image embeddings [slots, num_image_tokens, d] or an
+    encdec's frames [slots, S, d] (the batch's prompt length)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for S, _, _ in lm_batches(reqs, slots):
+        M = cfg.num_image_tokens if cfg.family == "vlm" else S
+        out.append((MEM_STD * torch.randn((slots, M, cfg.d_model),
+                                          generator=g, device=dev)
+                    ).to(torch.bfloat16))
+    return out
+
+
+def cross_serve(name, arch, dev, block_layers) -> dict:
+    """The vlm and encdec paths (see ``path_vlm_serve`` and
+    ``path_encdec_serve``): for bf16 then f32 weights at full width and
+    depth, the engine on its zero stubs (tok/s; K7 ``k7_per_run``
+    launches and nothing else), then the gated run, ``gated_serve`` with
+    non-zero gates and seeded memories on K7 and on ``interpret``, its
+    end-to-end values (those of ``E2E_GATED`` gated in f32), and the
+    attention blocks of ``block_layers(cfg, dtype)`` -> the bf16 stub
+    run's launches."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.layers import rmsnorm
+
+    t0 = time.perf_counter()
+    held_gb = free_card()
+    cfg = configs.get_config(arch)
+    n_new = sum(new for _, _, new in MOE_ROUNDS)
+    report, gates = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        params, init_s, gb = seeded_params(cfg, dtype, dev, LM15_SEED)
+        runs = serve_both(cfg, params, moe_requests, n_new, dev)
+        launches = check_serve_runs(name, cfg, runs, LM_SLOTS, n_new)
+        rep = dict(weights_gb=gb, init_s=init_s, stubs=run_fields(runs))
+        del runs
+        rep["gates"] = set_gates(params, dev, LM15_SEED + 1)
+        memories = seeded_memories(cfg, moe_requests(cfg.vocab_size), dev,
+                                   LM15_SEED + 2)
+        gated = {b: gated_serve(cfg, params, moe_requests, memories, b, dev)
+                 for b in ("cuda", "interpret")}
+        check_serve_runs(f"{name} (gated)", cfg, gated, LM_SLOTS, n_new)
+        rep["gated"] = run_fields(gated)
+        e2e, e2e_gates = end_to_end(
+            params, cfg, gated["cuda"]["reqs"], gated["interpret"]["reqs"],
+            dev, slots=LM_SLOTS, max_seq=LM_MAX_SEQ, memories=memories)
+        rep["gated"].update(e2e)
+        if dtype == torch.bfloat16:
+            main_launches = launches
+        else:
+            for k in E2E_GATED[arch]:
+                gates += e2e_gates[k]
+        # the blocks, on the plain run's own inputs: round 1's prefill
+        # and its first new token
+        S, toks, _ = lm_batches(gated["interpret"]["reqs"])[0]
+        tr = layer_trace(params, cfg, toks[:, :S + 1], "interpret", dev,
+                         memory=memories[0])
+        blocks = {}
+        n_enc = len(params.get("encoder", []))
+        self_layers, cross_layers, enc_layers = block_layers(cfg, dtype)
+        for layer in enc_layers:
+            p = params["encoder"][layer]
+            h = rmsnorm(p["ln1"], tr["inputs"][layer], cfg.norm_eps)
+            blocks[f"encoder_{layer}"] = self_block_check(
+                p["attn"], h, cfg, dev, f"encoder layer {layer}",
+                causal=False, n_decode=0)
+        for layer in self_layers:
+            p = params["layers"][layer]
+            h = rmsnorm(p["ln1"], tr["inputs"][n_enc + layer], cfg.norm_eps)
+            blocks[f"self_{layer}"] = self_block_check(
+                p["attn"], h, cfg, dev, f"layer {layer} self-attention")
+        cross_ids = [l for l, (s, _) in enumerate(tr["layers"][n_enc:])
+                     if s.cross]
+        for layer in cross_layers:
+            p, x, mem = tr["cross"][cross_ids.index(layer)]
+            blocks[f"cross_{layer}"] = cross_block_check(
+                params["layers"][layer], x, mem, cfg, dev,
+                f"layer {layer} cross-attention")
+        del tr
+        rep["block_err"] = blocks
+        rep["phase_peak_gb"] = max(gated["cuda"]["peak_gb"],
+                                   torch.cuda.max_memory_allocated(dev) / 1e9)
+        report[key] = rep
+        del params, gated, memories
+        free_card()
+    emit({"phase": name, "arch": arch, "params": cfg.param_count(),
+          "batch_slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
+          "held_gb_before": held_gb,
+          "prompt_lens": [len(r.prompt) for r in moe_requests(
+              cfg.vocab_size)],
+          "max_new_tokens": [new for _, _, new in MOE_ROUNDS],
+          "memory_std": MEM_STD, "logit_tol": LM_LOGIT_TOL, **report,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
+    return main_launches
+
+
+def path_vlm_serve(dev):
+    """``ServeEngine`` with Llama-3.2-Vision-11B at every published width
+    and depth (40 layers, 8 of them with a gated cross-attention over
+    6,404 image tokens; d_model 4,096, 32 query heads over 8 KV heads of
+    128, d_ff 14,336, vocab 128,256), weights from ``torch.Generator``
+    seed 0 on the card, batch_slots 4, max_seq 1,024, the rounds of
+    ``MOE_ROUNDS``: K7 48 x (prefill + decode calls) launches and
+    nothing else.  The engine feeds the reference's zero image
+    embeddings and the gates start at 0, either of which hides the
+    cross-attention, so that run gives tok/s, and the gates hold a run
+    of ``make_prefill_step`` / ``make_decode_step`` with the gates drawn
+    from [0.3, 1) and seeded image embeddings: each cross block (prefill,
+    and decode against the 6,404 cached keys) and layer 1's
+    self-attention block (every layer's in f32; prefill and a decode
+    step) on K7 against the plain attention on the plain run's own
+    inputs, within 8e-3 of max(1, |plain|) in bf16 and 1e-5 of the
+    block's scale (plus twice the plain decomposition's spread) in f32;
+    the dense family's end-to-end values are reported (``E2E_GATED``;
+    20.2 GB in bf16, 40.4 GB in f32).  -> the bf16 stub run's
+    launches."""
+    import torch
+
+    def blocks(cfg, dtype):
+        every = list(range(cfg.num_layers))
+        return (every if dtype == torch.float32 else [1],
+                every[::cfg.cross_attn_period], [])
+
+    return cross_serve("path_vlm_serve", VL_ARCH, dev, blocks)
+
+
+def path_encdec_serve(dev):
+    """``ServeEngine`` with SeamlessM4T-large-v2 at every published width
+    and depth (a 12-layer non-causal encoder over the audio front end's
+    frames, 12 decoder layers each with causal self-attention and a
+    cross-attention over the encoded frames; d_model 1,024, 16 heads of
+    64, d_ff 8,192, vocab 256,206), weights from ``torch.Generator`` seed
+    0, batch_slots 4, max_seq 1,024, the rounds of ``MOE_ROUNDS``: K7 36
+    launches a prefill (12 encoder, 12 self, 12 cross) and 24 a decode
+    step, nothing else.  The engine's zero frames give tok/s; the gates
+    hold a run with seeded frames of each round's prompt length: the
+    encoder's self-attention (prefill), the decoder's self-attention
+    and its cross-attention (prefill and decode) on K7 against the
+    plain attention, layer 0 in bf16 and every layer in f32, by the
+    block rules of ``path_vlm_serve``; the dense family's end-to-end
+    values are reported (``E2E_GATED``).  -> the bf16 stub run's
+    launches."""
+    import torch
+
+    def blocks(cfg, dtype):
+        every = dtype == torch.float32
+        dec = list(range(cfg.num_decoder_layers)) if every else [0]
+        enc = list(range(cfg.num_encoder_layers)) if every else [0]
+        return dec, dec, enc
+
+    return cross_serve("path_encdec_serve", ED_ARCH, dev, blocks)
+
+
+def path_xlstm_serve(dev):
+    """``ServeEngine`` with xLSTM-1.3B at every published width and depth
+    (48 blocks: an sLSTM every 8th, mLSTM otherwise; d_model 2,048, 4
+    heads of 512, vocab 50,304), weights from ``torch.Generator`` seed 0,
+    batch_slots 4, max_seq 1,024, the rounds of ``XL_ROUNDS`` through
+    the engine on ``backend="cuda"`` and ``"interpret"``: no kernel
+    launches under either (the blocks are plain PyTorch, as the
+    reference's are jnp), every request served.  In bf16 then f32:
+    decode through the recurrent state against a teacher-forced forward
+    over each round's prompts and new tokens on at least ``LM_AGREE`` of
+    the positions, in f32 each miss where the forward's top two lie
+    within 2 x ``LM_LOGIT_TOL`` (in bf16 the misses' margins are
+    reported: the chunkwise forward and the stepwise decode round the
+    blocks' bf16 outputs at different points); prefill ms, decode ms a
+    step and tok/s.  -> the bf16 run's launches (all 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import _ext
+
+    t0 = time.perf_counter()
+    held_gb = free_card()
+    cfg = configs.get_config(XL_ARCH)
+    n_new = sum(new for _, _, new in XL_ROUNDS)
+    report, gates = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        params, init_s, gb = seeded_params(cfg, dtype, dev, LM15_SEED)
+        runs = serve_both(cfg, params, xlstm_requests, n_new, dev)
+        zero = dict.fromkeys(_ext.LAUNCHES, 0)
+        for b, run in runs.items():
+            check(run["launches"] == zero,
+                  f"path_xlstm_serve ({b}) launched {run['launches']}")
+            check(len(run["reqs"]) == 2 * LM_SLOTS
+                  and run["calls"]["tokens"] == LM_SLOTS * n_new
+                  and all(len(r.out) == r.max_new_tokens
+                          and 0 <= min(r.out) <= max(r.out)
+                          < cfg.vocab_size for r in run["reqs"]),
+                  f"path_xlstm_serve ({b}): {run['calls']['tokens']} tokens")
+        if dtype == torch.bfloat16:
+            main_launches = runs["cuda"]["launches"]
+        reqs = runs["cuda"]["reqs"]
+        agree, misses = [], []
+        for i in range(len(XL_ROUNDS)):
+            tf = teacher_forcing(params, cfg, reqs[i * LM_SLOTS:(i + 1)
+                                                   * LM_SLOTS], None, dev)
+            agree += tf["agree"]
+            misses += [m["margin"] for m in tf["misses"]]
+        rep = dict(weights_gb=gb, init_s=init_s, **run_fields(runs),
+                   engines_same_tokens=[r.out for r in reqs] == [
+                       r.out for r in runs["interpret"]["reqs"]],
+                   teacher_forcing_agree=float(np.mean(agree)),
+                   teacher_forcing_agree_by_request=agree,
+                   teacher_forcing_miss_margins=misses)
+        report["bf16" if dtype == torch.bfloat16 else "f32"] = rep
+        # in bf16 the chunkwise forward and the stepwise decode round
+        # the blocks' bf16 outputs at different points, so a miss may sit
+        # at a larger margin there: reported
+        if dtype == torch.float32:
+            gates.append((
+                all(m <= 2 * LM_LOGIT_TOL for m in misses),
+                f"xLSTM f32: decode misses teacher forcing outside the "
+                f"margin: {misses}"))
+        gates += [
+            (np.mean(agree) >= LM_AGREE,
+             f"xLSTM {dtype}: decode against teacher forcing agrees on "
+             f"{np.mean(agree)}")]
+        del params, runs
+        free_card()
+    emit({"phase": "path_xlstm_serve", "arch": XL_ARCH,
+          "params": cfg.param_count(), "batch_slots": LM_SLOTS,
+          "max_seq": LM_MAX_SEQ, "held_gb_before": held_gb,
+          "prompt_lens": [len(r.prompt) for r in xlstm_requests(
+              cfg.vocab_size)],
+          "max_new_tokens": [new for _, _, new in XL_ROUNDS],
           "logit_tol": LM_LOGIT_TOL, **report,
           "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
     for ok, msg in gates:
@@ -5709,6 +6503,10 @@ def main() -> int:
         by_path["path_lm_serve"] = path_lm_serve(dev)
         by_path["path_hybrid_serve"] = path_hybrid_serve(dev)
         by_path["path_moe_serve"] = path_moe_serve(dev)
+        by_path["path_mixtral_serve"] = path_mixtral_serve(dev)
+        by_path["path_vlm_serve"] = path_vlm_serve(dev)
+        by_path["path_encdec_serve"] = path_encdec_serve(dev)
+        by_path["path_xlstm_serve"] = path_xlstm_serve(dev)
         by_path["path_generate"] = path_generate(dev)
         by_path["path_online"] = path_online(dev)
         by_path["path_fusion"] = path_fusion(dev)
@@ -5739,6 +6537,9 @@ def main() -> int:
                                              "fused_dag")),
                            ("path_lm_serve", ("flash_attention",)),
                            ("path_moe_serve", ("flash_attention",)),
+                           ("path_mixtral_serve", ("flash_attention",)),
+                           ("path_vlm_serve", ("flash_attention",)),
+                           ("path_encdec_serve", ("flash_attention",)),
                            ("path_hybrid_serve", (
                                "selective_scan_discretized",
                                "flash_attention")),
@@ -5793,6 +6594,8 @@ def main() -> int:
                                        for n in m["kernels"]})
             entry["shapes"] = {
                 cfg: {"shape": m["shape"], "q_offset": m["q_offset"],
+                      "causal": m["causal"], "window": m["window"],
+                      "skv": m["skv"],
                       "dtype": m["dtype"], "kernels": m["kernels"],
                       "ms": m["ms"], "kernel_ms": m["kernel_ms"],
                       "kernel_parts_ms": m["kernel_parts_ms"],

@@ -4,8 +4,7 @@ Every architecture registers its exact published config and a reduced
 "smoke" config of the same family for CPU tests.  ``ModelConfig`` is a
 field-for-field copy of the reference's, so a config compares equal
 across the two packages by ``dataclasses.asdict``.  The port registers
-the dense family and the hybrid Jamba; the other families come with the
-slices that port their layers (ROADMAP Queue 1 item 6).
+the reference's ten architectures.
 """
 
 from __future__ import annotations

@@ -236,9 +236,11 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 def lm_params_from_reference(params, *, device="cuda", experts=None) -> dict:
     """The reference's scan-stacked LM parameter tree (numpy leaves:
     ``embed``, ``final_norm`` and, per slot ``decoder/slot{i}``, leaves
-    stacked over the periods) -> the port's tree (``models.transformer``:
-    layer p * P + i is slot i of period p), dtypes and layouts kept, so
-    every value is a copy.  ``experts`` (a contiguous run of expert ids,
+    stacked over the periods; an encdec's ``encoder/slot{i}`` and
+    ``enc_norm`` too) -> the port's tree (``models.transformer``: layer
+    p * P + i is slot i of period p; cross-attention trees with their
+    ``gate``, mLSTM and sLSTM trees as they are), dtypes and layouts
+    kept, so every value is a copy.  ``experts`` (a contiguous run of expert ids,
     None: all) keeps only those experts' ``wg``/``wu``/``wd`` of each MoE
     layer.  Each layer's tensors are views of its slot's stacked
     tensors."""
@@ -256,12 +258,18 @@ def lm_params_from_reference(params, *, device="cuda", experts=None) -> dict:
         return {k: layer(v, i) if isinstance(v, dict) else v[i]
                 for k, v in t.items()}
 
-    dec = params["decoder"]
-    stacked = [tree(dec[f"slot{i}"]) for i in range(len(dec))]
-    n_p = len(next(iter(stacked[0]["ln1"].values())))
-    return {"embed": tree(params["embed"]),
-            "final_norm": tree(params["final_norm"]),
-            "layers": [layer(s, p) for p in range(n_p) for s in stacked]}
+    def layers(stack):
+        stacked = [tree(stack[f"slot{i}"]) for i in range(len(stack))]
+        n_p = len(next(iter(stacked[0]["ln1"].values())))
+        return [layer(s, p) for p in range(n_p) for s in stacked]
+
+    out = {"embed": tree(params["embed"]),
+           "final_norm": tree(params["final_norm"]),
+           "layers": layers(params["decoder"])}
+    if "encoder" in params:
+        out["encoder"] = layers(params["encoder"])
+        out["enc_norm"] = tree(params["enc_norm"])
+    return out
 
 
 def trained_from_reference(trained, *, n_inputs: int | None = None,

@@ -1,4 +1,5 @@
 """The LM stack (counterpart of ``repro.models``): layers, attention
-with its KV caches, the Mamba block, the MoE layer, the decoder forward
-and the parameter registry.  The dense and hybrid families, so far
-(ROADMAP Queue 1 item 6)."""
+with its KV caches (full, int8 and the rolling window) and
+cross-attention, the Mamba block, the MoE layer, the xLSTM blocks, the
+decoder (and encoder) forward and the parameter registry: every family
+of the reference."""

@@ -1,24 +1,29 @@
 """Attention (counterpart of ``repro.models.attention``): the GQA/MHA
-projections with RoPE, QKV bias and QK-norm, decode attention against a
-cache, and the full and int8 KV caches.
+projections with RoPE, QKV bias and QK-norm, the tanh gate of a gated
+cross-attention, decode attention against a cache, and the full, int8
+and rolling-window KV caches.
 
 Two attention engines, chosen by ``backend``:
 
-  * ``"cuda"``: K7 (``kernels.flash_attention``) for prefill (causal,
-    q_offset 0) and for decode (Sq = 1, causal, q_offset = the cache
-    index, skv = the cache length: exactly ``decode_attention``'s
-    ``slot <= index`` mask).  On CPU tensors K7's plain version runs.
+  * ``"cuda"``: K7 (``kernels.flash_attention``) for every call:
+    prefill (causal, q_offset 0, the config's sliding window), the
+    encoder's and cross-attention's non-causal calls (over every key of
+    the memory), and decode (Sq = 1 against the cache: causal, q_offset
+    = the cache index, skv = the cache length, exactly
+    ``decode_attention``'s ``slot <= index`` mask; against a rolling
+    window cache non-causal with skv = min(index + 1, T), exactly its
+    ``slot < n_written`` mask).  On CPU tensors K7's plain version runs.
   * ``"interpret"``: the plain versions, ``attention_ref`` for prefill
     and ``decode_attention`` for decode, on any device.
 
 One card has no mesh, so the reference's sequence-sharded decode reduces
-to ``decode_attention_tree``, as it does in JAX without a mesh.  The
-rolling sliding-window cache comes with the MoE slice that needs it (no
-dense config sets ``sliding_window``).
+to ``decode_attention_tree``, as it does in JAX without a mesh.
 
 Caches are updated in place (the reference returns updated copies): the
 engine's cache is the largest tensor it holds, and the forward writes
-one position per layer per decode step.
+one position per layer per decode step.  A sliding-window cache holds
+T = min(max_seq, window) positions; decode writes position ``index`` at
+slot ``index % T``.
 """
 
 from __future__ import annotations
@@ -33,8 +38,6 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, rmsnorm
 
 BACKENDS = ("cuda", "interpret")
-WINDOW_REASON = ("sliding-window attention needs the rolling KV cache, "
-                 "which the Mixtral slice ports (ROADMAP Queue 1 item 6)")
 
 # ------------------------------------------------------------ projections
 
@@ -72,26 +75,34 @@ def project_kv(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def project_out(p: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd")."""
+    """einsum("bshk,hkd->bsd"), times tanh(gate) in the output's dtype
+    where the layer has a ``gate`` (a gated cross-attention)."""
     B, S = o.shape[:2]
     wo = p["wo"]
-    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    if "gate" in p:
+        out = torch.tanh(p["gate"]).to(out.dtype) * out
+    return out
 
 
 # ------------------------------------------------------------- core math
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, index: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, index: int, *,
+                     window: int = 0) -> torch.Tensor:
     """One-token attention against a [B, T, K, D] cache, valid positions
-    <= index; in f32, output in q's dtype."""
+    <= index; with ``window`` (a rolling cache, position p at slot p %
+    T) every written slot, slot < min(index + 1, T).  In f32, output in
+    q's dtype."""
     B, Sq, H, D = q.shape
     K = k_cache.shape[2]
     T = k_cache.shape[1]
     qg = q.reshape(B, Sq, K, H // K, D).to(torch.float32)
     s = torch.einsum("bskgd,btkd->bkgst", qg,
                      k_cache.to(torch.float32)) / math.sqrt(D)
-    valid = torch.arange(T, device=q.device) <= index
+    slot = torch.arange(T, device=q.device)
+    valid = slot < min(index + 1, T) if window > 0 else slot <= index
     s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bkgsd", p, v_cache.to(torch.float32))
@@ -109,21 +120,29 @@ def _kernel_attention(q, k, v, **kw) -> torch.Tensor:
     return flash_attention(q, k, v, **kw)
 
 
-def prefill_attention(q, k, v, *, backend: str) -> torch.Tensor:
-    """Causal self-attention over the whole sequence."""
+def prefill_attention(q, k, v, *, backend: str, causal: bool = True,
+                      window: int = 0) -> torch.Tensor:
+    """Attention over the whole sequence from position 0: causal
+    self-attention (with the config's sliding ``window``), or, with
+    ``causal=False``, the encoder's self-attention and cross-attention
+    over every key of the memory."""
     if backend == "cuda":
-        return _kernel_attention(q, k, v, causal=True)
-    return attention_ref(q, k, v, causal=True)
+        return _kernel_attention(q, k, v, causal=causal, window=window)
+    return attention_ref(q, k, v, causal=causal, window=window)
 
 
-def decode_attention_tree(q, kv: dict, index: int, *,
-                          backend: str) -> torch.Tensor:
-    """Decode attention over a (possibly int8) dict cache."""
+def decode_attention_tree(q, kv: dict, index: int, *, backend: str,
+                          window: int = 0) -> torch.Tensor:
+    """Decode attention over a (possibly int8) dict cache; ``window``:
+    a rolling cache."""
     kc, vc = _materialize_kv(kv)
-    if backend == "cuda":
-        return _kernel_attention(q, kc, vc, causal=True, q_offset=index,
-                                 skv=kc.shape[1])
-    return decode_attention(q, kc, vc, index)
+    if backend != "cuda":
+        return decode_attention(q, kc, vc, index, window=window)
+    if window > 0:
+        return _kernel_attention(q, kc, vc, causal=False,
+                                 skv=min(index + 1, kc.shape[1]))
+    return _kernel_attention(q, kc, vc, causal=True, q_offset=index,
+                             skv=kc.shape[1])
 
 
 # ---------------------------------------------------------------- caches
@@ -131,12 +150,13 @@ def decode_attention_tree(q, kv: dict, index: int, *,
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
                n_layers: int) -> dict:
-    """{name: (shape, dtype)} of the stacked [L, B, T, K, D] KV cache;
+    """{name: (shape, dtype)} of the stacked [L, B, T, K, D] KV cache, T
+    = min(max_seq, sliding_window) with a window, else max_seq;
     ``kv_cache_dtype == "int8"`` stores symmetric per-(token, head)
     quantized keys and values with f32 scales."""
-    if cfg.sliding_window:
-        raise NotImplementedError(WINDOW_REASON)
-    shape = (n_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    T = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
+         else max_seq)
+    shape = (n_layers, batch, T, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         return {"k": (shape, torch.int8), "v": (shape, torch.int8),
                 "k_scale": (shape[:-1], torch.float32),
@@ -158,28 +178,31 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale[..., None]
 
 
-def _start(T: int, S: int, index: int) -> int:
-    """The write position, clamped as dynamic_update_slice clamps it."""
-    return min(max(int(index), 0), T - S)
+def _start(T: int, S: int, index: int, window: int = 0) -> int:
+    """The write position (``index % T`` with a window), clamped as
+    dynamic_update_slice clamps it."""
+    index = int(index) % T if window > 0 else int(index)
+    return min(max(index, 0), T - S)
 
 
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor, index: int):
-    """Write k, v [B, S, K, D] into [B, T, K, D] caches at ``index``, in
-    place; -> the caches."""
-    pos = _start(cache_k.shape[1], k.shape[1], index)
+                 k: torch.Tensor, v: torch.Tensor, index: int, *,
+                 window: int = 0):
+    """Write k, v [B, S, K, D] into [B, T, K, D] caches at ``index`` (at
+    ``index % T`` with a window), in place; -> the caches."""
+    pos = _start(cache_k.shape[1], k.shape[1], index, window)
     cache_k[:, pos:pos + k.shape[1]] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + v.shape[1]] = v.to(cache_v.dtype)
     return cache_k, cache_v
 
 
 def cache_update_tree(kv: dict, k: torch.Tensor, v: torch.Tensor,
-                      index: int) -> dict:
+                      index: int, *, window: int = 0) -> dict:
     """Dict-cache update in place; quantizes on write for int8 caches."""
     if "k_scale" not in kv:
-        cache_update(kv["k"], kv["v"], k, v, index)
+        cache_update(kv["k"], kv["v"], k, v, index, window=window)
         return kv
-    pos = _start(kv["k"].shape[1], k.shape[1], index)
+    pos = _start(kv["k"].shape[1], k.shape[1], index, window)
     end = pos + k.shape[1]
     for name, x in (("k", k), ("v", v)):
         xq, xs = quantize_kv(x)

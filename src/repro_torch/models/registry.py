@@ -6,9 +6,12 @@ each tensor's shape, its reference dtype and its init kind — the
 ``ParamDef`` kinds of ``repro.common.pytree``: ``normal`` (x 0.02),
 ``scaled`` (by fan-in: the second-to-last dim, as the reference's stacked
 tree has it), ``ones``, ``zeros`` and ``ssm_a`` (Mamba's ``A_log``:
-log(1..N) in every channel).  ``init_params`` draws them from a
-``torch.Generator``; its bits differ from the reference's (the tests
-carry the reference's weights across instead).
+log(1..N) in every channel).  An encdec config adds its encoder's
+layers and ``enc_norm``; a cross-attention layer its ``ln_cross`` and
+``cross`` (with the scalar tanh ``gate``, 0 at init, where gated).
+``init_params`` draws them from a ``torch.Generator``; its bits differ
+from the reference's (the tests carry the reference's weights across
+instead).
 """
 
 from __future__ import annotations
@@ -22,12 +25,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.transformer import decoder_layout
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.transformer import decoder_layout, encoder_layout
 
 F32, BF16 = torch.float32, torch.bfloat16
 
 
-def _attn_defs(cfg: ModelConfig) -> dict:
+def _attn_defs(cfg: ModelConfig, gated: bool = False) -> dict:
     d, H, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     defs = {"wq": ((d, H, Dh), BF16, "scaled"),
             "wk": ((d, K, Dh), BF16, "scaled"),
@@ -38,6 +42,8 @@ def _attn_defs(cfg: ModelConfig) -> dict:
                     bv=((K, Dh), F32, "zeros"))
     if cfg.use_qk_norm:
         defs.update(q_norm=((Dh,), F32, "ones"), k_norm=((Dh,), F32, "ones"))
+    if gated:
+        defs["gate"] = ((), F32, "zeros")
     return defs
 
 
@@ -53,28 +59,43 @@ def _mlp_defs(d: int, d_ff: int, act: str) -> dict:
 def _slot_defs(cfg: ModelConfig, slot, experts) -> dict:
     norm = {"scale": ((cfg.d_model,), F32, "ones")}
     d = {"ln1": dict(norm)}
-    if slot.mixer == "attn":
+    if slot.mixer in ("attn", "attn_nc"):
         d["attn"] = _attn_defs(cfg)
-    else:
+    elif slot.mixer == "mamba":
         d["mamba"] = ssm_mod.mamba_defs(cfg)
-    d["ln2"] = dict(norm)
-    d["ffn"] = (moe_mod.moe_defs(cfg, experts) if slot.ffn == "moe"
-                else _mlp_defs(cfg.d_model, cfg.d_ff, cfg.act))
+    elif slot.mixer == "mlstm":
+        d["mlstm"] = xlstm_mod.mlstm_defs(cfg)
+    else:
+        d["slstm"] = xlstm_mod.slstm_defs(cfg)
+    if slot.cross:
+        d["ln_cross"] = dict(norm)
+        d["cross"] = _attn_defs(cfg, gated=slot.gated_cross)
+    if slot.ffn != "none":
+        d["ln2"] = dict(norm)
+        d["ffn"] = (moe_mod.moe_defs(cfg, experts) if slot.ffn == "moe"
+                    else _mlp_defs(cfg.d_model, cfg.d_ff, cfg.act))
     return d
 
 
 def param_defs(cfg: ModelConfig, experts=None) -> dict:
-    """{"embed", "final_norm", "slots"} -> {name: (shape, dtype, init)};
-    "slots" lists one period's layer trees, slot by slot (layer l is
-    slot l % P of period l // P).  MoE layers hold ``experts`` (None:
+    """{"embed", "final_norm", "slots"[, "encoder_slots", "enc_norm"]} ->
+    {name: (shape, dtype, init)}; "slots" lists one period's layer
+    trees, slot by slot (layer l is slot l % P of period l // P), and
+    "encoder_slots" the encoder's.  MoE layers hold ``experts`` (None:
     all)."""
     _, slots = decoder_layout(cfg)
     d = cfg.d_model
     emb = {"table": ((cfg.vocab_size, d), BF16, "normal")}
     if not cfg.tie_embeddings:
         emb["unembed"] = ((d, cfg.vocab_size), BF16, "scaled")
-    return {"embed": emb, "final_norm": {"scale": ((d,), F32, "ones")},
+    defs = {"embed": emb, "final_norm": {"scale": ((d,), F32, "ones")},
             "slots": [_slot_defs(cfg, s, experts) for s in slots]}
+    if cfg.family == "encdec":
+        _, eslots = encoder_layout(cfg)
+        defs["encoder_slots"] = [_slot_defs(cfg, s, experts)
+                                 for s in eslots]
+        defs["enc_norm"] = {"scale": ((d,), F32, "ones")}
+    return defs
 
 
 def _leaves(tree: dict):
@@ -89,18 +110,45 @@ def param_count(cfg: ModelConfig) -> int:
     n_p, _ = decoder_layout(cfg)
     defs = param_defs(cfg)
     n = lambda t: sum(math.prod(s) for s, _, _ in _leaves(t))  # noqa: E731
-    return (n(defs["embed"]) + n(defs["final_norm"])
-            + n_p * sum(n(t) for t in defs["slots"]))
+    total = (n(defs["embed"]) + n(defs["final_norm"])
+             + n_p * sum(n(t) for t in defs["slots"]))
+    if "encoder_slots" in defs:
+        n_e, _ = encoder_layout(cfg)
+        total += (n(defs["enc_norm"])
+                  + n_e * sum(n(t) for t in defs["encoder_slots"]))
+    return total
+
+
+def _memory_len(cfg: ModelConfig, seq: int) -> int:
+    """The cross-attention memory's length: an encdec's frames (as many
+    as the sequence), a vlm's image tokens."""
+    if cfg.family == "encdec":
+        return seq
+    if cfg.family == "vlm":
+        return cfg.num_image_tokens
+    return 0
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """The decode cache's tree of (shape, dtype), stacked per slot over
     the periods."""
     n_p, slots = decoder_layout(cfg)
-    return {f"slot{i}": ({"kv": attn.cache_defs(cfg, batch, max_seq, n_p)}
-                         if s.mixer == "attn" else
-                         {"ssm": ssm_mod.mamba_state_defs(cfg, batch, n_p)})
-            for i, s in enumerate(slots)}
+    M = _memory_len(cfg, max_seq)
+    out = {}
+    for i, s in enumerate(slots):
+        if s.mixer == "attn":
+            c = {"kv": attn.cache_defs(cfg, batch, max_seq, n_p)}
+        elif s.mixer == "mamba":
+            c = {"ssm": ssm_mod.mamba_state_defs(cfg, batch, n_p)}
+        elif s.mixer == "mlstm":
+            c = {"mlstm": xlstm_mod.mlstm_state_defs(cfg, batch, n_p)}
+        else:
+            c = {"slstm": xlstm_mod.slstm_state_defs(cfg, batch, n_p)}
+        if s.cross:
+            shape = (n_p, batch, M, cfg.num_kv_heads, cfg.head_dim)
+            c["cross_kv"] = {"k": (shape, BF16), "v": (shape, BF16)}
+        out[f"slot{i}"] = c
+    return out
 
 
 def _init_one(shape, init: str, dtype, generator, device) -> torch.Tensor:
@@ -124,19 +172,26 @@ def _init_one(shape, init: str, dtype, generator, device) -> torch.Tensor:
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda", dtype=BF16, experts=None) -> dict:
     """Seeded parameters on ``device``: tensors of rank >= 2 in ``dtype``,
-    1-D scales and biases in f32 (as ``cast_for_compute`` leaves them);
-    MoE layers hold ``experts`` (None: all).  ``generator`` must live on
-    ``device``."""
+    scalars, 1-D scales and biases in f32 (as ``cast_for_compute`` leaves
+    them); MoE layers hold ``experts`` (None: all).  ``generator`` must
+    live on ``device``."""
     dev = resolve_device(device)
     defs = param_defs(cfg, experts)
-    P = len(defs["slots"])
 
     def make(tree):
         return {k: make(v) if isinstance(v, dict) else _init_one(
             v[0], v[2], dtype if len(v[0]) >= 2 else F32, generator, dev)
             for k, v in tree.items()}
 
-    return {"embed": make(defs["embed"]),
-            "final_norm": make(defs["final_norm"]),
-            "layers": [make(defs["slots"][l % P])
-                       for l in range(cfg.num_layers)]}
+    def stack(n: int, slots: list) -> list:
+        return [make(slots[l % len(slots)]) for l in range(n * len(slots))]
+
+    n_p, _ = decoder_layout(cfg)
+    params = {"embed": make(defs["embed"]),
+              "final_norm": make(defs["final_norm"]),
+              "layers": stack(n_p, defs["slots"])}
+    if "encoder_slots" in defs:
+        params["encoder"] = stack(encoder_layout(cfg)[0],
+                                  defs["encoder_slots"])
+        params["enc_norm"] = make(defs["enc_norm"])
+    return params

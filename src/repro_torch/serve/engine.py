@@ -6,7 +6,10 @@ token 0 to the longest prompt (no pad mask; positions ``arange(S)``),
 prefilled over all ``batch_slots`` rows, and then decoded greedily in
 lockstep: each step appends the current token to every request that
 wants more and then runs one decode call, ``min(n_new, max_steps)``
-calls per batch.  ``run`` returns the reference's stats keys.
+calls per batch.  ``run`` returns the reference's stats keys.  The
+front ends are the reference's stubs: a vlm prefill gets zero image
+embeddings [batch_slots, num_image_tokens, d_model] and an encdec one
+zero frames [batch_slots, S, d_model], both bf16.
 
 ``backend="cuda"`` (the default) runs attention on K7 and the Mamba
 scan on K8, ``"interpret"`` both on the plain versions;
@@ -101,6 +104,15 @@ class ServeEngine:
             for i, r in enumerate(reqs):
                 toks[i, S - len(r.prompt):] = r.prompt  # left-pad
             batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+            if self.cfg.family == "vlm":
+                batch["image_embeds"] = torch.zeros(
+                    (self.batch, self.cfg.num_image_tokens,
+                     self.cfg.d_model), dtype=torch.bfloat16,
+                    device=self.device)
+            if self.cfg.family == "encdec":
+                batch["frames"] = torch.zeros(
+                    (self.batch, S, self.cfg.d_model), dtype=torch.bfloat16,
+                    device=self.device)
             t = time.perf_counter()
             cur, self.cache = self.prefill(self.params, self.cache, batch)
             host = cur.cpu()

@@ -1,6 +1,8 @@
 """Serving steps (counterpart of ``repro.serve.steps``): prefill, which
-fills the cache (KV and Mamba state) and returns each row's first
-greedy token, and the one-token decode step."""
+fills the cache (KV, recurrent state, cross-attention memory) and
+returns each row's first greedy token, and the one-token decode step.
+A prefill batch holds ``tokens`` and, for an encdec config, ``frames``
+[B, S, d] or, for a vlm, ``image_embeds`` [B, num_image_tokens, d]."""
 
 from __future__ import annotations
 
@@ -31,10 +33,15 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 def make_prefill_step(cfg: ModelConfig, backend: str = "cuda",
                       experts=None):
     def prefill_step(params, cache, batch):
+        kwargs = {}
+        if cfg.family == "encdec":
+            kwargs["memory_embeds"] = batch["frames"]
+        if cfg.family == "vlm":
+            kwargs["memory_embeds"] = batch["image_embeds"]
         logits, new_cache, _ = forward(
             params, cfg, tokens=batch["tokens"], mode="prefill",
             caches=cache, logits_slice_last=True, backend=backend,
-            experts=experts)
+            experts=experts, **kwargs)
         return _greedy(logits), new_cache
 
     return prefill_step

@@ -39,7 +39,11 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.core.dse", "repro_torch.facade",
         "repro_torch.flowstate.drift", "repro_torch.serve.online",
         "repro_torch.core.fusion", "repro_torch.serve.sharded",
-        "repro_torch.configs.moonshot_v1_16b_a3b"} <= set(names), names
+        "repro_torch.configs.moonshot_v1_16b_a3b",
+        "repro_torch.configs.mixtral_8x7b", "repro_torch.models.xlstm",
+        "repro_torch.configs.llama_3_2_vision_11b",
+        "repro_torch.configs.seamless_m4t_large_v2",
+        "repro_torch.configs.xlstm_1_3b"} <= set(names), names
 """
 
 

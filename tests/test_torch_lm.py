@@ -34,6 +34,7 @@ import torch
 from repro.common import pytree as pt
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke
+from repro.configs import list_archs as jax_list_archs
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.models import attention as JA
 from repro.models import layers as JL
@@ -45,7 +46,11 @@ from repro_torch import configs, convert
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import registry as TR
-from repro_torch.models.transformer import decoder_layout, forward
+from repro_torch.models.transformer import (
+    decoder_layout,
+    encoder_layout,
+    forward,
+)
 from repro_torch.serve.steps import (
     init_cache,
     make_decode_step,
@@ -53,7 +58,9 @@ from repro_torch.serve.steps import (
 )
 
 DENSE = ("qwen3-1.7b", "qwen2-7b", "starcoder2-15b", "qwen1.5-32b")
-ARCHS = DENSE + ("jamba-1.5-large-398b", "moonshot-v1-16b-a3b")
+ARCHS = DENSE + ("jamba-1.5-large-398b", "moonshot-v1-16b-a3b",
+                 "mixtral-8x7b", "llama-3.2-vision-11b",
+                 "seamless-m4t-large-v2", "xlstm-1.3b")
 TOL = 1e-5
 
 
@@ -78,43 +85,54 @@ def _normal(seed, *shape):
 
 
 def test_dense_configs_are_the_references_field_for_field():
-    assert configs.list_archs() == sorted(ARCHS)
+    """Every architecture of the reference, published and smoke."""
+    assert configs.list_archs() == sorted(ARCHS) == jax_list_archs()
     for name in ARCHS:
         for ours, ref in ((configs.get_config(name), jax_get_config(name)),
                           (configs.get_smoke_config(name), jax_smoke(name))):
             assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
             assert ours.param_count() == ref.param_count()
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("mixtral-8x7b")
+        configs.get_config("mixtral-8x22b")
 
 
-def test_other_families_and_windows_raise_with_their_roadmap_item():
-    base = configs.get_smoke_config("qwen3-1.7b")
-    for cfg in (dataclasses.replace(base, family="moe", num_experts=4,
-                                    sliding_window=8),
-                dataclasses.replace(base, family="ssm", slstm_period=8),
-                dataclasses.replace(base, family="vlm", cross_attn_period=2),
-                dataclasses.replace(base, family="encdec",
-                                    num_encoder_layers=2,
-                                    num_decoder_layers=2),
-                dataclasses.replace(base, sliding_window=8)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            decoder_layout(cfg)
-        with pytest.raises(NotImplementedError):
-            TR.cache_defs(cfg, 1, 8)
-    # the MoE family serves now (tests/test_torch_moonshot.py): one
-    # attention slot with an MoE FFN, the reference's layout
-    moe = dataclasses.replace(base, family="moe", num_experts=4)
-    n_p, slots = decoder_layout(moe)
-    jn_p, jslots = JT.decoder_layout(moe)
-    assert n_p == jn_p == moe.num_layers
-    assert [(s.mixer, s.ffn) for s in slots] == [
-        (s.mixer, s.ffn) for s in jslots] == [("attn", "moe")]
-    assert set(TR.cache_defs(moe, 1, 8)) == {"slot0"}
-    # the hybrid family serves now (tests/test_torch_hybrid.py)
-    hybrid = configs.get_smoke_config("jamba-1.5-large-398b")
-    assert decoder_layout(hybrid)[0] == 2
-    assert set(TR.cache_defs(hybrid, 1, 8)) == {f"slot{i}" for i in range(8)}
+def _def_tree(tree) -> dict:
+    """A cache-defs tree of either package -> {path: (shape, dtype)}."""
+    out = {}
+    for slot, kinds in tree.items():
+        for kind, leaves in kinds.items():
+            for name, d in leaves.items():
+                shape, dt = ((d.shape, jnp.dtype(d.dtype).name)
+                             if hasattr(d, "shape") else
+                             (d[0], str(d[1]).split(".")[-1]))
+                out[f"{slot}/{kind}/{name}"] = (tuple(shape), dt)
+    return out
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_other_families_and_windows_raise_with_their_roadmap_item(name):
+    """No family raises any more: for every architecture's smoke config
+    the decoder layout, the cache tree's shapes and dtypes (a window
+    shorter and longer than the cache) and the parameter count are the
+    reference's; an unknown family raises ValueError, as the
+    reference's layout does."""
+    cfg = configs.get_smoke_config(name)
+    n_p, slots = decoder_layout(cfg)
+    jn_p, jslots = JT.decoder_layout(jax_smoke(name))
+    assert n_p == jn_p
+    assert [(s.mixer, s.ffn, s.cross, s.gated_cross) for s in slots] == [
+        (s.mixer, s.ffn, s.cross, s.gated_cross) for s in jslots]
+    if cfg.family == "encdec":
+        assert (encoder_layout(cfg)[0], [s.mixer for s in encoder_layout(
+            cfg)[1]]) == (JT.encoder_layout(cfg)[0], ["attn_nc"])
+    for batch, max_seq in ((1, 8), (3, 40)):
+        assert _def_tree(TR.cache_defs(cfg, batch, max_seq)) == _def_tree(
+            JR.cache_defs(jax_smoke(name), batch, max_seq))
+    assert TR.param_count(cfg) == JR.param_count(jax_smoke(name))
+    assert TR.param_count(configs.get_config(name)) == JR.param_count(
+        jax_get_config(name))
+    with pytest.raises(ValueError):
+        decoder_layout(dataclasses.replace(cfg, family="diffusion"))
 
 
 # ----------------------------------------------------------------- layers

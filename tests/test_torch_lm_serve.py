@@ -103,6 +103,6 @@ def test_engine_refuses_unknown_backends_and_families():
     cfg = configs.get_smoke_config("qwen3-1.7b")
     with pytest.raises(KeyError, match="backend"):
         ServeEngine(cfg, {}, backend="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ServeEngine(dataclasses.replace(cfg, family="ssm"), {},
+    with pytest.raises(ValueError, match="diffusion"):
+        ServeEngine(dataclasses.replace(cfg, family="diffusion"), {},
                     device="cpu")
