@@ -6391,6 +6391,576 @@ def path_xlstm_serve(dev):
     return main_launches
 
 
+# ------------------------------------------------- slice 16: LM training
+
+# the training path: Qwen3-1.7B at every published width and depth, AdamW
+# with f32 master weights and bf16 compute, block remat, K7 and K7b,
+# TokenDataset(seed=0) batches of 4 x 1,024
+TRAIN_ARCH, TRAIN_SEED, TRAIN_B, TRAIN_S, TRAIN_STEPS = (
+    "qwen3-1.7b", 0, 4, 1024, 8)
+TRAIN_SETTINGS = dict(peak_lr=1e-3, warmup=2, total_steps=8)
+# step 1 on K7 / K7b against backend="interpret" on the same params and
+# batch: the loss (about 11.9 = ln 151,936 at init) within 1e-2 and the
+# gradient norm within 2 % (bf16 compute rounds differently where the
+# attention's rounding differs, as the CPU tests bound the reference)
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 1e-2, 0.02
+# the same model at 4 layers in f32: each gradient within 1e-4 of its
+# largest value against interpret's (the CPU tests hold the reference's
+# f32 gradients at that bound; K7 / K7b hold 1e-5 of their outputs)
+TRAIN_F32_LAYERS, TRAIN_F32_B, TRAIN_F32_TOL = 4, 2, 1e-4
+# restart on the card: the 4-layer smoke config, a checkpoint every 4
+# steps, 8 steps; the replayed params within 1e-6 of max|p| (not bit for
+# bit: the embedding's backward accumulates with atomics on the card)
+RESTART_STEPS, RESTART_EVERY, RESTART_S, RESTART_TOL = 8, 4, 64, 1e-6
+
+# K7b's cases, each in bf16 and f32: name, B, Sq, Skv, H, K, D, causal,
+# window, q_offset, skv (None: Skv).  Qwen3's training calls (S = 1,024
+# and 2,048), Mixtral's window past the window, the vision and Seamless
+# cross-attention (Sq != Skv), Seamless's encoder (D = 64), the smoke
+# width D = 16 with a window, an offset and skv < Skv, D = 32 non-causal,
+# a ragged S with a window, and rows whose keys are all masked (a window
+# past skv) at D = 16 and 128
+K7B_FORMS = (
+    ("qwen3_train_1024", 4, 1024, 1024, 16, 8, 128, True, 0, 0, None),
+    ("qwen3_train_2048", 4, 2048, 2048, 16, 8, 128, True, 0, 0, None),
+    ("mixtral_window", 1, 4352, 4352, 32, 8, 128, True, 4096, 0, None),
+    ("vlm_cross", 1, 512, 6404, 32, 8, 128, False, 0, 0, None),
+    ("seamless_cross", 4, 32, 512, 16, 16, 64, False, 0, 0, None),
+    ("seamless_encoder", 2, 512, 512, 16, 16, 64, False, 0, 0, None),
+    ("smoke_d16", 2, 100, 130, 4, 2, 16, True, 8, 5, 120),
+    ("d32", 2, 65, 97, 8, 2, 32, False, 8, 5, None),
+    ("ragged_w256", 2, 1000, 1000, 16, 8, 128, True, 256, 0, None),
+    ("fully_masked_d16", 1, 20, 50, 4, 2, 16, True, 8, 40, 45),
+    ("fully_masked_d128", 1, 70, 100, 16, 8, 128, False, 16, 80, 90),
+)
+K7B_CASES = tuple((c[0] + ("_f32" if dt == "float32" else ""),) + c[1:]
+                  + (dt,) for c in K7B_FORMS
+                  for dt in ("bfloat16", "float32"))
+# the timed K7b calls (names of K7B_CASES)
+K7B_TIMED = ("qwen3_train_1024", "qwen3_train_1024_f32", "qwen3_train_2048",
+             "mixtral_window", "seamless_encoder", "vlm_cross")
+K7B_TIMED_LAUNCHES = 20
+
+
+def k7b_names(dtype: str, D: int) -> list:
+    """K7b's three kernels, as the profiler names them."""
+    t = "float" if dtype == "float32" else "__nv_bfloat16"
+    return [f"fa_bwd_{k}_kernel<{t}, {D}>" for k in ("stats", "dkdv", "dq")]
+
+
+def k7b_bound(B, Sq, Skv, H, K, D, itemsize, pairs, kv_rows):
+    """q, dO and dq, the live K and V rows, and dk and dv (every key row)
+    once over the HBM rate; the backward's five products (S recomputed,
+    dP, dV, dK, dQ), 2 * D operations each per live pair per head, over
+    the bf16 tensor-core rate (itemsize 2) or the f32 rate."""
+    moved = itemsize * (3 * B * Sq * H * D + 2 * B * kv_rows * K * D
+                        + 2 * B * Skv * K * D)
+    t_b = moved / HBM_BYTES_PER_S * 1e3
+    rate = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
+    t_o = 10.0 * B * H * D * pairs / rate * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k7b_inputs(dev, B, Sq, Skv, H, K, D, dt, seed):
+    import torch
+
+    q, k, v = k7_inputs(dev, B, Sq, Skv, H, K, D, getattr(torch, dt), seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    return q, k, v, torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+
+
+def k7b_against_plain(q, k, v, do, dt: str, what: str, *, skv: int,
+                      **kw) -> dict:
+    """K7b on (q, k, v, dO) twice (bit-identical), against
+    ``attention_bwd_ref`` on the same inputs and against autograd's
+    gradient of ``attention_ref`` on their f32 copies, each of dq, dk and
+    dv within ``K7_TOL[dt]`` of the plain gradient's largest value.  ->
+    {"err": worst relative to that value, "err_autograd": ...}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref,
+        attention_ref,
+        flash_attention_bwd_launch,
+    )
+
+    got = flash_attention_bwd_launch(q, k, v, do, skv=skv, **kw)
+    again = flash_attention_bwd_launch(q, k, v, do, skv=skv, **kw)
+    plain = attention_bwd_ref(q, k, v, do, skv=skv, **kw)
+    qa, ka, va = (t.float().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        attention_ref(qa, ka[:, :skv], va[:, :skv], **kw).backward(do.float())
+    auto = (qa.grad, ka.grad, va.grad)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K7b {what}: two calls differ")
+    out = {"err": 0.0, "err_autograd": 0.0}
+    for name, g, p, a in zip(("dq", "dk", "dv"), got, plain, auto):
+        check(g.dtype == q.dtype and g.shape == p.shape,
+              f"K7b {what}: {name} {g.dtype} {tuple(g.shape)}")
+        for key, want in (("err", p), ("err_autograd", a)):
+            scale = float(want.float().abs().max())
+            err = max_abs(g, want) / max(scale, 1e-30)
+            check(err <= K7_TOL[dt], f"K7b {what}: {name} {err} of "
+                  f"max|plain| {scale} from the {key}")
+            out[key] = max(out[key], err)
+    return out
+
+
+def kernels_check_lm_bwd(dev):
+    """K7b against its plain version (``attention_bwd_ref``) and against
+    autograd's gradient of ``attention_ref`` in f32 at every case of
+    ``K7B_CASES``, each of dq, dk, dv within ``K7_TOL`` of the plain
+    gradient's largest value; two calls bit-identical.  -> {"flash_
+    attention_bwd": the worst error relative to that value}."""
+    rows, worst = [], 0.0
+    for i, (name, B, Sq, Skv, H, K, D, causal, window, q_offset, skv,
+            dt) in enumerate(K7B_CASES):
+        skv = Skv if skv is None else skv
+        q, k, v, do = k7b_inputs(dev, B, Sq, Skv, H, K, D, dt, 100 + i)
+        e = k7b_against_plain(q, k, v, do, dt, name, causal=causal,
+                              window=window, q_offset=q_offset, skv=skv)
+        worst = max(worst, e["err"])
+        rows.append({"case": name, "dtype": dt,
+                     "shape": [B, Sq, Skv, H, K, D], "causal": causal,
+                     "window": window, "q_offset": q_offset, "skv": skv,
+                     "deterministic": True, **e})
+        del q, k, v, do
+        free_card()
+    emit({"phase": "kernels_check_lm_bwd", "tol": K7_TOL, "cases": rows})
+    return {"flash_attention_bwd": worst}
+
+
+def kernels_time_lm_bwd(dev):
+    """K7b at ``K7B_TIMED``: wrapper ms (CUDA events), device ms
+    (profiler: its three kernels summed per call), the plain version's
+    ms, and ``scaled_dot_product_attention``'s backward on the same
+    inputs (``torch.autograd.grad`` through it: CUDA-event ms as
+    ``library_ms`` and its kernels' device ms as ``library_kernel_ms``),
+    and the bound.  -> {case: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref,
+        flash_attention_bwd_launch,
+    )
+    from repro_torch.kernels.flash_attention.ref import live_keys
+
+    cases = {c[0]: c for c in K7B_CASES}
+    out = {}
+    for name in K7B_TIMED:
+        (_, B, Sq, Skv, H, K, D, causal, window, q_offset, skv,
+         dt) = cases[name]
+        skv = Skv if skv is None else skv
+        q, k, v, do = k7b_inputs(dev, B, Sq, Skv, H, K, D, dt, 7)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, skv=skv)
+        k7b = lambda: flash_attention_bwd_launch(q, k, v, do, **kw)  # noqa
+        names = k7b_names(dt, D)
+        calls = {names[0]: k7b, **{n: lambda: None for n in names[1:]}}
+        for _ in range(3):
+            seen = kernel_device_ms(calls, K7B_TIMED_LAUNCHES)
+            if all(seen[n]["events"] == K7B_TIMED_LAUNCHES for n in names):
+                break
+        parts = {n: seen[n]["ms"] for n in names}
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t[:, :skv].transpose(1, 2).contiguous().requires_grad_()
+                  for t in (k, v))
+        mask = None
+        if window:
+            # the band K7's window keeps, as SDPA's boolean mask
+            i = torch.arange(Sq, device=dev)[:, None] + q_offset
+            j = torch.arange(skv, device=dev)[None, :]
+            mask = j > i - window
+            if causal:
+                mask = mask & (j <= i)
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qt, kt, vt), dot, retain_graph=True)
+        got = k7b()
+        ldq = lib()[0].transpose(1, 2)
+        # the yardstick must compute K7b's function
+        check(max_abs(got[0], ldq) <= 0.1 * float(got[0].float().abs().max()),
+              f"K7b {name} and SDPA's backward compute different functions")
+        pairs = live_pairs(Sq, skv, causal, window, q_offset)
+        lo, hi = live_keys(Sq, skv, causal=causal, window=window,
+                           q_offset=q_offset)
+        out[name] = dict(
+            ms=time_ms(k7b, K7B_TIMED_LAUNCHES),
+            kernel_ms=(sum(parts.values()) if None not in parts.values()
+                       else None),
+            kernel_parts_ms=parts,
+            kernel_events={n: seen[n]["events"] for n in names},
+            plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, do, **kw), 3),
+            library_ms=time_ms(lib, K7B_TIMED_LAUNCHES),
+            library_kernel_ms=next(
+                (t for t in (call_device_ms(lib) for _ in range(3)) if t),
+                None),
+            bound=k7b_bound(B, Sq, Skv, H, K, D, q.element_size(), pairs,
+                            hi - lo),
+            shape=[B, Sq, Skv, H, K, D], dtype=dt, causal=causal,
+            window=window, q_offset=q_offset, skv=skv, pairs=pairs,
+            kernels=names)
+        del q, k, v, do, qt, kt, vt, lib_out, got, ldq
+        free_card()
+    emit({"phase": "kernels_time_lm_bwd", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
+def f32_grads(params, cfg, batch, backend: str):
+    """-> (loss, gradients in ``tree_leaves`` order) of ``total_loss``
+    after ``forward`` in the params' own dtype (no bf16 cast), by
+    autograd."""
+    import torch
+
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.models.transformer import forward
+    from repro_torch.train import total_loss
+
+    tree = tree_map(lambda x: x.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        logits, _, aux = forward(tree, cfg, tokens=batch["tokens"],
+                                 mode="train", backend=backend)
+        loss, _ = total_loss(logits, batch["targets"], aux)
+        grads = torch.autograd.grad(loss, tree_leaves(tree))
+    return float(loss.detach()), grads
+
+
+def train_step_profile(step, state, batch) -> dict:
+    """One more training step under torch.profiler: device ms by kernel
+    group (K7's forward kernels, K7b's, cuBLAS / CUTLASS matrix products,
+    the rest: elementwise, reductions, the optimizer), the device's busy
+    share of the profiled step's wall time, and the ten largest kernels.
+    It updates ``state`` as any step does."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    avg = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    groups = dict.fromkeys(("k7", "k7b", "matmul", "other"), 0.0)
+    for e in avg:
+        key = e.key.lower()
+        group = ("k7b" if "fa_bwd_" in key else
+                 "k7" if "fa_prefill" in key or "fa_decode" in key
+                 or "fa_combine" in key else
+                 "matmul" if any(w in key for w in (
+                     "gemm", "xmma", "cutlass", "nvjet", "matmul")) else
+                 "other")
+        groups[group] += e.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    top = sorted(avg, key=lambda e: -e.self_device_time_total)[:10]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if wall else None,
+            "by_group_ms": groups,
+            "top": [[e.key[:90], e.count, e.self_device_time_total / 1e3]
+                    for e in top]}
+
+
+def path_lm_train(dev):
+    """LM training on the card: Qwen3-1.7B at every published width and
+    depth (28 layers, d_model 2,048, vocab 151,936, 1.72 B parameters),
+    ``init_train_state`` (AdamW, f32 master weights, seeded), bf16
+    compute, block remat, ``backend="cuda"``: ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on ``TokenDataset(seed=0)`` batches of 4 x 1,024,
+    the launch counts set to 0 just before them and read just after (K7
+    2 x 28 a step: the forward and the remat's recompute; K7b 28).
+    Gates: every loss finite, the last below the first; step 1's loss
+    within ``TRAIN_LOSS_TOL`` and gradient norm within
+    ``TRAIN_GNORM_TOL`` of the same step's on ``backend="interpret"``
+    (same params and batch, nothing updated); K7b on layer 0's and layer
+    27's own q, k, v and dO of step 1 within ``K7_TOL`` of the plain
+    gradients; the same model at 4 layers in f32, every parameter's
+    gradient within ``TRAIN_F32_TOL`` of its largest value against
+    ``interpret``'s.  One more step, after the counts are read, runs under
+    the profiler (``train_step_profile``).  -> the main run's launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import _ext
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.registry import init_params, model_flops
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.optim import global_norm
+    from repro_torch.train import (
+        TrainSettings,
+        init_train_state,
+        make_grad_fn,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    held_gb = free_card()
+    cfg = get_config(TRAIN_ARCH)
+    settings = TrainSettings(**TRAIN_SETTINGS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = init_train_state(cfg, generator=torch.Generator(
+        device=dev).manual_seed(TRAIN_SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    state_gb = sum(x.numel() * x.element_size()
+                   for x in _leaves(state)) / 1e9
+    data = TokenDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                data.batch_at(i).items()} for i in range(TRAIN_STEPS)]
+
+    # step 1 on the plain attention: its loss and gradient norm, nothing
+    # updated
+    m_plain, g = make_grad_fn(cfg, settings, backend="interpret")(
+        state["params"], batches[0])
+    loss_plain = float(m_plain["loss"])
+    gnorm_plain = float(global_norm(g))
+    del g, m_plain
+    free_card()
+
+    # K7b's inputs of layers 27 and 0 (the first and last backward call of
+    # step 1), captured as they pass
+    real = fa_ops.flash_attention_bwd_launch
+    captured, n_calls = {}, [0]
+
+    def capture(q, k, v, do, **kw):
+        i = n_calls[0]
+        n_calls[0] += 1
+        if i in (0, cfg.num_layers - 1):
+            captured[cfg.num_layers - 1 - i] = (
+                q.clone(), k.clone(), v.clone(), do.clone(), dict(kw))
+        return real(q, k, v, do, **kw)
+
+    step = make_train_step(cfg, settings, backend="cuda")
+    losses, gnorms, lrs, step_s = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _ext.reset_launches()
+    fa_ops.flash_attention_bwd_launch = capture
+    try:
+        for i, b in enumerate(batches):
+            if i == 1:
+                fa_ops.flash_attention_bwd_launch = real
+            t = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            lrs.append(float(m["lr"]))
+    finally:
+        fa_ops.flash_attention_bwd_launch = real
+    launches = dict(_ext.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    profiled = train_step_profile(step, state, batches[-1])
+    L = cfg.num_layers
+    want = dict.fromkeys(launches, 0) | {
+        "flash_attention": 2 * L * TRAIN_STEPS,
+        "flash_attention_bwd": L * TRAIN_STEPS}
+    gates = [
+        (launches == want, f"path_lm_train: launches {launches} != {want}"),
+        (all(x == x and abs(x) < float("inf") for x in losses),
+         f"path_lm_train: a loss is not finite: {losses}"),
+        (losses[-1] < losses[0],
+         f"path_lm_train: the loss did not fall: {losses}"),
+        (abs(losses[0] - loss_plain) <= TRAIN_LOSS_TOL,
+         f"path_lm_train: step 1 loss {losses[0]} against interpret's "
+         f"{loss_plain}"),
+        (abs(gnorms[0] - gnorm_plain) <= TRAIN_GNORM_TOL * gnorm_plain,
+         f"path_lm_train: step 1 gradient norm {gnorms[0]} against "
+         f"interpret's {gnorm_plain}"),
+        (sorted(captured) == [0, L - 1],
+         f"path_lm_train: captured layers {sorted(captured)}")]
+    del state, batches[1:]
+    free_card()
+
+    # K7b on the path's own inputs, layers 0 and 27
+    blocks = {}
+    for layer, (q, k, v, do, kw) in sorted(captured.items()):
+        blocks[f"layer{layer}"] = k7b_against_plain(
+            q, k, v, do, "bfloat16", f"path_lm_train layer {layer}", **kw)
+    del captured
+    free_card()
+
+    # the same model at 4 layers in f32 against interpret
+    cfg4 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS)
+    params = init_params(cfg4, generator=torch.Generator(device=dev)
+                         .manual_seed(TRAIN_SEED), device=dev,
+                         dtype=torch.float32)
+    b4 = {k: v[:TRAIN_F32_B] for k, v in batches[0].items()}
+    loss_k, g_k = f32_grads(params, cfg4, b4, "cuda")
+    loss_p, g_p = f32_grads(params, cfg4, b4, "interpret")
+    f32_worst = 0.0
+    for a, w in zip(g_k, g_p):
+        f32_worst = max(f32_worst, max_abs(a, w) / max(
+            float(w.abs().max()), 1e-30))
+    gates.append((f32_worst <= TRAIN_F32_TOL,
+                  f"path_lm_train f32 4 layers: a gradient {f32_worst} of "
+                  "its largest from interpret's"))
+    del params, g_k, g_p
+    free_card()
+
+    tokens = TRAIN_B * TRAIN_S
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    shape = ShapeConfig("path_lm_train", TRAIN_S, TRAIN_B, "train")
+    emit({"phase": "path_lm_train", "arch": TRAIN_ARCH,
+          "params": cfg.param_count(), "batch": [TRAIN_B, TRAIN_S],
+          "steps": TRAIN_STEPS, "settings": TRAIN_SETTINGS,
+          "held_gb_before": held_gb, "init_s": init_s, "state_gb": state_gb,
+          "losses": losses, "grad_norms": gnorms, "lrs": lrs,
+          "step_ms": [x * 1e3 for x in step_s],
+          "steady_step_ms": steady * 1e3,
+          "tok_per_s": tokens / steady,
+          "model_tflop_per_s": model_flops(cfg, shape) / steady / 1e12,
+          "peak_gb": peak_gb, "launches": {k: n for k, n in
+                                           launches.items() if n},
+          "profiled_step": profiled,
+          "step1_interpret": {"loss": loss_plain, "grad_norm": gnorm_plain},
+          "block_k7b": blocks, "f32_layers": TRAIN_F32_LAYERS,
+          "f32_loss": [loss_k, loss_p], "f32_grad_err": f32_worst,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
+    return launches
+
+
+def path_lm_restart(dev):
+    """Restart on the card through ``RestartManager``: the 4-layer smoke
+    config of ``TRAIN_ARCH``, ``RESTART_STEPS`` steps straight, then a run
+    checkpointing every ``RESTART_EVERY`` steps that stops there, a fresh
+    manager that restores (each leaf's crc32 checked) and replays the
+    rest.  Gates: the replayed params within ``RESTART_TOL`` of each
+    leaf's largest value of the uninterrupted run's; the checkpoint
+    restored onto the CPU equal bit for bit to the one on the card.  ->
+    the launch counts of the three runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import latest_step, restore_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.ft import RestartManager
+    from repro_torch.kernels import _ext
+    from repro_torch.train import (
+        TrainSettings,
+        init_train_state,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    cfg = get_smoke_config(TRAIN_ARCH)
+    data = TokenDataset(cfg.vocab_size, RESTART_S, TRAIN_B, seed=0)
+    step_fn = make_train_step(cfg, TrainSettings(
+        peak_lr=1e-3, warmup=2, total_steps=RESTART_STEPS), backend="cuda")
+
+    def fresh():
+        return init_train_state(cfg, generator=torch.Generator(
+            device=dev).manual_seed(TRAIN_SEED), device=dev)
+
+    def batch_fn(s):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(s).items()}
+
+    _ext.reset_launches()
+    state = fresh()
+    for s in range(RESTART_STEPS):
+        state, _ = step_fn(state, batch_fn(s))
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ckpt_restart_", dir=root)
+    try:
+        st2, end = RestartManager(d, save_every=RESTART_EVERY).run(
+            fresh(), step_fn, batch_fn, num_steps=RESTART_EVERY)
+        del st2                                          # the crash
+        mgr = RestartManager(d, save_every=RESTART_EVERY)
+        st3, start = mgr.maybe_restore(fresh())
+        on_cpu, _ = restore_checkpoint(d, st3, start, device="cpu")
+        cpu_same = all(torch.equal(a.cpu(), b) for a, b in
+                       zip(_leaves(st3), _leaves(on_cpu)))
+        st3, end = mgr.run(st3, step_fn, batch_fn, num_steps=RESTART_STEPS,
+                           start_step=start)
+        last = latest_step(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    err = 0.0
+    for a, b in zip(_leaves(st3["params"]), _leaves(state["params"])):
+        err = max(err, max_abs(a, b) / max(float(b.abs().max()), 1e-30))
+    emit({"phase": "path_lm_restart", "arch": cfg.name,
+          "steps": RESTART_STEPS, "save_every": RESTART_EVERY,
+          "restored_step": start, "last_checkpoint": last,
+          "param_err": err, "tol": RESTART_TOL, "cpu_restore_equal": cpu_same,
+          "launches": {k: n for k, n in launches.items() if n},
+          "seconds": time.perf_counter() - t0})
+    check(start == RESTART_EVERY and end == RESTART_STEPS
+          and last == RESTART_STEPS,
+          f"path_lm_restart: restored {start}, ended {end}, latest {last}")
+    check(cpu_same, "path_lm_restart: the CPU restore differs")
+    check(err <= RESTART_TOL, f"path_lm_restart: replayed params {err} of "
+          "max|p| from the uninterrupted run")
+    return launches
+
+
+def grad_refusals(dev):
+    """K8 and K9 have no backward on the card: called under autograd with
+    CUDA tensors they raise (nothing launches); without grad they run."""
+    import torch
+
+    from repro_torch.kernels import _ext
+    from repro_torch.kernels.binarized_gemm import binarized_gemm
+    from repro_torch.kernels.selective_scan import (
+        selective_scan,
+        selective_scan_discretized,
+    )
+
+    B, S, di, N = 1, 8, 64, 16
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)  # noqa: E731
+    dt, x = r(B, S, di), r(B, S, di)
+    A, Bm, Cm, h0 = -r(di, N), r(B, S, N), r(B, S, N), r(B, di, N)
+    dA, dBx = r(B, S, di, N), r(B, S, di, N)
+    xb, wb = r(37, 200) - 0.5, r(200, 45) - 0.5
+    calls = {"selective_scan_discretized": lambda: selective_scan_discretized(
+        dt, A, Bm, Cm, x, h0),
+        "selective_scan": lambda: selective_scan(dA, dBx, Cm, h0),
+        "binarized_gemm": lambda: binarized_gemm(xb, wb)}
+    leaves = {"selective_scan_discretized": dt, "selective_scan": dA,
+              "binarized_gemm": xb}
+    _ext.reset_launches()
+    refused = {}
+    for name, call in calls.items():
+        leaves[name].requires_grad_(True)
+        try:
+            call()
+            refused[name] = False
+        except NotImplementedError:
+            refused[name] = True
+        leaves[name].requires_grad_(False)
+    torch.cuda.synchronize()
+    silent = dict(_ext.LAUNCHES)
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    emit({"phase": "grad_refusals", "refused": refused,
+          "launched_under_grad": {k: n for k, n in silent.items() if n}})
+    check(all(refused.values()), f"grad_refusals: {refused}")
+    check(not any(silent.values()), f"grad_refusals: launched {silent}")
+    check(all(_ext.LAUNCHES[k] == 1 for k in calls),
+          f"grad_refusals: without grad {dict(_ext.LAUNCHES)}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6419,6 +6989,11 @@ KERNELS = (
      "src/repro/kernels/fused_mlp/kernel.py:158"),
     ("flash_attention",
      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:35"),
+    # K7b, K7's backward: the TPU kernel has none (the JAX package takes
+    # XLA's gradient); it replaces that kernel's part in training
+    ("flash_attention_bwd",
+     "src/repro_torch/kernels/flash_attention/csrc/flash_backward.cu",
      "src/repro/kernels/flash_attention/kernel.py:35"),
     ("selective_scan",
      "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
@@ -6482,6 +7057,8 @@ def main() -> int:
         chain_times = chain_timing(dev)
         err.update(kernels_check_lm(dev))
         lm_times = kernels_time_lm(dev)
+        err.update(kernels_check_lm_bwd(dev))
+        bwd_times = kernels_time_lm_bwd(dev)
         err.update(kernels_check_scan(dev))
         scan_times = kernels_time_scan(dev)
         err.update(kernels_check_bgemm(dev))
@@ -6507,6 +7084,9 @@ def main() -> int:
         by_path["path_vlm_serve"] = path_vlm_serve(dev)
         by_path["path_encdec_serve"] = path_encdec_serve(dev)
         by_path["path_xlstm_serve"] = path_xlstm_serve(dev)
+        by_path["path_lm_train"] = path_lm_train(dev)
+        by_path["path_lm_restart"] = path_lm_restart(dev)
+        grad_refusals(dev)
         by_path["path_generate"] = path_generate(dev)
         by_path["path_online"] = path_online(dev)
         by_path["path_fusion"] = path_fusion(dev)
@@ -6536,6 +7116,10 @@ def main() -> int:
                                              "mat_lut_classify",
                                              "fused_dag")),
                            ("path_lm_serve", ("flash_attention",)),
+                           ("path_lm_train", ("flash_attention",
+                                              "flash_attention_bwd")),
+                           ("path_lm_restart", ("flash_attention",
+                                                "flash_attention_bwd")),
                            ("path_moe_serve", ("flash_attention",)),
                            ("path_mixtral_serve", ("flash_attention",)),
                            ("path_vlm_serve", ("flash_attention",)),
@@ -6573,6 +7157,7 @@ def main() -> int:
         return 1
     kernels = []
     times["flash_attention"] = lm_times["prefill_512"]
+    times["flash_attention_bwd"] = bwd_times["qwen3_train_1024"]
     times["selective_scan"] = scan_times["tpu_interface"]["prefill_512"]
     times["selective_scan_discretized"] = \
         scan_times["discretized"]["prefill_512"]
@@ -6603,6 +7188,17 @@ def main() -> int:
                       "library_kernel_ms": m["library_kernel_ms"],
                       "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
                 for cfg, m in lm_times.items()}
+        if name == "flash_attention_bwd":
+            entry["kernels"] = sorted({n for m in bwd_times.values()
+                                       for n in m["kernels"]})
+            entry["library_kernel_ms"] = tm["library_kernel_ms"]
+            entry["shapes"] = {
+                cfg: {k: m[k] for k in (
+                    "shape", "dtype", "causal", "window", "q_offset", "skv",
+                    "kernels", "ms", "kernel_ms", "kernel_parts_ms",
+                    "plain_ms", "library_ms", "library_kernel_ms")}
+                | {"bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
+                for cfg, m in bwd_times.items()}
         if name in ("selective_scan", "selective_scan_discretized"):
             rows = scan_times["tpu_interface" if name == "selective_scan"
                               else "discretized"]

@@ -3,7 +3,9 @@ reference's ten architectures, each with its published config and its
 smoke config."""
 
 from repro_torch.configs.base import (
+    SHAPES,
     ModelConfig,
+    ShapeConfig,
     get_config,
     get_smoke_config,
     list_archs,
@@ -24,5 +26,5 @@ from repro_torch.configs import (  # noqa: F401
     xlstm_1_3b,
 )
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs",
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "get_config", "get_smoke_config", "list_archs",
            "register"]

@@ -11,8 +11,10 @@ files) across as numpy arrays, and ``mitigation_from_numpy`` /
 a sharded engine's stacked tables into one table per shard.
 ``dag_from_reference`` and ``pipelines_from_reference`` carry a model
 DAG and the pipelines it names; ``lm_params_from_reference`` an LM's
-parameter tree; ``trained_from_reference`` a trained model (its numpy
-parameters, topology and config) into the port's ``TrainedModel``;
+parameter tree and ``train_state_from_reference`` its training state
+(params, optimizer moments, step); ``trained_from_reference`` a
+trained model (its numpy parameters, topology and config) into the
+port's ``TrainedModel``;
 ``fused_from_reference`` a fused multi-task model (``core.fusion``) and
 ``result_from_reference`` a whole ``GenerationResult``, its trained
 models, pipelines and ``FeasibilityReport``s, one port object for each
@@ -233,6 +235,36 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(dev)
 
 
+def _stack_to_layers(params, dev: torch.device) -> dict:
+    """A tree in the reference's LM layout (``embed``, ``final_norm``,
+    ``decoder/slot{i}`` stacked over the periods; ``encoder``,
+    ``enc_norm``) with any nested leaves -> the port's layout: layer p *
+    P + i is slot i of period p."""
+    def tree(t):
+        return ({k: tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else _tensor(t, dev))
+
+    def first(t):
+        return first(next(iter(t.values()))) if isinstance(t, dict) else t
+
+    def layer(t, i):
+        return ({k: layer(v, i) for k, v in t.items()}
+                if isinstance(t, dict) else t[i])
+
+    def layers(stack):
+        stacked = [tree(stack[f"slot{i}"]) for i in range(len(stack))]
+        n_p = len(first(stacked[0]))
+        return [layer(s, p) for p in range(n_p) for s in stacked]
+
+    out = {"embed": tree(params["embed"]),
+           "final_norm": tree(params["final_norm"]),
+           "layers": layers(params["decoder"])}
+    if "encoder" in params:
+        out["encoder"] = layers(params["encoder"])
+        out["enc_norm"] = tree(params["enc_norm"])
+    return out
+
+
 def lm_params_from_reference(params, *, device="cuda", experts=None) -> dict:
     """The reference's scan-stacked LM parameter tree (numpy leaves:
     ``embed``, ``final_norm`` and, per slot ``decoder/slot{i}``, leaves
@@ -244,32 +276,16 @@ def lm_params_from_reference(params, *, device="cuda", experts=None) -> dict:
     None: all) keeps only those experts' ``wg``/``wu``/``wd`` of each MoE
     layer.  Each layer's tensors are views of its slot's stacked
     tensors."""
-    dev = resolve_device(device)
-
-    def tree(t):
+    def held(t):
+        if not isinstance(t, dict):
+            return t
         if "router" in t:          # an MoE layer: the held experts only
             lo, hi = expert_range(experts, np.shape(t["router"])[-1])
-            t = {k: v if k == "router" else np.asarray(v)[:, lo:hi]
-                 for k, v in t.items()}
-        return {k: tree(v) if isinstance(v, dict) else _tensor(v, dev)
-                for k, v in t.items()}
+            return {k: v if k == "router" else np.asarray(v)[:, lo:hi]
+                    for k, v in t.items()}
+        return {k: held(v) for k, v in t.items()}
 
-    def layer(t, i):
-        return {k: layer(v, i) if isinstance(v, dict) else v[i]
-                for k, v in t.items()}
-
-    def layers(stack):
-        stacked = [tree(stack[f"slot{i}"]) for i in range(len(stack))]
-        n_p = len(next(iter(stacked[0]["ln1"].values())))
-        return [layer(s, p) for p in range(n_p) for s in stacked]
-
-    out = {"embed": tree(params["embed"]),
-           "final_norm": tree(params["final_norm"]),
-           "layers": layers(params["decoder"])}
-    if "encoder" in params:
-        out["encoder"] = layers(params["encoder"])
-        out["enc_norm"] = tree(params["enc_norm"])
-    return out
+    return _stack_to_layers(held(params), resolve_device(device))
 
 
 def trained_from_reference(trained, *, n_inputs: int | None = None,
@@ -384,3 +400,22 @@ def result_from_reference(result, *, device="cuda"):
         dag_report=(None if result.dag_report is None
                     else report_from_reference(result.dag_report)),
         schedule=str(result.schedule))
+
+
+def train_state_from_reference(state, *, device="cuda") -> dict:
+    """The reference's ``init_train_state`` tree (numpy leaves: params,
+    the AdamW ``m`` / ``v`` or the Adafactor ``f`` tree of ``vr`` / ``vc``
+    / ``v``, ``step``) -> the port's ``train.step`` state on ``device``:
+    params through ``lm_params_from_reference``, the moments unstacked the
+    same way, every value a copy."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    if "f" in opt:
+        opt = {"f": _stack_to_layers(opt["f"], dev)}
+    else:
+        opt = {"m": _stack_to_layers(opt["m"], dev),
+               "v": _stack_to_layers(opt["v"], dev)}
+    return {"params": lm_params_from_reference(state["params"], device=dev),
+            "opt": opt,
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}

@@ -33,6 +33,7 @@ SOURCES = (
     _PKG / "flash_attention" / "csrc" / "flash_prefill.cu",
     _PKG / "flash_attention" / "csrc" / "flash_prefill_f32.cu",
     _PKG / "flash_attention" / "csrc" / "flash_decode.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_backward.cu",
     _PKG / "selective_scan" / "csrc" / "selective_scan.cu",
     _PKG / "binarized_gemm" / "csrc" / "binarized_gemm.cu",
 )
@@ -42,7 +43,8 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 # kernel and nowhere else (chip_smoke.py reads them around the main path)
 LAUNCHES = {"fused_flow_serve": 0, "flow_update": 0, "fused_mlp_classify": 0,
             "mat_lut_classify": 0, "fused_mlp": 0, "fused_dag": 0,
-            "flash_attention": 0, "selective_scan": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "selective_scan": 0,
             "selective_scan_discretized": 0, "binarized_gemm": 0}
 
 _EXT = None
@@ -71,6 +73,21 @@ def reset_launches() -> None:
 def count_launch(name: str) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+def refuse_grad(name: str, tensors) -> None:
+    """Raises under autograd (grad mode on and an input that requires
+    grad): K8 and K9 have no backward on the card yet, and a launch's
+    output carries no gradient, so training through them would drop it
+    without a word."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward on the card: its backward is a later "
+            "slice (ROADMAP Queue 1 item 6.5, K8's backward and hybrid "
+            "training); train this model on the CPU, where the plain "
+            "version is differentiable")
 
 
 def extension():

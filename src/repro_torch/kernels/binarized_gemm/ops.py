@@ -52,7 +52,9 @@ def binarized_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def binarized_gemm_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K9's wrapper: checked operands -> int32 [B, N].  One call writes
     both operands' signs into int8 scratch and multiplies them on the
-    tensor cores, on the current stream."""
+    tensor cores, on the current stream.  Raises under autograd (no
+    backward on the card yet)."""
+    _ext.refuse_grad("binarized_gemm", (x, w))
     _check(x, w)
     for t in (x, w):
         if t.device.type != "cuda" or t.device != x.device:

@@ -407,6 +407,66 @@ void flash_attention(at::Tensor q, at::Tensor k, at::Tensor v, at::Tensor o,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K7b: dq, dk, dv = the gradient of K7's output over the first skv keys
+// against dout; lse and delta f32 [B, H, Sq] scratch.  The wrapper has
+// checked shapes, dtypes, contiguity and alignment.
+void flash_attention_bwd(at::Tensor q, at::Tensor k, at::Tensor v,
+                         at::Tensor dout, at::Tensor lse, at::Tensor delta,
+                         at::Tensor dq, at::Tensor dk, at::Tensor dv,
+                         int64_t skv, int64_t q_offset, bool causal,
+                         int64_t window) {
+  c10::cuda::CUDAGuard guard(q.device());
+  const bool bf16 = q.scalar_type() == at::kBFloat16;
+  TORCH_CHECK(bf16 || q.scalar_type() == at::kFloat,
+              "K7b takes bf16 or f32 operands");
+  for (const at::Tensor* t : {&k, &v, &dout, &dq, &dk, &dv})
+    TORCH_CHECK(t->scalar_type() == q.scalar_type(),
+                "q, k, v, dout and the gradients must share one dtype");
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && v.sizes() == k.sizes() &&
+                  dout.sizes() == q.sizes() && dq.sizes() == q.sizes() &&
+                  dk.sizes() == k.sizes() && dv.sizes() == k.sizes(),
+              "q, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Skv, K, D]");
+  for (const at::Tensor* t : {&q, &k, &v, &dout, &dq, &dk, &dv, &lse, &delta})
+    TORCH_CHECK(t->is_contiguous() &&
+                    reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "K7b takes contiguous tensors aligned to 16 bytes");
+  const int64_t D = q.size(3);
+  TORCH_CHECK(k.size(0) == q.size(0) && k.size(3) == D,
+              "q and k differ in batch or head width");
+  TORCH_CHECK(k.size(2) >= 1 && q.size(2) % k.size(2) == 0,
+              "query heads must group over the kv heads");
+  TORCH_CHECK(skv >= 1 && skv <= k.size(1), "skv outside 1..Skv");
+  TORCH_CHECK(q.size(0) <= 65535 && q.size(2) <= 65535,
+              "batch and heads index the grid's y and z");
+  TORCH_CHECK(q_offset >= 0 && window >= 0 &&
+                  q_offset + q.size(1) + window < INT_MAX &&
+                  k.size(1) < INT_MAX,
+              "positions must fit an int");
+  const int64_t n_stat = q.size(0) * q.size(2) * q.size(1);
+  TORCH_CHECK(lse.scalar_type() == at::kFloat &&
+                  delta.scalar_type() == at::kFloat &&
+                  lse.numel() == n_stat && delta.numel() == n_stat,
+              "lse and delta: f32 [B, H, Sq]");
+  FlashArgs a;
+  a.B = (int)q.size(0);
+  a.Sq = (int)q.size(1);
+  a.Skv = (int)k.size(1);
+  a.H = (int)q.size(2);
+  a.K = (int)k.size(2);
+  a.skv = (int)skv;
+  a.q_offset = (int)q_offset;
+  a.causal = causal ? 1 : 0;
+  a.window = (int)window;
+  a.scale = (float)(1.0 / std::sqrt((double)D));
+  a.kv_lo = a.kv_hi = a.chunk = a.n_chunks = 0;
+  a.ws_acc = a.ws_ml = nullptr;
+  C10_CUDA_CHECK(launch_flash_attention_bwd(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(),
+      dk.data_ptr(), dv.data_ptr(), a, (int)D, bf16 ? 1 : 0, stream_of(q)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // K8: y, h_out = the selective scan of (dA, dBx, C, h0); the wrapper has
 // checked the shapes, dtypes, contiguity and N.
 void selective_scan(at::Tensor dA, at::Tensor dBx, at::Tensor C,
@@ -546,6 +606,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K4: MAT quantize + LUT sum + arg-reduce + LabelMap");
   m.def("flash_attention", &flash_attention,
         "K7: online-softmax attention (causal, window, GQA, q offset)");
+  m.def("flash_attention_bwd", &flash_attention_bwd,
+        "K7b: K7's backward (dq, dk, dv)");
   m.def("selective_scan", &selective_scan,
         "K8: the Mamba S6 recurrence (y, h_final)");
   m.def("selective_scan_discretized", &selective_scan_discretized,

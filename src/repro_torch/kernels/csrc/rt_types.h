@@ -195,6 +195,14 @@ cudaError_t launch_flash_prefill_f32(const void* q, const void* k,
 cudaError_t launch_flash_decode(const void* q, const void* k, const void* v,
                                 void* o, const FlashArgs& a, int D, int bf16,
                                 cudaStream_t stream);
+// K7b, K7's backward: dq, dk, dv (each in its input's dtype) from q, k,
+// v and dout; lse and delta are the caller's f32 scratch [B, H, Sq].
+// Three launches (stats, dK/dV, dQ).
+cudaError_t launch_flash_attention_bwd(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       float* lse, float* delta, void* dq,
+                                       void* dk, void* dv, const FlashArgs& a,
+                                       int D, int bf16, cudaStream_t stream);
 // K8: y and h_out from the f32 inputs; N in {1, 2, 4, 8, 16, 32}.
 cudaError_t launch_selective_scan(const float* dA, const float* dBx,
                                   const float* C, const float* h0, float* y,

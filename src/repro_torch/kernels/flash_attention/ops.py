@@ -13,6 +13,13 @@ calls the tensor-core prefill (``csrc/flash_prefill.cu``: P V on
 ``ref.attention_split_ref`` is the plain form of the kernels'
 arithmetic.
 
+Under autograd (grad mode on and an input that requires grad)
+``flash_attention`` runs through ``FlashAttentionFn``: its forward is
+the same K7 call (or plain version), its backward K7b
+(``csrc/flash_backward.cu``, three launches counted as one
+``flash_attention_bwd`` call) on CUDA tensors and ``ref.attention_bwd_ref``
+on CPU tensors.  Every other call launches exactly what it did before.
+
 Semantics: q [B, Sq, H, D], k and v [B, Skv, K, D] with H % K == 0; the
 query at row i sits at position ``q_offset + i``; key t is attended when
 ``t < skv`` (default Skv), and, with ``causal``, ``t <= q_pos``, and with
@@ -27,7 +34,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _ext
-from repro_torch.kernels.flash_attention.ref import attention_ref, live_keys
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_ref,
+    live_keys,
+)
 
 # K7's head widths (a template parameter; the repo's configs use 16 and 128)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -87,15 +98,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     skv: int | None = None) -> torch.Tensor:
     """-> [B, Sq, H, D] in q's dtype.  CUDA tensors: one K7 call; CPU
-    tensors: the plain version over the first ``skv`` keys."""
+    tensors: the plain version over the first ``skv`` keys.  Under
+    autograd through ``FlashAttentionFn`` (K7b or the plain backward)."""
     skv = int(k.shape[1] if skv is None else skv)
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, window=window, q_offset=q_offset, skv=skv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), window,
+                                      q_offset, skv)
+    return _forward(q, k, v, causal=causal, window=window,
+                    q_offset=q_offset, skv=skv)
+
+
+def _forward(q, k, v, *, causal: bool, window: int, q_offset: int,
+             skv: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k[:, :skv], v[:, :skv], causal=causal,
                              window=window, q_offset=q_offset)
     return flash_attention_launch(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, skv=skv)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K7 with its gradient: forward K7 (CPU tensors: ``attention_ref``),
+    backward K7b (CPU tensors: ``attention_bwd_ref``).  It saves q, k and
+    v only: the backward recomputes the output in f32 (the rounded output
+    would put its rounding into delta)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int,
+                skv: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      skv=skv)
+        return _forward(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            grads = attention_bwd_ref(q, k, v, do, **ctx.kw)
+        else:
+            grads = flash_attention_bwd_launch(q, k, v, do, **ctx.kw)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention_launch(q, k, v, *, causal: bool, window: int,
@@ -130,3 +177,38 @@ def flash_attention_launch(q, k, v, *, causal: bool, window: int,
                                      bool(causal), window, *plan)
     _ext.count_launch("flash_attention")
     return out
+
+
+def flash_attention_bwd_launch(q, k, v, do, *, causal: bool, window: int,
+                               q_offset: int, skv: int):
+    """K7b's wrapper: checked operands and dO -> (dq, dk, dv) in their
+    dtypes, on the current stream: three launches (stats, dK/dV, dQ)
+    counted as one call; keys past ``skv`` take zero gradients."""
+    _check(q, k, v, window=window, q_offset=q_offset, skv=skv)
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} is not q's shape "
+                         f"{tuple(q.shape)}")
+    for t in (q, k, v, do):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError("flash_attention_bwd_launch runs CUDA tensors "
+                             f"of one device; got {t.device} beside "
+                             f"{q.device}")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise ValueError("q, k, v and dO must share one dtype of "
+                             f"{DTYPES}; got {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}, {do.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention_bwd_launch takes contiguous "
+                             "tensors aligned to 16 bytes")
+    B, Sq, H, _ = q.shape
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = q.new_empty((B, H, Sq), dtype=torch.float32)
+    delta = torch.empty_like(lse)
+    _ext.extension().flash_attention_bwd(q, k, v, do, lse, delta, dq, dk, dv,
+                                         skv, q_offset, bool(causal), window)
+    _ext.count_launch("flash_attention_bwd")
+    return dq, dk, dv

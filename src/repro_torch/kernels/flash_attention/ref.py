@@ -4,7 +4,8 @@ full-matrix softmax attention with causal masking, a sliding window, GQA
 (H % K == 0) and a q position offset.  ``attention_split_ref``: the same
 function by the arithmetic of K7's kernels (chunks of the live keys,
 tiles, the online softmax and the combine; in the bf16 prefill P split
-into bf16 hi and lo).
+into bf16 hi and lo).  ``attention_bwd_ref``: the gradient of
+``attention_ref`` by the arithmetic of K7b, K7's backward kernel.
 The CPU tests hold both against the reference, and ``chip_smoke.py``
 holds the kernels against both on the card."""
 
@@ -125,3 +126,95 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc + acc_c * alpha[..., None]
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def first_masked_row(Sq: int, skv: int, *, window: int,
+                     q_offset: int) -> int:
+    """The first query row whose keys are all masked (Sq: none).  Only a
+    window past skv masks a whole row (the causal mask keeps the row's
+    own position), and then every later row too."""
+    if window <= 0:
+        return Sq
+    return min(max(skv + window - 1 - q_offset, 0), Sq)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, q_offset: int = 0,
+                      skv: int | None = None, tile: int = 64):
+    """The gradient of ``attention_ref(q, k[:, :skv], v[:, :skv])``
+    against ``do`` by K7b's arithmetic, in f32: (1) the stats, K7's
+    online softmax over ``tile``-key tiles of the live keys with O
+    recomputed in f32, lse = m + log(l) and delta = sum_d dO * O (+inf
+    and 0 for a fully masked row); (2) per key tile p = exp(s - lse) (0
+    where masked), dS = p * (dP - delta), dV += p^T dO, dK += dS^T Q,
+    dQ += dS K, dK and dQ times the scale at the end; (3) a fully masked
+    row's uniform softmax: dV += its dO / skv on every key < skv.
+    -> (dq, dk, dv) in q's, k's and v's dtypes; keys past skv take 0."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    skv = Skv if skv is None else int(skv)
+    G = H // K
+    f32 = torch.float32
+    dev = q.device
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=f32)
+    qg = q.reshape(B, Sq, K, G, D).to(f32)
+    dog = do.reshape(B, Sq, K, G, D).to(f32)
+    kf, vf = k[:, :skv].to(f32), v[:, :skv].to(f32)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    lo, hi = live_keys(Sq, skv, causal=causal, window=window,
+                       q_offset=q_offset)
+    r_fm = first_masked_row(Sq, skv, window=window, q_offset=q_offset)
+    fm = torch.arange(Sq, device=dev) >= r_fm
+
+    def tile_mask(t_lo: int, t_hi: int) -> torch.Tensor:
+        kv_pos = torch.arange(t_lo, t_hi, device=dev)
+        mask = torch.ones((Sq, t_hi - t_lo), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        return mask
+
+    # the kernel's tiles: multiples of ``tile`` (tiles whose keys are all
+    # masked for a row change nothing of it)
+    tiles = [(t, min(t + tile, hi)) for t in range(lo - lo % tile, hi, tile)]
+    # (1) the stats
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, K, G, Sq, D), dtype=f32, device=dev)
+    for t_lo, t_hi in tiles:
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kf[:, t_lo:t_hi]) * scale
+        s = torch.where(tile_mask(t_lo, t_hi), s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        m = m_new
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p, vf[:, t_lo:t_hi])
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    dob = dog.permute(0, 2, 3, 1, 4)                     # [B, K, G, Sq, D]
+    delta = torch.where(fm, 0.0, (dob * o).sum(-1))
+    lse = torch.where(fm, torch.inf, m + torch.log(l))
+    # (2) the gradients, key tile by key tile
+    dq = torch.zeros((B, K, G, Sq, D), dtype=f32, device=dev)
+    dk = torch.zeros((B, Skv, K, D), dtype=f32, device=dev)
+    dv = torch.zeros((B, Skv, K, D), dtype=f32, device=dev)
+    for t_lo, t_hi in tiles:
+        kt, vt = kf[:, t_lo:t_hi], vf[:, t_lo:t_hi]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kt) * scale
+        p = torch.where(tile_mask(t_lo, t_hi), torch.exp(s - lse[..., None]),
+                        0.0)
+        dp = torch.einsum("bskgd,btkd->bkgst", dog, vt)
+        ds = p * (dp - delta[..., None])
+        dv[:, t_lo:t_hi] = torch.einsum("bkgst,bskgd->btkd", p, dog)
+        dk[:, t_lo:t_hi] = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+        dq = dq + torch.einsum("bkgst,btkd->bkgsd", ds, kt)
+    dq = dq * scale
+    # (3) the fully masked rows
+    if r_fm < Sq:
+        u = dog[:, r_fm:].sum(dim=(1, 3))                # [B, K, D]
+        dv[:, :skv] = dv[:, :skv] + u[:, None] / skv
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

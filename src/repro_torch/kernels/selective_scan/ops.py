@@ -102,7 +102,9 @@ def selective_scan(deltaA: torch.Tensor, deltaBx: torch.Tensor,
 
 def selective_scan_launch(deltaA, deltaBx, C, h0):
     """K8's wrapper, the TPU kernel's interface: checked operands -> (y,
-    h_final), one launch on the current stream."""
+    h_final), one launch on the current stream.  Raises under autograd
+    (``_ext.refuse_grad``)."""
+    _ext.refuse_grad("selective_scan", (deltaA, deltaBx, C, h0))
     _check(deltaA, deltaBx, C, h0)
     _check_cuda("selective_scan_launch", (deltaA, deltaBx, C, h0))
     B, S, di, _ = deltaA.shape
@@ -127,7 +129,9 @@ def selective_scan_discretized(dt: torch.Tensor, A: torch.Tensor,
 
 def selective_scan_discretized_launch(dt, A, Bm, Cm, x, h0):
     """K8's wrapper, the discretizing entry: checked operands -> (y,
-    h_final), one launch on the current stream."""
+    h_final), one launch on the current stream.  Raises under autograd
+    (``_ext.refuse_grad``)."""
+    _ext.refuse_grad("selective_scan_discretized", (dt, A, Bm, Cm, x, h0))
     _check_discretized(dt, A, Bm, Cm, x, h0)
     _check_cuda("selective_scan_discretized_launch", (dt, A, Bm, Cm, x, h0))
     y = torch.empty(dt.shape, dtype=F32, device=dt.device)

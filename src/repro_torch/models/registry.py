@@ -195,3 +195,77 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                                   defs["encoder_slots"])
         params["enc_norm"] = make(defs["enc_norm"])
     return params
+
+
+def _stacks(cfg: ModelConfig) -> list:
+    """(per-layer defs tree, layers stacked) of the embedding and final
+    norm (1), each decoder slot (its periods) and each encoder slot."""
+    n_p, _ = decoder_layout(cfg)
+    defs = param_defs(cfg)
+    out = [(defs["embed"], 1), (defs["final_norm"], 1)]
+    out += [(t, n_p) for t in defs["slots"]]
+    if "encoder_slots" in defs:
+        n_e, _ = encoder_layout(cfg)
+        out += [(defs["enc_norm"], 1)]
+        out += [(t, n_e) for t in defs["encoder_slots"]]
+    return out
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token: the reference's count over its
+    scan-stacked leaves, where an FFN leaf of stacked rank >= 3 (per layer
+    >= 2), other than the router, counts k/E of its size (truncated per
+    stacked leaf) in a config with experts."""
+    total = 0
+
+    def walk(t, n_stack, in_ffn):
+        nonlocal total
+        for name, v in t.items():
+            if isinstance(v, dict):
+                walk(v, n_stack, in_ffn or name == "ffn")
+                continue
+            shape = v[0]
+            n = n_stack * math.prod(shape)
+            if in_ffn and cfg.num_experts and len(shape) >= 2 \
+                    and name != "router":
+                n = int(n * cfg.num_experts_per_tok / cfg.num_experts)
+            total += n
+
+    for tree, n_stack in _stacks(cfg):
+        walk(tree, n_stack, False)
+    return total
+
+
+def model_flops(cfg: ModelConfig, shape) -> float:
+    """MODEL_FLOPS = 6 * N_active * tokens (train) or 2 * N_active *
+    tokens (prefill; decode one token a sequence): the reference's
+    roofline convention.  ``shape`` a ``configs.base.ShapeConfig``."""
+    n = active_param_count(cfg)
+    if shape.kind == "train":
+        return 6.0 * n * shape.seq_len * shape.global_batch
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.seq_len * shape.global_batch
+    return 2.0 * n * shape.global_batch
+
+
+def train_batch_defs(cfg: ModelConfig, shape) -> dict:
+    """{name: (shape, dtype)} of a training batch: ``tokens`` and
+    ``targets`` [B, S] int32; an encdec's ``frames`` [B, S, d] and a
+    vlm's ``image_embeds`` [B, num_image_tokens, d], bf16."""
+    B, S = shape.global_batch, shape.seq_len
+    d = {"tokens": ((B, S), torch.int32), "targets": ((B, S), torch.int32)}
+    if cfg.family == "encdec":
+        d["frames"] = ((B, S, cfg.d_model), BF16)
+    if cfg.family == "vlm":
+        d["image_embeds"] = ((B, cfg.num_image_tokens, cfg.d_model), BF16)
+    return d
+
+
+def prefill_batch_defs(cfg: ModelConfig, shape) -> dict:
+    d = train_batch_defs(cfg, shape)
+    d.pop("targets")
+    return d
+
+
+def decode_batch_defs(cfg: ModelConfig, shape) -> dict:
+    return {"tokens": ((shape.global_batch, 1), torch.int32)}

@@ -45,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -245,17 +246,22 @@ def _replace_leaves(caches: dict, slots: list[Slot], n_p: int,
 def _run_stack(layers: list, slots: list[Slot], x: torch.Tensor,
                cfg: ModelConfig, *, mode: str, positions: torch.Tensor,
                index: int | None, caches: dict | None, backend: str,
-               experts, memory: torch.Tensor | None = None):
+               experts, memory: torch.Tensor | None = None,
+               remat: bool = False):
     """Periods x slots in order (layer p * P + i); slot i of period p
     reads and writes ``caches["slot{i}"]``' slice p.  -> (x, aux summed
-    over the periods, each period's in slot order)."""
+    over the periods, each period's in slot order).  ``remat`` in train
+    mode with ``cfg.remat_policy == "block"``: each period runs under
+    ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward, as the reference's ``jax.checkpoint`` of the period)."""
     P = len(slots)
     aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
             for k in MOE_AUX} if any(s.ffn == "moe" for s in slots) else {})
     if mode != "train":
         _replace_leaves(caches, slots, len(layers) // P, x, memory, mode)
-    for period in range(len(layers) // P):
-        per = None
+
+    def period_fn(x, period: int, memory):
+        per = {}
         for i, slot in enumerate(slots):
             cache = (None if mode == "train"
                      else _period_view(caches[f"slot{i}"], period))
@@ -264,7 +270,22 @@ def _run_stack(layers: list, slots: list[Slot], x: torch.Tensor,
                                cache=cache, backend=backend, experts=experts,
                                memory=memory)
             if a:
-                per = a if per is None else {k: per[k] + a[k] for k in per}
+                per = a if not per else {k: per[k] + a[k] for k in per}
+        return x, per
+
+    remat = remat and mode == "train" and cfg.remat_policy != "none"
+    if remat and cfg.remat_policy != "block":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: the port remats whole "
+            "periods (\"block\") or nothing; \"dots\" waits for the "
+            "launch/ slice (ROADMAP Queue 1 item 6.6)")
+    for period in range(len(layers) // P):
+        if remat:
+            x, per = torch.utils.checkpoint.checkpoint(
+                period_fn, x, period, memory, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, per = period_fn(x, period, memory)
         if per:
             aux = {k: aux[k] + per[k] for k in aux}
     return x, aux
@@ -289,7 +310,7 @@ def forward(params: dict, cfg: ModelConfig, *,
             memory_embeds: torch.Tensor | None = None,
             mode: str = "train", index: int | None = None,
             caches: dict | None = None, logits_slice_last: bool = False,
-            backend: str = "cuda", experts=None):
+            backend: str = "cuda", experts=None, remat: bool = False):
     """-> (logits, caches, aux).  ``tokens`` [B, S] (or ``inputs_embeds``
     [B, S, d]); ``memory_embeds`` [B, M, d]: an encdec's frames (the
     encoder runs over them, positions arange(M)) or a vlm's image
@@ -299,7 +320,9 @@ def forward(params: dict, cfg: ModelConfig, *,
     int).  ``backend``: "cuda" (K7, K8) or "interpret" (the plain
     versions).  ``experts``: the expert ids the MoE layers hold (None:
     all).  ``aux``: the MoE aux values summed over the layers, empty
-    without MoE."""
+    without MoE.  ``remat``: in train mode, recompute each period's
+    activations in the backward (``cfg.remat_policy``; see
+    ``_run_stack``)."""
     n_p, slots = decoder_layout(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -334,13 +357,15 @@ def forward(params: dict, cfg: ModelConfig, *,
         epos = torch.arange(memory_embeds.shape[1], device=x.device)
         menc, _ = _run_stack(params["encoder"], eslots, memory_embeds, cfg,
                              mode="train", positions=epos, index=None,
-                             caches=None, backend=backend, experts=experts)
+                             caches=None, backend=backend, experts=experts,
+                             remat=remat)
         memory = rmsnorm(params["enc_norm"], menc, cfg.norm_eps)
     elif cfg.family == "vlm":
         memory = memory_embeds
     x, aux = _run_stack(params["layers"], slots, x, cfg, mode=mode,
                         positions=positions, index=index, caches=caches,
-                        backend=backend, experts=experts, memory=memory)
+                        backend=backend, experts=experts, memory=memory,
+                        remat=remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice_last:
         x = x[:, -1:]

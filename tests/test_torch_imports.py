@@ -43,7 +43,11 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.configs.mixtral_8x7b", "repro_torch.models.xlstm",
         "repro_torch.configs.llama_3_2_vision_11b",
         "repro_torch.configs.seamless_m4t_large_v2",
-        "repro_torch.configs.xlstm_1_3b"} <= set(names), names
+        "repro_torch.configs.xlstm_1_3b", "repro_torch.common.pytree",
+        "repro_torch.data.tokens", "repro_torch.train.losses",
+        "repro_torch.train.step", "repro_torch.optim.optimizers",
+        "repro_torch.optim.schedule", "repro_torch.ckpt.checkpoint",
+        "repro_torch.ft.restart"} <= set(names), names
 """
 
 
@@ -163,3 +167,21 @@ def test_compiler_entry_points_raise_without_a_gpu():
                        torch.zeros(3, 4, device="cuda"))
     with pytest.raises(ValueError, match="CUDA"):
         binarized_gemm_launch(torch.zeros(2, 3), torch.zeros(3, 4))
+
+
+def test_training_entry_points_raise_without_a_gpu():
+    """Training starts on the card by default: without a GPU the state
+    refuses to be made there, and K7b's wrapper refuses CPU tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU rule cannot be shown")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_launch
+    from repro_torch.train import init_train_state
+
+    cfg = get_smoke_config("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_state(cfg, generator=torch.Generator())
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_launch(q, q, q, q, causal=True, window=0,
+                                   q_offset=0, skv=4)
