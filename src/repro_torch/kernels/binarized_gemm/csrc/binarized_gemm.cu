@@ -46,6 +46,7 @@
 #include <mutex>
 
 #include "rt_types.h"
+#include "tma_map.h"
 
 namespace {
 
@@ -334,34 +335,6 @@ __global__ void __launch_bounds__(BG_THREADS, 1)
 }
 
 // ------------------------------------------------------------- host side
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, fetched through the
-// runtime (no link to libcuda); null when the installed CUDA driver has
-// none.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // rows x Kp int8, row-major -> a map of (box_rows x 128)-byte boxes in
 // the 128-byte swizzle; rows past the edge read as zeros.  Encoding costs

@@ -438,15 +438,20 @@ void flash_attention_bwd(at::Tensor q, at::Tensor k, at::Tensor v,
   TORCH_CHECK(skv >= 1 && skv <= k.size(1), "skv outside 1..Skv");
   TORCH_CHECK(q.size(0) <= 65535 && q.size(2) <= 65535,
               "batch and heads index the grid's y and z");
+  TORCH_CHECK((q.size(1) + FA_BWD_TILE - 1) / FA_BWD_TILE <= 65535 &&
+                  (k.size(1) + FA_BWD_TILE - 1) / FA_BWD_TILE <= 65535,
+              "K7b's grids index 64-row tiles by z");
   TORCH_CHECK(q_offset >= 0 && window >= 0 &&
                   q_offset + q.size(1) + window < INT_MAX &&
                   k.size(1) < INT_MAX,
               "positions must fit an int");
-  const int64_t n_stat = q.size(0) * q.size(2) * q.size(1);
+  const int64_t n_stat = q.size(0) * q.size(2) *
+                         ((q.size(1) + FA_BWD_TILE - 1) / FA_BWD_TILE *
+                          FA_BWD_TILE);
   TORCH_CHECK(lse.scalar_type() == at::kFloat &&
                   delta.scalar_type() == at::kFloat &&
                   lse.numel() == n_stat && delta.numel() == n_stat,
-              "lse and delta: f32 [B, H, Sq]");
+              "lse and delta: f32 [B, H, Sq padded to FA_BWD_TILE]");
   FlashArgs a;
   a.B = (int)q.size(0);
   a.Sq = (int)q.size(1);

@@ -36,6 +36,9 @@
 // keys per staged tile (a chunk is a whole number of tiles).
 #define FA_DECODE_ROWS 64
 #define FA_DECODE_TILE 32
+// K7b: rows of its tiles (q rows or keys); lse and delta are [B, H, Sq]
+// with Sq padded to a whole number of them.
+#define FA_BWD_TILE 64
 // K9: the int8 product's K tile (one 128-byte swizzled row of int8 signs);
 // the sign scratch's rows are K rounded up to it, zero past K.
 #define BG_KTILE 128
@@ -196,8 +199,9 @@ cudaError_t launch_flash_decode(const void* q, const void* k, const void* v,
                                 void* o, const FlashArgs& a, int D, int bf16,
                                 cudaStream_t stream);
 // K7b, K7's backward: dq, dk, dv (each in its input's dtype) from q, k,
-// v and dout; lse and delta are the caller's f32 scratch [B, H, Sq].
-// Three launches (stats, dK/dV, dQ).
+// v and dout; lse and delta are the caller's f32 scratch [B, H, Sq
+// padded to FA_BWD_TILE].  Three launches (stats, dK/dV, dQ): bf16 on the
+// tensor cores, f32 on the CUDA cores.
 cudaError_t launch_flash_attention_bwd(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        float* lse, float* delta, void* dq,

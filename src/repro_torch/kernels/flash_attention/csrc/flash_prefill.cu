@@ -47,6 +47,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 #include "rt_types.h"
 
 namespace {
@@ -57,155 +58,14 @@ constexpr int PF_BQ = 64;        // q rows per block: wgmma's M
 constexpr int PF_BK = 64;        // kv rows per tile: the score product's N
 constexpr int PF_THREADS = 128;  // one warpgroup
 
-// A [rows][D] bf16 tile in the swizzled layout wgmma reads: rows of RB =
-// min(2 D, 128) bytes in column blocks of rows * RB bytes; in a block,
-// the 16-byte chunk c of row r sits at chunk c ^ ((r >> (3 - SW)) & (2^SW
-// - 1)) (Swizzle<SW, 4, 3> over the byte address, the 128-, 64- or
-// 32-byte swizzle).  Region bases are 1,024-byte aligned.
-template <int D>
-struct Tile {
-  static constexpr int RB = D * 2 < 128 ? D * 2 : 128;
-  static constexpr int CPR = RB / 16;      // 16-byte chunks per block row
-  static constexpr int SW = RB == 128 ? 3 : RB == 64 ? 2 : 1;
-  // descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
-  static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;
-  static constexpr uint32_t SBO = 8 * RB;  // between 8-row groups
-  static constexpr uint32_t BYTES = 64 * D * 2;  // a 64-row tile
-
-  __device__ static uint32_t offset(int r, int c) {
-    const int blk = c / CPR, cc = c % CPR;
-    return blk * 64 * RB + r * RB +
-           ((cc ^ ((r >> (3 - SW)) & ((1 << SW) - 1))) << 4);
-  }
-};
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (all >> 4), layout type in bits 62-63
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (mode << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// thread writes to shared memory -> visible to wgmma (the async proxy)
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads and writes across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void reg_fence(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// wgmma m64nNk16, bf16 in, f32 accumulate: A from registers, B from
-// shared memory MN-major (transposed); d += A B.
-__device__ __forceinline__ void wgmma_rs_m64n16(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n32(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-// O += P V for a 64 x 16 slice of P (A fragment in ``a``), N = D
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 16) wgmma_rs_m64n16(o, a, db);
-  else if constexpr (D == 32) wgmma_rs_m64n32(o, a, db);
-  else if constexpr (D == 64) wgmma_rs_m64n64(o, a, db);
-  else wgmma_rs_m64n128(o, a, db);
-}
+using fa::make_desc;
+using fa::proxy_fence;
+using fa::reg_fence;
+using fa::Tile;
+using fa::wg_commit;
+using fa::wg_fence;
+using fa::wg_wait0;
+using fa::wgmma_pv;
 
 // shared memory of a block, in bytes: V's two stages and K's staging
 // (bf16, swizzled), Q^T in f32, then one region that holds Q's bf16
@@ -413,18 +273,7 @@ __global__ void __launch_bounds__(PF_THREADS)
     // P as A fragments, hi and lo: register e of k-step kk is row rA + 8
     // (e & 1), columns 16 kk + 8 (e >> 1) + 2 tq and + 1
     uint32_t ph[PF_BK / 16][4], pl[PF_BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < PF_BK / 16; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * (2 * kk + (e >> 1)) + 2 * (e & 1);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(sacc[i], sacc[i + 1]);
-        const float2 hf = __bfloat1622float2(hi);
-        ph[kk][e] = bf162_bits(hi);
-        pl[kk][e] = bf162_bits(
-            __floats2bfloat162_rn(sacc[i] - hf.x, sacc[i + 1] - hf.y));
-      }
-    }
+    fa::split_a64(sacc, ph, pl);
 
     // O += P_hi V + P_lo V
     reg_fence<D / 2>(oacc);

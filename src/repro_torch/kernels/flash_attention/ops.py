@@ -48,6 +48,8 @@ DECODE_MAX_SQ = _ext.header_define("FA_DECODE_MAX_SQ")
 # query rows (Sq x the GQA group) per decode block; keys per staged tile
 DECODE_ROWS = _ext.header_define("FA_DECODE_ROWS")
 DECODE_TILE = _ext.header_define("FA_DECODE_TILE")
+# K7b's tile rows: its lse and delta scratch pads Sq to a multiple
+BWD_TILE = _ext.header_define("FA_BWD_TILE")
 # decode blocks to aim for on each SM (each streams 16 KiB of bf16 K and
 # V, or 32 KiB of f32, a 32-key tile through two stages): 2 ran the LM
 # path's bf16 decode shapes fastest of 2, 4, 8 and 16 on the H100
@@ -182,8 +184,9 @@ def flash_attention_launch(q, k, v, *, causal: bool, window: int,
 def flash_attention_bwd_launch(q, k, v, do, *, causal: bool, window: int,
                                q_offset: int, skv: int):
     """K7b's wrapper: checked operands and dO -> (dq, dk, dv) in their
-    dtypes, on the current stream: three launches (stats, dK/dV, dQ)
-    counted as one call; keys past ``skv`` take zero gradients."""
+    dtypes, on the current stream: three launches (stats, dK/dV, dQ;
+    bf16 on ``wgmma`` tensor cores, f32 on the CUDA cores) counted as one
+    call; keys past ``skv`` take zero gradients."""
     _check(q, k, v, window=window, q_offset=q_offset, skv=skv)
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} is not q's shape "
@@ -206,7 +209,8 @@ def flash_attention_bwd_launch(q, k, v, do, *, causal: bool, window: int,
     dv = torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = q.new_empty((B, H, Sq), dtype=torch.float32)
+    lse = q.new_empty((B, H, -(-Sq // BWD_TILE) * BWD_TILE),
+                      dtype=torch.float32)
     delta = torch.empty_like(lse)
     _ext.extension().flash_attention_bwd(q, k, v, do, lse, delta, dq, dk, dv,
                                          skv, q_offset, bool(causal), window)

@@ -5,7 +5,8 @@ full-matrix softmax attention with causal masking, a sliding window, GQA
 function by the arithmetic of K7's kernels (chunks of the live keys,
 tiles, the online softmax and the combine; in the bf16 prefill P split
 into bf16 hi and lo).  ``attention_bwd_ref``: the gradient of
-``attention_ref`` by the arithmetic of K7b, K7's backward kernel.
+``attention_ref`` by the arithmetic of K7b, K7's backward kernel (with
+``split_p`` that of its bf16 kernels: P and dS split into bf16 hi and lo).
 The CPU tests hold both against the reference, and ``chip_smoke.py``
 holds the kernels against both on the card."""
 
@@ -54,15 +55,16 @@ def live_keys(Sq: int, skv: int, *, causal: bool, window: int,
     return (lo, hi) if lo < hi else (0, skv)
 
 
-def _pv(p: torch.Tensor, v: torch.Tensor, split_p: bool) -> torch.Tensor:
-    """P V over one tile; with ``split_p`` as p_hi V + p_lo V, p_hi =
-    bf16(p) and p_lo = bf16(p - p_hi) (about 2^-16 of p from f32)."""
+def _prod(eq: str, x: torch.Tensor, y: torch.Tensor,
+          split_p: bool) -> torch.Tensor:
+    """einsum(eq, x, y); with ``split_p`` as x_hi y + x_lo y, x_hi =
+    bf16(x) and x_lo = bf16(x - x_hi) (about 2^-16 of x from f32): how
+    the bf16 kernels take P (and K7b dS) into the tensor cores."""
     if not split_p:
-        return torch.einsum("bkgst,btkd->bkgsd", p, v)
-    hi = p.to(torch.bfloat16).to(torch.float32)
-    lo = (p - hi).to(torch.bfloat16).to(torch.float32)
-    return (torch.einsum("bkgst,btkd->bkgsd", hi, v)
-            + torch.einsum("bkgst,btkd->bkgsd", lo, v))
+        return torch.einsum(eq, x, y)
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    lo = (x - hi).to(torch.bfloat16).to(torch.float32)
+    return torch.einsum(eq, hi, y) + torch.einsum(eq, lo, y)
 
 
 def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,7 +117,8 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(-1)
             m = m_new
-            acc = acc * alpha[..., None] + _pv(p, vt, split_p)
+            acc = acc * alpha[..., None] + _prod("bkgst,btkd->bkgsd", p,
+                                                 vt, split_p)
         parts.append((m, l, acc))
     m = torch.stack([p[0] for p in parts]).amax(0)
     l = torch.zeros_like(m)
@@ -141,7 +144,8 @@ def first_masked_row(Sq: int, skv: int, *, window: int,
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, *, causal: bool = True,
                       window: int = 0, q_offset: int = 0,
-                      skv: int | None = None, tile: int = 64):
+                      skv: int | None = None, tile: int = 64,
+                      split_p: bool = False):
     """The gradient of ``attention_ref(q, k[:, :skv], v[:, :skv])``
     against ``do`` by K7b's arithmetic, in f32: (1) the stats, K7's
     online softmax over ``tile``-key tiles of the live keys with O
@@ -149,7 +153,10 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and 0 for a fully masked row); (2) per key tile p = exp(s - lse) (0
     where masked), dS = p * (dP - delta), dV += p^T dO, dK += dS^T Q,
     dQ += dS K, dK and dQ times the scale at the end; (3) a fully masked
-    row's uniform softmax: dV += its dO / skv on every key < skv.
+    row's uniform softmax: dV += its dO / skv on every key < skv.  With
+    ``split_p`` the accumulating products (O += P V, dV, dK, dQ) take P
+    and dS as bf16 hi + lo, two products each: the schedule of K7b's
+    bf16 kernels, whose products run on the tensor cores.
     -> (dq, dk, dv) in q's, k's and v's dtypes; keys past skv take 0."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
@@ -191,8 +198,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
         m = m_new
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bkgst,btkd->bkgsd", p, vf[:, t_lo:t_hi])
+        acc = acc * alpha[..., None] + _prod(
+            "bkgst,btkd->bkgsd", p, vf[:, t_lo:t_hi], split_p)
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     dob = dog.permute(0, 2, 3, 1, 4)                     # [B, K, G, Sq, D]
     delta = torch.where(fm, 0.0, (dob * o).sum(-1))
@@ -208,9 +215,10 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         0.0)
         dp = torch.einsum("bskgd,btkd->bkgst", dog, vt)
         ds = p * (dp - delta[..., None])
-        dv[:, t_lo:t_hi] = torch.einsum("bkgst,bskgd->btkd", p, dog)
-        dk[:, t_lo:t_hi] = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
-        dq = dq + torch.einsum("bkgst,btkd->bkgsd", ds, kt)
+        dv[:, t_lo:t_hi] = _prod("bkgst,bskgd->btkd", p, dog, split_p)
+        dk[:, t_lo:t_hi] = _prod("bkgst,bskgd->btkd", ds, qg,
+                                 split_p) * scale
+        dq = dq + _prod("bkgst,btkd->bkgsd", ds, kt, split_p)
     dq = dq * scale
     # (3) the fully masked rows
     if r_fm < Sq:

@@ -1,5 +1,6 @@
 """K7b's plain version (``attention_bwd_ref``, the arithmetic of the
-backward kernel) and ``FlashAttentionFn`` on CPU tensors against
+backward kernels; with ``split_p`` that of its bf16 kernels) and
+``FlashAttentionFn`` on CPU tensors against
 autograd's gradient of ``attention_ref`` and against ``jax.vjp`` of the
 reference's ``attention_ref`` and ``chunked_attention``; the refusals of
 K8 and K9 under autograd.
@@ -109,6 +110,35 @@ def test_plain_backward_matches_jax_vjp(case):
                 np.concatenate([dv, pad], 1))
         _close(got, tuple(map(torch.from_numpy, want)), torch.float32,
                case[0])
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_split_backward_matches_plain_autograd_and_jax(case, dtype):
+    """``attention_bwd_ref(split_p=True)``, the plain form of the bf16
+    kernels' schedule (P and dS as bf16 hi + lo in O += P V, dV, dK and
+    dQ), against ``attention_bwd_ref``, autograd's gradient of
+    ``attention_ref`` and ``jax.vjp`` of the reference's
+    ``attention_ref``, all on the same dtype-rounded inputs, within
+    ``TOL`` (the split keeps about 2^-16 of P and dS)."""
+    _, B, Sq, Skv, H, K, D, causal, window, q_offset, skv = case
+    skv = Skv if skv is None else skv
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _inputs(6, B, Sq, Skv, H, K, D))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = attention_bwd_ref(q, k, v, do, skv=skv, split_p=True, **kw)
+    _close(got, attention_bwd_ref(q, k, v, do, skv=skv, **kw), dtype,
+           case[0])
+    _close(got, _autograd(q, k, v, do, skv, **kw), dtype, case[0])
+    qn, kn, vn, don = (t.float().numpy() for t in (q, k, v, do))
+    vjp = jax.jit(lambda a, b, c, g: jax.vjp(
+        lambda x, y, z: jax_attention_ref(x, y, z, **kw), a, b, c)[1](g))
+    dq, dk, dv = (np.array(x) for x in vjp(qn, kn[:, :skv], vn[:, :skv],
+                                             don))
+    pad = np.zeros((B, Skv - skv, K, D), np.float32)
+    want = (dq, np.concatenate([dk, pad], 1), np.concatenate([dv, pad], 1))
+    _close(got, tuple(torch.from_numpy(w).to(dtype) for w in want), dtype,
+           case[0])
 
 
 def test_fully_masked_rows_are_the_window_past_skv():
