@@ -35,6 +35,7 @@ SOURCES = (
     _PKG / "flash_attention" / "csrc" / "flash_decode.cu",
     _PKG / "flash_attention" / "csrc" / "flash_backward.cu",
     _PKG / "selective_scan" / "csrc" / "selective_scan.cu",
+    _PKG / "selective_scan" / "csrc" / "selective_scan_bwd.cu",
     _PKG / "binarized_gemm" / "csrc" / "binarized_gemm.cu",
 )
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
@@ -44,8 +45,8 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 LAUNCHES = {"fused_flow_serve": 0, "flow_update": 0, "fused_mlp_classify": 0,
             "mat_lut_classify": 0, "fused_mlp": 0, "fused_dag": 0,
             "flash_attention": 0, "flash_attention_bwd": 0,
-            "selective_scan": 0,
-            "selective_scan_discretized": 0, "binarized_gemm": 0}
+            "selective_scan": 0, "selective_scan_discretized": 0,
+            "selective_scan_bwd": 0, "binarized_gemm": 0}
 
 _EXT = None
 # the online loop builds, launches and counts from a retrain worker while
@@ -77,17 +78,19 @@ def count_launch(name: str) -> None:
 
 def refuse_grad(name: str, tensors) -> None:
     """Raises under autograd (grad mode on and an input that requires
-    grad): K8 and K9 have no backward on the card yet, and a launch's
-    output carries no gradient, so training through them would drop it
-    without a word."""
+    grad): K8's TPU interface (``selective_scan``) and K9 have no backward
+    on the card, and a launch's output carries no gradient, so training
+    through them would drop it without a word."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward on the card: its backward is a later "
-            "slice (ROADMAP Queue 1 item 6.5, K8's backward and hybrid "
-            "training); train this model on the CPU, where the plain "
-            "version is differentiable")
+            f"{name} has no backward on the card, and none is planned: no "
+            "path of the JAX package or of the port trains through it (the "
+            "Mamba block trains through K8's discretizing entry, "
+            "selective_scan_discretized, whose backward is K8b; no model "
+            "of either package calls the binarized product).  Its plain "
+            "version on CPU tensors is differentiable")
 
 
 def extension():

@@ -514,11 +514,13 @@ void selective_scan(at::Tensor dA, at::Tensor dBx, at::Tensor C,
 }
 
 // K8's discretizing entry: y, h_out = the selective scan of dA = exp(dt
-// A), dBx = dt Bm x and C from h0; the wrapper has checked the shapes,
-// dtypes, contiguity, alignment and N.
+// A), dBx = dt Bm x and C from h0; with a non-empty ckpt (under
+// autograd) also h entering every chunk of SSB_CHUNK(N) steps.  The
+// wrapper has checked the shapes, dtypes, contiguity, alignment and N.
 void selective_scan_discretized(at::Tensor dt, at::Tensor A, at::Tensor Bm,
                                 at::Tensor C, at::Tensor x, at::Tensor h0,
-                                at::Tensor y, at::Tensor h_out) {
+                                at::Tensor y, at::Tensor h_out,
+                                at::Tensor ckpt) {
   c10::cuda::CUDAGuard guard(dt.device());
   for (const at::Tensor* t : {&dt, &A, &Bm, &C, &h0, &y, &h_out}) {
     TORCH_CHECK(t->scalar_type() == at::kFloat && t->is_contiguous(),
@@ -551,10 +553,105 @@ void selective_scan_discretized(at::Tensor dt, at::Tensor A, at::Tensor Bm,
   a.S = (int)S;
   a.di = (int)di;
   a.N = (int)N;
-  C10_CUDA_CHECK(launch_selective_scan_discretized(
-      dt.data_ptr<float>(), A.data_ptr<float>(), Bm.data_ptr<float>(),
-      C.data_ptr<float>(), x.data_ptr(), xbf ? 1 : 0, h0.data_ptr<float>(),
-      y.data_ptr<float>(), h_out.data_ptr<float>(), a, stream_of(dt)));
+  if (ckpt.numel() == 0) {
+    C10_CUDA_CHECK(launch_selective_scan_discretized(
+        dt.data_ptr<float>(), A.data_ptr<float>(), Bm.data_ptr<float>(),
+        C.data_ptr<float>(), x.data_ptr(), xbf ? 1 : 0, h0.data_ptr<float>(),
+        y.data_ptr<float>(), h_out.data_ptr<float>(), a, stream_of(dt)));
+  } else {
+    const int64_t T = SSB_CHUNK(N);
+    TORCH_CHECK(ckpt.scalar_type() == at::kFloat && ckpt.is_contiguous() &&
+                    ckpt.dim() == 4 && ckpt.size(0) == B &&
+                    ckpt.size(1) == (S + T - 1) / T && ckpt.size(2) == di &&
+                    ckpt.size(3) == N &&
+                    reinterpret_cast<uintptr_t>(ckpt.data_ptr()) % 16 == 0,
+                "K8's checkpoints: contiguous aligned float32 [B, ceil(S / ",
+                T, "), di, N]");
+    C10_CUDA_CHECK(launch_selective_scan_discretized_ckpt(
+        dt.data_ptr<float>(), A.data_ptr<float>(), Bm.data_ptr<float>(),
+        C.data_ptr<float>(), x.data_ptr(), xbf ? 1 : 0, h0.data_ptr<float>(),
+        y.data_ptr<float>(), h_out.data_ptr<float>(),
+        ckpt.data_ptr<float>(), a, stream_of(dt)));
+  }
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K8b: the gradient of K8's discretizing entry from its inputs, the
+// checkpoints K8 wrote under autograd, dy and dh_final (empty: zero) into
+// ddt, dA, dBm, dC, dx and dh0 (empty: not wanted); ws_b, ws_c and ws_a
+// are the partial sums' scratch.  The wrapper has checked the shapes,
+// dtypes, contiguity and alignment.
+void selective_scan_bwd(at::Tensor dt, at::Tensor A, at::Tensor Bm,
+                        at::Tensor C, at::Tensor x, at::Tensor ckpt,
+                        at::Tensor dy, at::Tensor dh_final, at::Tensor ddt,
+                        at::Tensor dA, at::Tensor dBm, at::Tensor dC,
+                        at::Tensor dx, at::Tensor dh0, at::Tensor ws_b,
+                        at::Tensor ws_c, at::Tensor ws_a) {
+  c10::cuda::CUDAGuard guard(dt.device());
+  for (const at::Tensor* t : {&dt, &A, &Bm, &C, &ckpt, &dy, &dh_final, &ddt,
+                              &dA, &dBm, &dC, &dh0, &ws_b, &ws_c, &ws_a}) {
+    TORCH_CHECK(t->scalar_type() == at::kFloat && t->is_contiguous() &&
+                    reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "K8b takes contiguous 16-byte aligned float32 tensors");
+  }
+  const bool xbf = x.scalar_type() == at::kBFloat16;
+  TORCH_CHECK(x.scalar_type() == dx.scalar_type() &&
+                  (xbf || x.scalar_type() == at::kFloat) &&
+                  x.is_contiguous() && dx.is_contiguous(),
+              "K8b's x and dx: contiguous, one dtype of float32, bfloat16");
+  const int64_t B = dt.size(0), S = dt.size(1), di = dt.size(2),
+                N = A.size(1), T = SSB_CHUNK(N);
+  const int64_t nblk = (di + SSB_THREADS - 1) / SSB_THREADS;
+  TORCH_CHECK(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
+              "N must be a power of two <= 32");
+  TORCH_CHECK(dt.dim() == 3 && x.sizes() == dt.sizes() &&
+                  dy.sizes() == dt.sizes() && ddt.sizes() == dt.sizes() &&
+                  dx.sizes() == dt.sizes(),
+              "dt, x, dy, ddt, dx [B, S, di]");
+  TORCH_CHECK(A.dim() == 2 && A.size(0) == di && dA.sizes() == A.sizes(),
+              "A, dA [di, N]");
+  TORCH_CHECK(Bm.dim() == 3 && Bm.size(0) == B && Bm.size(1) == S &&
+                  Bm.size(2) == N && C.sizes() == Bm.sizes() &&
+                  dBm.sizes() == Bm.sizes() && dC.sizes() == Bm.sizes(),
+              "Bm, C, dBm, dC [B, S, N]");
+  TORCH_CHECK(ckpt.dim() == 4 && ckpt.size(0) == B &&
+                  ckpt.size(1) == (S + T - 1) / T && ckpt.size(2) == di &&
+                  ckpt.size(3) == N,
+              "ckpt [B, ceil(S / ", T, "), di, N]");
+  for (const at::Tensor* t : {&dh_final, &dh0})
+    TORCH_CHECK(t->numel() == 0 || (t->dim() == 3 && t->size(0) == B &&
+                                    t->size(1) == di && t->size(2) == N),
+                "dh_final, dh0 [B, di, N] or empty");
+  TORCH_CHECK(ws_b.numel() == nblk * B * S * N &&
+                  ws_c.numel() == ws_b.numel() && ws_a.numel() == B * di * N,
+              "K8b's scratch: ws_b, ws_c [", nblk, ", B, S, N], ws_a "
+              "[B, di, N]");
+  TORCH_CHECK(B >= 1 && S >= 1 && di >= 1, "K8b needs B, S, di >= 1");
+  TORCH_CHECK(B <= 65535, "the batch indexes the grid's y");
+  TORCH_CHECK(S < INT_MAX && di * N < INT_MAX, "sizes must fit an int");
+  ScanBwdArgs a{};
+  a.dt = dt.data_ptr<float>();
+  a.A = A.data_ptr<float>();
+  a.Bm = Bm.data_ptr<float>();
+  a.C = C.data_ptr<float>();
+  a.x = x.data_ptr();
+  a.ckpt = ckpt.data_ptr<float>();
+  a.dy = dy.data_ptr<float>();
+  a.dh_final = dh_final.numel() ? dh_final.data_ptr<float>() : nullptr;
+  a.ddt = ddt.data_ptr<float>();
+  a.dA = dA.data_ptr<float>();
+  a.dBm = dBm.data_ptr<float>();
+  a.dC = dC.data_ptr<float>();
+  a.dx = dx.data_ptr();
+  a.dh0 = dh0.numel() ? dh0.data_ptr<float>() : nullptr;
+  a.ws_b = ws_b.data_ptr<float>();
+  a.ws_c = ws_c.data_ptr<float>();
+  a.ws_a = ws_a.data_ptr<float>();
+  a.B = (int)B;
+  a.S = (int)S;
+  a.di = (int)di;
+  a.N = (int)N;
+  C10_CUDA_CHECK(launch_selective_scan_bwd(a, xbf ? 1 : 0, stream_of(dt)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -616,7 +713,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("selective_scan", &selective_scan,
         "K8: the Mamba S6 recurrence (y, h_final)");
   m.def("selective_scan_discretized", &selective_scan_discretized,
-        "K8: the Mamba S6 recurrence, discretizing dt, A, B and x itself");
+        "K8: the Mamba S6 recurrence, discretizing dt, A, B and x itself "
+        "(and checkpointing h for K8b under autograd)");
+  m.def("selective_scan_bwd", &selective_scan_bwd,
+        "K8b: the gradient of K8's discretizing entry");
   m.def("binarized_gemm", &binarized_gemm,
         "K9: sign(x) @ sign(w), int32 (int8 signs on wgmma)");
 }

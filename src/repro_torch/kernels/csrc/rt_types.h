@@ -42,6 +42,15 @@
 // K9: the int8 product's K tile (one 128-byte swizzled row of int8 signs);
 // the sign scratch's rows are K rounded up to it, zero past K.
 #define BG_KTILE 128
+// K8b, the selective scan's backward: channels per block (its partial
+// sums over channels are [di / SSB_THREADS blocks, B, S, N]); the h words
+// a thread keeps in shared memory for one chunk's walk, and the longest
+// chunk: K8's forward under autograd checkpoints h every SSB_CHUNK(N)
+// steps, and K8b recomputes and walks one such chunk at a time.
+#define SSB_THREADS 128
+#define SSB_HIST 128
+#define SSB_MAX_T 32
+#define SSB_CHUNK(N) (SSB_HIST / (N) < SSB_MAX_T ? SSB_HIST / (N) : SSB_MAX_T)
 
 // One flow table and one slot-segmented batch.  ``keys``/``regs`` are
 // updated in place; only the batch's slots are read and written.
@@ -155,6 +164,34 @@ struct ScanArgs {
   int B, S, di, N;
 };
 
+// K8b: the gradient of the discretizing entry.  Inputs as K8's, plus
+// ckpt [B, ceil(S / SSB_CHUNK(N)), di, N] (h entering each chunk, from
+// K8's forward), dy [B, S, di] and dh_final [B, di, N] (null: zero);
+// outputs ddt [B, S, di], dA [di, N], dBm and dC [B, S, N] f32, dx [B,
+// S, di] in x's dtype and dh0 [B, di, N] (null: not wanted); ws_b and
+// ws_c [di / SSB_THREADS rounded up, B, S, N] and ws_a [B, di, N] are
+// the caller's scratch for the partial sums.
+struct ScanBwdArgs {
+  const float* dt;
+  const float* A;
+  const float* Bm;
+  const float* C;
+  const void* x;
+  const float* ckpt;
+  const float* dy;
+  const float* dh_final;
+  float* ddt;
+  float* dA;
+  float* dBm;
+  float* dC;
+  void* dx;
+  float* dh0;
+  float* ws_b;
+  float* ws_c;
+  float* ws_a;
+  int B, S, di, N;
+};
+
 cudaError_t launch_flow_update(const FlowArgs& a, float* feats,
                                cudaStream_t stream);
 cudaError_t launch_fused_mlp_classify(const float* x, int B,
@@ -218,6 +255,16 @@ cudaError_t launch_selective_scan_discretized(
     const float* dt, const float* A, const float* Bm, const float* C,
     const void* x, int x_bf16, const float* h0, float* y, float* h_out,
     const ScanArgs& a, cudaStream_t stream);
+// The same under autograd: also h entering every chunk of SSB_CHUNK(N)
+// steps into ckpt [B, ceil(S / SSB_CHUNK(N)), di, N] (chunk 0's is h0).
+cudaError_t launch_selective_scan_discretized_ckpt(
+    const float* dt, const float* A, const float* Bm, const float* C,
+    const void* x, int x_bf16, const float* h0, float* y, float* h_out,
+    float* ckpt, const ScanArgs& a, cudaStream_t stream);
+// K8b: two launches, the backward walk (partial sums into the scratch)
+// and the fixed-order sum of the partials; x_bf16 as K8's.
+cudaError_t launch_selective_scan_bwd(const ScanBwdArgs& a, int x_bf16,
+                                      cudaStream_t stream);
 // K9: out [B, N] int32 = sign(x) @ sign(w); x [B, K] and w [K, N] each
 // f32 (0) or bf16 (1); xs [B, Kp] and wt [N, Kp] int8 are the caller's
 // scratch for the signs, Kp = K rounded up to BG_KTILE.

@@ -44,6 +44,12 @@
 // of 4.  Every product and sum is __fmul_rn / __fadd_rn, so that nvcc
 // contracts nothing into an FMA that the reference's expressions do not
 // have; expf is the IEEE-accurate one (no fast math).
+//
+// Under autograd the discretizing entry runs as selective_scan_ckpt_kernel
+// <N, XBF>: the same body, which also stores h entering every chunk of
+// SSB_CHUNK(N) steps (ckpt [B, ceil(S / SSB_CHUNK(N)), di, N]) for K8b
+// (selective_scan_bwd.cu) to recompute its chunks from.  The serving
+// instances compile the body with that store left out.
 
 #include <cuda_bf16.h>
 
@@ -125,11 +131,11 @@ struct ScanPtrs {
   const float* h0;    // [B, di, N]
   float* y;           // [B, S, di]
   float* h_out;       // [B, di, N]
+  float* ckpt;        // CKPT: [B, ceil(S / SSB_CHUNK(N)), di, N]
 };
 
-template <int N, bool DISC, bool XBF>
-__global__ void __launch_bounds__(SS_THREADS)
-    selective_scan_kernel(ScanPtrs p, int S, int di) {
+template <int N, bool DISC, bool XBF, bool CKPT>
+__device__ __forceinline__ void scan_body(const ScanPtrs& p, int S, int di) {
   // steps in flight: DISC holds a word or two a step, the TPU interface
   // 2 N words, so it keeps about 64 words in flight
   constexpr int U =
@@ -177,6 +183,13 @@ __global__ void __launch_bounds__(SS_THREADS)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (u0 + u < nt) {
+          if constexpr (CKPT) {
+            constexpr int T = SSB_CHUNK(N);
+            const int t = t0 + u0 + u;
+            if (live && t % T == 0)
+              stg_row<N>(p.ckpt + (((size_t)b * ((S + T - 1) / T) + t / T)
+                                   * di + dd) * N, h);
+          }
           float c[N];
           lds_row<N>(Cs + (u0 + u) * N, c);
           float bm[NB];
@@ -205,25 +218,41 @@ __global__ void __launch_bounds__(SS_THREADS)
 }
 
 template <int N, bool DISC, bool XBF>
+__global__ void __launch_bounds__(SS_THREADS)
+    selective_scan_kernel(ScanPtrs p, int S, int di) {
+  scan_body<N, DISC, XBF, false>(p, S, di);
+}
+
+template <int N, bool XBF>
+__global__ void __launch_bounds__(SS_THREADS)
+    selective_scan_ckpt_kernel(ScanPtrs p, int S, int di) {
+  scan_body<N, true, XBF, true>(p, S, di);
+}
+
+template <int N, bool DISC, bool XBF, bool CKPT>
 cudaError_t launch_n(const ScanPtrs& p, const ScanArgs& a,
                      cudaStream_t stream) {
   const dim3 grid((a.di + SS_THREADS - 1) / SS_THREADS, a.B);
-  selective_scan_kernel<N, DISC, XBF><<<grid, SS_THREADS, 0, stream>>>(
-      p, a.S, a.di);
+  if constexpr (CKPT)
+    selective_scan_ckpt_kernel<N, XBF><<<grid, SS_THREADS, 0, stream>>>(
+        p, a.S, a.di);
+  else
+    selective_scan_kernel<N, DISC, XBF><<<grid, SS_THREADS, 0, stream>>>(
+        p, a.S, a.di);
   return cudaGetLastError();
 }
 
-template <bool DISC, bool XBF>
+template <bool DISC, bool XBF, bool CKPT = false>
 cudaError_t launch_any(const ScanPtrs& p, const ScanArgs& a,
                        cudaStream_t stream) {
   if (a.B == 0 || a.di == 0) return cudaSuccess;
   switch (a.N) {
-    case 1: return launch_n<1, DISC, XBF>(p, a, stream);
-    case 2: return launch_n<2, DISC, XBF>(p, a, stream);
-    case 4: return launch_n<4, DISC, XBF>(p, a, stream);
-    case 8: return launch_n<8, DISC, XBF>(p, a, stream);
-    case 16: return launch_n<16, DISC, XBF>(p, a, stream);
-    case 32: return launch_n<32, DISC, XBF>(p, a, stream);
+    case 1: return launch_n<1, DISC, XBF, CKPT>(p, a, stream);
+    case 2: return launch_n<2, DISC, XBF, CKPT>(p, a, stream);
+    case 4: return launch_n<4, DISC, XBF, CKPT>(p, a, stream);
+    case 8: return launch_n<8, DISC, XBF, CKPT>(p, a, stream);
+    case 16: return launch_n<16, DISC, XBF, CKPT>(p, a, stream);
+    case 32: return launch_n<32, DISC, XBF, CKPT>(p, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -259,4 +288,22 @@ cudaError_t launch_selective_scan_discretized(
   p.h_out = h_out;
   return x_bf16 ? launch_any<true, true>(p, a, stream)
                 : launch_any<true, false>(p, a, stream);
+}
+
+cudaError_t launch_selective_scan_discretized_ckpt(
+    const float* dt, const float* A, const float* Bm, const float* C,
+    const void* x, int x_bf16, const float* h0, float* y, float* h_out,
+    float* ckpt, const ScanArgs& a, cudaStream_t stream) {
+  ScanPtrs p{};
+  p.dt = dt;
+  p.A = A;
+  p.Bm = Bm;
+  p.x = x;
+  p.C = C;
+  p.h0 = h0;
+  p.y = y;
+  p.h_out = h_out;
+  p.ckpt = ckpt;
+  return x_bf16 ? launch_any<true, true, true>(p, a, stream)
+                : launch_any<true, false, true>(p, a, stream);
 }

@@ -13,11 +13,37 @@ chains the two, the plain version of K8's discretizing entry.
 own order: y summed over n in ascending order, every product and sum
 rounded apart.  The CPU tests hold them against the reference's oracle
 and its chunked associative scan, and ``chip_smoke.py`` holds the
-kernel against them on the card."""
+kernel against them on the card.
+
+K8b, the discretizing entry's gradient, has two plain versions:
+``selective_scan_bwd_ref``, the reverse recurrence written out over
+whole [B, di, N] steps, and ``selective_scan_bwd_chunked_ref``, K8b's own
+schedule (checkpoints every T steps, each chunk recomputed forward from
+its checkpoint and walked backward, the sums across channels and batch
+in the kernel's fixed order).  With g_t = dL/dh_t = dy_t C_t + dA_{t+1}
+g_{t+1} (plus dh_final at the last step), both return
+
+    ddt_t[d] = sum_n g_t h_{t-1} dA_t A[d, n] + (sum_n g_t Bm_t[n]) x_t[d]
+    dA[d, n] = sum_{b, t} g_t h_{t-1} dA_t dt_t[d]
+    dBm_t[n] = sum_d g_t dt_t[d] x_t[d]
+    dCm_t[n] = sum_d dy_t[d] h_t[d, n]
+    dx_t[d]  = dt_t[d] sum_n g_t Bm_t[n]           (in x's dtype)
+    dh0      = dA_1 g_1"""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.kernels import _ext
+
+# K8b's block of channels (the partial sums' di / SSB_THREADS blocks) and
+# the h words a thread keeps for one chunk's walk: a chunk of
+# min(SSB_MAX_T, SSB_HIST / N) steps
+SSB_THREADS = _ext.header_define("SSB_THREADS")
+SSB_HIST = _ext.header_define("SSB_HIST")
+SSB_MAX_T = _ext.header_define("SSB_MAX_T")
 
 
 def selective_scan_ref(deltaA: torch.Tensor, deltaBx: torch.Tensor,
@@ -71,3 +97,137 @@ def selective_scan_channel_ref(deltaA: torch.Tensor, deltaBx: torch.Tensor,
     if not ys:
         return deltaA.new_zeros((B, 0, di)), h0.clone()
     return torch.stack(ys, 1), h
+
+
+def bwd_chunk(N: int) -> int:
+    """K8b's chunk, the steps between two checkpoints of h at state width
+    N."""
+    return min(SSB_MAX_T, max(1, SSB_HIST // N))
+
+
+def scan_checkpoints(dt, A, Bm, x, h0, chunk: int) -> torch.Tensor:
+    """h entering each chunk of ``chunk`` steps, [B, ceil(S / chunk), di,
+    N] f32 (chunk 0's is h0): the state K8's forward writes under
+    autograd, in its order (the discretization's and the step's products
+    and sums rounded apart)."""
+    B, S, di = dt.shape
+    xf = x.to(torch.float32)
+    h, out = h0, []
+    for t in range(S):
+        if t % chunk == 0:
+            out.append(h)
+        deltaA = (dt[:, t, :, None] * A).exp_()
+        deltaBx = (dt[:, t, :, None] * Bm[:, t, None, :]).mul_(
+            xf[:, t, :, None])
+        h = deltaA * h + deltaBx
+    if not out:
+        return h0.new_zeros((B, 0, di, A.shape[1]))
+    return torch.stack(out, 1)
+
+
+def selective_scan_bwd_ref(dt, A, Bm, Cm, x, h0, dy, dh_final=None):
+    """The gradient of ``selective_scan_discretized_ref`` by the reverse
+    recurrence written out: the forward's states kept whole, then one
+    backward step over [B, di, N] at a time.  dy [B, S, di] f32 (the
+    gradient of y), dh_final [B, di, N] f32 or None (zero) -> (ddt [B,
+    S, di], dA [di, N], dBm [B, S, N], dCm [B, S, N] f32, dx [B, S, di]
+    in x's dtype, dh0 [B, di, N] f32)."""
+    B, S, di = dt.shape
+    xf = x.to(torch.float32)
+    hs = [h0]
+    for t in range(S):
+        deltaA = (dt[:, t, :, None] * A).exp_()
+        hs.append(deltaA * hs[-1] + (dt[:, t, :, None] * Bm[:, t, None, :])
+                  * xf[:, t, :, None])
+    g = torch.zeros_like(h0) if dh_final is None else dh_final.clone()
+    ddt, dx = torch.zeros_like(dt), torch.zeros_like(xf)
+    dBm, dCm = torch.zeros_like(Bm), torch.zeros_like(Cm)
+    dA = torch.zeros_like(A)
+    for t in reversed(range(S)):
+        deltaA = (dt[:, t, :, None] * A).exp_()
+        g = dy[:, t, :, None] * Cm[:, t, None, :] + g
+        q = g * (deltaA * hs[t])
+        gb = (g * Bm[:, t, None, :]).sum(-1)
+        ddt[:, t] = (q * A).sum(-1) + gb * xf[:, t]
+        dx[:, t] = dt[:, t] * gb
+        dA += (q * dt[:, t, :, None]).sum(0)
+        dBm[:, t] = (g * (dt[:, t] * xf[:, t])[..., None]).sum(1)
+        dCm[:, t] = (dy[:, t, :, None] * hs[t + 1]).sum(1)
+        g = deltaA * g
+    return ddt, dA, dBm, dCm, dx.to(x.dtype), g
+
+
+def _block_sums(v: torch.Tensor, nblk: int) -> torch.Tensor:
+    """v [B, di, N] -> each block's sum over its SSB_THREADS channels
+    [B, nblk, N] in K8b's order: within a warp the butterfly's halving
+    tree over the 32 lanes (lanes 16 apart first, then 8, ... 1), then
+    the warps in order, ((w0 + w1) + w2) + w3; channels past di add
+    nothing."""
+    B, di, N = v.shape
+    pad = nblk * SSB_THREADS - di
+    if pad:
+        v = torch.cat([v, v.new_zeros((B, pad, N))], 1)
+    v = v.reshape(B, nblk, SSB_THREADS // 32, 32, N)
+    h = 32
+    while h > 1:
+        h //= 2
+        v = v[:, :, :, :h] + v[:, :, :, h:]
+    v = v[:, :, :, 0]
+    out = v[:, :, 0]
+    for w in range(1, v.shape[2]):
+        out = out + v[:, :, w]
+    return out
+
+
+def _sum_ascending(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along ``dim`` one term after the other, index ascending."""
+    out = v.select(dim, 0)
+    for i in range(1, v.shape[dim]):
+        out = out + v.select(dim, i)
+    return out
+
+
+def selective_scan_bwd_chunked_ref(dt, A, Bm, Cm, x, h0, dy, dh_final=None):
+    """The same gradient in K8b's schedule and order: the forward's
+    checkpoints every ``bwd_chunk(N)`` steps (``scan_checkpoints``), the
+    chunks last to first, each recomputed forward
+    from its checkpoint (dCm's products summed there) and walked backward
+    (the rest); the sums over n ascending, dBm and dCm over a block's
+    channels by ``_block_sums``, then over the blocks ascending, dA over
+    the steps as walked (last first) and then over the batch ascending.
+    Same interface as ``selective_scan_bwd_ref``."""
+    B, S, di = dt.shape
+    N = A.shape[1]
+    T = bwd_chunk(N)
+    nblk = max(1, math.ceil(di / SSB_THREADS))
+    xf = x.to(torch.float32)
+    ckpt = scan_checkpoints(dt, A, Bm, x, h0, T)
+    carry = torch.zeros_like(h0) if dh_final is None else dh_final.clone()
+    ddt, dx = torch.zeros_like(dt), torch.zeros_like(xf)
+    dBm_part = Bm.new_zeros((B, S, nblk, N))
+    dCm_part = Cm.new_zeros((B, S, nblk, N))
+    dA_acc = torch.zeros_like(h0)
+    for c in reversed(range(ckpt.shape[1])):
+        t0 = c * T
+        h, hist = ckpt[:, c], []
+        for t in range(t0, min(S, t0 + T)):
+            hist.append(h)
+            deltaA = (dt[:, t, :, None] * A).exp_()
+            h = deltaA * h + (dt[:, t, :, None] * Bm[:, t, None, :]) \
+                * xf[:, t, :, None]
+            dCm_part[:, t] = _block_sums(dy[:, t, :, None] * h, nblk)
+        for t in reversed(range(t0, min(S, t0 + T))):
+            deltaA = (dt[:, t, :, None] * A).exp_()
+            g = dy[:, t, :, None] * Cm[:, t, None, :] + carry
+            q = g * (deltaA * hist[t - t0])
+            gb = _sum_ascending(g * Bm[:, t, None, :], -1)
+            ddt[:, t] = _sum_ascending(q * A, -1) + gb * xf[:, t]
+            dx[:, t] = dt[:, t] * gb
+            dA_acc = dA_acc + q * dt[:, t, :, None]
+            dBm_part[:, t] = _block_sums(
+                g * (dt[:, t] * xf[:, t])[..., None], nblk)
+            carry = deltaA * g
+    dBm = _sum_ascending(dBm_part, 2)
+    dCm = _sum_ascending(dCm_part, 2)
+    dA = _sum_ascending(dA_acc, 0) if B else torch.zeros_like(A)
+    return ddt, dA, dBm, dCm, dx.to(x.dtype), carry

@@ -18,6 +18,23 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x * p["scale"]).to(dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu as the reference evaluates it: x * logistic(x), XLA
+    expanding the logistic to 1 / (1 + exp(-x)) with every operation
+    rounded in x's dtype.  In bf16 that rounding is the result: torch's
+    fused silu (rounded once) moves about a third of the values by one
+    step from it, and the expansion matches it bit for bit.  In f32 the
+    two differ from the reference only where the frameworks' exp differ
+    in the last bit, and the fused silu, one rounding, stays the
+    closer.  Outside autograd the five ops run in place on one buffer:
+    the same bits, and less host time a call (``tools/silu_cost.py``)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    if x.requires_grad and torch.is_grad_enabled():
+        return x * torch.reciprocal(1 + torch.exp(-x))
+    return torch.neg(x).exp_().add_(1).reciprocal_().mul_(x)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
@@ -40,7 +57,7 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     """SwiGLU (``act="silu"``: wg, wu, wd) or the biased two-projection
     MLP with the tanh-approximated gelu (jax.nn.gelu's default)."""
     if act == "silu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
     h = F.gelu((x @ p["wi"]) + p["bi"].to(x.dtype), approximate="tanh")
     return (h @ p["wd"]) + p["bd"].to(x.dtype)
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import silu
 
 F32, BF16 = torch.float32, torch.bfloat16
 GROUP_SIZE = 256   # the reference's default group size
@@ -133,7 +134,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     Eh = hi - lo
     ex_in = torch.einsum("gsd,gsec->gecd", xg.to(F32), dispatch).to(x.dtype)
     xe = ex_in.permute(1, 0, 2, 3).reshape(Eh, G * C, d)     # per expert
-    h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    h = silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
     ex_out = torch.bmm(h, p["wd"]).reshape(Eh, G, C, d).permute(1, 0, 2, 3)
     out = torch.einsum("gecd,gsec->gsd", ex_out.to(F32),
                        combine).to(x.dtype)

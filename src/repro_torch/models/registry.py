@@ -172,9 +172,11 @@ def _init_one(shape, init: str, dtype, generator, device) -> torch.Tensor:
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda", dtype=BF16, experts=None) -> dict:
     """Seeded parameters on ``device``: tensors of rank >= 2 in ``dtype``,
-    scalars, 1-D scales and biases in f32 (as ``cast_for_compute`` leaves
-    them); MoE layers hold ``experts`` (None: all).  ``generator`` must
-    live on ``device``."""
+    scalars, 1-D scales and biases in f32 (the reference's defs' dtypes:
+    ``train.cast_for_compute`` casts the per-layer 1-D leaves to bf16 as
+    well, as the reference's cast of its stacked tree does); MoE layers
+    hold ``experts`` (None: all).  ``generator`` must live on
+    ``device``."""
     dev = resolve_device(device)
     defs = param_defs(cfg, experts)
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.selective_scan import (
@@ -34,6 +33,7 @@ from repro_torch.kernels.selective_scan import (
     selective_scan_discretized_ref,
 )
 from repro_torch.models.attention import BACKENDS
+from repro_torch.models.layers import silu
 
 F32, BF16 = torch.float32, torch.bfloat16
 SCAN_CHUNK = 256   # the reference's chunk (repro/models/ssm.py:63)
@@ -119,7 +119,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     xin, z = xz[..., :di], xz[..., di:]
     prev = state["conv"] if state is not None else None
     xin, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"], prev)
-    xin = F.silu(xin)
+    xin = silu(xin)
 
     proj = (xin @ p["x_proj"]).to(F32)           # [B, S, R + 2N]
     dt, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
@@ -136,7 +136,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                       xin, h0.contiguous())
 
     y = y + p["D"] * xin.to(F32)
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(x.dtype) * silu(z)
     # jamba-style RMS norm on the gated output
     var = torch.mean(torch.square(y.to(F32)), dim=-1, keepdim=True)
     y = (y.to(F32) * torch.rsqrt(var + cfg.norm_eps) * p["norm"]).to(x.dtype)

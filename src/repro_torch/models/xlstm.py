@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import silu
 
 F32, BF16 = torch.float32, torch.bfloat16
 NEG_INF = -1e30
@@ -133,7 +134,7 @@ def mlstm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           device=x.device))
     src = torch.cat([prev_c.to(x.dtype), qk_src + k_src], dim=1)
     conv = sum(src[:, i:i + S, :] * p["conv_w"][i] for i in range(W))
-    conv = F.silu(conv + p["conv_b"].to(x.dtype))
+    conv = silu(conv + p["conv_b"].to(x.dtype))
     new_conv = src[:, -(W - 1):, :]
 
     q = (qk_src + conv).reshape(B, S, H, Dh)
@@ -174,7 +175,7 @@ def mlstm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     var = torch.mean(torch.square(hh), dim=-1, keepdim=True)
     hn = (hh * torch.rsqrt(var + cfg.norm_eps)).reshape(B, S, H * Dh)
     hn = (hn * p["hnorm"]).to(x.dtype)
-    z = F.silu(x @ p["wz"])
+    z = silu(x @ p["wz"])
     out = (hn * z) @ p["wo"]
     if return_state:
         C_new, n_new, m_new = st

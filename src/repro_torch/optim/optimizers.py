@@ -133,43 +133,49 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay_pow=0.8, min_scale=1e-3,
 
     @torch.no_grad()
     def update(grads, state, params, lr, step):
+        # one group at a time: its leaves' second moments and f32 updates,
+        # the group's sums of squares, then its leaves updated, so that
+        # only the largest group's updates are held at once (every leaf's
+        # at once would be twice the bf16 weights)
         t = step.to(F32) + 1.0
         beta2 = 1.0 - t ** (-decay_pow)
-        paths = tree_paths(params)
-        upds, stats = {}, {}
-        for path in paths:
-            g = _get(grads, path).to(F32)
-            s = _get(state["f"], path)
-            g2 = torch.square(g) + eps
-            if _factored(g.shape):
-                s["vr"].copy_(beta2 * s["vr"]
-                              + (1 - beta2) * torch.mean(g2, dim=-1))
-                s["vc"].copy_(beta2 * s["vc"]
-                              + (1 - beta2) * torch.mean(g2, dim=-2))
-                denom = torch.clamp_min(
-                    torch.mean(s["vr"], dim=-1, keepdim=True), eps)
-                vhat = s["vr"][..., None] * s["vc"][..., None, :] \
-                    / denom[..., None]
-            else:
-                s["v"].copy_(beta2 * s["v"] + (1 - beta2) * g2)
-                vhat = s["v"]
-            upd = g * torch.rsqrt(vhat + eps)
-            p32 = _get(params, path).to(F32)
+        groups = {}
+        for path in tree_paths(params):
             key = path if group_of is None else group_of(path)
-            n, su, sp = stats.get(key, (0, 0.0, 0.0))
-            stats[key] = (n + upd.numel(), su + torch.sum(torch.square(upd)),
-                          sp + torch.sum(torch.square(p32)))
-            upds[path] = upd
-        for path in paths:
-            n, su, sp = stats[path if group_of is None else group_of(path)]
-            upd = upds.pop(path)
+            groups.setdefault(key, []).append(path)
+        for members in groups.values():
+            upds, n, su, sp = [], 0, 0.0, 0.0
+            for path in members:
+                g = _get(grads, path).to(F32)
+                s = _get(state["f"], path)
+                g2 = torch.square(g) + eps
+                if _factored(g.shape):
+                    s["vr"].copy_(beta2 * s["vr"]
+                                  + (1 - beta2) * torch.mean(g2, dim=-1))
+                    s["vc"].copy_(beta2 * s["vc"]
+                                  + (1 - beta2) * torch.mean(g2, dim=-2))
+                    denom = torch.clamp_min(
+                        torch.mean(s["vr"], dim=-1, keepdim=True), eps)
+                    vhat = s["vr"][..., None] * s["vc"][..., None, :] \
+                        / denom[..., None]
+                else:
+                    s["v"].copy_(beta2 * s["v"] + (1 - beta2) * g2)
+                    vhat = s["v"]
+                del g2
+                upd = g * torch.rsqrt(vhat + eps)
+                p32 = _get(params, path).to(F32)
+                n += upd.numel()
+                su = su + torch.sum(torch.square(upd))
+                sp = sp + torch.sum(torch.square(p32))
+                upds.append(upd)
             # update clipping by RMS; the relative step size
             rms_u = torch.sqrt(su / n + eps)
-            upd = upd / torch.clamp_min(rms_u / clip_threshold, 1.0)
-            p = _get(params, path)
-            p32 = p.to(F32)
             scale = torch.clamp_min(torch.sqrt(sp / n), min_scale)
-            p.copy_((p32 - lr * scale * upd).to(p.dtype))
+            for path, upd in zip(members, upds):
+                upd = upd / torch.clamp_min(rms_u / clip_threshold, 1.0)
+                p = _get(params, path)
+                p32 = p.to(F32)
+                p.copy_((p32 - lr * scale * upd).to(p.dtype))
         return params, state
 
     return Optimizer("adafactor", init, update, state_defs)

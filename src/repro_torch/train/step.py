@@ -5,13 +5,20 @@ gradient accumulation, clipping, the schedule and the optimizer update.
 on a device: master weights in ``cfg.master_dtype`` (f32, or bf16 for
 the 398B-scale config), the optimizer's moments in f32, ``step`` an
 int32 0-dim tensor.  ``make_train_step`` returns ``train_step(state,
-batch) -> (state, metrics)``; it runs the forward with the rank >= 2
-weights cast to bf16 (``cast_for_compute``) in ``mode="train"``, takes
-the gradients against the master weights with autograd (K7b under
-``backend="cuda"`` on CUDA tensors), and updates ``state`` IN PLACE: the
+batch) -> (state, metrics)``; it runs the forward on the bf16 compute
+copy (``cast_for_compute``: the reference's dtype for every leaf) in
+``mode="train"``, takes the gradients against the master weights with
+autograd (K7b and K8b under ``backend="cuda"`` on CUDA tensors), and
+updates ``state`` IN PLACE: the
 reference donates its state to the jitted step, and at Qwen3-1.7B's
 width a second copy of weights and moments would be 20 GB.  The state
 returned is the one passed in.
+
+``experts`` (all three entry points): the contiguous share of expert ids
+the MoE layers hold, as ``registry.init_params(experts=)`` and serving
+take it; None holds all.  It is the one-card stand-in for the
+reference's ``"ep"`` sharding of the expert weights: a card trains the
+share it holds, and routing still runs over every expert.
 """
 
 from __future__ import annotations
@@ -73,10 +80,10 @@ def _optimizer(cfg: ModelConfig):
     return get_optimizer(cfg.optimizer, group_of=stack_groups(cfg))
 
 
-def train_state_defs(cfg: ModelConfig) -> dict:
+def train_state_defs(cfg: ModelConfig, experts=None) -> dict:
     """The state tree as (shape, dtype) pairs, nothing allocated."""
     n_p, _ = decoder_layout(cfg)
-    defs = registry.param_defs(cfg)
+    defs = registry.param_defs(cfg, experts)
     master = _dtype(cfg.master_dtype)
 
     def tree(t):
@@ -97,36 +104,49 @@ def train_state_defs(cfg: ModelConfig) -> dict:
 
 
 def init_train_state(cfg: ModelConfig, *, generator: torch.Generator,
-                     device="cuda") -> dict:
+                     device="cuda", experts=None) -> dict:
     """Seeded master weights (``registry.init_params``' draws) in
-    ``cfg.master_dtype``, zero moments, step 0, all on ``device``
-    (``generator`` must live there)."""
+    ``cfg.master_dtype``, MoE layers holding ``experts``, zero moments,
+    step 0, all on ``device`` (``generator`` must live there)."""
     dev = resolve_device(device)
     master = _dtype(cfg.master_dtype)
     params = cast_floating(registry.init_params(
-        cfg, generator=generator, device=dev, dtype=master), master)
+        cfg, generator=generator, device=dev, dtype=master,
+        experts=experts), master)
     return {"params": params, "opt": _optimizer(cfg).init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+# the per-layer stacks: the reference holds each as one leaf stacked over
+# the periods, one rank above the port's per-layer leaf
+STACKED = ("layers", "encoder")
+
+
 def cast_for_compute(params):
-    """Master -> bf16 compute for rank >= 2 weights; 1-D scales, biases
-    and scalars stay as they are."""
-    def leaf(x):
-        if x.is_floating_point() and x.dim() >= 2:
+    """Master -> bf16 compute copy, leaf for leaf in the dtype the
+    reference's ``cast_for_compute`` gives it: that one casts every leaf of
+    rank >= 2 of the scan-stacked tree, so a per-layer leaf (under
+    ``STACKED``) becomes bf16 at rank >= 1 (norm scales, biases, the Mamba
+    mixer's ``D``, ``dt_bias``, ``conv_b`` and ``norm``) and any other
+    leaf at rank >= 2; per-layer scalars and the embedding's and final
+    norm's 1-D leaves stay as they are."""
+    def leaf(path, x):
+        rank = x.dim() + (1 if path and path[0] in STACKED else 0)
+        if x.is_floating_point() and rank >= 2:
             return x.to(torch.bfloat16)
         return x
 
-    return tree_map(leaf, params)
+    return tree_map_with_path(leaf, params)
 
 
 def make_grad_fn(cfg: ModelConfig, settings: TrainSettings = TrainSettings(),
-                 *, backend: str = "cuda"):
+                 *, backend: str = "cuda", experts=None):
     """-> ``grad_fn(params, batch) -> (metrics, grads)``: the loss of
     ``forward`` on the bf16 compute copy (``cast_for_compute``) and its
     gradients against the master weights, a tree like ``params``; nothing
-    is updated.  ``backend``: "cuda" (K7 and K7b on CUDA tensors) or
-    "interpret" (the plain attention and autograd's gradient of it)."""
+    is updated.  ``backend``: "cuda" (K7 and K7b, K8 and K8b on CUDA
+    tensors) or "interpret" (the plain attention and scan and autograd's
+    gradients of them).  ``experts``: the share the MoE layers hold."""
     def loss_fn(params, mb):
         kwargs = {}
         if cfg.family == "encdec":
@@ -135,7 +155,8 @@ def make_grad_fn(cfg: ModelConfig, settings: TrainSettings = TrainSettings(),
             kwargs["memory_embeds"] = mb["image_embeds"]
         logits, _, aux = forward(
             cast_for_compute(params), cfg, tokens=mb["tokens"], mode="train",
-            remat=settings.remat, backend=backend, **kwargs)
+            remat=settings.remat, backend=backend, experts=experts,
+            **kwargs)
         return total_loss(logits, mb["targets"], aux)
 
     def grad_fn(params, mb):
@@ -154,16 +175,16 @@ def make_grad_fn(cfg: ModelConfig, settings: TrainSettings = TrainSettings(),
 
 def make_train_step(cfg: ModelConfig,
                     settings: TrainSettings = TrainSettings(), *,
-                    backend: str = "cuda"):
+                    backend: str = "cuda", experts=None):
     """-> ``train_step(state, batch) -> (state, metrics)``.  ``batch``:
     tensors on the state's device, ``tokens`` and ``targets`` [B, S]
     (an encdec's ``frames``, a vlm's ``image_embeds`` [B, M, d] go in as
     ``memory_embeds``).  Microbatches are a loop over equal slices of B
     whose f32 gradients are summed and divided by their number (the
     reference's ``scan``, without its mesh constraint); metrics are then
-    their means.  ``backend`` as ``make_grad_fn``'s."""
+    their means.  ``backend`` and ``experts`` as ``make_grad_fn``'s."""
     opt = _optimizer(cfg)
-    grad_fn = make_grad_fn(cfg, settings, backend=backend)
+    grad_fn = make_grad_fn(cfg, settings, backend=backend, experts=experts)
 
     def train_step(state, batch):
         params = state["params"]

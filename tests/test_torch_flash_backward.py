@@ -3,7 +3,8 @@ backward kernels; with ``split_p`` that of its bf16 kernels) and
 ``FlashAttentionFn`` on CPU tensors against
 autograd's gradient of ``attention_ref`` and against ``jax.vjp`` of the
 reference's ``attention_ref`` and ``chunked_attention``; the refusals of
-K8 and K9 under autograd.
+K8's TPU interface and K9 under autograd, and the discretizing entry's
+gradient on CPU tensors.
 
 Tolerances: f32 within 1e-5 of the largest gradient of each of dq, dk and
 dv (the same f32 math summed in another order); bf16 within 8e-3 of it
@@ -29,7 +30,10 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_bwd_launch,
 )
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.selective_scan import (
+    selective_scan,
+    selective_scan_discretized,
+)
 from repro_torch.kernels.selective_scan.ops import (
     selective_scan_discretized_launch,
     selective_scan_launch,
@@ -186,9 +190,11 @@ def test_backward_launch_wrapper_takes_cuda_tensors_only():
 
 
 def test_scan_and_bgemm_refuse_autograd_on_the_card_path():
-    """K8's and K9's launch wrappers raise under autograd (their outputs
-    would carry no gradient) before they look at the device; their CPU
-    plain versions stay differentiable."""
+    """K8's TPU-interface wrapper and K9's raise under autograd (their
+    outputs would carry no gradient, and no path of either package trains
+    through them) before they look at the device; so does the discretizing
+    entry's bare launch, whose gradient is SelectiveScanFn's (K8b).  The
+    CPU plain versions stay differentiable."""
     rng = np.random.default_rng(5)
     B, S, di, N = 1, 4, 8, 4
     dA = torch.from_numpy(rng.uniform(0.5, 1, (B, S, di, N)).astype(
@@ -196,7 +202,7 @@ def test_scan_and_bgemm_refuse_autograd_on_the_card_path():
     dBx = torch.from_numpy(rng.normal(size=(B, S, di, N)).astype(np.float32))
     C = torch.from_numpy(rng.normal(size=(B, S, N)).astype(np.float32))
     h0 = torch.zeros(B, di, N)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6.5"):
+    with pytest.raises(NotImplementedError, match="no path"):
         selective_scan_launch(dA, dBx, C, h0)
     dt = torch.ones(B, S, di, requires_grad=True)
     with pytest.raises(NotImplementedError, match="selective_scan_disc"):
@@ -210,3 +216,23 @@ def test_scan_and_bgemm_refuse_autograd_on_the_card_path():
     assert dA.grad is not None and bool(torch.isfinite(dA.grad).all())
     with torch.no_grad():
         binarized_gemm(x, torch.randn(40, 5))
+
+
+def test_discretized_entry_gives_a_gradient_on_cpu():
+    """The discretizing entry no longer refuses autograd: on CPU tensors
+    it runs SelectiveScanFn (the plain forward and ``selective_scan_bwd
+    _ref``) and every input gets a finite gradient, launching nothing."""
+    rng = np.random.default_rng(6)
+    B, S, di, N = 1, 4, 8, 4
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).requires_grad_()
+    dt = torch.nn.functional.softplus(f(B, S, di))
+    A, Bm, Cm, x, h0 = -f(di, N).exp(), f(B, S, N), f(B, S, N), f(B, S, di), \
+        f(B, di, N)
+    before = dict(_ext.LAUNCHES)
+    y, h = selective_scan_discretized(dt, A, Bm, Cm, x, h0)
+    leaves = (dt, A, Bm, Cm, x, h0)
+    grads = torch.autograd.grad(y.sum() + h.sum(), leaves)
+    assert all(g.shape == t.shape and bool(torch.isfinite(g).all())
+               for g, t in zip(grads, leaves))
+    assert _ext.LAUNCHES == before

@@ -47,7 +47,15 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.data.tokens", "repro_torch.train.losses",
         "repro_torch.train.step", "repro_torch.optim.optimizers",
         "repro_torch.optim.schedule", "repro_torch.ckpt.checkpoint",
-        "repro_torch.ft.restart"} <= set(names), names
+        "repro_torch.ft.restart", "repro_torch.kernels.selective_scan.ops",
+        "repro_torch.kernels.selective_scan.ref"} <= set(names), names
+import repro_torch.kernels.selective_scan as ss
+assert {"SelectiveScanFn", "selective_scan_bwd_launch", "bwd_chunk",
+        "selective_scan_bwd_ref", "selective_scan_bwd_chunked_ref",
+        "scan_checkpoints"} <= set(dir(ss))
+import repro_torch.kernels._ext as ext
+assert "selective_scan_bwd" in ext.LAUNCHES
+assert any(str(s).endswith("selective_scan_bwd.cu") for s in ext.SOURCES)
 """
 
 
@@ -185,3 +193,31 @@ def test_training_entry_points_raise_without_a_gpu():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd_launch(q, q, q, q, causal=True, window=0,
                                    q_offset=0, skv=4)
+
+
+def test_hybrid_training_entry_points_raise_without_a_gpu():
+    """Hybrid training starts on the card by default too: the state with
+    an expert share refuses to be made there, and K8b's wrapper and K8's
+    checkpointing launch refuse CPU tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU rule cannot be shown")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd_launch,
+        selective_scan_discretized_launch,
+    )
+    from repro_torch.train import init_train_state
+
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_state(cfg, generator=torch.Generator(), experts=range(2))
+    B, S, di, N = 1, 4, 8, 4
+    dt, x, dy = (torch.ones(B, S, di) for _ in range(3))
+    A, BC = -torch.ones(di, N), torch.ones(B, S, N)
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan_discretized_launch(dt, A, BC, BC, x,
+                                          torch.zeros(B, di, N),
+                                          checkpoint=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan_bwd_launch(dt, A, BC, BC, x,
+                                  torch.zeros(B, 1, di, N), dy)

@@ -341,25 +341,40 @@ def test_forward_f32_matches_the_reference_in_every_mode(name, monkeypatch):
 
 @pytest.mark.parametrize("name", DENSE)
 def test_forward_bf16_matches_under_the_margin_rule(name, record_property):
+    """The port's bf16 logits against the reference as it runs (jitted)
+    and evaluated op by op (``jax.disable_jit``), which rounds every bf16
+    op as the port's eager ops do.  Against the op-by-op evaluation the
+    bounds are ``tol``; against the jitted one ``tol`` plus the
+    reference's own distance between its two evaluations, measured here
+    (``lax.scan``'s body through XLA keeps f32 between fused ops: up to
+    1.32 on Qwen2-7B's smoke config)."""
     cfg, params, ours = _params(name, 0, bf16=True)
     tol = 0.02 if cfg.use_qk_norm else 1.0
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
     toks = toks.astype(np.int32)
-    ref = _np(JT.forward(params, cfg, tokens=jnp.asarray(toks),
-                         mode="train")[0])
+    jt = jnp.asarray(toks)
+    jitted = _np(JT.forward(params, cfg, tokens=jt, mode="train")[0])
+    with jax.disable_jit():
+        op_by_op = _np(JT.forward(params, cfg, tokens=jt, mode="train")[0])
+    spread = float(np.abs(jitted - op_by_op).max())
     got = forward(ours, cfg, tokens=torch.as_tensor(toks), mode="train")[0]
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
-    row = np.abs(ref - got).max(-1)
-    assert row.max() <= tol and np.median(row) <= 0.1, row
-    top = np.sort(ref, -1)
-    margin = top[..., -1] - top[..., -2]
-    differ = ref.argmax(-1) != got.argmax(-1)
-    assert (margin[differ] <= tol).all()
-    inside = int((margin <= tol).sum())
-    record_property("rows_inside_margin", inside)
-    print(f"{name}: {int(differ.sum())} greedy tokens differ, {inside} of "
-          f"{margin.size} rows inside the {tol} margin")
+    for what, ref, allow in (("op by op", op_by_op, tol),
+                             ("jitted", jitted, tol + spread)):
+        row = np.abs(ref - got).max(-1)
+        assert row.max() <= allow and np.median(row) <= 0.1, (what, row)
+        top = np.sort(ref, -1)
+        margin = top[..., -1] - top[..., -2]
+        differ = ref.argmax(-1) != got.argmax(-1)
+        assert (margin[differ] <= allow).all(), what
+        inside = int((margin <= allow).sum())
+        record_property(f"rows_inside_margin_{what.replace(' ', '_')}",
+                        inside)
+        print(f"{name} against the {what} reference: max {row.max()}, "
+              f"median {np.median(row)}, {int(differ.sum())} greedy tokens "
+              f"differ, {inside} of {margin.size} rows inside the {allow} "
+              f"margin (the reference's own spread {spread})")
 
 
 @pytest.mark.parametrize("backend", ("cuda", "interpret"))

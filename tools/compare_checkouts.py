@@ -8,6 +8,7 @@ one run.
     python3 tools/compare_checkouts.py mlp_bits,kernels_time_dag build/parent . . build/parent
     python3 tools/compare_checkouts.py kernels_time_lm,kernels_time_scan,path_hybrid_serve build/parent . . build/parent
     python3 tools/compare_checkouts.py kernels_time_mat,kernels_time_bgemm build/parent . . build/parent
+    python3 tools/compare_checkouts.py path_lm_serve,path_hybrid_serve,path_moe_serve build/parent . . build/parent
 
 The first argument names the phase, or several joined by commas (run in
 one process a checkout, after one build):
@@ -36,9 +37,10 @@ one process a checkout, after one build):
   ``kernel_ms`` of every row it emits (the discretizing entry with its
   "before", the eager passes plus the TPU-interface K8, where the
   checkout has it);
-- ``path_hybrid_serve``: Jamba-1.5-Large served as the smoke serves it
-  (bf16, then f32); prints each run's prefill ms per call, decode ms per
-  step, tok/s and peak GB on ``backend="cuda"``;
+- ``path_hybrid_serve``, ``path_moe_serve``: Jamba-1.5-Large, and
+  Moonshot-v1-16B-A3B, served as the smoke serves them (bf16, then f32);
+  prints each run's prefill ms per call, decode ms per step, tok/s and
+  peak GB on ``backend="cuda"``;
 - ``kernels_time_mat``: K4 at the mat-fused shape (B = 512) and at the
   Tofino shape of ``path_generate`` (7 features, 512 bins, 2 classes) at
   ``MAT_BATCHES`` rows, on tables and rows made here from seeds (so every
@@ -79,8 +81,8 @@ import time
 
 PHASES = ("path_lm_serve", "kernels_time", "kernels_time_dag", "mlp_bits",
           "path_dag", "kernels_time_lm", "kernels_time_scan",
-          "path_hybrid_serve", "kernels_time_mat", "kernels_time_bgemm",
-          "telemetry_hooks")
+          "path_hybrid_serve", "path_moe_serve", "kernels_time_mat",
+          "kernels_time_bgemm", "telemetry_hooks")
 TEL_HOOK_ROUNDS, TEL_HOOK_PASSES = 4, 5
 MAT_BATCHES = (1, 1024, 2048, 8192)
 BGEMM_SHAPES = ((1024, 128, 128), (4096, 4096, 4096))
@@ -210,13 +212,16 @@ def scan_numbers(chip_smoke, dev) -> dict:
     return out
 
 
-def hybrid_numbers(chip_smoke, dev) -> dict:
-    row = run_phase(chip_smoke, "path_hybrid_serve",
-                    lambda: chip_smoke.path_hybrid_serve(dev))
-    return {run: {k: row[run][k] for k in ("prefill_ms",
-                                           "decode_ms_per_step",
-                                           "tok_per_s", "peak_gb")}
-            for run in ("bf16", "f32")}
+def serve_numbers(phase: str):
+    def numbers(chip_smoke, dev) -> dict:
+        row = run_phase(chip_smoke, phase,
+                        lambda: getattr(chip_smoke, phase)(dev))
+        return {run: {k: row[run][k] for k in ("prefill_ms",
+                                               "decode_ms_per_step",
+                                               "tok_per_s", "peak_gb")}
+                for run in ("bf16", "f32")}
+
+    return numbers
 
 
 def _digest(t) -> str:
@@ -381,7 +386,8 @@ def one(phase: str, root: str) -> None:
             "path_dag": path_dag_numbers,
             "kernels_time_lm": lm_kernel_numbers,
             "kernels_time_scan": scan_numbers,
-            "path_hybrid_serve": hybrid_numbers,
+            "path_hybrid_serve": serve_numbers("path_hybrid_serve"),
+            "path_moe_serve": serve_numbers("path_moe_serve"),
             "kernels_time_mat": mat_numbers,
             "kernels_time_bgemm": bgemm_numbers,
             "telemetry_hooks": telemetry_hook_numbers}
