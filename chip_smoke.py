@@ -7072,9 +7072,10 @@ K8B_TOL = 1e-5
 # name, B, S, di, N, x dtype, h0 (random or zero), dh_final (random or
 # zero): the training shape as the Jamba path gives it (x bf16, zero h0,
 # no dh_final), the same width with x f32, random h0 and dh_final at S =
-# 256, N = 8 at a ragged S (100, not a multiple of its 16-step chunk)
-# and di (1,000, not a multiple of 128), S = 1 at N = 8 and at the full
-# width, S = 83 (not a multiple of 8) at N = 16, and the smoke width
+# 256, N = 8 at a ragged S (100, not a multiple of its 8-step chunk)
+# and di (1,000, not a multiple of its 128-channel block), S = 1 at N = 8
+# and at the full width, S = 83 (not a multiple of 4) at N = 16, and the
+# smoke width
 K8B_CASES = (
     ("train_1024", 4, 1024, 16384, 16, "bfloat16", "zero", "zero"),
     ("s256_x_f32", 2, 256, 16384, 16, "float32", "random", "random"),

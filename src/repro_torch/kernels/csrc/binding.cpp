@@ -601,7 +601,7 @@ void selective_scan_bwd(at::Tensor dt, at::Tensor A, at::Tensor Bm,
               "K8b's x and dx: contiguous, one dtype of float32, bfloat16");
   const int64_t B = dt.size(0), S = dt.size(1), di = dt.size(2),
                 N = A.size(1), T = SSB_CHUNK(N);
-  const int64_t nblk = (di + SSB_THREADS - 1) / SSB_THREADS;
+  const int64_t nblk = (di + SSB_CHANNELS(N) - 1) / SSB_CHANNELS(N);
   TORCH_CHECK(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
               "N must be a power of two <= 32");
   TORCH_CHECK(dt.dim() == 3 && x.sizes() == dt.sizes() &&

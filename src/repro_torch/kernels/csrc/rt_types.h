@@ -42,15 +42,25 @@
 // K9: the int8 product's K tile (one 128-byte swizzled row of int8 signs);
 // the sign scratch's rows are K rounded up to it, zero past K.
 #define BG_KTILE 128
-// K8b, the selective scan's backward: channels per block (its partial
-// sums over channels are [di / SSB_THREADS blocks, B, S, N]); the h words
-// a thread keeps in shared memory for one chunk's walk, and the longest
-// chunk: K8's forward under autograd checkpoints h every SSB_CHUNK(N)
-// steps, and K8b recomputes and walks one such chunk at a time.
-#define SSB_THREADS 128
-#define SSB_HIST 128
-#define SSB_MAX_T 32
+// K8b, the selective scan's backward: threads per block; the states a
+// channel keeps for one chunk's walk (SSB_HIST / N steps of N), and the
+// longest chunk: K8's forward under autograd checkpoints h every
+// SSB_CHUNK(N) steps, and K8b recomputes and walks one such chunk at a
+// time.  A channel's N states are split over SSB_LANES(N) lanes of
+// SSB_LANE_N states each (all N on one lane below that), so a block holds
+// SSB_CHANNELS(N) channels and its partial sums over channels are
+// [di / SSB_CHANNELS(N) blocks, B, S, N].
+#define SSB_THREADS 256
+#define SSB_HIST 64
+#define SSB_MAX_T 16
+#define SSB_LANE_N 4
+// the threads an SM holds: K8b's registers are capped to let this many
+// in (64 a thread), which at N = 16 also fills the card in two whole
+// waves at 4 x 16,384 channels
+#define SSB_SM_THREADS 1024
 #define SSB_CHUNK(N) (SSB_HIST / (N) < SSB_MAX_T ? SSB_HIST / (N) : SSB_MAX_T)
+#define SSB_LANES(N) ((N) < SSB_LANE_N ? 1 : (N) / SSB_LANE_N)
+#define SSB_CHANNELS(N) (SSB_THREADS / SSB_LANES(N))
 
 // One flow table and one slot-segmented batch.  ``keys``/``regs`` are
 // updated in place; only the batch's slots are read and written.
@@ -169,7 +179,7 @@ struct ScanArgs {
 // K8's forward), dy [B, S, di] and dh_final [B, di, N] (null: zero);
 // outputs ddt [B, S, di], dA [di, N], dBm and dC [B, S, N] f32, dx [B,
 // S, di] in x's dtype and dh0 [B, di, N] (null: not wanted); ws_b and
-// ws_c [di / SSB_THREADS rounded up, B, S, N] and ws_a [B, di, N] are
+// ws_c [di / SSB_CHANNELS(N) rounded up, B, S, N] and ws_a [B, di, N] are
 // the caller's scratch for the partial sums.
 struct ScanBwdArgs {
   const float* dt;

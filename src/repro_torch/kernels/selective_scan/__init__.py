@@ -8,6 +8,7 @@ from repro_torch.kernels.selective_scan.ops import (
     selective_scan_launch,
 )
 from repro_torch.kernels.selective_scan.ref import (
+    bwd_channels,
     bwd_chunk,
     discretize,
     scan_checkpoints,

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.kernels import _ext
 from repro_torch.kernels.selective_scan.ref import (
-    SSB_THREADS,
+    bwd_channels,
     bwd_chunk,
     selective_scan_bwd_ref,
     selective_scan_discretized_ref,
@@ -242,7 +242,7 @@ def selective_scan_bwd_launch(dt, A, Bm, Cm, x, ckpt, dy, dh_final=None, *,
         return (*grads, dh0)
     dh0 = torch.empty((B, di, N) if need_dh0 else (0,), dtype=F32,
                       device=dt.device)
-    nblk = -(-di // SSB_THREADS)
+    nblk = -(-di // bwd_channels(N))
     ws_b = torch.empty(nblk * B * S * N, dtype=F32, device=dt.device)
     ws_c = torch.empty_like(ws_b)
     ws_a = torch.empty(B * di * N, dtype=F32, device=dt.device)

@@ -38,12 +38,13 @@ import torch
 
 from repro_torch.kernels import _ext
 
-# K8b's block of channels (the partial sums' di / SSB_THREADS blocks) and
-# the h words a thread keeps for one chunk's walk: a chunk of
-# min(SSB_MAX_T, SSB_HIST / N) steps
+# K8b's threads a block; the states a channel keeps for one chunk's walk:
+# a chunk of min(SSB_MAX_T, SSB_HIST / N) steps; the states a lane holds
+# (a channel's N over N / SSB_LANE_N lanes, all N on one lane below that)
 SSB_THREADS = _ext.header_define("SSB_THREADS")
 SSB_HIST = _ext.header_define("SSB_HIST")
 SSB_MAX_T = _ext.header_define("SSB_MAX_T")
+SSB_LANE_N = _ext.header_define("SSB_LANE_N")
 
 
 def selective_scan_ref(deltaA: torch.Tensor, deltaBx: torch.Tensor,
@@ -105,6 +106,17 @@ def bwd_chunk(N: int) -> int:
     return min(SSB_MAX_T, max(1, SSB_HIST // N))
 
 
+def bwd_lanes(N: int) -> int:
+    """K8b's lanes a channel at state width N (``SSB_LANES``)."""
+    return 1 if N < SSB_LANE_N else N // SSB_LANE_N
+
+
+def bwd_channels(N: int) -> int:
+    """K8b's channels a block at state width N (``SSB_CHANNELS``): its
+    partial sums over channels are [ceil(di / this), B, S, N]."""
+    return SSB_THREADS // bwd_lanes(N)
+
+
 def scan_checkpoints(dt, A, Bm, x, h0, chunk: int) -> torch.Tensor:
     """h entering each chunk of ``chunk`` steps, [B, ceil(S / chunk), di,
     N] f32 (chunk 0's is h0): the state K8's forward writes under
@@ -158,17 +170,18 @@ def selective_scan_bwd_ref(dt, A, Bm, Cm, x, h0, dy, dh_final=None):
 
 
 def _block_sums(v: torch.Tensor, nblk: int) -> torch.Tensor:
-    """v [B, di, N] -> each block's sum over its SSB_THREADS channels
-    [B, nblk, N] in K8b's order: within a warp the butterfly's halving
-    tree over the 32 lanes (lanes 16 apart first, then 8, ... 1), then
-    the warps in order, ((w0 + w1) + w2) + w3; channels past di add
-    nothing."""
+    """v [B, di, N] -> each block's sum over its ``bwd_channels(N)``
+    channels [B, nblk, N] in K8b's order: within a warp (32 / L channels,
+    L = ``bwd_lanes(N)`` lanes each) the butterfly's halving tree over the
+    channels (16 / L apart first, then 8 / L, ... 1), then the warps in
+    order, ((w0 + w1) + w2) + w3; channels past di add nothing."""
     B, di, N = v.shape
-    pad = nblk * SSB_THREADS - di
+    cw = 32 // bwd_lanes(N)
+    pad = nblk * bwd_channels(N) - di
     if pad:
         v = torch.cat([v, v.new_zeros((B, pad, N))], 1)
-    v = v.reshape(B, nblk, SSB_THREADS // 32, 32, N)
-    h = 32
+    v = v.reshape(B, nblk, SSB_THREADS // 32, cw, N)
+    h = cw
     while h > 1:
         h //= 2
         v = v[:, :, :, :h] + v[:, :, :, h:]
@@ -177,6 +190,17 @@ def _block_sums(v: torch.Tensor, nblk: int) -> torch.Tensor:
     for w in range(1, v.shape[2]):
         out = out + v[:, :, w]
     return out
+
+
+def _lane_sums(v: torch.Tensor) -> torch.Tensor:
+    """v [..., N] -> the sum over n in K8b's order: a pairwise tree,
+    adjacent pairs first, ((v0 + v1) + (v2 + v3)) + ...: each lane's
+    states (``SSB_LANE_N`` of them, in a lane-dependent register order
+    that keeps the pairs) and then the channel's ``bwd_lanes(N)`` lanes
+    by the butterfly, lanes 1 apart first."""
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
 
 
 def _sum_ascending(v: torch.Tensor, dim: int) -> torch.Tensor:
@@ -192,14 +216,14 @@ def selective_scan_bwd_chunked_ref(dt, A, Bm, Cm, x, h0, dy, dh_final=None):
     checkpoints every ``bwd_chunk(N)`` steps (``scan_checkpoints``), the
     chunks last to first, each recomputed forward
     from its checkpoint (dCm's products summed there) and walked backward
-    (the rest); the sums over n ascending, dBm and dCm over a block's
-    channels by ``_block_sums``, then over the blocks ascending, dA over
-    the steps as walked (last first) and then over the batch ascending.
-    Same interface as ``selective_scan_bwd_ref``."""
+    (the rest); the sums over n by ``_lane_sums``, dBm and dCm over a
+    block's channels by ``_block_sums``, then over the blocks ascending,
+    dA over the steps as walked (last first) and then over the batch
+    ascending.  Same interface as ``selective_scan_bwd_ref``."""
     B, S, di = dt.shape
     N = A.shape[1]
     T = bwd_chunk(N)
-    nblk = max(1, math.ceil(di / SSB_THREADS))
+    nblk = max(1, math.ceil(di / bwd_channels(N)))
     xf = x.to(torch.float32)
     ckpt = scan_checkpoints(dt, A, Bm, x, h0, T)
     carry = torch.zeros_like(h0) if dh_final is None else dh_final.clone()
@@ -220,8 +244,8 @@ def selective_scan_bwd_chunked_ref(dt, A, Bm, Cm, x, h0, dy, dh_final=None):
             deltaA = (dt[:, t, :, None] * A).exp_()
             g = dy[:, t, :, None] * Cm[:, t, None, :] + carry
             q = g * (deltaA * hist[t - t0])
-            gb = _sum_ascending(g * Bm[:, t, None, :], -1)
-            ddt[:, t] = _sum_ascending(q * A, -1) + gb * xf[:, t]
+            gb = _lane_sums(g * Bm[:, t, None, :])
+            ddt[:, t] = _lane_sums(q * A) + gb * xf[:, t]
             dx[:, t] = dt[:, t] * gb
             dA_acc = dA_acc + q * dt[:, t, :, None]
             dBm_part[:, t] = _block_sums(

@@ -35,6 +35,7 @@ from repro.models.ssm import _ssm_scan_chunked
 from repro_torch.kernels import _ext
 from repro_torch.kernels.selective_scan import (
     SelectiveScanFn,
+    bwd_channels,
     bwd_chunk,
     scan_checkpoints,
     selective_scan_bwd_chunked_ref,
@@ -44,12 +45,12 @@ from repro_torch.kernels.selective_scan import (
     selective_scan_discretized_launch,
     selective_scan_discretized_ref,
 )
-from repro_torch.kernels.selective_scan.ref import _block_sums
+from repro_torch.kernels.selective_scan.ref import _block_sums, _lane_sums
 
 TOL = 1e-5
 NAMES = ("ddt", "dA", "dBm", "dCm", "dx", "dh0")
 # B, S, di, N, x dtype, h0 (random or zero), dh_final (random or zero):
-# a chunk edge (S = 16 at N = 8, whose chunk is 16 steps), S = 1, a
+# a chunk edge (S = 16 at N = 8, whose chunk is 8 steps), S = 1, a
 # ragged last chunk (S = 50) over two blocks of channels (di = 130), N =
 # 16 and 4, x in bf16 and f32
 CASES = (
@@ -104,14 +105,19 @@ def _jax_grads(arrays, xdt, scan):
                 else jnp.asarray(dh)))
 
 
-def _close(got, want, what):
+def _close(got, want, what, bf16_step=False):
+    """Every output within TOL of its largest value; dx also within 2^-8
+    of each value or, with ``bf16_step``, within one bf16 step of it (the
+    spacing of bf16 at its binade, 2^-8 to 2^-7 of the value)."""
     for name, g, w in zip(NAMES, got, want):
         w = np.asarray(jnp.asarray(w, jnp.float32)) if not isinstance(
             w, torch.Tensor) else w.float().numpy()
         g = g.float().numpy()
         assert g.shape == w.shape, (what, name)
         scale = max(float(np.abs(w).max()), 1e-30)
-        allow = TOL * scale + (2.0 ** -8 * np.abs(w) if name == "dx" else 0)
+        step = (np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
+                if bf16_step else 2.0 ** -8 * np.abs(w))
+        allow = TOL * scale + (step if name == "dx" else 0)
         d = np.abs(g - w)
         assert bool((d <= allow).all()), (what, name, float(d.max()) / scale)
 
@@ -144,14 +150,35 @@ def test_recurrence_matches_autograd_of_the_plain_forward(case):
            torch.autograd.grad(loss, leaves), "recurrence against autograd")
 
 
-@pytest.mark.parametrize("N", (1, 2, 4, 32))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_chunked_schedule_matches_autograd_of_the_plain_forward(case):
+    """K8b's schedule written out (its states over lanes, the lanes' and
+    the channels' butterflies) against autograd's gradient of
+    ``selective_scan_discretized_ref``, at dy and dh_final.  A bf16 dx is
+    held to one bf16 step of each value: autograd rounds its own f32 sum
+    to bf16 once, as both plain versions do, and where the two f32 sums
+    differ in the last bit the roundings can land a step apart (at seed 8
+    one value of the 130 x 50 does so, for the recurrence as for the
+    chunked version: -0.84375 against -0.83984375, 1.2 x 2^-8 of it)."""
+    dt, A, Bm, Cm, x, h0, dy, dh = _torch(_inputs(8, *case), case[4])
+    leaves = [t.clone().requires_grad_() for t in (dt, A, Bm, Cm, x, h0)]
+    y, h = selective_scan_discretized_ref(*leaves)
+    loss = (y * dy).sum() + (0 if dh is None else (h * dh).sum())
+    _close(selective_scan_bwd_chunked_ref(dt, A, Bm, Cm, x, h0, dy, dh),
+           torch.autograd.grad(loss, leaves), "chunked against autograd",
+           bf16_step=True)
+
+
+@pytest.mark.parametrize("N", (1, 2, 4, 8, 16, 32))
 def test_chunked_schedule_holds_at_every_state_width(N):
-    """The chunked version at the state widths the CASES leave out, each
-    with K8b's own chunk (32 steps at N <= 4, 4 at N = 32) over an S that
-    it does not divide, against the recurrence."""
+    """The chunked version at every state width, each with K8b's own
+    chunk (16 steps at N <= 4, 2 at N = 32) over an S that it does not
+    divide, and its own lanes a channel (1 at N <= 4, N / 4 above) and
+    channels a block (256 / lanes) over a di whose last block is ragged,
+    against the recurrence."""
     case = (2, 37, 140, N, "float32", "random", "random")
     t = _torch(_inputs(3, *case), "float32")
-    assert 37 % bwd_chunk(N)
+    assert 37 % bwd_chunk(N) and 140 % bwd_channels(N)
     _close(selective_scan_bwd_chunked_ref(*t), selective_scan_bwd_ref(*t),
            f"N {N}")
 
@@ -159,36 +186,61 @@ def test_chunked_schedule_holds_at_every_state_width(N):
 def test_checkpoints_are_the_forwards_states():
     """h entering chunk c is bit for bit the plain forward's h_final over
     the first c x T steps (K8 writes the same states under autograd);
-    K8b's chunk is SSB_HIST / N steps, at most SSB_MAX_T."""
-    assert [bwd_chunk(n) for n in (1, 2, 4, 8, 16, 32)] == [32, 32, 32, 16,
-                                                            8, 4]
+    K8b's chunk is SSB_HIST / N steps (64 / N), at most SSB_MAX_T (16)."""
+    assert [bwd_chunk(n) for n in (1, 2, 4, 8, 16, 32)] == [16, 16, 16, 8,
+                                                            4, 2]
     dt, A, Bm, Cm, x, h0, _, _ = _torch(
-        _inputs(4, 2, 20, 30, 16, "bfloat16", "random", "zero"), "bfloat16")
+        _inputs(4, 2, 18, 30, 16, "bfloat16", "random", "zero"), "bfloat16")
     T = bwd_chunk(16)
     ckpt = scan_checkpoints(dt, A, Bm, x, h0, T)
-    assert ckpt.shape == (2, 3, 30, 16)
+    assert ckpt.shape == (2, 5, 30, 16)
     assert torch.equal(ckpt[:, 0], h0)
-    for c in (1, 2):
+    for c in (1, 2, 3, 4):
         _, h = selective_scan_discretized_ref(
             dt[:, :c * T], A, Bm[:, :c * T], Cm[:, :c * T], x[:, :c * T], h0)
         assert torch.equal(ckpt[:, c], h)
 
 
+@pytest.mark.parametrize("N", (4, 8, 16, 32))
 @pytest.mark.parametrize("di", (1, 31, 128, 129, 300))
-def test_block_sums_are_the_channel_sums(di):
-    """K8b's sums over a block's 128 channels (the warps' butterfly, then
-    the warps in order): exact on integers, and the plain sum within f32
+def test_block_sums_are_the_channel_sums(di, N):
+    """K8b's sums over a block's channels (256 at N <= 4, 128 at 8, 64 at
+    16, 32 at 32: the warps' butterflies over their channels, then the
+    warps in order): exact on integers, and the plain sum within f32
     rounding on random values; channels past di add nothing."""
-    rng = np.random.default_rng(di)
-    nblk = -(-di // 128)
-    v = torch.from_numpy(rng.integers(-50, 50, (2, di, 4)).astype(np.float32))
-    want = torch.cat([v, v.new_zeros((2, nblk * 128 - di, 4))], 1).reshape(
-        2, nblk, 128, 4).sum(2)
-    assert torch.equal(_block_sums(v, nblk), want)
-    v = torch.from_numpy(rng.normal(size=(2, di, 4)).astype(np.float32))
-    want = torch.cat([v, v.new_zeros((2, nblk * 128 - di, 4))], 1).reshape(
-        2, nblk, 128, 4).double().sum(2)
+    rng = np.random.default_rng(di + N)
+    ch = bwd_channels(N)
+    assert ch == 256 // max(1, N // 4)
+    nblk = -(-di // ch)
+
+    def plain(v):
+        return torch.cat([v, v.new_zeros((2, nblk * ch - di, N))], 1
+                         ).reshape(2, nblk, ch, N)
+
+    v = torch.from_numpy(rng.integers(-50, 50, (2, di, N)).astype(np.float32))
+    assert torch.equal(_block_sums(v, nblk), plain(v).sum(2))
+    v = torch.from_numpy(rng.normal(size=(2, di, N)).astype(np.float32))
+    want = plain(v).double().sum(2)
     assert float((_block_sums(v, nblk).double() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("N", (1, 2, 4, 8, 16, 32))
+def test_lane_sums_are_the_sums_over_n(N):
+    """K8b's sums over a channel's states (a pairwise tree: each lane's
+    4, then the channel's N / 4 lanes by the butterfly, adjacent lanes
+    first): exact on integers, the plain sum within f32 rounding on
+    random values, and at N = 16 the tree written out."""
+    rng = np.random.default_rng(N)
+    v = torch.from_numpy(rng.integers(-50, 50, (3, 5, N)).astype(np.float32))
+    assert torch.equal(_lane_sums(v), v.sum(-1))
+    v = torch.from_numpy(rng.normal(size=(3, 5, N)).astype(np.float32))
+    assert float((_lane_sums(v).double() - v.double().sum(-1)).abs().max()
+                 ) <= 1e-5
+    if N == 16:
+        lane = [(v[..., 4 * j] + v[..., 4 * j + 1])
+                + (v[..., 4 * j + 2] + v[..., 4 * j + 3]) for j in range(4)]
+        assert torch.equal(_lane_sums(v), (lane[0] + lane[1])
+                           + (lane[2] + lane[3]))
 
 
 @pytest.mark.parametrize("xdt", ("float32", "bfloat16"))
