@@ -277,8 +277,8 @@ layers; each serves the engine's zero stubs for tok/s, then a run with
 the gates drawn non-zero and seeded memories (``gated_serve``) whose
 cross-attention, self-attention (and encoder) blocks are gated on K7
 against the plain attention in bf16 and f32, with the dense family's
-end-to-end gates in f32.  ``path_xlstm_serve``: xLSTM-1.3B, 48 blocks,
-no kernel launches, decode through the recurrent state against teacher
+end-to-end gates in f32.  ``path_xlstm_serve``: xLSTM-1.3B, 24 of its
+48 blocks (``XL_LAYERS``, since slice 20), no kernel launches, decode through the recurrent state against teacher
 forcing in bf16 and f32.  ``kernels_check_lm`` adds those call forms of
 K7 (``K7_CASES``: a windowed prefill past the window, ring decodes,
 non-causal cross and encoder calls, bf16 and f32) and
@@ -300,6 +300,12 @@ K8, K8b, K7 and K7b; K8b on layers 0's and 6's own inputs, K7b on layer
 4's, the smoke config's f32 gradients against ``interpret``); the
 large-score K7b case is gated, and ``grad_refusals`` holds K8's TPU
 interface and K9 only.
+
+Slice 20 adds ``path_launch`` (after ``path_lm_restart``): Qwen3-1.7B at
+full width trained 3 steps through ``repro_torch.launch.train.main`` and
+held to the same steps run by hand, then served through
+``repro_torch.launch.serve.main`` and held to a ``ServeEngine`` fed the
+same params and requests; K7 and K7b counted on both.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -5737,6 +5743,11 @@ VL_ARCH, ED_ARCH, XL_ARCH, LM15_SEED = (
 # of 17-32 and 32 new; every prefill and teacher-forced forward (512,
 # 640, 32, 64 positions) keeps the mLSTM's chunk rule, S % min(128, S)
 XL_ROUNDS = ((512, 512, 128), (17, 32, 32))
+# xLSTM's depth on the card: 24 of its 48 blocks (three 8-block periods,
+# an sLSTM leading each), cut to keep the whole smoke inside its time
+# budget once path_launch runs (the phase took 90.4 s at 48 blocks, an
+# H100 80GB HBM3 at 700 W); its blocks are plain PyTorch, no kernel
+XL_LAYERS = 24
 # memory embeddings (image patches, audio frames) as the reference's
 # batch defs draw them: normal, std 0.02
 MEM_STD = 0.02
@@ -6328,11 +6339,11 @@ def path_encdec_serve(dev):
 
 
 def path_xlstm_serve(dev):
-    """``ServeEngine`` with xLSTM-1.3B at every published width and depth
-    (48 blocks: an sLSTM every 8th, mLSTM otherwise; d_model 2,048, 4
-    heads of 512, vocab 50,304), weights from ``torch.Generator`` seed 0,
-    batch_slots 4, max_seq 1,024, the rounds of ``XL_ROUNDS`` through
-    the engine on ``backend="cuda"`` and ``"interpret"``: no kernel
+    """``ServeEngine`` with xLSTM-1.3B at every published width and
+    ``XL_LAYERS`` of its 48 blocks (an sLSTM every 8th, mLSTM otherwise;
+    d_model 2,048, 4 heads of 512, vocab 50,304), weights from
+    ``torch.Generator`` seed 0, batch_slots 4, max_seq 1,024, the rounds
+    of ``XL_ROUNDS`` through the engine on ``backend="cuda"`` and ``"interpret"``: no kernel
     launches under either (the blocks are plain PyTorch, as the
     reference's are jnp), every request served.  In bf16 then f32:
     decode through the recurrent state against a teacher-forced forward
@@ -6342,6 +6353,8 @@ def path_xlstm_serve(dev):
     reported: the chunkwise forward and the stepwise decode round the
     blocks' bf16 outputs at different points); prefill ms, decode ms a
     step and tok/s.  -> the bf16 run's launches (all 0)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -6350,7 +6363,8 @@ def path_xlstm_serve(dev):
 
     t0 = time.perf_counter()
     held_gb = free_card()
-    cfg = configs.get_config(XL_ARCH)
+    cfg = dataclasses.replace(configs.get_config(XL_ARCH),
+                              num_layers=XL_LAYERS)
     n_new = sum(new for _, _, new in XL_ROUNDS)
     report, gates = {}, []
     for dtype in (torch.bfloat16, torch.float32):
@@ -6397,7 +6411,8 @@ def path_xlstm_serve(dev):
         del params, runs
         free_card()
     emit({"phase": "path_xlstm_serve", "arch": XL_ARCH,
-          "params": cfg.param_count(), "batch_slots": LM_SLOTS,
+          "num_layers": XL_LAYERS, "params": cfg.param_count(),
+          "batch_slots": LM_SLOTS,
           "max_seq": LM_MAX_SEQ, "held_gb_before": held_gb,
           "prompt_lens": [len(r.prompt) for r in xlstm_requests(
               cfg.vocab_size)],
@@ -7050,6 +7065,160 @@ def path_lm_restart(dev):
     check(cpu_same, "path_lm_restart: the CPU restore differs")
     check(err <= RESTART_TOL, f"path_lm_restart: replayed params {err} of "
           "max|p| from the uninterrupted run")
+    return launches
+
+
+# ------------------------------------------ slice 20: the launchers
+
+# path_launch: Qwen3-1.7B at every published width and depth through the
+# port's launchers, as a user runs them.  Training: 3 steps of 4 x 1,024
+# (the launcher's settings: peak lr 3e-3, warmup max(5, steps // 10),
+# total = steps, block remat, AdamW on f32 master weights); serving: 8
+# requests of 16 prompt and 16 new tokens in 4 slots, max_seq 128
+LAUNCH_TRAIN_ARGV = ["--arch", "qwen3-1.7b", "--full", "--steps", "3",
+                     "--batch", "4", "--seq", "1024", "--log-every", "1"]
+LAUNCH_SERVE_ARGV = ["--arch", "qwen3-1.7b", "--full", "--requests", "8",
+                     "--prompt-len", "16", "--max-new", "16", "--slots",
+                     "4", "--max-seq", "128"]
+LAUNCH_KEYS = {"arch", "steps", "first_loss", "final_loss", "wall_s"}
+
+
+def path_launch(dev):
+    """The launchers on the card: ``launch.train.main`` and
+    ``launch.serve.main`` with ``LAUNCH_TRAIN_ARGV`` / ``LAUNCH_SERVE_ARGV``
+    (the card by default), the launch counts set to 0 just before each and
+    read just after.  Gates, training: every loss finite, the returned
+    dict's keys the reference launcher's, K7 2 x 28 launches a step (the
+    forward and the remat's recompute) and K7b 28, nothing else; the three
+    losses those of the same steps run by hand through ``make_train_step``
+    on a state from the same generator and the same ``TokenDataset``
+    batches (equal bit for bit expected: K7b is deterministic; the
+    embedding's backward accumulates with atomics, so within
+    ``TRAIN_LOSS_TOL``, with the equality reported).  Serving: every
+    request served with 16 tokens, the tokens those of a ``ServeEngine``
+    fed the same seeded params and requests directly, K7 28 x (prefill +
+    decode calls) launches, nothing else.  -> the launchers' launch
+    counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import _ext
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import (
+        TrainSettings,
+        cast_for_compute,
+        init_train_state,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    held_gb = free_card()
+    cfg = get_config("qwen3-1.7b")
+    L = cfg.num_layers
+    gates = []
+
+    # training through the launcher
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _ext.reset_launches()
+    t = time.perf_counter()
+    out = launch_train.main(LAUNCH_TRAIN_ARGV, on_step=lambda s, m: (
+        losses.append(float(m["loss"]))))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_launches = dict(_ext.LAUNCHES)
+    train_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    free_card()
+    steps = len(losses)
+    want = dict.fromkeys(train_launches, 0) | {
+        "flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps}
+    gates += [
+        (set(out) == LAUNCH_KEYS and out["steps"] == steps == 3,
+         f"path_launch train: returned {out}, {steps} losses"),
+        (all(x == x and abs(x) < float("inf") for x in losses),
+         f"path_launch train: a loss is not finite: {losses}"),
+        (train_launches == want,
+         f"path_launch train: launches {train_launches} != {want}")]
+
+    # the same steps by hand
+    settings = TrainSettings(peak_lr=3e-3, warmup=max(5, steps // 10),
+                             total_steps=steps, remat=True)
+    state = init_train_state(cfg, generator=torch.Generator(dev).manual_seed(
+        0), device=dev)
+    step = make_train_step(cfg, settings)
+    data = TokenDataset(cfg.vocab_size, 1024, 4, seed=0)
+    by_hand = []
+    for i in range(steps):
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in data.batch_at(i).items()})
+        by_hand.append(float(m["loss"]))
+    del state, step
+    free_card()
+    loss_diff = max(abs(a - b) for a, b in zip(losses, by_hand))
+    gates.append((loss_diff <= TRAIN_LOSS_TOL,
+                  f"path_launch train: losses {losses} against by hand "
+                  f"{by_hand}"))
+
+    # serving through the launcher, then the same params and requests
+    # straight into a ServeEngine
+    served = []
+    _ext.reset_launches()
+    t = time.perf_counter()
+    stats = launch_serve.main(LAUNCH_SERVE_ARGV, requests_out=served)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    serve_launches = dict(_ext.LAUNCHES)
+    free_card()
+    n_req, slots, new = 8, 4, 16
+    calls = -(-n_req // slots) * (1 + new)
+    want = dict.fromkeys(serve_launches, 0) | {"flash_attention": L * calls}
+    params = cast_for_compute(init_train_state(
+        cfg, generator=torch.Generator(dev).manual_seed(0),
+        device=dev)["params"])
+    free_card()
+    direct = launch_serve.make_requests(cfg, n_req, 16, new, 0)
+    engine = ServeEngine(cfg, params, batch_slots=slots, max_seq=128,
+                         device=dev)
+    for r in direct:
+        engine.submit(r)
+    engine.run(max_steps=n_req * new + 64)
+    del engine, params
+    free_card()
+    same = [a.out == b.out for a, b in zip(served, direct)]
+    gates += [
+        (len(served) == n_req and all(r.done and len(r.out) == new
+                                      for r in served),
+         f"path_launch serve: {[(r.rid, len(r.out)) for r in served]}"),
+        (len(same) == n_req and all(same),
+         f"path_launch serve: tokens differ from the direct engine's "
+         f"in requests {[i for i, ok in enumerate(same) if not ok]}"),
+        (serve_launches == want,
+         f"path_launch serve: launches {serve_launches} != {want}")]
+
+    launches = {k: train_launches.get(k, 0) + serve_launches.get(k, 0)
+                for k in set(train_launches) | set(serve_launches)}
+    emit({"phase": "path_launch", "arch": cfg.name,
+          "held_gb_before": held_gb,
+          "train": {"argv": LAUNCH_TRAIN_ARGV, "returned": out,
+                    "losses": losses, "by_hand": by_hand,
+                    "bit_equal": losses == by_hand, "max_diff": loss_diff,
+                    "seconds": train_s, "peak_gb": train_peak_gb,
+                    "launches": {k: n for k, n in train_launches.items()
+                                 if n}},
+          "serve": {"argv": LAUNCH_SERVE_ARGV, "stats": stats,
+                    "tokens": [r.out for r in served],
+                    "prefill_calls": -(-n_req // slots),
+                    "decode_calls": -(-n_req // slots) * new,
+                    "seconds": serve_s,
+                    "launches": {k: n for k, n in serve_launches.items()
+                                 if n}},
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
     return launches
 
 
@@ -7757,6 +7926,7 @@ def main() -> int:
         by_path["path_xlstm_serve"] = path_xlstm_serve(dev)
         by_path["path_lm_train"] = path_lm_train(dev)
         by_path["path_lm_restart"] = path_lm_restart(dev)
+        by_path["path_launch"] = path_launch(dev)
         by_path["path_hybrid_train"] = path_hybrid_train(dev)
         grad_refusals(dev)
         by_path["path_generate"] = path_generate(dev)
@@ -7792,6 +7962,8 @@ def main() -> int:
                                               "flash_attention_bwd")),
                            ("path_lm_restart", ("flash_attention",
                                                 "flash_attention_bwd")),
+                           ("path_launch", ("flash_attention",
+                                            "flash_attention_bwd")),
                            ("path_hybrid_train", (
                                "selective_scan_discretized",
                                "selective_scan_bwd", "flash_attention",

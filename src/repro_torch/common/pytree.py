@@ -8,14 +8,23 @@ come in one fixed order: a dict's keys sorted (as JAX flattens a dict),
 a list's items in order.  The checkpoint manifest numbers its leaves in
 that order.
 
-The reference's ``ParamDef``, ``materialize``, ``abstract`` and
-``pspec_tree`` serve its mesh dry-run and wait for the ``launch/``
-slice; ``models.registry.param_defs`` gives the port's shapes and
-dtypes.
+Models describe their tensors as trees of ``ParamDef`` (shape, dtype,
+logical axes, initializer), as the reference's do.  The same tree is
+used three ways:
+
+  * ``materialize(defs, generator, device)`` -> real tensors;
+  * ``abstract(defs)`` -> tensors on torch's ``meta`` device, the
+    counterpart of ``jax.ShapeDtypeStruct``: shapes and dtypes with no
+    storage, so a 398B model's train state is described without
+    allocating it;
+  * ``pspec_tree(defs, resolve)`` -> a ``PartitionSpec`` tree
+    (``dist.sharding``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -77,12 +86,89 @@ def tree_map_with_path(fn: Callable, tree: PyTree, prefix: tuple = ()):
     return fn(prefix, tree)
 
 
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """One tensor's description.  ``axes``: a logical axis name (or None,
+    replicated) per dim, resolved to mesh axes by ``dist.sharding``;
+    ``init``: normal (x 0.02) | zeros | ones | scaled (by fan-in, the
+    second-to-last dim) | ssm_a (Mamba's ``A_log``: log(1..N) in every
+    channel)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype = torch.bfloat16
+    axes: tuple[str | None, ...] = ()
+    init: str = "normal"
+    init_scale: float = 1.0
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(
+                f"axes {self.axes} rank != shape {self.shape} rank")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def is_def(x: Any) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def init_tensor(d: ParamDef, generator: torch.Generator | None,
+                device) -> torch.Tensor:
+    """One tensor drawn as ``d.init`` says (a random init draws f32
+    normals from ``generator``, then casts)."""
+    shape, dtype = d.shape, d.dtype
+    if d.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if d.init == "ssm_a":
+        a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                   device=device))
+        return a.expand(shape).to(dtype).contiguous()
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    if d.init == "normal":
+        return x.mul_(0.02 * d.init_scale).to(dtype)
+    if d.init == "scaled":
+        fan_in = shape[-2] if len(shape) >= 2 else max(shape[0], 1)
+        return x.mul_(d.init_scale / math.sqrt(fan_in)).to(dtype)
+    raise ValueError(f"unknown init {d.init!r}")
+
+
+def materialize(defs: PyTree, generator: torch.Generator | None = None,
+                device="cpu") -> PyTree:
+    """Real tensors from a ParamDef tree, drawn from ``generator`` (which
+    lives on ``device``) leaf after leaf in the tree's own order (each
+    dict's insertion order, as ``tree_map`` walks it): the reference
+    folds each leaf's path into its key, so the two packages' bits
+    differ."""
+    return tree_map(lambda d: init_tensor(d, generator, device), defs)
+
+
+def abstract(defs: PyTree) -> PyTree:
+    """Meta tensors of each leaf's shape and dtype: nothing allocated."""
+    return tree_map(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def pspec_tree(defs: PyTree, resolve: Callable) -> PyTree:
+    """PartitionSpec tree; ``resolve(axes) -> PartitionSpec``."""
+    return tree_map(lambda d: resolve(d.axes), defs)
+
+
+def _numel(x) -> int:
+    return x.size if is_def(x) else int(x.numel())
+
+
 def param_count(tree: PyTree) -> int:
-    return sum(int(x.numel()) for x in tree_leaves(tree))
+    """Elements of a tree of tensors or of ParamDefs."""
+    return sum(_numel(x) for x in tree_leaves(tree))
 
 
 def param_bytes(tree: PyTree) -> int:
-    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
+    return sum(_numel(x) * x.dtype.itemsize for x in tree_leaves(tree))
 
 
 def cast_floating(tree: PyTree, dtype: torch.dtype) -> PyTree:

@@ -6,6 +6,7 @@ from repro_torch.configs.base import (
     SHAPES,
     ModelConfig,
     ShapeConfig,
+    applicable_shapes,
     get_config,
     get_smoke_config,
     list_archs,
@@ -26,5 +27,5 @@ from repro_torch.configs import (  # noqa: F401
     xlstm_1_3b,
 )
 
-__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "get_config", "get_smoke_config", "list_archs",
-           "register"]
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "applicable_shapes",
+           "get_config", "get_smoke_config", "list_archs", "register"]

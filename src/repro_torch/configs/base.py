@@ -117,3 +117,12 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """The input shapes that apply to this arch: ``long_500k`` only where
+    long-context decode is tractable (``sub_quadratic``)."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        shapes.append("long_500k")
+    return shapes

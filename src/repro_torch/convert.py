@@ -248,6 +248,13 @@ def _stack_to_layers(params, dev: torch.device) -> dict:
         return first(next(iter(t.values()))) if isinstance(t, dict) else t
 
     def layer(t, i):
+        if isinstance(t, dict) and set(t) == {"vr", "vc"} \
+                and t["vr"].dim() == t["vc"].dim() == 1:
+            # Adafactor's factored moment of a stacked [n, d] leaf: a
+            # layer's row of vr; the stack's vc on its first layer
+            # (``optim.adafactor``'s layout)
+            return ({"vr": t["vr"][i], "vc": t["vc"]} if i == 0
+                    else {"vr": t["vr"][i]})
         return ({k: layer(v, i) for k, v in t.items()}
                 if isinstance(t, dict) else t[i])
 

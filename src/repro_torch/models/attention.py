@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
@@ -150,18 +151,29 @@ def decode_attention_tree(q, kv: dict, index: int, *, backend: str,
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
                n_layers: int) -> dict:
-    """{name: (shape, dtype)} of the stacked [L, B, T, K, D] KV cache, T
-    = min(max_seq, sliding_window) with a window, else max_seq;
+    """{name: ParamDef} of the stacked [L, B, T, K, D] KV cache, T =
+    min(max_seq, sliding_window) with a window, else max_seq;
     ``kv_cache_dtype == "int8"`` stores symmetric per-(token, head)
-    quantized keys and values with f32 scales."""
+    quantized keys and values with f32 scales.  The axes are the
+    reference's: the sequence dim on "sp" where ``decode_seq_shard`` and
+    no window."""
     T = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
          else max_seq)
+    seq_axis = ("sp" if cfg.decode_seq_shard and not cfg.sliding_window
+                else None)
     shape = (n_layers, batch, T, cfg.num_kv_heads, cfg.head_dim)
+    axes = (None, "kv_batch", seq_axis, None, None)
+
+    def zeros(s, dt, ax):
+        return ParamDef(s, dt, ax, "zeros")
+
     if cfg.kv_cache_dtype == "int8":
-        return {"k": (shape, torch.int8), "v": (shape, torch.int8),
-                "k_scale": (shape[:-1], torch.float32),
-                "v_scale": (shape[:-1], torch.float32)}
-    return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+        return {"k": zeros(shape, torch.int8, axes),
+                "v": zeros(shape, torch.int8, axes),
+                "k_scale": zeros(shape[:-1], torch.float32, axes[:-1]),
+                "v_scale": zeros(shape[:-1], torch.float32, axes[:-1])}
+    return {"k": zeros(shape, torch.bfloat16, axes),
+            "v": zeros(shape, torch.bfloat16, axes)}
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

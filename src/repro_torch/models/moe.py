@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import silu
 
@@ -45,15 +46,17 @@ def expert_range(experts, num_experts: int) -> tuple[int, int]:
 
 
 def moe_defs(cfg: ModelConfig, experts=None) -> dict:
-    """{name: (shape, reference dtype, init)} of one MoE layer holding
-    ``experts``."""
+    """{name: ParamDef} of one MoE layer holding ``experts``."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     lo, hi = expert_range(experts, E)
     return {
-        "router": ((d, E), F32, "scaled"),
-        "wg": ((hi - lo, d, ff), BF16, "scaled"),
-        "wu": ((hi - lo, d, ff), BF16, "scaled"),
-        "wd": ((hi - lo, ff, d), BF16, "scaled"),
+        "router": ParamDef((d, E), F32, ("fsdp", None), "scaled"),
+        "wg": ParamDef((hi - lo, d, ff), BF16, ("ep", "fsdp", None),
+                       "scaled"),
+        "wu": ParamDef((hi - lo, d, ff), BF16, ("ep", "fsdp", None),
+                       "scaled"),
+        "wd": ParamDef((hi - lo, ff, d), BF16, ("ep", None, "fsdp"),
+                       "scaled"),
     }
 
 

@@ -2,24 +2,27 @@
 and cache shapes, the parameter count, and seeded initialisation.
 
 ``param_defs`` gives, for one layer and for the embedding and final norm,
-each tensor's shape, its reference dtype and its init kind — the
-``ParamDef`` kinds of ``repro.common.pytree``: ``normal`` (x 0.02),
-``scaled`` (by fan-in: the second-to-last dim, as the reference's stacked
-tree has it), ``ones``, ``zeros`` and ``ssm_a`` (Mamba's ``A_log``:
-log(1..N) in every channel).  An encdec config adds its encoder's
-layers and ``enc_norm``; a cross-attention layer its ``ln_cross`` and
-``cross`` (with the scalar tanh ``gate``, 0 at init, where gated).
-``init_params`` draws them from a ``torch.Generator``; its bits differ
-from the reference's (the tests carry the reference's weights across
-instead).
+each tensor's ``common.pytree.ParamDef``: its shape, its reference dtype,
+the reference's logical axes for the same tensor (one layer's: the
+reference's stacked leaf drops its leading layer axis) and its init kind
+(``normal`` x 0.02, ``scaled`` by fan-in: the second-to-last dim, as the
+reference's stacked tree has it, ``ones``, ``zeros`` and ``ssm_a``).  An
+encdec config adds its encoder's layers and ``enc_norm``; a
+cross-attention layer its ``ln_cross`` and ``cross`` (with the scalar
+tanh ``gate``, 0 at init, where gated).  ``cache_defs`` and the batch
+defs are ParamDef trees too.  ``init_params`` draws them from a
+``torch.Generator``; its bits differ from the reference's (the tests
+carry the reference's weights across instead).
 """
 
 from __future__ import annotations
 
-import math
+import dataclasses
 
 import torch
 
+from repro_torch.common import pytree as pt
+from repro_torch.common.pytree import ParamDef, materialize, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -33,31 +36,39 @@ F32, BF16 = torch.float32, torch.bfloat16
 
 def _attn_defs(cfg: ModelConfig, gated: bool = False) -> dict:
     d, H, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    defs = {"wq": ((d, H, Dh), BF16, "scaled"),
-            "wk": ((d, K, Dh), BF16, "scaled"),
-            "wv": ((d, K, Dh), BF16, "scaled"),
-            "wo": ((H, Dh, d), BF16, "scaled")}
+    defs = {"wq": ParamDef((d, H, Dh), BF16, ("fsdp", "tp", None), "scaled"),
+            "wk": ParamDef((d, K, Dh), BF16, ("fsdp", "tp", None), "scaled"),
+            "wv": ParamDef((d, K, Dh), BF16, ("fsdp", "tp", None), "scaled"),
+            "wo": ParamDef((H, Dh, d), BF16, ("tp", None, "fsdp"), "scaled")}
     if cfg.use_qkv_bias:
-        defs.update(bq=((H, Dh), F32, "zeros"), bk=((K, Dh), F32, "zeros"),
-                    bv=((K, Dh), F32, "zeros"))
+        defs.update(bq=ParamDef((H, Dh), F32, ("tp", None), "zeros"),
+                    bk=ParamDef((K, Dh), F32, ("tp", None), "zeros"),
+                    bv=ParamDef((K, Dh), F32, ("tp", None), "zeros"))
     if cfg.use_qk_norm:
-        defs.update(q_norm=((Dh,), F32, "ones"), k_norm=((Dh,), F32, "ones"))
+        defs.update(q_norm=ParamDef((Dh,), F32, (None,), "ones"),
+                    k_norm=ParamDef((Dh,), F32, (None,), "ones"))
     if gated:
-        defs["gate"] = ((), F32, "zeros")
+        defs["gate"] = ParamDef((), F32, (), "zeros")
     return defs
 
 
 def _mlp_defs(d: int, d_ff: int, act: str) -> dict:
     if act == "silu":
-        return {"wg": ((d, d_ff), BF16, "scaled"),
-                "wu": ((d, d_ff), BF16, "scaled"),
-                "wd": ((d_ff, d), BF16, "scaled")}
-    return {"wi": ((d, d_ff), BF16, "scaled"), "bi": ((d_ff,), F32, "zeros"),
-            "wd": ((d_ff, d), BF16, "scaled"), "bd": ((d,), F32, "zeros")}
+        return {"wg": ParamDef((d, d_ff), BF16, ("fsdp", "tp"), "scaled"),
+                "wu": ParamDef((d, d_ff), BF16, ("fsdp", "tp"), "scaled"),
+                "wd": ParamDef((d_ff, d), BF16, ("tp", "fsdp"), "scaled")}
+    return {"wi": ParamDef((d, d_ff), BF16, ("fsdp", "tp"), "scaled"),
+            "bi": ParamDef((d_ff,), F32, ("tp",), "zeros"),
+            "wd": ParamDef((d_ff, d), BF16, ("tp", "fsdp"), "scaled"),
+            "bd": ParamDef((d,), F32, (None,), "zeros")}
+
+
+def _norm_defs(d: int) -> dict:
+    return {"scale": ParamDef((d,), F32, (None,), "ones")}
 
 
 def _slot_defs(cfg: ModelConfig, slot, experts) -> dict:
-    norm = {"scale": ((cfg.d_model,), F32, "ones")}
+    norm = _norm_defs(cfg.d_model)
     d = {"ln1": dict(norm)}
     if slot.mixer in ("attn", "attn_nc"):
         d["attn"] = _attn_defs(cfg)
@@ -79,44 +90,45 @@ def _slot_defs(cfg: ModelConfig, slot, experts) -> dict:
 
 def param_defs(cfg: ModelConfig, experts=None) -> dict:
     """{"embed", "final_norm", "slots"[, "encoder_slots", "enc_norm"]} ->
-    {name: (shape, dtype, init)}; "slots" lists one period's layer
-    trees, slot by slot (layer l is slot l % P of period l // P), and
-    "encoder_slots" the encoder's.  MoE layers hold ``experts`` (None:
-    all)."""
+    {name: ParamDef}; "slots" lists one period's layer trees, slot by
+    slot (layer l is slot l % P of period l // P), and "encoder_slots" the
+    encoder's.  MoE layers hold ``experts`` (None: all)."""
     _, slots = decoder_layout(cfg)
     d = cfg.d_model
-    emb = {"table": ((cfg.vocab_size, d), BF16, "normal")}
+    emb = {"table": ParamDef((cfg.vocab_size, d), BF16, ("fsdp", "tp"),
+                             "normal")}
     if not cfg.tie_embeddings:
-        emb["unembed"] = ((d, cfg.vocab_size), BF16, "scaled")
-    defs = {"embed": emb, "final_norm": {"scale": ((d,), F32, "ones")},
+        emb["unembed"] = ParamDef((d, cfg.vocab_size), BF16, ("fsdp", "tp"),
+                                  "scaled")
+    defs = {"embed": emb, "final_norm": _norm_defs(d),
             "slots": [_slot_defs(cfg, s, experts) for s in slots]}
     if cfg.family == "encdec":
         _, eslots = encoder_layout(cfg)
         defs["encoder_slots"] = [_slot_defs(cfg, s, experts)
                                  for s in eslots]
-        defs["enc_norm"] = {"scale": ((d,), F32, "ones")}
+        defs["enc_norm"] = _norm_defs(d)
     return defs
 
 
-def _leaves(tree: dict):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
+def layer_defs(cfg: ModelConfig, experts=None) -> dict:
+    """``param_defs`` laid out as ``init_params``' tree: "layers" (and
+    "encoder") one def tree a layer, slot l % P of each period."""
+    defs = param_defs(cfg, experts)
+
+    def stack(n: int, slots: list) -> list:
+        return [slots[l % len(slots)] for l in range(n * len(slots))]
+
+    out = {"embed": defs["embed"], "final_norm": defs["final_norm"],
+           "layers": stack(decoder_layout(cfg)[0], defs["slots"])}
+    if "encoder_slots" in defs:
+        out["encoder"] = stack(encoder_layout(cfg)[0],
+                               defs["encoder_slots"])
+        out["enc_norm"] = defs["enc_norm"]
+    return out
 
 
 def param_count(cfg: ModelConfig) -> int:
-    n_p, _ = decoder_layout(cfg)
-    defs = param_defs(cfg)
-    n = lambda t: sum(math.prod(s) for s, _, _ in _leaves(t))  # noqa: E731
-    total = (n(defs["embed"]) + n(defs["final_norm"])
-             + n_p * sum(n(t) for t in defs["slots"]))
-    if "encoder_slots" in defs:
-        n_e, _ = encoder_layout(cfg)
-        total += (n(defs["enc_norm"])
-                  + n_e * sum(n(t) for t in defs["encoder_slots"]))
-    return total
+    return pt.param_count(layer_defs(cfg))
 
 
 def _memory_len(cfg: ModelConfig, seq: int) -> int:
@@ -130,8 +142,8 @@ def _memory_len(cfg: ModelConfig, seq: int) -> int:
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """The decode cache's tree of (shape, dtype), stacked per slot over
-    the periods."""
+    """The decode cache's ParamDef tree, stacked per slot over the
+    periods."""
     n_p, slots = decoder_layout(cfg)
     M = _memory_len(cfg, max_seq)
     out = {}
@@ -146,27 +158,11 @@ def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
             c = {"slstm": xlstm_mod.slstm_state_defs(cfg, batch, n_p)}
         if s.cross:
             shape = (n_p, batch, M, cfg.num_kv_heads, cfg.head_dim)
-            c["cross_kv"] = {"k": (shape, BF16), "v": (shape, BF16)}
+            axes = (None, "kv_batch", None, "tp", None)
+            c["cross_kv"] = {"k": ParamDef(shape, BF16, axes, "zeros"),
+                             "v": ParamDef(shape, BF16, axes, "zeros")}
         out[f"slot{i}"] = c
     return out
-
-
-def _init_one(shape, init: str, dtype, generator, device) -> torch.Tensor:
-    if init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=device)
-    if init == "ones":
-        return torch.ones(shape, dtype=dtype, device=device)
-    if init == "ssm_a":
-        a = torch.log(torch.arange(1, shape[-1] + 1, dtype=F32,
-                                   device=device))
-        return a.expand(shape).to(dtype).contiguous()
-    x = torch.randn(shape, generator=generator, dtype=F32, device=device)
-    if init == "normal":
-        return x.mul_(0.02).to(dtype)
-    if init == "scaled":
-        fan_in = shape[-2] if len(shape) >= 2 else max(shape[0], 1)
-        return x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
-    raise ValueError(f"unknown init {init!r}")
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -176,27 +172,14 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     ``train.cast_for_compute`` casts the per-layer 1-D leaves to bf16 as
     well, as the reference's cast of its stacked tree does); MoE layers
     hold ``experts`` (None: all).  ``generator`` must live on
-    ``device``."""
+    ``device``.  The draws follow ``layer_defs``' order: the embedding,
+    the final norm, then layer after layer (each layer's keys in their
+    defs' order), then the encoder's layers and norm."""
     dev = resolve_device(device)
-    defs = param_defs(cfg, experts)
-
-    def make(tree):
-        return {k: make(v) if isinstance(v, dict) else _init_one(
-            v[0], v[2], dtype if len(v[0]) >= 2 else F32, generator, dev)
-            for k, v in tree.items()}
-
-    def stack(n: int, slots: list) -> list:
-        return [make(slots[l % len(slots)]) for l in range(n * len(slots))]
-
-    n_p, _ = decoder_layout(cfg)
-    params = {"embed": make(defs["embed"]),
-              "final_norm": make(defs["final_norm"]),
-              "layers": stack(n_p, defs["slots"])}
-    if "encoder_slots" in defs:
-        params["encoder"] = stack(encoder_layout(cfg)[0],
-                                  defs["encoder_slots"])
-        params["enc_norm"] = make(defs["enc_norm"])
-    return params
+    defs = tree_map(lambda d: dataclasses.replace(
+        d, dtype=dtype if len(d.shape) >= 2 else F32),
+        layer_defs(cfg, experts))
+    return materialize(defs, generator, dev)
 
 
 def _stacks(cfg: ModelConfig) -> list:
@@ -226,8 +209,8 @@ def active_param_count(cfg: ModelConfig) -> int:
             if isinstance(v, dict):
                 walk(v, n_stack, in_ffn or name == "ffn")
                 continue
-            shape = v[0]
-            n = n_stack * math.prod(shape)
+            shape = v.shape
+            n = n_stack * v.size
             if in_ffn and cfg.num_experts and len(shape) >= 2 \
                     and name != "router":
                 n = int(n * cfg.num_experts_per_tok / cfg.num_experts)
@@ -251,15 +234,18 @@ def model_flops(cfg: ModelConfig, shape) -> float:
 
 
 def train_batch_defs(cfg: ModelConfig, shape) -> dict:
-    """{name: (shape, dtype)} of a training batch: ``tokens`` and
-    ``targets`` [B, S] int32; an encdec's ``frames`` [B, S, d] and a
-    vlm's ``image_embeds`` [B, num_image_tokens, d], bf16."""
+    """{name: ParamDef} of a training batch: ``tokens`` and ``targets``
+    [B, S] int32; an encdec's ``frames`` [B, S, d] and a vlm's
+    ``image_embeds`` [B, num_image_tokens, d], bf16."""
     B, S = shape.global_batch, shape.seq_len
-    d = {"tokens": ((B, S), torch.int32), "targets": ((B, S), torch.int32)}
+    ids = ParamDef((B, S), torch.int32, ("batch", None), "zeros")
+    d = {"tokens": ids, "targets": ids}
     if cfg.family == "encdec":
-        d["frames"] = ((B, S, cfg.d_model), BF16)
+        d["frames"] = ParamDef((B, S, cfg.d_model), BF16,
+                               ("batch", None, None), "normal")
     if cfg.family == "vlm":
-        d["image_embeds"] = ((B, cfg.num_image_tokens, cfg.d_model), BF16)
+        d["image_embeds"] = ParamDef((B, cfg.num_image_tokens, cfg.d_model),
+                                     BF16, ("batch", None, None), "normal")
     return d
 
 
@@ -270,4 +256,5 @@ def prefill_batch_defs(cfg: ModelConfig, shape) -> dict:
 
 
 def decode_batch_defs(cfg: ModelConfig, shape) -> dict:
-    return {"tokens": ((shape.global_batch, 1), torch.int32)}
+    return {"tokens": ParamDef((shape.global_batch, 1), torch.int32,
+                               ("batch", None), "zeros")}

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.selective_scan import (
     selective_scan_discretized,
@@ -44,28 +45,31 @@ def dt_rank(cfg: ModelConfig) -> int:
 
 
 def mamba_defs(cfg: ModelConfig) -> dict:
-    """{name: (shape, reference dtype, init)} of one Mamba mixer."""
+    """{name: ParamDef} of one Mamba mixer."""
     d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_d_state
     R = dt_rank(cfg)
     return {
-        "in_proj": ((d, 2 * di), BF16, "scaled"),
-        "conv_w": ((cfg.ssm_d_conv, di), BF16, "scaled"),
-        "conv_b": ((di,), F32, "zeros"),
-        "x_proj": ((di, R + 2 * N), BF16, "scaled"),
-        "dt_proj": ((R, di), BF16, "scaled"),
-        "dt_bias": ((di,), F32, "zeros"),
-        "A_log": ((di, N), F32, "ssm_a"),
-        "D": ((di,), F32, "ones"),
-        "norm": ((di,), F32, "ones"),
-        "out_proj": ((di, d), BF16, "scaled"),
+        "in_proj": ParamDef((d, 2 * di), BF16, ("fsdp", "tp"), "scaled"),
+        "conv_w": ParamDef((cfg.ssm_d_conv, di), BF16, (None, "tp"),
+                           "scaled"),
+        "conv_b": ParamDef((di,), F32, ("tp",), "zeros"),
+        "x_proj": ParamDef((di, R + 2 * N), BF16, ("tp", None), "scaled"),
+        "dt_proj": ParamDef((R, di), BF16, (None, "tp"), "scaled"),
+        "dt_bias": ParamDef((di,), F32, ("tp",), "zeros"),
+        "A_log": ParamDef((di, N), F32, ("tp", None), "ssm_a"),
+        "D": ParamDef((di,), F32, ("tp",), "ones"),
+        "norm": ParamDef((di,), F32, ("tp",), "ones"),
+        "out_proj": ParamDef((di, d), BF16, ("tp", "fsdp"), "scaled"),
     }
 
 
 def mamba_state_defs(cfg: ModelConfig, batch: int, n_layers: int) -> dict:
-    """{name: (shape, dtype)} of the stacked decode state."""
+    """{name: ParamDef} of the stacked decode state."""
     di, N, W = cfg.d_inner, cfg.ssm_d_state, cfg.ssm_d_conv
-    return {"h": ((n_layers, batch, di, N), F32),
-            "conv": ((n_layers, batch, W - 1, di), BF16)}
+    return {"h": ParamDef((n_layers, batch, di, N), F32,
+                          (None, "kv_batch", "tp", None), "zeros"),
+            "conv": ParamDef((n_layers, batch, W - 1, di), BF16,
+                             (None, "kv_batch", None, "tp"), "zeros")}
 
 
 def check_length(S: int) -> None:

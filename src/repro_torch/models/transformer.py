@@ -43,6 +43,7 @@ carried beside a buffer, keeps the cache tree the reference's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.utils.checkpoint
@@ -243,6 +244,26 @@ def _replace_leaves(caches: dict, slots: list[Slot], n_p: int,
                                  for n, t in ckv.items()}
 
 
+def _remat_kwargs(policy: str) -> dict:
+    """``torch.utils.checkpoint``'s extra arguments for a remat policy:
+    "block" recomputes the whole period; "dots" keeps the outputs of the
+    2-D products (``aten.mm``, ``aten.addmm``: every projection, which
+    has no batch dim once its input is flattened) and recomputes the
+    rest, the counterpart of ``checkpoint_dots_with_no_batch_dims``."""
+    if policy == "block":
+        return {}
+    if policy == "dots":
+        from torch.utils.checkpoint import (
+            create_selective_checkpoint_contexts,
+        )
+
+        aten = torch.ops.aten
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts,
+            [aten.mm.default, aten.addmm.default])}
+    raise ValueError(f"remat_policy {policy!r}: one of none, block, dots")
+
+
 def _run_stack(layers: list, slots: list[Slot], x: torch.Tensor,
                cfg: ModelConfig, *, mode: str, positions: torch.Tensor,
                index: int | None, caches: dict | None, backend: str,
@@ -251,9 +272,11 @@ def _run_stack(layers: list, slots: list[Slot], x: torch.Tensor,
     """Periods x slots in order (layer p * P + i); slot i of period p
     reads and writes ``caches["slot{i}"]``' slice p.  -> (x, aux summed
     over the periods, each period's in slot order).  ``remat`` in train
-    mode with ``cfg.remat_policy == "block"``: each period runs under
-    ``torch.utils.checkpoint`` (its activations recomputed in the
-    backward, as the reference's ``jax.checkpoint`` of the period)."""
+    mode: each period runs under ``torch.utils.checkpoint`` (its
+    activations recomputed in the backward, as the reference's
+    ``jax.checkpoint`` of the period), all of them for
+    ``cfg.remat_policy == "block"``, all but the 2-D products' outputs
+    for ``"dots"``."""
     P = len(slots)
     aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
             for k in MOE_AUX} if any(s.ffn == "moe" for s in slots) else {})
@@ -274,16 +297,12 @@ def _run_stack(layers: list, slots: list[Slot], x: torch.Tensor,
         return x, per
 
     remat = remat and mode == "train" and cfg.remat_policy != "none"
-    if remat and cfg.remat_policy != "block":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: the port remats whole "
-            "periods (\"block\") or nothing; \"dots\" waits for the "
-            "launch/ slice (ROADMAP Queue 1 item 6.6)")
+    remat_kw = _remat_kwargs(cfg.remat_policy) if remat else {}
     for period in range(len(layers) // P):
         if remat:
             x, per = torch.utils.checkpoint.checkpoint(
                 period_fn, x, period, memory, use_reentrant=False,
-                preserve_rng_state=False)
+                preserve_rng_state=False, **remat_kw)
         else:
             x, per = period_fn(x, period, memory)
         if per:

@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import silu
 
@@ -45,28 +46,32 @@ def check_length(S: int, chunk: int = CHUNK) -> None:
 
 
 def mlstm_defs(cfg: ModelConfig) -> dict:
-    """{name: (shape, reference dtype, init)} of one mLSTM mixer."""
+    """{name: ParamDef} of one mLSTM mixer."""
     d, HD, H = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.num_heads
     return {
-        "wq": ((d, HD), BF16, "scaled"),
-        "wk": ((d, HD), BF16, "scaled"),
-        "wv": ((d, HD), BF16, "scaled"),
-        "wz": ((d, HD), BF16, "scaled"),
-        "wo": ((HD, d), BF16, "scaled"),
-        "w_if": ((d, 2 * H), F32, "scaled"),
-        "b_if": ((2 * H,), F32, "zeros"),
-        "conv_w": ((4, HD), BF16, "scaled"),
-        "conv_b": ((HD,), F32, "zeros"),
-        "hnorm": ((HD,), F32, "ones"),
+        "wq": ParamDef((d, HD), BF16, ("fsdp", "tp"), "scaled"),
+        "wk": ParamDef((d, HD), BF16, ("fsdp", "tp"), "scaled"),
+        "wv": ParamDef((d, HD), BF16, ("fsdp", "tp"), "scaled"),
+        "wz": ParamDef((d, HD), BF16, ("fsdp", "tp"), "scaled"),
+        "wo": ParamDef((HD, d), BF16, ("tp", "fsdp"), "scaled"),
+        "w_if": ParamDef((d, 2 * H), F32, ("fsdp", None), "scaled"),
+        "b_if": ParamDef((2 * H,), F32, (None,), "zeros"),
+        "conv_w": ParamDef((4, HD), BF16, (None, "tp"), "scaled"),
+        "conv_b": ParamDef((HD,), F32, ("tp",), "zeros"),
+        "hnorm": ParamDef((HD,), F32, ("tp",), "ones"),
     }
 
 
 def mlstm_state_defs(cfg: ModelConfig, batch: int, n_layers: int) -> dict:
     H, Dh = cfg.num_heads, cfg.head_dim
-    return {"C": ((n_layers, batch, H, Dh, Dh), F32),
-            "n": ((n_layers, batch, H, Dh), F32),
-            "m": ((n_layers, batch, H), F32),
-            "conv": ((n_layers, batch, 3, H * Dh), BF16)}
+    return {"C": ParamDef((n_layers, batch, H, Dh, Dh), F32,
+                          (None, "kv_batch", None, None, "tp"), "zeros"),
+            "n": ParamDef((n_layers, batch, H, Dh), F32,
+                          (None, "kv_batch", None, "tp"), "zeros"),
+            "m": ParamDef((n_layers, batch, H), F32,
+                          (None, "kv_batch", None), "zeros"),
+            "conv": ParamDef((n_layers, batch, 3, H * Dh), BF16,
+                             (None, "kv_batch", None, "tp"), "zeros")}
 
 
 def _mlstm_chunkwise(q, k, v, li, lf, state, chunk: int = CHUNK):
@@ -188,22 +193,26 @@ def mlstm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def slstm_defs(cfg: ModelConfig) -> dict:
-    """{name: (shape, reference dtype, init)} of one sLSTM mixer."""
+    """{name: ParamDef} of one sLSTM mixer."""
     d, H, Dh = cfg.d_model, cfg.num_heads, cfg.head_dim
     HD = H * Dh
     return {
-        "w": ((d, 4, HD), BF16, "scaled"),
-        "b": ((4, HD), F32, "zeros"),
-        "r": ((H, Dh, 4, Dh), BF16, "scaled"),
-        "hnorm": ((HD,), F32, "ones"),
-        "wo": ((HD, d), BF16, "scaled"),
+        "w": ParamDef((d, 4, HD), BF16, ("fsdp", None, "tp"), "scaled"),
+        "b": ParamDef((4, HD), F32, (None, "tp"), "zeros"),
+        "r": ParamDef((H, Dh, 4, Dh), BF16, (None, None, None, "slstm_r"),
+                      "scaled"),
+        "hnorm": ParamDef((HD,), F32, ("tp",), "ones"),
+        "wo": ParamDef((HD, d), BF16, ("tp", "fsdp"), "scaled"),
     }
 
 
 def slstm_state_defs(cfg: ModelConfig, batch: int, n_layers: int) -> dict:
     shp = (n_layers, batch, cfg.num_heads, cfg.head_dim)
-    return {"c": (shp, F32), "n": (shp, F32), "h": (shp, F32),
-            "m": (shp[:-1], F32)}
+    ax = (None, "kv_batch", None, None)
+    return {"c": ParamDef(shp, F32, ax, "zeros"),
+            "n": ParamDef(shp, F32, ax, "zeros"),
+            "h": ParamDef(shp, F32, ax, "zeros"),
+            "m": ParamDef(shp[:-1], F32, ax[:-1], "zeros")}
 
 
 def slstm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,

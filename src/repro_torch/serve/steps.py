@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.pytree import materialize
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
@@ -17,12 +18,8 @@ from repro_torch.models.transformer import forward
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> dict:
     """A zeroed cache tree on ``device``."""
-    dev = resolve_device(device)
-    return {slot: {kind: {name: torch.zeros(shape, dtype=dt, device=dev)
-                          for name, (shape, dt) in leaves.items()}
-                   for kind, leaves in tree.items()}
-            for slot, tree in registry.cache_defs(cfg, batch,
-                                                  max_seq).items()}
+    return materialize(registry.cache_defs(cfg, batch, max_seq),
+                       device=resolve_device(device))
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

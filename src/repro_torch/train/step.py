@@ -28,6 +28,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.pytree import (
+    ParamDef,
     cast_floating,
     tree_leaves,
     tree_map,
@@ -81,26 +82,13 @@ def _optimizer(cfg: ModelConfig):
 
 
 def train_state_defs(cfg: ModelConfig, experts=None) -> dict:
-    """The state tree as (shape, dtype) pairs, nothing allocated."""
-    n_p, _ = decoder_layout(cfg)
-    defs = registry.param_defs(cfg, experts)
+    """The state tree as ParamDefs (master weights in
+    ``cfg.master_dtype`` on the parameters' axes), nothing allocated."""
     master = _dtype(cfg.master_dtype)
-
-    def tree(t):
-        return {k: tree(v) if isinstance(v, dict) else (tuple(v[0]), master)
-                for k, v in t.items()}
-
-    def stack(n, slots):
-        return [tree(slots[l % len(slots)]) for l in range(n * len(slots))]
-
-    pdefs = {"embed": tree(defs["embed"]),
-             "final_norm": tree(defs["final_norm"]),
-             "layers": stack(n_p, defs["slots"])}
-    if "encoder_slots" in defs:
-        pdefs["encoder"] = stack(encoder_layout(cfg)[0], defs["encoder_slots"])
-        pdefs["enc_norm"] = tree(defs["enc_norm"])
+    pdefs = tree_map(lambda d: dataclasses.replace(d, dtype=master),
+                     registry.layer_defs(cfg, experts))
     return {"params": pdefs, "opt": _optimizer(cfg).state_defs(pdefs),
-            "step": ((), torch.int32)}
+            "step": ParamDef((), torch.int32, (), "zeros")}
 
 
 def init_train_state(cfg: ModelConfig, *, generator: torch.Generator,

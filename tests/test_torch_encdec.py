@@ -134,7 +134,8 @@ def test_registry_and_init_follow_the_reference():
     # the registry's memory length is the sequence's
     shape = (cfg.num_decoder_layers, 3, 20, cfg.num_kv_heads, cfg.head_dim)
     for n in ("k", "v"):
-        assert tc["slot0"]["cross_kv"][n] == (shape, torch.bfloat16)
+        d = tc["slot0"]["cross_kv"][n]
+        assert (d.shape, d.dtype) == (shape, torch.bfloat16)
         assert tuple(jc["slot0"]["cross_kv"][n].shape) == shape
     params = TR.init_params(cfg, generator=torch.Generator().manual_seed(0),
                             device="cpu")

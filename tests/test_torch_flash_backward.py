@@ -236,3 +236,50 @@ def test_discretized_entry_gives_a_gradient_on_cpu():
     assert all(g.shape == t.shape and bool(torch.isfinite(g).all())
                for g, t in zip(grads, leaves))
     assert _ext.LAUNCHES == before
+
+
+def _attention_f64(q, k, v, *, causal):
+    """attention_ref's function in f64 (the exact yardstick)."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst", q.reshape(B, Sq, K, H // K, D), k)
+    s = s / np.sqrt(D)
+    if causal:
+        mask = torch.arange(k.shape[1])[None, :] <= torch.arange(Sq)[:, None]
+        s = torch.where(mask, s, -1e300)
+    o = torch.einsum("bkgst,btkd->bkgsd", torch.softmax(s, -1), v)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def test_f32_dq_at_large_scores_is_f32s_own_error(record_property):
+    """Jamba's large-score case (``chip_smoke.K7B_LARGE_SCORES``: q x 60,
+    D = 128, S = 512, causal, scores spreading near 360 over a row) at
+    B = 1 and 8 query heads over 1.  On the card every f32 evaluation of
+    dq lies about 5e-5 of its largest value from the f64 gradient.  Here
+    the reference's own f32 ``jax.vjp`` of ``chunked_attention`` lies as
+    far from it as the port's ``attention_bwd_ref`` (at least 1 / 1.5 of
+    its distance): the distance is f32's, not the port's."""
+    B, S, H, K, D = 1, 512, 8, 1, 128
+    q, k, v, do = _inputs(7, B, S, S, H, K, D)
+    q = q * np.float32(60.0)
+    exact = [t.detach().clone().double().requires_grad_()
+             for t in map(torch.from_numpy, (q, k, v))]
+    _attention_f64(*exact, causal=True).backward(
+        torch.from_numpy(do).double())
+    dq64 = exact[0].grad.numpy()
+    port = attention_bwd_ref(*map(torch.from_numpy, (q, k, v, do)),
+                             causal=True, window=0, q_offset=0,
+                             skv=S)[0].numpy()
+    vjp = jax.jit(lambda a, b, c, g: jax.vjp(
+        lambda x, y, z: chunked_attention(x, y, z, causal=True), a, b, c
+    )[1](g))
+    ref = np.asarray(vjp(q, k, v, do)[0])
+    scale = np.abs(dq64).max()
+    port_err = float(np.abs(port - dq64).max() / scale)
+    ref_err = float(np.abs(ref - dq64).max() / scale)
+    record_property("dq_port_from_f64", port_err)
+    record_property("dq_reference_from_f64", ref_err)
+    print(f"dq from the f64 gradient, of its largest value: port "
+          f"{port_err:.3e}, reference {ref_err:.3e}")
+    assert ref_err >= port_err / 1.5, (port_err, ref_err)
+    assert port_err < 1e-3

@@ -437,8 +437,8 @@ def test_registry_follows_the_reference():
     assert {s: {k: {n: (tuple(d.shape), jnp.dtype(d.dtype).name)
                     for n, d in leaves.items()}
                 for k, leaves in tree.items()} for s, tree in jc.items()} \
-        == {s: {k: {n: (shape, str(dt).split(".")[-1])
-                    for n, (shape, dt) in leaves.items()}
+        == {s: {k: {n: (d.shape, str(d.dtype).split(".")[-1])
+                    for n, d in leaves.items()}
                 for k, leaves in tree.items()} for s, tree in tc.items()}
     # init: per-slot trees, the expert share, A_log = log(1..N)
     params = TR.init_params(cfg, generator=torch.Generator().manual_seed(0),

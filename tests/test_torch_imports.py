@@ -48,7 +48,12 @@ assert {"repro_torch.core.chaining", "repro_torch.core.alchemy",
         "repro_torch.train.step", "repro_torch.optim.optimizers",
         "repro_torch.optim.schedule", "repro_torch.ckpt.checkpoint",
         "repro_torch.ft.restart", "repro_torch.kernels.selective_scan.ops",
-        "repro_torch.kernels.selective_scan.ref"} <= set(names), names
+        "repro_torch.kernels.selective_scan.ref",
+        "repro_torch.launch.train", "repro_torch.launch.serve",
+        "repro_torch.launch.specs", "repro_torch.launch.mesh",
+        "repro_torch.launch.multihost", "repro_torch.dist.sharding",
+        "repro_torch.dist.compression",
+        "repro_torch.dist.pipeline"} <= set(names), names
 import repro_torch.kernels.selective_scan as ss
 assert {"SelectiveScanFn", "selective_scan_bwd_launch", "bwd_chunk",
         "selective_scan_bwd_ref", "selective_scan_bwd_chunked_ref",
@@ -221,3 +226,15 @@ def test_hybrid_training_entry_points_raise_without_a_gpu():
     with pytest.raises(ValueError, match="CUDA"):
         selective_scan_bwd_launch(dt, A, BC, BC, x,
                                   torch.zeros(B, 1, di, N), dy)
+
+
+def test_launchers_raise_without_a_gpu():
+    """The launchers run on the card by default: without a GPU they raise
+    before building anything, naming ``--device cpu``'s way out."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU rule cannot be shown")
+    from repro_torch.launch import serve, train
+
+    for main in (train.main, serve.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--steps", "1"] if main is train.main else [])

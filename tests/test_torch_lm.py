@@ -103,8 +103,8 @@ def _def_tree(tree) -> dict:
         for kind, leaves in kinds.items():
             for name, d in leaves.items():
                 shape, dt = ((d.shape, jnp.dtype(d.dtype).name)
-                             if hasattr(d, "shape") else
-                             (d[0], str(d[1]).split(".")[-1]))
+                             if not isinstance(d.dtype, torch.dtype) else
+                             (d.shape, str(d.dtype).split(".")[-1]))
                 out[f"{slot}/{kind}/{name}"] = (tuple(shape), dt)
     return out
 
@@ -448,7 +448,7 @@ def test_shapes_counts_and_init_follow_the_reference(name):
     tc = TR.cache_defs(cfg, 3, 20)["slot0"]["kv"]
     assert {n: (tuple(d.shape), jnp.dtype(d.dtype).name)
             for n, d in jc.items()} == {
-        n: (shape, str(dt).split(".")[-1]) for n, (shape, dt) in tc.items()}
+        n: (d.shape, str(d.dtype).split(".")[-1]) for n, d in tc.items()}
 
 
 def test_conversion_is_a_copy_and_layers_view_the_stack():

@@ -21,7 +21,7 @@ from repro.optim import adafactor as jax_adafactor
 from repro.optim import adamw as jax_adamw
 from repro.optim import clip_by_global_norm as jax_clip
 from repro.optim import warmup_cosine as jax_warmup_cosine
-from repro_torch.common.pytree import tree_leaves
+from repro_torch.common.pytree import ParamDef, tree_leaves
 from repro_torch.optim import (
     adafactor,
     adamw,
@@ -103,14 +103,16 @@ def test_adafactor_bf16_master_matches_reference(n_updates):
     _close(ts, js)
 
 
-def test_adafactor_groups_share_the_stacked_leaf_rms():
+@pytest.mark.parametrize("shape", ((3, 5, 7), (3, 7)))
+def test_adafactor_groups_share_the_stacked_leaf_rms(shape):
     """A leaf the reference stacks over 3 periods [3, 5, 7] is three
     per-layer [5, 7] leaves in the port; with ``group_of`` putting them
     in one group their update clip and relative step are the stacked
-    leaf's."""
+    leaf's.  Stacked [3, 7] (per-layer 1-D leaves) the reference factors
+    the second moment over the layers, and so does the port."""
     rng = np.random.default_rng(1)
-    p = rng.normal(size=(3, 5, 7)).astype(np.float32)
-    grads = [rng.normal(size=(3, 5, 7)).astype(np.float32) for _ in range(3)]
+    p = rng.normal(size=shape).astype(np.float32)
+    grads = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
     jopt = jax_adafactor()
     jp = {"w": jnp.asarray(p)}
     js = jopt.init(jp)
@@ -126,6 +128,14 @@ def test_adafactor_groups_share_the_stacked_leaf_rms():
     got = torch.stack(tp["w"]).numpy()
     want = np.asarray(jp["w"])
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    if len(shape) == 2:
+        assert [set(s) for s in ts["f"]["w"]] == [{"vr", "vc"}, {"vr"},
+                                                  {"vr"}]
+        np.testing.assert_allclose(
+            torch.stack([s["vr"] for s in ts["f"]["w"]]).numpy(),
+            np.asarray(js["f"]["w"]["vr"]), rtol=1e-6)
+        np.testing.assert_allclose(ts["f"]["w"][0]["vc"].numpy(),
+                                   np.asarray(js["f"]["w"]["vc"]), rtol=1e-6)
 
 
 def test_clip_and_global_norm_match_reference():
@@ -150,11 +160,55 @@ def test_warmup_cosine_matches_reference():
 
 
 def test_state_defs_and_names():
-    defs = {"w": ((4, 6), torch.bfloat16), "b": ((6,), torch.float32)}
-    assert opt_state_defs("adamw", defs)["m"]["w"] == ((4, 6), torch.float32)
+    defs = {"w": ParamDef((4, 6), torch.bfloat16, ("fsdp", "tp")),
+            "b": ParamDef((6,), torch.float32, ("tp",))}
+    f32 = torch.float32
+    assert opt_state_defs("adamw", defs)["m"]["w"] == ParamDef(
+        (4, 6), f32, ("fsdp", "tp"), "zeros")
     f = opt_state_defs("adafactor", defs)["f"]
-    assert f["w"] == {"vr": ((4,), torch.float32), "vc": ((6,), torch.float32)}
-    assert f["b"] == {"v": ((6,), torch.float32)}
+    assert f["w"] == {"vr": ParamDef((4,), f32, ("fsdp",), "zeros"),
+                      "vc": ParamDef((6,), f32, ("tp",), "zeros")}
+    assert f["b"] == {"v": ParamDef((6,), f32, ("tp",), "zeros")}
     assert get_optimizer("adamw").name == "adamw"
     with pytest.raises(ValueError):
         get_optimizer("sgd")
+
+
+def test_adafactor_state_carries_across_from_the_reference():
+    """Jamba's smoke config under Adafactor (two periods, so its per-layer
+    1-D leaves stack to factored [2, d] leaves in the reference): a state
+    in the reference's layout (zeros on its ``train_state_defs``, as its
+    ``init_train_state`` makes the moments) carried across by
+    ``convert.train_state_from_reference`` has the port's layout, leaf for
+    leaf, and the port's ``train_state_defs`` describe it."""
+    import dataclasses
+
+    from repro.common.pytree import is_def
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.train.step import train_state_defs as jax_state_defs
+    from repro_torch import convert
+    from repro_torch.common.pytree import tree_paths
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import init_train_state, train_state_defs
+
+    kw = dict(optimizer="adafactor", master_dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_smoke("jamba-1.5-large-398b"), **kw)
+    cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b"), **kw)
+    carried = convert.train_state_from_reference(
+        jax.tree.map(lambda d: np.zeros(d.shape, jnp.dtype(d.dtype)),
+                     jax_state_defs(jcfg), is_leaf=is_def), device="cpu")
+    ours = init_train_state(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    defs = train_state_defs(cfg)
+    assert tree_paths(carried["opt"]) == tree_paths(ours["opt"]) == \
+        tree_paths(defs["opt"])
+    paths = set(tree_paths(ours["opt"]))
+    P = len(ours["params"]["layers"]) // 2      # layers a period
+    ln1 = ("f", "layers", 0, "ln1", "scale")
+    assert {ln1 + ("vr",), ln1 + ("vc",)} <= paths
+    later = ("f", "layers", P, "ln1", "scale")
+    assert later + ("vr",) in paths and later + ("vc",) not in paths
+    for a, b, d in zip(tree_leaves(carried["opt"]), tree_leaves(ours["opt"]),
+                       tree_leaves(defs["opt"])):
+        assert a.shape == b.shape == d.shape and a.dtype == b.dtype
+        assert not a.any()

@@ -74,7 +74,9 @@ def test_microbatch_accumulation_equivalence():
                                   "seamless-m4t-large-v2"))
 def test_remat_changes_no_gradient(arch):
     """Each period under torch.utils.checkpoint recomputes the same
-    activations: the gradients are bit for bit those without it."""
+    activations, whole ("block") or all but the 2-D products' outputs
+    ("dots", the reference's ``checkpoint_dots_with_no_batch_dims``):
+    the gradients are bit for bit those without it on the CPU."""
     cfg = get_smoke_config(arch)
     params = _state(cfg)["params"]
     b = TokenDataset(cfg.vocab_size, 16, 2, seed=2).batch_at(0)
@@ -86,15 +88,17 @@ def test_remat_changes_no_gradient(arch):
     for x in leaves:
         x.requires_grad_()
     grads = []
-    for remat in (False, True):
-        logits, _, aux = forward(params, cfg, tokens=torch.from_numpy(
-            b["tokens"]), mode="train", remat=remat, **kw)
+    for remat, policy in ((False, "block"), (True, "block"), (True, "dots")):
+        logits, _, aux = forward(
+            params, dataclasses.replace(cfg, remat_policy=policy),
+            tokens=torch.from_numpy(b["tokens"]), mode="train", remat=remat,
+            **kw)
         loss, _ = total_loss(logits, torch.from_numpy(b["targets"]), aux)
         grads.append(torch.autograd.grad(loss, leaves))
-    for a, c in zip(*grads):
-        assert torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="dots"):
-        forward(params, dataclasses.replace(cfg, remat_policy="dots"),
+    for a, c, d in zip(*grads):
+        assert torch.equal(a, c) and torch.equal(a, d)
+    with pytest.raises(ValueError, match="remat_policy"):
+        forward(params, dataclasses.replace(cfg, remat_policy="offload"),
                 tokens=torch.from_numpy(b["tokens"]), mode="train",
                 remat=True, **kw)
 
@@ -118,9 +122,10 @@ def test_registry_shape_arithmetic_matches_reference():
                      jax_registry.decode_batch_defs)):
                 got, want = ours(cfg, shape), theirs(jcfg, jshape)
                 assert set(got) == set(want), (arch, name)
-                for k, (s, dt) in got.items():
-                    assert s == tuple(want[k].shape), (arch, name, k)
-                    assert str(dt).split(".")[-1] == \
+                for k, d in got.items():
+                    assert d.shape == tuple(want[k].shape), (arch, name, k)
+                    assert d.axes == tuple(want[k].axes), (arch, name, k)
+                    assert str(d.dtype).split(".")[-1] == \
                         jnp.dtype(want[k].dtype).name, (arch, name, k)
 
 
@@ -143,9 +148,4 @@ def test_state_defs_describe_the_state(arch):
 
 
 def _def_leaves(tree):
-    if isinstance(tree, tuple) and len(tree) == 2 and isinstance(tree[0],
-                                                                 tuple):
-        return [tree]
-    if isinstance(tree, dict):
-        return [d for k in sorted(tree) for d in _def_leaves(tree[k])]
-    return [d for v in tree for d in _def_leaves(v)]
+    return [(d.shape, d.dtype) for d in tree_leaves(tree)]

@@ -118,12 +118,12 @@ def test_registry_and_init_follow_the_reference():
     cfg = configs.get_smoke_config(ARCH)
     tc = TR.cache_defs(cfg, 3, 20)
     jc = JR.cache_defs(jax_smoke(ARCH), 3, 20)
-    assert {s: {k: {n: d[0] for n, d in leaves.items()}
+    assert {s: {k: {n: d.shape for n, d in leaves.items()}
                 for k, leaves in tree.items()} for s, tree in tc.items()} \
         == {s: {k: {n: tuple(d.shape) for n, d in leaves.items()}
                 for k, leaves in tree.items()} for s, tree in jc.items()}
-    assert tc["slot1"]["mlstm"]["conv"][1] == torch.bfloat16
-    assert tc["slot0"]["slstm"]["m"][1] == torch.float32
+    assert tc["slot1"]["mlstm"]["conv"].dtype == torch.bfloat16
+    assert tc["slot0"]["slstm"]["m"].dtype == torch.float32
     params = TR.init_params(cfg, generator=torch.Generator().manual_seed(0),
                             device="cpu")
     jdefs = JR.param_defs(jax_smoke(ARCH))["decoder"]
