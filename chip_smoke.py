@@ -307,6 +307,13 @@ held to the same steps run by hand, then served through
 ``repro_torch.launch.serve.main`` and held to a ``ServeEngine`` fed the
 same params and requests; K7 and K7b counted on both.
 
+Slice 21 adds ``path_mesh`` (after ``path_launch``): the same launchers
+with ``mesh=`` a 1 x 1 ("data", "model") mesh of a one-rank NCCL group,
+the state, parameters and caches ``DTensor``s and K7 / K7b on their
+local shards, held to ``path_launch``'s losses and tokens, and the
+dry-run's tally of the step on ``meta`` tensors (``launch.step_cost``)
+beside ``FlopCounterMode`` and the card's peak.
+
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 exits 1; a missing GPU, torch or ``src/repro_torch`` exits 2 and prints
@@ -7097,8 +7104,9 @@ def path_launch(dev):
     ``TRAIN_LOSS_TOL``, with the equality reported).  Serving: every
     request served with 16 tokens, the tokens those of a ``ServeEngine``
     fed the same seeded params and requests directly, K7 28 x (prefill +
-    decode calls) launches, nothing else.  -> the launchers' launch
-    counts."""
+    decode calls) launches, nothing else.  -> (the launchers' launch
+    counts, {"losses", "tokens", "peak_gb"} of the unsharded run for
+    ``path_mesh``)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -7219,7 +7227,167 @@ def path_launch(dev):
           "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
     for ok, msg in gates:
         check(ok, msg)
-    return launches
+    return launches, {"losses": losses, "tokens": [r.out for r in served],
+                      "peak_gb": train_peak_gb}
+
+
+# ------------------------------------ slice 21: sharded execution
+
+
+def path_mesh(dev, unsharded: dict):
+    """The launchers under a mesh on one card: a one-rank NCCL group, a
+    1 x 1 ("data", "model") ``DeviceMesh``, ``launch.train.main`` and
+    ``launch.serve.main`` with ``mesh=`` (the state, parameters and
+    caches ``DTensor``s; K7 and K7b on each rank's local shards), the
+    launch counts set to 0 just before each and read just after.  Gates:
+    the 3 losses within ``TRAIN_LOSS_TOL`` of ``path_launch``'s unsharded
+    ones (on a 1 x 1 mesh every collective is the identity, so bit for
+    bit is expected and reported); K7 2 x 28 and K7b 28 launches a step
+    and nothing else (no ``DTensor`` reached a plain version); the 8
+    requests' tokens ``path_launch``'s (``unsharded``: its losses,
+    tokens and training peak).  Then the dry-run's tally of the
+    same step on ``meta`` tensors (``launch.step_cost``) beside the card:
+    its product FLOPs within 1 % of ``FlopCounterMode`` over the real
+    step (the kernels' own operations, which that mode cannot see,
+    reported beside), its peak of live bytes beside
+    ``max_memory_allocated`` (reported, not gated), and the card's
+    ``total_memory`` (``core.autoshard.HBM_BYTES``).  -> the launch
+    counts."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.common import pytree as pt
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import _ext
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.launch.step_cost import trace_step
+    from repro_torch.train import (
+        TrainSettings,
+        init_train_state,
+        make_train_step,
+    )
+    from repro_torch.train.step import train_state_defs
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    L = cfg.num_layers
+    gates = []
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", dev.index or 0))
+    try:
+        mesh = make_mesh_shape((1, 1), ("data", "model"), "cuda")
+        losses = []
+        free_card()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _ext.reset_launches()
+        t = time.perf_counter()
+        launch_train.main(LAUNCH_TRAIN_ARGV, mesh=mesh, on_step=lambda s, m: (
+            losses.append(float(m["loss"]))))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        train_launches = dict(_ext.LAUNCHES)
+        train_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        free_card()
+        steps = len(losses)
+        want = dict.fromkeys(train_launches, 0) | {
+            "flash_attention": 2 * L * steps,
+            "flash_attention_bwd": L * steps}
+        diff = max(abs(a - b) for a, b in zip(losses, unsharded["losses"]))
+        gates += [
+            (steps == 3 and diff <= TRAIN_LOSS_TOL,
+             f"path_mesh train: losses {losses} against unsharded "
+             f"{unsharded['losses']}"),
+            (train_launches == want,
+             f"path_mesh train: launches {train_launches} != {want}")]
+
+        served = []
+        _ext.reset_launches()
+        t = time.perf_counter()
+        launch_serve.main(LAUNCH_SERVE_ARGV, mesh=mesh, requests_out=served)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        serve_launches = dict(_ext.LAUNCHES)
+        free_card()
+        calls = 2 * (1 + 16)
+        want = dict.fromkeys(serve_launches, 0) | {
+            "flash_attention": L * calls}
+        gates += [
+            ([r.out for r in served] == unsharded["tokens"],
+             "path_mesh serve: tokens differ from path_launch's"),
+            (serve_launches == want,
+             f"path_mesh serve: launches {serve_launches} != {want}")]
+    finally:
+        dist.destroy_process_group()
+
+    # the dry-run's tally of one such step on meta tensors, beside the
+    # real step's FlopCounterMode count and the card's peak
+    settings = TrainSettings(peak_lr=3e-3, warmup=5, total_steps=3,
+                             remat=True)
+    data = TokenDataset(cfg.vocab_size, 1024, 4, seed=0)
+    meta_state = pt.abstract(train_state_defs(cfg))
+    meta_batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+                  for k, v in data.batch_at(0).items()}
+    t = time.perf_counter()
+    cost = trace_step(make_train_step(cfg, settings),
+                      (meta_state, meta_batch), track=(meta_state,
+                                                       meta_batch))
+    trace_s = time.perf_counter() - t
+    kernel_flops = sum(k[1] for k in cost.kernels.values())
+    dry_dots = cost.flops - kernel_flops
+    state = init_train_state(cfg, generator=torch.Generator(dev).manual_seed(
+        0), device=dev)
+    step = make_train_step(cfg, settings)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch_at(0).items()}
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step(state, batch)
+    torch.cuda.synchronize()
+    del state, step
+    free_card()
+    counted = counter.get_total_flops()
+    flop_gap = abs(dry_dots - counted) / counted
+    gates.append((flop_gap <= 0.01,
+                  f"path_mesh dry-run: product FLOPs {dry_dots} against "
+                  f"FlopCounterMode's {counted}"))
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+    emit({"phase": "path_mesh", "arch": cfg.name, "mesh": [1, 1],
+          "train": {"losses": losses, "unsharded": unsharded["losses"],
+                    "bit_equal": losses == unsharded["losses"],
+                    "max_diff": diff, "seconds": train_s,
+                    "peak_gb": train_peak_gb,
+                    "unsharded_peak_gb": unsharded["peak_gb"],
+                    "launches": {k: n for k, n in train_launches.items()
+                                 if n}},
+          "serve": {"tokens_equal": [r.out for r in served]
+                    == unsharded["tokens"], "seconds": serve_s,
+                    "launches": {k: n for k, n in serve_launches.items()
+                                 if n}},
+          "dryrun": {"step_flops_products": dry_dots,
+                     "flop_counter_flops": counted, "flop_gap": flop_gap,
+                     "kernel_flops": kernel_flops,
+                     "kernels": {k: dict(zip(("calls", "flops", "bytes"), v))
+                                 for k, v in cost.kernels.items()},
+                     "hbm_bytes": cost.hbm,
+                     "peak_bytes": cost.peak,
+                     "card_peak_bytes": unsharded["peak_gb"] * 1e9,
+                     "trace_s": trace_s},
+          "total_memory": total_memory,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
+    for ok, msg in gates:
+        check(ok, msg)
+    return {k: train_launches.get(k, 0) + serve_launches.get(k, 0)
+            for k in set(train_launches) | set(serve_launches)}
 
 
 # ------------------------------------ slice 18: hybrid training (K8b)
@@ -7926,7 +8094,8 @@ def main() -> int:
         by_path["path_xlstm_serve"] = path_xlstm_serve(dev)
         by_path["path_lm_train"] = path_lm_train(dev)
         by_path["path_lm_restart"] = path_lm_restart(dev)
-        by_path["path_launch"] = path_launch(dev)
+        by_path["path_launch"], unsharded = path_launch(dev)
+        by_path["path_mesh"] = path_mesh(dev, unsharded)
         by_path["path_hybrid_train"] = path_hybrid_train(dev)
         grad_refusals(dev)
         by_path["path_generate"] = path_generate(dev)
@@ -7964,6 +8133,8 @@ def main() -> int:
                                                 "flash_attention_bwd")),
                            ("path_launch", ("flash_attention",
                                             "flash_attention_bwd")),
+                           ("path_mesh", ("flash_attention",
+                                          "flash_attention_bwd")),
                            ("path_hybrid_train", (
                                "selective_scan_discretized",
                                "selective_scan_bwd", "flash_attention",

@@ -14,6 +14,7 @@ A failed build raises.  Nothing here hands over to a plain version.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from pathlib import Path
@@ -63,6 +64,27 @@ def header_define(name: str) -> int:
         if parts[:2] == ["#define", name]:
             return int(parts[2])
     raise KeyError(f"{name} is not defined in csrc/rt_types.h")
+
+
+# on meta tensors (the dry-run's trace) a kernel wrapper launches nothing
+# and reports its work, (name, operations, bytes moved), to each sink
+# installed with ``cost_sink``
+_COST_SINKS: list = []
+
+
+@contextlib.contextmanager
+def cost_sink(fn):
+    """Install ``fn(name, flops, nbytes)`` for the ``with`` block."""
+    _COST_SINKS.append(fn)
+    try:
+        yield fn
+    finally:
+        _COST_SINKS.remove(fn)
+
+
+def record_cost(name: str, flops: float, nbytes: float) -> None:
+    for fn in list(_COST_SINKS):
+        fn(name, flops, nbytes)
 
 
 def reset_launches() -> None:

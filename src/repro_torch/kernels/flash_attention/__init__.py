@@ -6,6 +6,7 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_bwd_launch,
     flash_attention_launch,
+    on_local_heads,
 )
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF,

@@ -25,6 +25,18 @@ query at row i sits at position ``q_offset + i``; key t is attended when
 ``t < skv`` (default Skv), and, with ``causal``, ``t <= q_pos``, and with
 ``window > 0``, ``t > q_pos - window``.  f32 accumulation, output in q's
 dtype.  The kernel masks ragged edges itself, so nothing is padded.
+
+Under a mesh q, k and v arrive as ``DTensor``s (``dist.sharding.shard``
+places them ("batch", None, "tp", None)).  ``on_local_heads`` then runs
+the call on each rank's local shard: its batch rows and its query heads,
+with the kv heads those query heads read (a replicated kv, when the kv
+heads do not divide the mesh, is sliced to them), and wraps the local
+output back with q's placements.  The kernel (or, on CPU tensors, the
+plain version) sees plain tensors only; a ``DTensor`` never reaches it.
+
+On ``meta`` tensors (the dry-run traces a step there) K7 and K7b launch
+nothing: they return outputs of the right shapes and dtypes and report
+their work (``attention_cost``) to ``_ext.record_cost``.
 """
 
 from __future__ import annotations
@@ -33,6 +45,12 @@ import functools
 
 import torch
 
+from repro_torch.dist.sharding import (
+    from_local_shard,
+    is_dtensor,
+    local_shard,
+    place_offset,
+)
 from repro_torch.kernels import _ext
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
@@ -101,7 +119,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     skv: int | None = None) -> torch.Tensor:
     """-> [B, Sq, H, D] in q's dtype.  CUDA tensors: one K7 call; CPU
     tensors: the plain version over the first ``skv`` keys.  Under
-    autograd through ``FlashAttentionFn`` (K7b or the plain backward)."""
+    autograd through ``FlashAttentionFn`` (K7b or the plain backward).
+    ``DTensor`` operands: the same call on each rank's local heads
+    (``on_local_heads``)."""
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        return on_local_heads(flash_attention, q, k, v, causal=causal,
+                              window=window, q_offset=q_offset, skv=skv)
     skv = int(k.shape[1] if skv is None else skv)
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, window=window, q_offset=q_offset, skv=skv)
@@ -113,8 +136,95 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset=q_offset, skv=skv)
 
 
+def on_local_heads(fn, q, k, v, **kw) -> torch.Tensor:
+    """``fn(q, k, v, **kw)`` (an attention over [B, S, H, D] and [B, Skv,
+    K, D]) on each rank's local shard of ``DTensor`` operands.
+
+    On each mesh dim that shards q's batch (dim 0) every operand takes
+    that batch shard; on each that shards q's heads (dim 2) q keeps its
+    heads, and k and v are sharded over their kv heads where those
+    divide, else replicated; every other mesh dim replicates all three
+    (the sequence and head width stay whole).  Local query head i of a
+    rank holds global head o + i (o its offset) and reads kv head (o +
+    i) // G, G = H / K the global ratio, so a replicated k and v are
+    sliced to kv heads o // G .. (o + H_loc - 1) // G: the kernel's own
+    grouping over the slice is then the global one.  Gradients of a k or
+    v replicated where the call is split are partial sums (``Partial``);
+    the output has q's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    d = next(t for t in (q, k, v) if is_dtensor(t))
+    mesh = d.device_mesh
+    qp = q.placements if is_dtensor(q) else [Replicate()] * mesh.ndim
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    heads = 1
+    for i, p in enumerate(qp):
+        if isinstance(p, Shard) and p.dim == 2:
+            heads *= mesh.size(i)
+    qplace, kplace = [], []
+    for p in qp:
+        if isinstance(p, Shard) and p.dim == 0:
+            qplace.append(Shard(0))
+            kplace.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2:
+            qplace.append(Shard(2))
+            kplace.append(Shard(2) if K % heads == 0 else Replicate())
+        else:
+            qplace.append(Replicate())
+            kplace.append(Replicate())
+    split = {i for i, p in enumerate(qplace) if not p.is_replicate()}
+    ql = local_shard(q, mesh, qplace, split)
+    kd = local_shard(k, mesh, kplace, split)
+    vd = local_shard(v, mesh, kplace, split)
+    qo = place_offset(q.shape, mesh, qplace, 2)
+    ko = place_offset(k.shape, mesh, kplace, 2)
+    lo, hi = qo // G - ko, (qo + ql.shape[2] - 1) // G + 1 - ko
+    if (lo, hi) != (0, kd.shape[2]):
+        kd, vd = kd[:, :, lo:hi], vd[:, :, lo:hi]
+    out = fn(ql.contiguous(), kd.contiguous(), vd.contiguous(), **kw)
+    return from_local_shard(out, mesh, qplace, q.shape)
+
+
+def live_pairs(Sq: int, skv: int, causal: bool, window: int,
+               q_offset: int) -> int:
+    """(query, key) pairs the masks keep: the work a call's data needs."""
+    n = 0
+    for i in range(Sq):
+        pos = q_offset + i
+        hi = min(pos, skv - 1) if causal else skv - 1
+        lo = max(pos - window + 1, 0) if window else 0
+        n += max(hi - lo + 1, 0)
+    return n
+
+
+def attention_cost(q, k, *, causal: bool, window: int, q_offset: int,
+                   skv: int, backward: bool = False) -> tuple[float, float]:
+    """(operations, bytes) of one K7 call (``backward``: K7b), as the
+    bound column of the port's kernel table counts them: K7 4 D
+    operations per live pair per head, Q and O once and the live K and V
+    rows once; K7b the five products' 10 D, q, dO and dq, the live K and V
+    rows, and dk and dv once."""
+    B, Sq, H, D = q.shape
+    K, Skv = k.shape[2], k.shape[1]
+    pairs = live_pairs(Sq, skv, causal, window, q_offset)
+    lo, hi = live_keys(Sq, skv, causal=causal, window=window,
+                       q_offset=q_offset)
+    kv = 2 * B * (hi - lo) * K * D
+    if backward:
+        return (10.0 * B * H * D * pairs,
+                q.element_size() * (3 * B * Sq * H * D + kv
+                                    + 2 * B * Skv * K * D))
+    return 4.0 * B * H * D * pairs, q.element_size() * (
+        2 * B * Sq * H * D + kv)
+
+
 def _forward(q, k, v, *, causal: bool, window: int, q_offset: int,
              skv: int) -> torch.Tensor:
+    if q.device.type == "meta":
+        _ext.record_cost("flash_attention", *attention_cost(
+            q, k, causal=causal, window=window, q_offset=q_offset, skv=skv))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return attention_ref(q, k[:, :skv], v[:, :skv], causal=causal,
                              window=window, q_offset=q_offset)
@@ -140,7 +250,11 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         do = do.contiguous()
-        if q.device.type == "cpu":
+        if q.device.type == "meta":
+            _ext.record_cost("flash_attention_bwd", *attention_cost(
+                q, k, backward=True, **ctx.kw))
+            grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        elif q.device.type == "cpu":
             grads = attention_bwd_ref(q, k, v, do, **ctx.kw)
         else:
             grads = flash_attention_bwd_launch(q, k, v, do, **ctx.kw)

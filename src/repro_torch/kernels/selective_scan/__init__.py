@@ -1,6 +1,7 @@
 from repro_torch.kernels.selective_scan.ops import (
     STATE_WIDTHS,
     SelectiveScanFn,
+    on_local_channels,
     selective_scan,
     selective_scan_bwd_launch,
     selective_scan_discretized,

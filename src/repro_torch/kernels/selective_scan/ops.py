@@ -28,12 +28,24 @@ K8b (``csrc/selective_scan_bwd.cu``, two launches counted as one
 ``ref.selective_scan_bwd_ref`` on CPU tensors.  Every other call
 launches exactly what it did before and saves nothing.  The TPU
 interface ``selective_scan`` has no backward (``_ext.refuse_grad``).
+
+Under a mesh the discretizing entry's operands arrive as ``DTensor``s,
+``d_inner`` sharded over "tp" and the batch over "batch" (the
+reference's ``models/ssm.py:106``).  The scan is per channel, so
+``on_local_channels`` runs it on each rank's local channels and batch
+rows, with B and C whole on every rank, and wraps y and h_final back;
+the kernel sees plain tensors only.
+
+On ``meta`` tensors (the dry-run's trace) the discretizing entry and its
+backward launch nothing: they return outputs of the right shapes and
+dtypes and report their work (``scan_cost``) to ``_ext.record_cost``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import from_local_shard, is_dtensor, local_shard
 from repro_torch.kernels import _ext
 from repro_torch.kernels.selective_scan.ref import (
     bwd_channels,
@@ -134,14 +146,75 @@ def selective_scan_discretized(dt: torch.Tensor, A: torch.Tensor,
     """-> (y [B, S, di], h_final [B, di, N]).  CUDA tensors: one K8
     launch that discretizes in registers; CPU tensors: the eager
     discretization, then the plain recurrence.  Under autograd through
-    ``SelectiveScanFn`` (K8b or the plain backward)."""
+    ``SelectiveScanFn`` (K8b or the plain backward).  ``DTensor``
+    operands: the same call on each rank's local channels
+    (``on_local_channels``)."""
+    if any(is_dtensor(t) for t in (dt, A, Bm, Cm, x, h0)):
+        return on_local_channels(selective_scan_discretized, dt, A, Bm, Cm,
+                                 x, h0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (dt, A, Bm, Cm, x, h0)):
         return SelectiveScanFn.apply(dt, A, Bm, Cm, x, h0)
     return _forward(dt, A, Bm, Cm, x, h0)
 
 
+def on_local_channels(fn, dt, A, Bm, Cm, x, h0):
+    """``fn(dt, A, Bm, Cm, x, h0) -> (y, h_final)`` on each rank's local
+    shard of ``DTensor`` operands: on each mesh dim that shards dt's
+    batch (dim 0) every per-row operand takes that batch shard; on each
+    that shards dt's channels (dim 2) dt, x, A, h0 take their channel
+    shard and B and C stay whole; every other mesh dim replicates all.
+    Gradients of an operand replicated where the call is split are
+    partial sums; y is placed as dt, h_final as h0's shard."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    d = next(t for t in (dt, A, Bm, Cm, x, h0) if is_dtensor(t))
+    mesh = d.device_mesh
+    R = Replicate()
+    dtp = dt.placements if is_dtensor(dt) else [R] * mesh.ndim
+    by = {"dt": [], "A": [], "BC": [], "h": []}
+    for p in dtp:
+        rows = isinstance(p, Shard) and p.dim == 0
+        chans = isinstance(p, Shard) and p.dim == 2
+        by["dt"].append(Shard(0) if rows else Shard(2) if chans else R)
+        by["A"].append(Shard(0) if chans else R)
+        by["BC"].append(Shard(0) if rows else R)
+        by["h"].append(Shard(0) if rows else Shard(1) if chans else R)
+    split = {i for i, p in enumerate(by["dt"]) if not p.is_replicate()}
+    y, h = fn(*(local_shard(t, mesh, by[k], split) for t, k in (
+        (dt, "dt"), (A, "A"), (Bm, "BC"), (Cm, "BC"), (x, "dt"),
+        (h0, "h"))))
+    return (from_local_shard(y, mesh, by["dt"], dt.shape),
+            from_local_shard(h, mesh, by["h"], h0.shape))
+
+
+def scan_cost(dt, A, Bm, x, *, backward: bool = False,
+              dh_final: bool = False) -> tuple[float, float]:
+    """(operations, bytes) of one discretizing K8 call (``backward``:
+    K8b), as the bound column of the port's kernel table counts them: K8
+    8 f32 operations per (t, d, n), dt, x and y, B and C, A, h0 and
+    h_final once; K8b 21, and its operands and gradients once."""
+    B, S, di = dt.shape
+    N = A.shape[1]
+    xs = x.element_size()
+    if backward:
+        return 21.0 * B * S * di * N, (
+            B * S * di * (12 + 2 * xs) + 16 * B * S * N + 8 * di * N
+            + 4 * B * di * N * (3 if dh_final else 2))
+    return 8.0 * B * S * di * N, (
+        4 * (2 * B * S * di + 2 * B * S * N + di * N + 2 * B * di * N)
+        + xs * B * S * di)
+
+
+def _meta_forward(dt, A, Bm, Cm, x, h0):
+    _ext.record_cost("selective_scan_discretized", *scan_cost(dt, A, Bm, x))
+    return (torch.empty(dt.shape, dtype=torch.float32, device="meta"),
+            torch.empty(h0.shape, dtype=torch.float32, device="meta"))
+
+
 def _forward(dt, A, Bm, Cm, x, h0):
+    if dt.device.type == "meta":
+        return _meta_forward(dt, A, Bm, Cm, x, h0)
     if dt.device.type == "cpu":
         _check_discretized(dt, A, Bm, Cm, x, h0)
         return selective_scan_discretized_ref(dt, A, Bm, Cm, x, h0)
@@ -159,7 +232,7 @@ class SelectiveScanFn(torch.autograd.Function):
     def forward(ctx, dt, A, Bm, Cm, x, h0):
         ctx.set_materialize_grads(False)
         ckpt = None
-        if dt.device.type == "cpu":
+        if dt.device.type in ("cpu", "meta"):
             y, h = _forward(dt, A, Bm, Cm, x, h0)
         else:
             y, h, ckpt = selective_scan_discretized_launch(
@@ -172,7 +245,12 @@ class SelectiveScanFn(torch.autograd.Function):
         dt, A, Bm, Cm, x, h0, ckpt = ctx.saved_tensors
         dy = torch.zeros_like(dt) if dy is None else dy.contiguous()
         dh = None if dh is None else dh.contiguous()
-        if dt.device.type == "cpu":
+        if dt.device.type == "meta":
+            _ext.record_cost("selective_scan_bwd", *scan_cost(
+                dt, A, Bm, x, backward=True, dh_final=dh is not None))
+            grads = tuple(torch.empty_like(t)
+                          for t in (dt, A, Bm, Cm, x, h0))
+        elif dt.device.type == "cpu":
             grads = selective_scan_bwd_ref(dt, A, Bm, Cm, x, h0, dy, dh)
         else:
             grads = selective_scan_bwd_launch(

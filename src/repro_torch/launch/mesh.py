@@ -27,7 +27,8 @@ def _world_size() -> int:
 
 def make_mesh_shape(shape: tuple[int, ...], axes: tuple[str, ...],
                     device_type: str = "cuda"):
-    """A ``DeviceMesh`` of ``shape`` with dims named ``axes``."""
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` on the
+    run's ``device_type`` ("cuda", "cpu" over gloo)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     n, world = math.prod(shape), _world_size()
@@ -64,3 +65,13 @@ def sharding_tree(defs, mesh, rules: AxisRules = DEFAULT_RULES):
         lambda d: placements(
             fit_pspec(d.shape, rules.resolve(d.axes, mesh), mesh), mesh),
         defs)
+
+
+def place_tree(tree, defs, mesh, rules: AxisRules = DEFAULT_RULES):
+    """A tree of tensors holding the same full value on every rank ->
+    ``DTensor``s on ``mesh`` placed as ``sharding_tree(defs, mesh,
+    rules)`` says (each rank keeps its own shard)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return pt.tree_map(lambda x, place: distribute_tensor(x, mesh, place),
+                       tree, sharding_tree(defs, mesh, rules))

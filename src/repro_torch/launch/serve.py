@@ -2,8 +2,11 @@
 (counterpart of ``repro.launch.serve``).
 
 Runs on the card unless ``--device cpu`` is given; the smoke configs by
-default, the published one with ``--full``.  ``--mesh`` other than
-``none`` raises, as in ``launch.train``.
+default, the published one with ``--full``.  ``--mesh pod`` /
+``multipod`` serve on the production mesh as ``launch.train`` trains on
+it (every rank runs the engine; ``ServeEngine(mesh=)`` places the
+parameters and caches and picks the prefill and decode rules);
+``main(mesh=...)`` takes a ``DeviceMesh`` in its place.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --requests 8
@@ -18,7 +21,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.train import check_mesh
+from repro_torch.launch.train import launch_mesh
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.train.step import cast_for_compute, init_train_state
 
@@ -34,11 +37,13 @@ def make_requests(cfg, n: int, prompt_len: int, max_new: int,
             for rid in range(n)]
 
 
-def main(argv=None, *, params=None, requests_out: list | None = None
-         ) -> dict:
+def main(argv=None, *, params=None, requests_out: list | None = None,
+         mesh=None) -> dict:
     """Parse ``argv`` and serve.  ``params``: a compute-dtype parameter
-    tree to serve in place of the seeded one; ``requests_out``: a list
-    the served ``Request``s (their tokens in ``.out``) are appended to."""
+    tree (unplaced) to serve in place of the seeded one;
+    ``requests_out``: a list the served ``Request``s (their tokens in
+    ``.out``) are appended to; ``mesh``: a ``DeviceMesh`` to serve on in
+    place of ``--mesh``'s."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true", default=True)
@@ -55,14 +60,14 @@ def main(argv=None, *, params=None, requests_out: list | None = None
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    check_mesh(args.mesh)
     dev = resolve_device(args.device)
+    mesh = launch_mesh(args.mesh, mesh, dev)
     if params is None:
         params = cast_for_compute(init_train_state(
             cfg, generator=torch.Generator(dev).manual_seed(args.seed),
             device=dev)["params"])
     engine = ServeEngine(cfg, params, batch_slots=args.slots,
-                         max_seq=args.max_seq, device=dev)
+                         max_seq=args.max_seq, device=dev, mesh=mesh)
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.max_new,
                          args.seed)
     for req in reqs:

@@ -16,8 +16,17 @@ Two attention engines, chosen by ``backend``:
   * ``"interpret"``: the plain versions, ``attention_ref`` for prefill
     and ``decode_attention`` for decode, on any device.
 
-One card has no mesh, so the reference's sequence-sharded decode reduces
-to ``decode_attention_tree``, as it does in JAX without a mesh.
+Under a mesh the projections carry the reference's ``shard``
+annotations (q, k and v ("batch", None, "tp", None), the output
+("batch", "sp", None)) and both engines run on each rank's local heads
+(``kernels.flash_attention.on_local_heads``): the reference's
+head-sharded layout (``repro/models/attention.py:130-172``), with each
+rank reading the kv heads its query heads use.  The reference's
+sequence-sharded decode (a partial softmax on each rank's slice of the
+cache, combined by a psum) is not ported: a cache sharded over its
+sequence is gathered to the ranks' heads before the call, and the
+result is the same attention.  Without a mesh it reduces to
+``decode_attention_tree``, as it does in JAX.
 
 Caches are updated in place (the reference returns updated copies): the
 engine's cache is the largest tensor it holds, and the forward writes
@@ -34,7 +43,12 @@ import torch
 
 from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.dist.sharding import is_dtensor, shard, write_rows
+from repro_torch.kernels.flash_attention import (
+    attention_ref,
+    flash_attention,
+    on_local_heads,
+)
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, rmsnorm
 
@@ -46,7 +60,50 @@ BACKENDS = ("cuda", "interpret")
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     B, S, _ = x.shape
-    return (x @ w.reshape(w.shape[0], -1)).reshape(B, S, *w.shape[1:])
+    y = x @ _flat_heads(w, 1)
+    return _heads_divide(y, w.shape[1], 2).reshape(B, S, *w.shape[1:])
+
+
+def _heads_divide(y: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """``y`` with dim ``dim`` (heads x their width, flattened) made whole
+    along each mesh dim that shards it and that ``heads`` does not
+    divide, so that it splits into [heads, width] (DTensor's view rules
+    refuse to unflatten a shard across the heads); a plain tensor as it
+    is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = y.device_mesh
+    place = [Replicate() if isinstance(p, Shard) and p.dim == dim
+             and heads % mesh.size(i) else p
+             for i, p in enumerate(y.placements)]
+    return y if place == list(y.placements) else y.redistribute(mesh, place)
+
+
+class _FlatHeads(torch.autograd.Function):
+    """A ``DTensor`` with dims (dim, dim + 1), heads and their width,
+    flattened; its gradient is made whole along the mesh dims the head
+    count does not divide (``_heads_divide``) before it takes the
+    input's shape again."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.shape, ctx.dim = x.shape, dim
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _heads_divide(g, ctx.shape[ctx.dim], ctx.dim)
+        return g.reshape(ctx.shape), None
+
+
+def _flat_heads(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x's dims (dim, dim + 1) flattened (``_FlatHeads`` on a
+    ``DTensor``)."""
+    if is_dtensor(x):
+        return _FlatHeads.apply(x, dim)
+    return x.flatten(dim, dim + 1)
 
 
 def project_q(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -58,7 +115,7 @@ def project_q(p: dict, x: torch.Tensor, cfg: ModelConfig,
         q = rmsnorm({"scale": p["q_norm"]}, q, cfg.norm_eps)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
-    return q
+    return shard(q, "batch", None, "tp", None)
 
 
 def project_kv(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -72,18 +129,18 @@ def project_kv(p: dict, x: torch.Tensor, cfg: ModelConfig,
         k = rmsnorm({"scale": p["k_norm"]}, k, cfg.norm_eps)
     if positions is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
+    k = shard(k, "batch", None, "tp", None)
+    v = shard(v, "batch", None, "tp", None)
     return k, v
 
 
 def project_out(p: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """einsum("bshk,hkd->bsd"), times tanh(gate) in the output's dtype
     where the layer has a ``gate`` (a gated cross-attention)."""
-    B, S = o.shape[:2]
-    wo = p["wo"]
-    out = o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = _flat_heads(o, 2) @ _flat_heads(p["wo"], 0)
     if "gate" in p:
         out = torch.tanh(p["gate"]).to(out.dtype) * out
-    return out
+    return shard(out, "batch", "sp", None)
 
 
 # ------------------------------------------------------------- core math
@@ -110,6 +167,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
+def _plain(fn, q, k, v, **kw) -> torch.Tensor:
+    """A plain attention ``fn``; on ``DTensor`` operands on each rank's
+    local heads, as the kernel runs."""
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        return on_local_heads(fn, q, k, v, **kw)
+    return fn(q, k, v, **kw)
+
+
+def _head_layout(q, k, v):
+    """The reference's head-major annotations of its prefill attention
+    (``chunked_attention``): q, k and v with their heads over "tp" and
+    their batch over "batch", set on [B, H, S, D] views.  k and v keep
+    their K heads (the reference repeats them to H first), so where K
+    does not divide the axis they stay replicated and each rank's call
+    takes the kv heads its query heads read.  The reference's score and
+    accumulator annotations have no counterpart: the attention is one
+    call on each rank's local heads, with no global score tensor."""
+    def heads(x):
+        return shard(x.transpose(1, 2), "batch", "tp", None,
+                     None).transpose(1, 2)
+
+    return heads(q), heads(k), heads(v)
+
+
 def _kernel_attention(q, k, v, **kw) -> torch.Tensor:
     """K7 on q, k, v; operands of mixed dtypes (an f32 q against a bf16
     or dequantized cache) go in as f32, as the reference's f32 math
@@ -127,9 +208,10 @@ def prefill_attention(q, k, v, *, backend: str, causal: bool = True,
     self-attention (with the config's sliding ``window``), or, with
     ``causal=False``, the encoder's self-attention and cross-attention
     over every key of the memory."""
+    q, k, v = _head_layout(q, k, v)
     if backend == "cuda":
         return _kernel_attention(q, k, v, causal=causal, window=window)
-    return attention_ref(q, k, v, causal=causal, window=window)
+    return _plain(attention_ref, q, k, v, causal=causal, window=window)
 
 
 def decode_attention_tree(q, kv: dict, index: int, *, backend: str,
@@ -138,7 +220,8 @@ def decode_attention_tree(q, kv: dict, index: int, *, backend: str,
     a rolling cache."""
     kc, vc = _materialize_kv(kv)
     if backend != "cuda":
-        return decode_attention(q, kc, vc, index, window=window)
+        return _plain(decode_attention, q, kc, vc, index=index,
+                      window=window)
     if window > 0:
         return _kernel_attention(q, kc, vc, causal=False,
                                  skv=min(index + 1, kc.shape[1]))
@@ -201,10 +284,12 @@ def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor, index: int, *,
                  window: int = 0):
     """Write k, v [B, S, K, D] into [B, T, K, D] caches at ``index`` (at
-    ``index % T`` with a window), in place; -> the caches."""
+    ``index % T`` with a window), in place; -> the caches.  A cache
+    sharded over its sequence takes on each rank the rows of its own
+    shard (``dist.sharding.write_rows``)."""
     pos = _start(cache_k.shape[1], k.shape[1], index, window)
-    cache_k[:, pos:pos + k.shape[1]] = k.to(cache_k.dtype)
-    cache_v[:, pos:pos + v.shape[1]] = v.to(cache_v.dtype)
+    write_rows(cache_k, k, 1, pos)
+    write_rows(cache_v, v, 1, pos)
     return cache_k, cache_v
 
 
@@ -215,11 +300,10 @@ def cache_update_tree(kv: dict, k: torch.Tensor, v: torch.Tensor,
         cache_update(kv["k"], kv["v"], k, v, index, window=window)
         return kv
     pos = _start(kv["k"].shape[1], k.shape[1], index, window)
-    end = pos + k.shape[1]
     for name, x in (("k", k), ("v", v)):
         xq, xs = quantize_kv(x)
-        kv[name][:, pos:end] = xq
-        kv[name + "_scale"][:, pos:end] = xs
+        write_rows(kv[name], xq, 1, pos)
+        write_rows(kv[name + "_scale"], xs, 1, pos)
     return kv
 
 

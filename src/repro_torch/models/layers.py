@@ -1,7 +1,9 @@
 """Layer primitives (counterpart of ``repro.models.layers``): RMSNorm,
 RoPE, the MLPs and the tied or untied embedding.  Parameters are plain
 dicts of tensors with the reference's names and layouts; each function
-keeps the reference's expression order and compute dtypes."""
+keeps the reference's expression order and compute dtypes, and its
+activations carry the reference's ``dist.sharding.shard`` annotations
+(the identity without a mesh)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import is_dtensor, shard
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -21,6 +25,12 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x * p["scale"]).to(dtype)
 
 
+def _out_of_place(x: torch.Tensor) -> bool:
+    """Whether an activation must run out of place: under autograd, and
+    on a ``DTensor`` (a partial sum takes no in-place exp)."""
+    return (x.requires_grad and torch.is_grad_enabled()) or is_dtensor(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.silu as the reference evaluates it: x * logistic(x), XLA
     expanding the logistic to 1 / (1 + exp(-x)) with every operation
@@ -29,11 +39,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     step from it, and the expansion matches it bit for bit.  In f32 the
     two differ from the reference only where the frameworks' exp differ
     in the last bit, and the fused silu, one rounding, stays the
-    closer.  Outside autograd the five ops run in place on one buffer:
+    closer.  Outside autograd, on a plain tensor, the five ops run in place on one buffer:
     the same bits, and less host time a call (``tools/silu_cost.py``)."""
     if x.dtype == torch.float32:
         return F.silu(x)
-    if x.requires_grad and torch.is_grad_enabled():
+    if _out_of_place(x):
         return x * torch.reciprocal(1 + torch.exp(-x))
     return torch.neg(x).exp_().add_(1).reciprocal_().mul_(x)
 
@@ -61,7 +71,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return F.gelu(x, approximate="tanh")
     k, c, half = _gelu_constants(x.dtype)
-    if x.requires_grad and torch.is_grad_enabled():
+    if _out_of_place(x):
         return x * (half * (1 + torch.tanh(k * (x + c * (x * x * x)))))
     return (x * x).mul_(x).mul_(c).add_(x).mul_(k).tanh_().add_(1).mul_(
         half).mul_(x)
@@ -89,16 +99,34 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     """SwiGLU (``act="silu"``: wg, wu, wd) or the biased two-projection
     MLP with the tanh-approximated gelu (jax.nn.gelu's default)."""
     if act == "silu":
-        return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        h = silu(x @ p["wg"]) * (x @ p["wu"])
+        h = shard(h, "batch", "sp", "tp")
+        return h @ p["wd"]
     h = gelu((x @ p["wi"]) + p["bi"].to(x.dtype))
+    h = shard(h, "batch", "sp", "tp")
     return (h @ p["wd"]) + p["bd"].to(x.dtype)
 
 
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids.long()]
+    """The table's rows.  A ``DTensor`` table goes through
+    ``F.embedding``, which has a sharding rule where indexing has none:
+    over a vocabulary split across ranks each rank looks up its own rows
+    and the masked partial rows are summed (reduced to replicated first:
+    the masked partial has no direct path to a sequence shard)."""
+    table = p["table"]
+    if not is_dtensor(table):
+        return shard(table[ids.long()], "batch", "sp", None)
+    from torch.distributed.tensor import Replicate
+
+    x = F.embedding(ids.long(), table)
+    x = x.redistribute(x.device_mesh, [Replicate() if q.is_partial() else q
+                                       for q in x.placements])
+    return shard(x, "batch", "sp", None)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in p:
-        return x @ p["unembed"]
-    return x @ p["table"].T
+        logits = x @ p["unembed"]
+    else:
+        logits = x @ p["table"].T
+    return shard(logits, "batch", "sp", "tp")

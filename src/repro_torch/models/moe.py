@@ -15,6 +15,17 @@ parameters hold, and only those experts' slots of the dispatch and
 combine are computed and summed.  The outputs of the shares of one
 layer add up to the whole layer's; nothing here stands in for the other
 cards.
+
+Under a mesh the activations carry the reference's annotations: the
+groups over "moe_group", the dispatched [G, E, C, d] tensors with E over
+"ep" and G over "batch" (or, with fewer groups than the "fsdp" axis,
+d over "fsdp"), the output back over ("batch", "sp", None).  The
+redistributions between them are the expert-parallel exchange, and
+DTensor issues no all-to-all for it: every rank forms the dispatch for
+every expert of its groups, so E's shard over "ep" is a local slice, and
+the combine's sum over the experts a rank holds is a partial sum reduced
+by an all-reduce over "model"; the expert weights' d, sharded over
+"fsdp", is all-gathered over "data" (GSPMD lowers an all-to-all here).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import axis_size, shard
 from repro_torch.models.layers import silu
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -126,22 +138,34 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     check_tokens(T, group_size)
     g = min(group_size, T)
     G = T // g
-    xg = x.reshape(G, g, d)
+    xg = shard(x.reshape(G, g, d), "moe_group", None, None)
     r = route(p["router"], xg, cfg)
-    C, onehot, pos_oh = r["capacity"], r["onehot"], r["pos_oh"]
+    onehot, pos_oh = r["onehot"], r["pos_oh"]
 
-    held = onehot[..., lo:hi]
+    held = onehot if (lo, hi) == (0, E) else onehot[..., lo:hi]
     dispatch = torch.einsum("gske,gskc->gsec", held, pos_oh)
     combine = torch.einsum("gske,gskc,gsk->gsec", held, pos_oh, r["gates"])
+    dispatch = shard(dispatch, "moe_group", None, None, None)
+    combine = shard(combine, "moe_group", None, None, None)
 
-    Eh = hi - lo
+    # tokens to experts [G, E, C, d], E then sharded over "ep"
     ex_in = torch.einsum("gsd,gsec->gecd", xg.to(F32), dispatch).to(x.dtype)
-    xe = ex_in.permute(1, 0, 2, 3).reshape(Eh, G * C, d)     # per expert
-    h = silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
-    ex_out = torch.bmm(h, p["wd"]).reshape(Eh, G, C, d).permute(1, 0, 2, 3)
+    # few groups (G below the fsdp axis, as in decode): shard the tiny
+    # activation's d over fsdp so the expert weights are not gathered
+    few_groups = G < max(axis_size("fsdp"), 1)
+    lay = ((None, "ep", None, "fsdp") if few_groups
+           else ("batch", "ep", None, None))
+    # contiguous: einsum views its operands, and a redistributed local
+    # shard may not take the view
+    ex_in = shard(ex_in, *lay).contiguous()
+    h = silu(torch.einsum("gecd,edf->gecf", ex_in, p["wg"])) \
+        * torch.einsum("gecd,edf->gecf", ex_in, p["wu"])
+    h = shard(h, *lay[:3], None).contiguous()
+    ex_out = shard(torch.einsum("gecf,efd->gecd", h, p["wd"]), *lay)
     out = torch.einsum("gecd,gsec->gsd", ex_out.to(F32),
                        combine).to(x.dtype)
-    out = out.reshape(B, S, d)
+    out = shard(out, "moe_group", None, None)
+    out = shard(out.reshape(B, S, d), "batch", "sp", None)
 
     # Switch load-balance loss: E * sum_e f_e * P_e (f_e the pre-drop
     # routing fraction per expert, normalized by k so sum_e f_e == 1)

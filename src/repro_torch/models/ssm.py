@@ -19,6 +19,12 @@ associative scan over chunks of ``min(256, S)`` steps, which refuses an
 S the chunk does not divide; ``check_length`` refuses the same lengths.
 Its sums run in another order than the sequential recurrence, so the
 block matches it within tolerance, not bit for bit.
+
+Under a mesh the scan's input carries the reference's ("batch", None,
+"tp") and the block's output ("batch", "sp", None).  The scan is per
+channel, so either engine runs on each rank's local channels and batch
+rows (``kernels.selective_scan.on_local_channels``), B and C whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ import torch
 
 from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import is_dtensor, shard
 from repro_torch.kernels.selective_scan import (
+    on_local_channels,
     selective_scan_discretized,
     selective_scan_discretized_ref,
 )
@@ -106,6 +114,15 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _plain_scan(dt, A, Bm, Cm, x, h0):
+    """The plain discretizing scan; on ``DTensor`` operands on each
+    rank's local channels, as K8 runs."""
+    if any(is_dtensor(t) for t in (dt, A, Bm, Cm, x, h0)):
+        return on_local_channels(selective_scan_discretized_ref, dt, A, Bm,
+                                 Cm, x, h0)
+    return selective_scan_discretized_ref(dt, A, Bm, Cm, x, h0)
+
+
 def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 state: dict | None = None, return_state: bool = False,
                 backend: str = "cuda"):
@@ -121,6 +138,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     xz = x @ p["in_proj"]
     xin, z = xz[..., :di], xz[..., di:]
+    xin = shard(xin, "batch", None, "tp")
     prev = state["conv"] if state is not None else None
     xin, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"], prev)
     xin = silu(xin)
@@ -135,7 +153,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # the eager path builds dA and dBx, [B, S, di, N] f32 (2.15 GB each at
     # the Jamba width with B = 4 and S = 512); K8 forms them in registers
     scan = (selective_scan_discretized if backend == "cuda"
-            else selective_scan_discretized_ref)
+            else _plain_scan)
     y, h_final = scan(dt, A.contiguous(), Bm.contiguous(), Cm.contiguous(),
                       xin, h0.contiguous())
 
@@ -144,7 +162,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # jamba-style RMS norm on the gated output
     var = torch.mean(torch.square(y.to(F32)), dim=-1, keepdim=True)
     y = (y.to(F32) * torch.rsqrt(var + cfg.norm_eps) * p["norm"]).to(x.dtype)
-    out = y @ p["out_proj"]
+    out = shard(y @ p["out_proj"], "batch", "sp", None)
     if return_state:
         return out, {"h": h_final, "conv": conv_state}
     return out

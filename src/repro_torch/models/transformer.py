@@ -49,6 +49,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import assign, is_dtensor, replicate_plain, shard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -144,8 +145,8 @@ def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, *, mode: str,
     out, new = ssm_mod.mamba_apply(
         p, h, cfg, state=st if mode == "decode" else None,
         return_state=True, backend=backend)
-    st["h"].copy_(new["h"])
-    st["conv"].copy_(new["conv"])
+    assign(st["h"], new["h"])
+    assign(st["conv"], new["conv"])
     return out
 
 
@@ -159,7 +160,7 @@ def _recurrent(apply, p: dict, h: torch.Tensor, cfg: ModelConfig, *,
     out, new = apply(p, h, cfg, state=st if mode == "decode" else None,
                      return_state=True)
     for name, t in new.items():
-        st[name].copy_(t)
+        assign(st[name], t)
     return out
 
 
@@ -177,8 +178,8 @@ def _cross(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     else:
         ck, cv = attn.project_kv(p["cross"], memory, cfg)
         if mode == "prefill":
-            ckv["k"].copy_(ck)
-            ckv["v"].copy_(cv)
+            assign(ckv["k"], ck)
+            assign(ckv["v"], cv)
     oc = attn.prefill_attention(qc, ck, cv, backend=backend, causal=False)
     return attn.project_out(p["cross"], oc, cfg)
 
@@ -204,10 +205,11 @@ def _apply_slot(p: dict, slot: Slot, x: torch.Tensor, cfg: ModelConfig, *,
                          mode=mode, st=cache and cache["slstm"])
     else:
         raise ValueError(slot.mixer)
-    x = x + out
+    x = shard(x + out, "batch", "sp", None)
     if slot.cross:
         x = x + _cross(p, x, cfg, mode=mode, ckv=cache and cache["cross_kv"],
                        memory=memory, backend=backend)
+        x = shard(x, "batch", "sp", None)
     if slot.ffn == "none":
         return x, {}
     hf = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -215,7 +217,7 @@ def _apply_slot(p: dict, slot: Slot, x: torch.Tensor, cfg: ModelConfig, *,
         out, aux = moe_mod.moe_apply(p["ffn"], hf, cfg, experts=experts)
     else:
         out, aux = mlp_apply(p["ffn"], hf, cfg.act), {}
-    return x + out, aux
+    return shard(x + out, "batch", "sp", None), aux
 
 
 def _period_view(slot_cache: dict, period: int) -> dict:
@@ -239,9 +241,19 @@ def _replace_leaves(caches: dict, slots: list[Slot], n_p: int,
             ckv = c["cross_kv"]
             shape = (n_p, B, M) + tuple(ckv["k"].shape[3:])
             if tuple(ckv["k"].shape) != shape:
-                c["cross_kv"] = {n: torch.zeros(shape, dtype=t.dtype,
-                                                device=t.device)
+                c["cross_kv"] = {n: _zeros_like_leaf(t, shape)
                                  for n, t in ckv.items()}
+
+
+def _zeros_like_leaf(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """A zero cross-attention leaf of ``shape`` in ``t``'s dtype, on
+    ``t``'s device; under a mesh placed by the cache's axes (the
+    reference's ``cross_kv`` defs)."""
+    if is_dtensor(t):
+        local = torch.zeros(shape, dtype=t.dtype,
+                            device=t.to_local().device)
+        return shard(local, None, "kv_batch", None, "tp", None)
+    return torch.zeros(shape, dtype=t.dtype, device=t.device)
 
 
 def _remat_kwargs(policy: str) -> dict:
@@ -342,6 +354,17 @@ def forward(params: dict, cfg: ModelConfig, *,
     without MoE.  ``remat``: in train mode, recompute each period's
     activations in the backward (``cfg.remat_policy``; see
     ``_run_stack``)."""
+    with replicate_plain():
+        return _forward(params, cfg, tokens=tokens,
+                        inputs_embeds=inputs_embeds,
+                        memory_embeds=memory_embeds, mode=mode, index=index,
+                        caches=caches, logits_slice_last=logits_slice_last,
+                        backend=backend, experts=experts, remat=remat)
+
+
+def _forward(params: dict, cfg: ModelConfig, *, tokens, inputs_embeds,
+             memory_embeds, mode: str, index, caches, logits_slice_last: bool,
+             backend: str, experts, remat: bool):
     n_p, slots = decoder_layout(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")

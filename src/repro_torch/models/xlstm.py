@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.pytree import ParamDef
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models.layers import silu
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -181,7 +182,7 @@ def mlstm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     hn = (hh * torch.rsqrt(var + cfg.norm_eps)).reshape(B, S, H * Dh)
     hn = (hn * p["hnorm"]).to(x.dtype)
     z = silu(x @ p["wz"])
-    out = (hn * z) @ p["wo"]
+    out = shard((hn * z) @ p["wo"], "batch", "sp", None)
     if return_state:
         C_new, n_new, m_new = st
         return out, {"C": C_new, "n": n_new, "m": m_new,
@@ -254,7 +255,7 @@ def slstm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     var = torch.mean(torch.square(hseq), dim=-1, keepdim=True)
     hn = (hseq * torch.rsqrt(var + cfg.norm_eps)).reshape(B, S, H * Dh)
-    out = (hn * p["hnorm"]).to(x.dtype) @ p["wo"]
+    out = shard((hn * p["hnorm"]).to(x.dtype) @ p["wo"], "batch", "sp", None)
     if return_state:
         return out, {"c": c, "n": n, "h": h, "m": m}
     return out

@@ -19,6 +19,12 @@ layers' parameters hold (a contiguous run of ids, None: all), for a
 card that holds a share of them.  ``timing`` holds the prefill and
 decode calls and their host-clock seconds, each call ending in the copy
 of its tokens to the host.
+
+``mesh`` (a ``DeviceMesh``; every rank runs the same engine): the
+parameters and caches become ``DTensor``s placed by their defs' axes
+under ``PREFILL_RULES``, each prefill runs under those rules and each
+decode under ``serve_rules(cfg, "decode")``, and the tokens reach the
+host through ``full_tensor()``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (
+    DECODE_RULES,
+    PREFILL_RULES,
+    AxisRules,
+    mesh_context,
+)
+from repro_torch.launch.mesh import place_tree
+from repro_torch.models import registry
 from repro_torch.models.attention import BACKENDS
 from repro_torch.models.transformer import decoder_layout
 from repro_torch.serve.steps import (
@@ -57,16 +71,27 @@ def _to_device(tree, dev: torch.device):
     return tree.to(dev)
 
 
+def serve_rules(cfg: ModelConfig, kind: str) -> AxisRules:
+    """The rules a prefill or decode runs under on a mesh, as the
+    reference's dry-run picks them: decode replicates its activations
+    (``DECODE_RULES``) above 5B parameters, where the weights dwarf them;
+    otherwise both shard the sequence over "model" (``PREFILL_RULES``)."""
+    if kind == "decode" and registry.param_count(cfg) > 5e9:
+        return DECODE_RULES
+    return PREFILL_RULES
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
                  max_seq: int = 128, backend: str = "cuda", device="cuda",
-                 experts=None):
+                 experts=None, mesh=None):
         if backend not in BACKENDS:
             raise KeyError(f"backend must be one of {BACKENDS}")
         decoder_layout(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.device = dev
+        self.mesh = mesh
         self.params = _to_device(params, dev)
         self.max_seq = max_seq
         self.batch = batch_slots
@@ -75,11 +100,30 @@ class ServeEngine:
         self.prefill = make_prefill_step(cfg, backend, experts)
         self.decode = make_decode_step(cfg, backend, experts)
         self.cache = init_cache(cfg, batch_slots, max_seq, device=dev)
+        if mesh is not None:
+            rules = serve_rules(cfg, "prefill")
+            self.params = place_tree(self.params,
+                                     registry.layer_defs(cfg, experts),
+                                     mesh, rules)
+            self.cache = place_tree(self.cache, registry.cache_defs(
+                cfg, batch_slots, max_seq), mesh, rules)
         self.queue: list[Request] = []
         self.active: dict[int, Request] = {}
         self.tokens_out = 0
         self.timing = {"prefill_calls": 0, "prefill_s": 0.0,
                        "decode_calls": 0, "decode_s": 0.0}
+
+    def _step(self, kind: str, *args):
+        """One prefill or decode call (under its rules on a mesh) -> (the
+        rows' tokens on the host, the cache)."""
+        fn = self.prefill if kind == "prefill" else self.decode
+        if self.mesh is None:
+            cur, cache = fn(self.params, self.cache, *args)
+            return cur, cur.cpu(), cache
+        with mesh_context(self.mesh, serve_rules(self.cfg, kind)):
+            cur, cache = fn(self.params, self.cache, *args)
+            cur = cur.full_tensor()
+        return cur, cur.cpu(), cache
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -114,8 +158,7 @@ class ServeEngine:
                     (self.batch, S, self.cfg.d_model), dtype=torch.bfloat16,
                     device=self.device)
             t = time.perf_counter()
-            cur, self.cache = self.prefill(self.params, self.cache, batch)
-            host = cur.cpu()
+            cur, host, self.cache = self._step("prefill", batch)
             tm["prefill_calls"] += 1
             tm["prefill_s"] += time.perf_counter() - t
             index = S
@@ -127,9 +170,8 @@ class ServeEngine:
                     if len(r.out) < r.max_new_tokens:
                         r.out.append(int(host[i]))
                         self.tokens_out += 1
-                cur, self.cache = self.decode(
-                    self.params, self.cache, cur[:, None], index)
-                host = cur.cpu()
+                cur, host, self.cache = self._step("decode", cur[:, None],
+                                                   index)
                 index += 1
                 max_steps -= 1
             tm["decode_calls"] += n_steps

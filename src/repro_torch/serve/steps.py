@@ -11,6 +11,7 @@ import torch
 from repro_torch.common.pytree import materialize
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import whole_along
 from repro_torch.models import registry
 from repro_torch.models.transformer import forward
 
@@ -23,8 +24,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    """The first maximal index, as jnp.argmax."""
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    """The first maximal index, as jnp.argmax (over the whole vocabulary
+    on every rank: DTensor's argmax over a split one fails for a rank
+    holding one row)."""
+    return torch.argmax(whole_along(logits[:, -1], -1),
+                        dim=-1).to(torch.int32)
 
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "cuda",

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import whole_along
+
 MOE_LB_WEIGHT = 0.01
 MOE_Z_WEIGHT = 0.001
 Z_LOSS_WEIGHT = 1e-4
@@ -15,7 +17,9 @@ IGNORE = -1
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
     """logits [B, S, V], targets [B, S] (IGNORE = masked).  -> (ce, z,
     acc), f32 scalars."""
-    logits = logits.to(torch.float32)
+    # the vocabulary whole on every rank: the target's gather has no
+    # sharding rule over a split class dim
+    logits = whole_along(logits.to(torch.float32), -1)
     mask = (targets != IGNORE).to(torch.float32)
     tgt = torch.clamp_min(targets, 0).long()
     lse = torch.logsumexp(logits, dim=-1)

@@ -37,6 +37,14 @@ from repro_torch.common.pytree import (
 )
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (
+    DEFAULT_RULES,
+    AxisRules,
+    is_dtensor,
+    replicate_plain,
+    shard,
+    whole_along,
+)
 from repro_torch.models import registry
 from repro_torch.models.transformer import (
     decoder_layout,
@@ -153,12 +161,52 @@ def make_grad_fn(cfg: ModelConfig, settings: TrainSettings = TrainSettings(),
         with torch.enable_grad():
             loss, metrics = loss_fn(tree, mb)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_path = {p: torch.zeros_like(x) if g is None else g
+        by_path = {p: torch.zeros_like(x) if g is None else _placed_as(g, x)
                    for p, x, g in zip(paths, leaves, grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, tree_map_with_path(lambda p, _: by_path[p], params)
 
     return grad_fn
+
+
+def _placed_as(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A gradient placed as its parameter: under a mesh autograd may hand
+    back a partial sum (``Partial``) or another sharding of a ``DTensor``
+    leaf; a plain one is returned as it is."""
+    if is_dtensor(x) and tuple(g.placements) != tuple(x.placements):
+        return g.redistribute(x.device_mesh, x.placements)
+    return g
+
+
+def split_micro(batch: dict, n: int) -> dict:
+    """[B, ...] -> [n, B/n, ...] with the batch shard pinned to dim 1 (the
+    reference's ``_split_micro``): microbatch i holds rows i * B/n ..
+    (i + 1) * B/n, and under a mesh each is spread over every data rank,
+    where a placement left to the reshape could put each microbatch on a
+    subset of them."""
+    out = {}
+    for k in sorted(batch):
+        x = batch[k]
+        B = x.shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} is not {n} equal microbatches")
+        # the rows whole first: microbatch i takes rows from every rank's
+        # shard, and DTensor's view rules refuse to reshape a dim they
+        # shard unevenly across it
+        x = whole_along(x, 0).reshape(n, B // n, *x.shape[1:])
+        out[k] = shard(x, None, "batch", *([None] * (x.dim() - 2)))
+    return out
+
+
+def place_train_state(state: dict, cfg: ModelConfig, mesh,
+                      rules: AxisRules = DEFAULT_RULES, experts=None) -> dict:
+    """A train state (the same full value on every rank) -> ``DTensor``s on
+    ``mesh``, each leaf placed as ``launch.mesh.sharding_tree`` places its
+    ``train_state_defs`` def under ``rules``: the placement the
+    reference's dry-run gives its jitted step's state."""
+    from repro_torch.launch.mesh import place_tree
+
+    return place_tree(state, train_state_defs(cfg, experts), mesh, rules)
 
 
 def make_train_step(cfg: ModelConfig,
@@ -167,26 +215,29 @@ def make_train_step(cfg: ModelConfig,
     """-> ``train_step(state, batch) -> (state, metrics)``.  ``batch``:
     tensors on the state's device, ``tokens`` and ``targets`` [B, S]
     (an encdec's ``frames``, a vlm's ``image_embeds`` [B, M, d] go in as
-    ``memory_embeds``).  Microbatches are a loop over equal slices of B
-    whose f32 gradients are summed and divided by their number (the
-    reference's ``scan``, without its mesh constraint); metrics are then
-    their means.  ``backend`` and ``experts`` as ``make_grad_fn``'s."""
+    ``memory_embeds``).  Microbatches (``split_micro``) are a loop over
+    equal slices of B whose f32 gradients are summed and divided by their
+    number (the reference's ``scan``); metrics are then their means.
+    Under a mesh context the state and batch are ``DTensor``s
+    (``place_train_state``), each gradient is placed as its parameter,
+    and a plain tensor met beside them counts as replicated.  ``backend`` and ``experts`` as ``make_grad_fn``'s."""
     opt = _optimizer(cfg)
     grad_fn = make_grad_fn(cfg, settings, backend=backend, experts=experts)
 
     def train_step(state, batch):
+        with replicate_plain():
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         n = settings.microbatches
         if n == 1:
             metrics, grads = grad_fn(params, batch)
         else:
-            B = batch["tokens"].shape[0]
-            if B % n:
-                raise ValueError(f"batch {B} is not {n} equal microbatches")
+            micro = split_micro(batch, n)
             grads, ms = None, []
             for i in range(n):
-                mb = {k: v[i * (B // n):(i + 1) * (B // n)]
-                      for k, v in batch.items()}
+                mb = {k: v[i] for k, v in micro.items()}
                 m, g = grad_fn(params, mb)
                 ms.append(m)
                 g = tree_map(lambda x: x.to(F32), g)
@@ -203,7 +254,8 @@ def make_train_step(cfg: ModelConfig,
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
         state["step"].add_(1)
-        return state, metrics
+        return state, {k: v.full_tensor() if is_dtensor(v) else v
+                       for k, v in metrics.items()}
 
     return train_step
 

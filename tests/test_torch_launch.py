@@ -7,7 +7,7 @@ microbatch bound: the same bf16 function summed in another order); a
 ``--ckpt-dir`` run stopped after step 2's checkpoint and resumed, bit for
 bit the uninterrupted run; served tokens against the reference's
 ``ServeEngine``; every architecture's smoke config through both
-launchers; ``--mesh`` raising with its reason."""
+launchers; ``--mesh`` raising with its reason in a one-process world."""
 
 import json
 import os
@@ -156,10 +156,14 @@ def test_serve_launcher_serves_the_references_tokens(reference_state):
 
 @pytest.mark.parametrize("mesh", ("pod", "multipod"))
 def test_mesh_raises_with_its_reason(mesh):
+    """``--mesh`` builds the production mesh over the default process
+    group; in a one-process world it raises, naming the ranks it needs."""
+    ranks = 512 if mesh == "multipod" else 256
     for main, argv in ((launch_train.main, TRAIN_ARGS),
                        (launch_serve.main, SERVE_ARGS)):
-        with pytest.raises(NotImplementedError,
-                           match=f"--mesh {mesh}: .*shard annotations"):
+        with pytest.raises(ValueError,
+                           match=f"needs {ranks} ranks; the process group "
+                                 "has 1"):
             main(argv + ["--mesh", mesh])
 
 
